@@ -1,0 +1,156 @@
+"""Backend interface + the canonical activation-quantization rule. Port
+of `repro/backends/base.py`.
+
+The activation scale rule lives here, not per backend, so every backend
+quantizes activations identically: the dynamic 3σ rule, ONE scalar per
+tensor over every row (`sigma_init_scale` with no axis). Static
+calibrated scales are not ported yet and raise
+`StaticScaleNotPortedError`.
+
+`DECLINE_CODES` copies the reference registry so dispatch counts compare
+across the two packages; the port adds one matmul code,
+`grouped_not_ported`, for stacked expert weights.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.ovp import QuantizedTensor, ovp_quantize
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.quantizer import sigma_init_scale
+
+DECLINE_CODES: Dict[str, Dict[str, str]] = {
+    "matmul": {
+        "pair_axis_not_reduction": "weight pairs not packed along K",
+        "lhs_rank_lt_2": "2-D weight needs an (…, M, K) lhs",
+        "grouped_lhs_rank_lt_3": "stacked weight needs an (…, E, C, K) lhs",
+        "grouped_lhs_expert_mismatch": "lhs expert dim != weight stack dim",
+        "stacked_rank_gt_3": ">3-D weight stacks are not kernelized",
+        "grouped_not_ported":
+            "stacked (E, K, N) weights wait for the grouped kernel",
+    },
+    "sharded": {
+        "shard_no_mesh": "no mesh configured (configure_mesh)",
+        "shard_n_indivisible":
+            'column-parallel N not divisible by the "model" axis',
+        "shard_k_indivisible":
+            "row-parallel K does not split into whole outlier-victim "
+            "pairs per shard",
+        "shard_expert_indivisible":
+            'grouped stack\'s E not divisible by the "model" axis',
+        "shard_mixed_expert_group":
+            "ragged MixedExpertQuant groups cannot split E evenly",
+        "shard_hkv_lt_axis": 'fewer KV heads than "model" shards',
+        "shard_hkv_indivisible": 'Hkv not divisible by the "model" axis',
+    },
+    "decode_attn": {
+        "decode_q_tokens_gt_1": "decode kernel serves one query token only",
+        "decode_no_kv_cache": "cache dict carries no k / k_data leaf",
+        "decode_empty_cache": "zero-length cache (nothing to attend)",
+        "decode_head_dim_odd":
+            "even/odd plane split needs an even head dim",
+        "paged_no_pool": "block_table present but no pool k/k_data",
+        "paged_table_rank": "block table is not a 2-D integer array",
+        "paged_page_misaligned": "page size not an even int >= 2",
+    },
+    "prefill_attn": {
+        "prefill_not_paged": "cache carries no block_table (slab layout)",
+        "prefill_no_stage": "no stage_k/stage_v raw-K/V staging leaves",
+        "prefill_batch_gt_1": "kernel serves one request row at a time",
+        "prefill_stage_misaligned":
+            "stage length not a whole number of pages, or the table "
+            "backs fewer pages than tiles",
+    },
+}
+
+ALL_DECLINE_CODES = frozenset(
+    code for family in DECLINE_CODES.values() for code in family)
+
+DISPATCH_MARKERS: Tuple[str, ...] = ("[stacked]", "[decode_attn]",
+                                     "[prefill_attn]")
+
+
+class StaticScaleNotPortedError(NotImplementedError):
+    """Static calibrated activation scales are ROADMAP.md queue 1, item 7
+    (static calibration) and are not in the port yet."""
+
+
+def decline(code: Optional[str]) -> Optional[str]:
+    """Validate-and-return for decline codes (None = served)."""
+    if code is not None and code not in ALL_DECLINE_CODES:
+        raise KeyError(f"unregistered decline code {code!r}; add it to "
+                       f"backends.base.DECLINE_CODES")
+    return code
+
+
+def dispatch_key(backend_name: str, reason: Optional[str] = None,
+                 marker: str = "") -> str:
+    """One `dispatch_stats()` counter key from the registered vocabulary."""
+    if marker and marker not in DISPATCH_MARKERS:
+        raise KeyError(f"unregistered dispatch marker {marker!r}")
+    key = backend_name if reason is None \
+        else f"{backend_name}->fallback:{decline(reason)}"
+    return key + marker
+
+
+def act_normal_dtype(policy: QuantPolicy) -> str:
+    """4-bit activations use the policy's normal dtype, 8-bit int8."""
+    return policy.a_normal_dtype if policy.abits == 4 else "int8"
+
+
+def resolve_act_scale(x: torch.Tensor, policy: QuantPolicy,
+                      static_scale: Optional[torch.Tensor] = None):
+    """(scale, normal_dtype) for the A side of one matmul: the dynamic 3σ
+    rule, one population-std scalar over the whole tensor."""
+    if policy.act_scale_mode == "static" or static_scale is not None:
+        raise StaticScaleNotPortedError(
+            "static activation scales are not ported yet (ROADMAP.md "
+            "queue 1, item 7: static calibration)")
+    nd = act_normal_dtype(policy)
+    return sigma_init_scale(x.to(torch.float32), nd), nd
+
+
+def quantize_activation(x: torch.Tensor, policy: QuantPolicy,
+                        static_scale: Optional[torch.Tensor] = None
+                        ) -> QuantizedTensor:
+    """Materialized OVP activation tensor (the eager path)."""
+    s, nd = resolve_act_scale(x, policy, static_scale)
+    return ovp_quantize(x, s, nd, pair_axis=-1)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """torch dtype for a policy `compute_dtype` string."""
+    return getattr(torch, name)
+
+
+class QuantizedMatmulBackend:
+    """One way to execute x @ dequant(w) under a policy, plus decode
+    attention. `decline_reason` returning a code makes the registry fall
+    back to `fallback` (one hop)."""
+
+    name: str = "?"
+    fallback: str = "eager"
+
+    def decline_reason(self, x, w: QuantizedTensor,
+                       policy: QuantPolicy) -> Optional[str]:
+        return None
+
+    def matmul(self, x: torch.Tensor, w: QuantizedTensor,
+               policy: QuantPolicy,
+               act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def decode_attn_decline_reason(self, q, cache) -> Optional[str]:
+        return None
+
+    def decode_attention(self, q: torch.Tensor, cache, pos: torch.Tensor,
+                         *, window: int = 0, ring: int = 0) -> torch.Tensor:
+        """Base = the dense path (whole-cache dequantize, then einsum)."""
+        from repro_torch.kernels import decode_attn
+        return decode_attn.xla_decode_attention(q, cache, pos,
+                                                window=window, ring=ring)
+
+    def __repr__(self):
+        return f"<{type(self).__name__} {self.name!r}>"

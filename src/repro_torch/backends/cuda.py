@@ -1,0 +1,51 @@
+"""CUDA backend (the reference's `pallas` role), the port's default: one
+launch of the fused OVP matmul kernel (K1, `kernels/ovp_matmul.py`) per
+quantized matmul, with in-kernel activation quantization at the dynamic
+3σ scale, and the slab decode-attention kernel (K2,
+`kernels/decode_attn.py`) for every decode step. CPU tensors take each
+kernel's plain version, as `pallas_interpret` runs the reference's
+kernels on the CPU; CUDA tensors launch the kernel or raise."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.ovp import QuantizedTensor
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.kernels import decode_attn, ovp_matmul
+
+from .base import (QuantizedMatmulBackend, decline, resolve_act_scale,
+                   torch_dtype)
+
+
+class CudaBackend(QuantizedMatmulBackend):
+    name = "cuda"
+
+    def decline_reason(self, x, w: QuantizedTensor,
+                       policy: QuantPolicy) -> Optional[str]:
+        if w.pair_axis % 2 != 0:
+            return decline("pair_axis_not_reduction")
+        if w.data.ndim == 2:
+            return None if x.ndim >= 2 else decline("lhs_rank_lt_2")
+        if w.data.ndim == 3:
+            return decline("grouped_not_ported")
+        return decline("stacked_rank_gt_3")
+
+    def matmul(self, x: torch.Tensor, w: QuantizedTensor,
+               policy: QuantPolicy,
+               act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        a_dtype = scale = None
+        if policy.abits:
+            scale, a_dtype = resolve_act_scale(x, policy, act_scale)
+        out = ovp_matmul.fused_ovp_matmul(x, w, a_dtype=a_dtype,
+                                          act_scale=scale)
+        return out.to(torch_dtype(policy.compute_dtype))
+
+    def decode_attn_decline_reason(self, q, cache) -> Optional[str]:
+        return decline(decode_attn.decline_reason(q, cache))
+
+    def decode_attention(self, q: torch.Tensor, cache, pos: torch.Tensor,
+                         *, window: int = 0, ring: int = 0) -> torch.Tensor:
+        return decode_attn.fused_decode_attention(q, cache, pos,
+                                                  window=window, ring=ring)

@@ -1,0 +1,55 @@
+"""Architecture configuration schema. Port of `repro/configs/base.py`
+(the fields the dense decoder reads; other families come with their
+layers)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense (the only family ported)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    mlp_kind: str = "swiglu"
+    block_pattern: Tuple[str, ...] = ("attn",)
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    source: str = ""
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // self.n_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 256; pad columns are masked
+        in the logits."""
+        return -(-self.vocab // 256) * 256
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: same family/pattern, tiny dimensions (the
+        reference's `reduced()` for the dense family)."""
+        period = len(self.block_pattern)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=max(2 * period, period + self.n_layers % period),
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads
+            < self.n_heads else 4,
+            head_dim=16,
+            d_ff=128 if self.d_ff else 0,
+            vocab=512,
+        )

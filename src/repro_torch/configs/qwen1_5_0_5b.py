@@ -1,0 +1,19 @@
+"""Qwen1.5-0.5B: MHA (kv == heads), QKV bias [hf:Qwen/Qwen1.5-0.5B]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-0.5b",
+    family="dense",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=2816,
+    vocab=151936,
+    head_dim=64,
+    qkv_bias=True,
+    mlp_kind="swiglu",
+    block_pattern=("attn",),
+    tie_embeddings=True,
+    source="hf:Qwen/Qwen1.5-0.5B",
+)

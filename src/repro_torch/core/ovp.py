@@ -1,0 +1,159 @@
+"""Outlier-Victim Pair (OVP) encoding (paper §3, Algorithm 1).
+
+Port of `repro/core/ovp.py`. Per adjacent pair along `pair_axis`:
+  normal–normal   -> both quantized with the normal dtype
+  outlier–normal  -> the normal neighbour becomes the victim (its slot
+                     holds the identifier), the outlier is abfloat
+  outlier–outlier -> the smaller magnitude is pruned; equal magnitudes
+                     keep the left one
+4-bit codes pack two per byte (one byte is one pair, the even index in
+the high nibble); int8 codes stay one per byte.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .datatypes import (ABFLOAT_FOR_NORMAL, ID4, ID8, NORMAL_MAX, AbfloatSpec,
+                        abfloat_decode, abfloat_encode, normal_decode,
+                        normal_encode)
+
+
+def identifier(normal_dtype: str) -> int:
+    return ID8 if normal_dtype == "int8" else ID4
+
+
+def _interleave(x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    """(…, P) even and odd planes -> (…, 2P) in pair order."""
+    return torch.stack([x0, x1], dim=-1).reshape(*x0.shape[:-1],
+                                                 2 * x0.shape[-1])
+
+
+def ovp_encode_codes(u: torch.Tensor, normal_dtype: str = "int4",
+                     spec: Optional[AbfloatSpec] = None,
+                     pair_axis: int = -1) -> torch.Tensor:
+    """Scaled tensor -> uint8 code tensor (same shape), Algorithm 1."""
+    spec = ABFLOAT_FOR_NORMAL[normal_dtype] if spec is None else spec
+    ident = identifier(normal_dtype)
+    t = float(NORMAL_MAX[normal_dtype])
+    v = torch.movedim(u, pair_axis, -1)
+    if v.shape[-1] % 2 != 0:
+        raise ValueError(f"pair axis length {v.shape[-1]} must be even")
+    x0, x1 = v[..., 0::2], v[..., 1::2]
+    a0, a1 = torch.abs(x0), torch.abs(x1)
+    o0, o1 = a0 > t, a1 > t
+    first_out = o0 & (~o1 | (a0 >= a1))
+    second_out = o1 & ~first_out
+    ident_t = torch.tensor(ident, dtype=torch.uint8, device=u.device)
+    c0 = torch.where(first_out, abfloat_encode(x0, spec),
+                     torch.where(second_out, ident_t,
+                                 normal_encode(x0, normal_dtype)))
+    c1 = torch.where(second_out, abfloat_encode(x1, spec),
+                     torch.where(first_out, ident_t,
+                                 normal_encode(x1, normal_dtype)))
+    return torch.movedim(_interleave(c0, c1), -1, pair_axis)
+
+
+def decode_pair_planes(n0: torch.Tensor, n1: torch.Tensor,
+                       normal_dtype: str,
+                       spec: Optional[AbfloatSpec] = None):
+    """Two code planes (pair-mates) -> decoded float32 planes: if my
+    neighbour holds the identifier I am the outlier (abfloat), if I hold
+    it I am the victim (0), otherwise I am a normal value."""
+    spec = ABFLOAT_FOR_NORMAL[normal_dtype] if spec is None else spec
+    ident = identifier(normal_dtype)
+    v0 = torch.where(n1 == ident, abfloat_decode(n0, spec),
+                     torch.where(n0 == ident, 0.0,
+                                 normal_decode(n0, normal_dtype)))
+    v1 = torch.where(n0 == ident, abfloat_decode(n1, spec),
+                     torch.where(n1 == ident, 0.0,
+                                 normal_decode(n1, normal_dtype)))
+    return v0, v1
+
+
+def ovp_decode_codes(codes: torch.Tensor, normal_dtype: str = "int4",
+                     spec: Optional[AbfloatSpec] = None,
+                     pair_axis: int = -1) -> torch.Tensor:
+    """uint8 code tensor -> scaled float32 values. Victims decode to 0."""
+    c = torch.movedim(codes, pair_axis, -1)
+    v0, v1 = decode_pair_planes(c[..., 0::2], c[..., 1::2], normal_dtype,
+                                spec)
+    return torch.movedim(_interleave(v0, v1), -1, pair_axis)
+
+
+def pack4(codes: torch.Tensor, pair_axis: int = -1) -> torch.Tensor:
+    """(…, 2K, …) nibble codes -> (…, K, …) bytes; even index = high."""
+    c = torch.movedim(codes, pair_axis, -1).to(torch.uint8)
+    packed = (c[..., 0::2] << 4) | (c[..., 1::2] & 0xF)
+    return torch.movedim(packed, -1, pair_axis)
+
+
+def unpack4(packed: torch.Tensor, pair_axis: int = -1) -> torch.Tensor:
+    """(…, K, …) bytes -> (…, 2K, …) nibble codes."""
+    p = torch.movedim(packed, pair_axis, -1).to(torch.uint8)
+    c = _interleave((p >> 4) & 0xF, p & 0xF)
+    return torch.movedim(c, -1, pair_axis)
+
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """OVP-quantized tensor.
+
+    data:   uint8. 4-bit dtypes: packed nibbles, `pair_axis` length = dim/2.
+            int8: one code per byte, full length.
+    scale:  float32, broadcastable against the dequantized tensor.
+    normal_dtype: "int4" | "flint4" | "int8"
+    pair_axis: axis along which values pair/pack (stored negative)
+    orig_dim: unpacked length of pair_axis
+    """
+    data: torch.Tensor
+    scale: torch.Tensor
+    normal_dtype: str
+    pair_axis: int
+    orig_dim: int
+
+    @property
+    def is_packed(self) -> bool:
+        return self.normal_dtype != "int8"
+
+    @property
+    def shape(self):
+        s = list(self.data.shape)
+        s[self.pair_axis % len(s)] = self.orig_dim
+        return tuple(s)
+
+
+def ovp_quantize(x: torch.Tensor, scale, normal_dtype: str = "int4",
+                 spec: Optional[AbfloatSpec] = None,
+                 pair_axis: int = -1) -> QuantizedTensor:
+    """Quantize a real tensor with OVP at a given scale."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    u = x.to(torch.float32) / scale
+    codes = ovp_encode_codes(u, normal_dtype, spec, pair_axis)
+    neg_ax = pair_axis if pair_axis < 0 else pair_axis - x.ndim
+    data = pack4(codes, neg_ax) if normal_dtype != "int8" else codes
+    # contiguous storage: the kernels read the codes as laid out
+    return QuantizedTensor(data=data.contiguous(), scale=scale.contiguous(),
+                           normal_dtype=normal_dtype, pair_axis=neg_ax,
+                           orig_dim=x.shape[neg_ax])
+
+
+def ovp_dequantize(qt: QuantizedTensor,
+                   spec: Optional[AbfloatSpec] = None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """decode(codes) * scale."""
+    codes = unpack4(qt.data, qt.pair_axis) if qt.is_packed else qt.data
+    vals = ovp_decode_codes(codes, qt.normal_dtype, spec, qt.pair_axis)
+    return (vals * qt.scale).to(dtype)
+
+
+def ovp_fake_quant(x: torch.Tensor, scale, normal_dtype: str = "int4",
+                   spec: Optional[AbfloatSpec] = None,
+                   pair_axis: int = -1) -> torch.Tensor:
+    """quantize -> dequantize without packing (the scale search)."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    u = x.to(torch.float32) / scale
+    codes = ovp_encode_codes(u, normal_dtype, spec, pair_axis)
+    return ovp_decode_codes(codes, normal_dtype, spec, pair_axis) * scale

@@ -1,0 +1,161 @@
+"""Quantization policy: which tensors get quantized, how, and on what
+backend. Port of `repro/core/policy.py` (flat policies, rules and the
+legacy-flag program; the mixed-precision program presets are not ported).
+
+`QuantPolicy` is the per-site decision record. `PolicyProgram` holds
+ordered (glob pattern -> QuantPolicy) rules matched case-insensitively
+against "/"-joined site addresses (`layers/<i>/attn/wq`,
+`layers/<i>/attn/kv`, `lm_head/w_out`, ...); the first match wins.
+`QuantPolicy.resolve(site)` goes through the program its legacy flags
+compile to (`PolicyProgram.from_policy`).
+
+The port's default backend is `cuda` (hand-written kernels; CPU tensors
+take their plain versions), where the reference defaults to `xla`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+import functools
+from typing import Optional, Tuple, Union
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    # "none" -> full precision; "olive" -> OVP (the paper)
+    method: str = "none"
+    wbits: int = 4                      # 4 or 8
+    w_normal_dtype: str = "int4"        # int4 | flint4 | int8
+    w_granularity: str = "channel"      # tensor | channel
+    abits: int = 0                      # 0 = activations unquantized
+    a_normal_dtype: str = "int4"
+    act_scale_mode: str = "dynamic"     # dynamic (3σ rule) | static
+    static_act_scale: Optional[float] = None
+    quantize_attn: bool = True
+    quantize_ffn: bool = True
+    quantize_embed: bool = False
+    quantize_router: bool = False
+    kv_bits: int = 0                    # 4 = OVP-packed KV cache
+    backend: str = "cuda"               # a `repro_torch.backends` name
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def enabled(self) -> bool:
+        return self.method != "none"
+
+    def normal_dtype_for_bits(self, bits: int) -> str:
+        return "int8" if bits == 8 else self.w_normal_dtype
+
+    def resolve(self, site: str) -> "QuantPolicy":
+        return _compiled(self).resolve(site)
+
+    def off(self) -> "QuantPolicy":
+        return dataclasses.replace(self, method="none")
+
+    def with_backend(self, name: str) -> "QuantPolicy":
+        return self if name == self.backend \
+            else dataclasses.replace(self, backend=name)
+
+    def replace_all(self, **kw) -> "QuantPolicy":
+        return dataclasses.replace(self, **kw)
+
+    def backends(self) -> frozenset:
+        return frozenset((self.backend,))
+
+
+@dataclasses.dataclass(frozen=True)
+class Rule:
+    """One pattern -> policy entry; `origin="compat"` marks the legacy
+    flag fan compiled by `PolicyProgram.from_policy`."""
+    pattern: str
+    policy: QuantPolicy
+    origin: str = ""
+
+    def matches(self, site: str) -> bool:
+        return fnmatch.fnmatchcase(site.lower(), self.pattern.lower())
+
+
+def _as_rule(r) -> Rule:
+    if isinstance(r, Rule):
+        return r
+    pattern, policy = r
+    return Rule(pattern, policy)
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyProgram:
+    """Ordered (pattern -> QuantPolicy) rules + a default; first match
+    wins."""
+    rules: Tuple[Rule, ...] = ()
+    default: QuantPolicy = QuantPolicy()
+    name: str = ""
+
+    def __post_init__(self):
+        object.__setattr__(self, "rules",
+                           tuple(_as_rule(r) for r in self.rules))
+
+    def resolve(self, site: str) -> QuantPolicy:
+        return _program_resolve(self, site)
+
+    @classmethod
+    def from_policy(cls, policy: QuantPolicy,
+                    name: str = "") -> "PolicyProgram":
+        """Compile the legacy boolean flags into an equivalent program:
+        embed/lm_head first, then router, attention, then FFN substrings,
+        with the FFN flag as the default bucket."""
+        on, off = policy, policy.off()
+        a = on if policy.quantize_attn else off
+        f = on if policy.quantize_ffn else off
+        e = on if policy.quantize_embed else off
+        r = on if policy.quantize_router else off
+        rules = tuple(
+            Rule(p, pol, origin="compat") for p, pol in (
+                ("*embed*", e), ("*lm_head*", e),
+                ("*router*", r),
+                ("*attn*", a), ("*attention*", a),
+                ("*wq*", a), ("*wk*", a), ("*wv*", a),
+                ("*wo*", a),
+                ("*mlp*", f), ("*ffn*", f), ("*expert*", f),
+                ("*wi*", f), ("*wu*", f), ("*wg*", f),
+                ("*wd*", f),
+            ))
+        return cls(rules=rules, default=f, name=name or "compat")
+
+
+@functools.lru_cache(maxsize=256)
+def _compiled(policy: QuantPolicy) -> PolicyProgram:
+    return PolicyProgram.from_policy(policy)
+
+
+@functools.lru_cache(maxsize=65536)
+def _program_resolve(program: PolicyProgram, site: str) -> QuantPolicy:
+    for rule in program.rules:
+        if rule.matches(site):
+            return rule.policy
+    return program.default
+
+
+def resolve(policy: Union[QuantPolicy, PolicyProgram],
+            site: str) -> QuantPolicy:
+    """The single resolution entry point consumers call per site."""
+    return policy.resolve(site)
+
+
+FP = QuantPolicy(method="none")
+OLIVE_W4A4 = QuantPolicy(method="olive", wbits=4, abits=4)
+OLIVE_W4 = QuantPolicy(method="olive", wbits=4, abits=0)
+OLIVE_W8A8 = QuantPolicy(method="olive", wbits=8, abits=8,
+                         w_normal_dtype="int8", a_normal_dtype="int8")
+OLIVE_SERVE = dataclasses.replace(OLIVE_W4A4, kv_bits=4)
+
+PRESETS = {"fp": FP, "olive_w4a4": OLIVE_W4A4, "olive_w4": OLIVE_W4,
+           "olive_w8a8": OLIVE_W8A8, "olive_serve": OLIVE_SERVE}
+
+
+def get_policy(name: Optional[str]) -> QuantPolicy:
+    if name is None:
+        return FP
+    if name not in PRESETS:
+        raise KeyError(f"unknown quant policy {name!r}; "
+                       f"options: {sorted(PRESETS)}")
+    return PRESETS[name]

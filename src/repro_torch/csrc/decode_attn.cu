@@ -1,0 +1,234 @@
+// Slab decode attention for Hopper (sm_90a), fp32 on the CUDA cores.
+//
+// Replaces the TPU kernel src/repro/kernels/decode_attn.py:358
+// (_decode_attn_call -> pallas_call at :384 packed, :393 fp; bodies
+// _decode_attn_kernel_packed :308 and _decode_attn_kernel_fp :336, with
+// _online_softmax_step :247, _tile_mask :268 and _scores :284).
+//
+// Single-token GQA attention of q (B, H, D) against a slab KV cache,
+// either OVP-packed int4 nibbles (B, S, Hkv, D/2) u8 with per-(token,
+// head) f32 scales (B, S, Hkv), or an fp32 cache (B, S, Hkv, D):
+//   s = (q / sqrt(D)) . k_codes * k_scl, masked from pos (length, ring,
+//   sliding window, padded tail) to -1e30, online softmax in fp32,
+//   o += (p * v_scl) . v_codes, out = o / max(l, 1e-30).
+// The output is written in the natural (B, 1, H, D) layout; the TPU
+// kernel's even/odd plane layout is not needed here.
+//
+// Launch shape: one block of 128 threads per (batch row, kv head), so the
+// G query heads of a group share each decoded K/V tile. The block loops
+// over S in tiles of 32 tokens: the packed bytes are read as 32-bit words
+// and decoded into shared memory (K rows padded to D+1 floats so the
+// per-token dot products are bank-conflict free), one thread scores each
+// (query head, token), one warp per query head runs the online-softmax
+// update with shuffles, and one thread per (query head, lane) accumulates
+// p . V. On the serving path (B = 4 slots, S = max_len = 256, Hkv = 16,
+// G = 1, D = 64) that is 64 blocks of 8 tiles each.
+//
+// What bounds it on the H100: the packed cache of one layer is 0.3 MB per
+// step (K and V nibbles plus scales), which 3.35 TB/s reads in about
+// 0.1 us, so the kernel is bound by launch latency and the serial
+// per-tile chain (load, decode, barrier, score, barrier, softmax,
+// barrier, PV) inside each block, not by bytes. Splitting S across
+// blocks (flash-decoding) and overlapping tile loads are later work.
+//
+// Tolerance against the plain version (kernels/decode_attn.py,
+// decode_attention_plain): decoded codes are exact; the dot products,
+// the exp and the tile-wise softmax rescaling differ from the dense
+// softmax only in fp32 rounding order, so atol 1e-5 on outputs whose
+// values are O(1).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TS = 32;     // kv tokens per tile (one per warp lane)
+constexpr int NT = 128;    // threads per block
+constexpr int DMAX = 128;  // largest head_dim the kernel takes
+constexpr int GMAX = 8;    // largest query-group size
+constexpr float NEG_INF = -1e30f;
+
+// int4 OVP pair decode with the E2M1 bias-2 outlier format
+__device__ __forceinline__ float dec_int4(int c, int neighbour) {
+  if (neighbour == 8) {  // I am the outlier
+    const int bits = c & 7;
+    const int mag = (2 + (bits & 1)) << ((bits >> 1) + 2);
+    const float v = (c & 8) ? -(float)mag : (float)mag;
+    return bits == 0 ? 0.f : v;
+  }
+  if (c == 8) return 0.f;  // I am the victim
+  return (float)(c >= 8 ? c - 16 : c);
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(NT)
+decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ kd,
+                   const void* __restrict__ vd, const float* __restrict__ ks,
+                   const float* __restrict__ vs, const int* __restrict__ pos,
+                   float* __restrict__ out, int S, int Hkv, int G, int D,
+                   float qscale, int window, int ring) {
+  __shared__ float k_s[TS][DMAX + 1];
+  __shared__ __align__(16) float v_s[TS][DMAX];
+  __shared__ float q_s[GMAX][DMAX];
+  __shared__ float o_s[GMAX * DMAX];
+  __shared__ float p_s[GMAX][TS];
+  __shared__ float m_s[GMAX], l_s[GMAX], corr_s[GMAX];
+  __shared__ float kscl_s[TS], vscl_s[TS];
+
+  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = Hkv * G;
+  const int p_cur = pos[b];
+
+  for (int i = tid; i < G * D; i += NT) {
+    const int g = i / D, d = i % D;
+    q_s[g][d] = q[((size_t)b * H + h * G + g) * D + d] / qscale;
+    o_s[i] = 0.f;
+  }
+  if (tid < G) {
+    m_s[tid] = NEG_INF;
+    l_s[tid] = 0.f;
+  }
+  __syncthreads();
+
+  for (int t0 = 0; t0 < S; t0 += TS) {
+    // ---- stage: decode one tile of K and V into shared memory ---------
+    if (PACKED) {
+      const int W = D / 8;  // 32-bit words per token row (D/2 bytes)
+      const uint32_t* kw = static_cast<const uint32_t*>(kd);
+      const uint32_t* vw = static_cast<const uint32_t*>(vd);
+      for (int i = tid; i < TS * W; i += NT) {
+        const int t = i / W, wi = i % W, s = t0 + t;
+        uint32_t kx = 0u, vx = 0u;
+        if (s < S) {
+          const size_t off = (((size_t)b * S + s) * Hkv + h) * W + wi;
+          kx = kw[off];
+          vx = vw[off];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kb = (kx >> (8 * j)) & 0xFF, vb = (vx >> (8 * j)) & 0xFF;
+          const int d = 8 * wi + 2 * j;  // byte 4*wi+j holds pair d, d+1
+          k_s[t][d] = dec_int4(kb >> 4, kb & 15);
+          k_s[t][d + 1] = dec_int4(kb & 15, kb >> 4);
+          v_s[t][d] = dec_int4(vb >> 4, vb & 15);
+          v_s[t][d + 1] = dec_int4(vb & 15, vb >> 4);
+        }
+      }
+      for (int t = tid; t < TS; t += NT) {
+        const int s = t0 + t;
+        const size_t off = ((size_t)b * S + s) * Hkv + h;
+        kscl_s[t] = s < S ? ks[off] : 1.f;
+        vscl_s[t] = s < S ? vs[off] : 1.f;
+      }
+    } else {
+      const int W = D / 4;  // float4 per token row
+      const float4* kf = static_cast<const float4*>(kd);
+      const float4* vf = static_cast<const float4*>(vd);
+      for (int i = tid; i < TS * W; i += NT) {
+        const int t = i / W, wi = i % W, s = t0 + t;
+        float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+        if (s < S) {
+          const size_t off = (((size_t)b * S + s) * Hkv + h) * W + wi;
+          kx = kf[off];
+          vx = vf[off];
+        }
+        const int d = 4 * wi;
+        k_s[t][d] = kx.x;
+        k_s[t][d + 1] = kx.y;
+        k_s[t][d + 2] = kx.z;
+        k_s[t][d + 3] = kx.w;
+        *reinterpret_cast<float4*>(&v_s[t][d]) = vx;
+      }
+    }
+    __syncthreads();
+
+    // ---- scores, scale fold and in-kernel mask ------------------------
+    for (int i = tid; i < G * TS; i += NT) {
+      const int g = i / TS, t = i % TS, s = t0 + t;
+      float acc = 0.f;
+      for (int d = 0; d < D; ++d) acc = fmaf(q_s[g][d], k_s[t][d], acc);
+      if (PACKED) acc *= kscl_s[t];
+      int abs_pos;
+      bool valid;
+      if (ring) {
+        int r = (p_cur - s) % ring;
+        if (r < 0) r += ring;
+        abs_pos = p_cur - r;
+        valid = abs_pos >= 0;
+      } else {
+        abs_pos = s;
+        valid = s <= p_cur;
+      }
+      valid = valid && s < S;
+      if (window) valid = valid && abs_pos > p_cur - window && abs_pos <= p_cur;
+      p_s[g][t] = valid ? acc : NEG_INF;
+    }
+    __syncthreads();
+
+    // ---- online softmax: one warp per query head, one token per lane --
+    for (int g = warp; g < G; g += NT / 32) {
+      const float m_prev = m_s[g];
+      const float sv = p_s[g][lane];
+      float mx = sv;
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_prev, mx);
+      float p = expf(sv - m_new);
+      float sum = p;
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float corr = expf(m_prev - m_new);
+      if (PACKED) p *= vscl_s[lane];
+      p_s[g][lane] = p;
+      __syncwarp();
+      if (lane == 0) {
+        l_s[g] = l_s[g] * corr + sum;
+        m_s[g] = m_new;
+        corr_s[g] = corr;
+      }
+    }
+    __syncthreads();
+
+    // ---- o = o * corr + p . V -----------------------------------------
+    for (int i = tid; i < G * D; i += NT) {
+      const int g = i / D, d = i % D;
+      float acc = 0.f;
+      for (int t = 0; t < TS; ++t) acc = fmaf(p_s[g][t], v_s[t][d], acc);
+      o_s[i] = o_s[i] * corr_s[g] + acc;
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < G * D; i += NT) {
+    const int g = i / D, d = i % D;
+    out[((size_t)b * H + h * G + g) * D + d] = o_s[i] / fmaxf(l_s[g], 1e-30f);
+  }
+}
+
+}  // namespace
+
+// q (B, H, D) f32 with H = Hkv * G; packed: kd/vd (B, S, Hkv, D/2) u8 and
+// ks/vs (B, S, Hkv) f32; fp: kd/vd (B, S, Hkv, D) f32 (ks/vs unused);
+// pos (B,) i32; out (B, H, D) f32. Needs D % 8 == 0, D <= 128, G <= 8.
+// qscale = float32(sqrt(D)). Returns cudaGetLastError().
+extern "C" int decode_attn_launch(const void* q, const void* kd,
+                                  const void* vd, const void* ks,
+                                  const void* vs, const void* pos, void* out,
+                                  int B, int S, int Hkv, int G, int D,
+                                  int packed, float qscale, int window,
+                                  int ring, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B * Hkv);
+  const float* qf = static_cast<const float*>(q);
+  const float* ksf = static_cast<const float*>(ks);
+  const float* vsf = static_cast<const float*>(vs);
+  const int* pi = static_cast<const int*>(pos);
+  float* of = static_cast<float*>(out);
+  if (packed)
+    decode_attn_kernel<true><<<grid, NT, 0, st>>>(
+        qf, kd, vd, ksf, vsf, pi, of, S, Hkv, G, D, qscale, window, ring);
+  else
+    decode_attn_kernel<false><<<grid, NT, 0, st>>>(
+        qf, kd, vd, ksf, vsf, pi, of, S, Hkv, G, D, qscale, window, ring);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,266 @@
+// Fused OVP matmul for Hopper (sm_90a), fp32 FMA on the CUDA cores.
+//
+// Replaces the TPU kernel src/repro/kernels/ovp_matmul.py:367
+// (fused_ovp_matmul_kernel -> pallas_call at :417, body _fused_mm_kernel
+// :224) in its "fp" and "quantize" activation modes, for int4 / flint4
+// packed-nibble weights and int8 one-code-per-byte weights.
+//
+//   out[r, n] = (sum_k a'[r, k] * w'[k, n]) * sa[r] * sw[n]
+//
+// a' is the fp32 activation ("fp") or its OVP fake-quantization at the
+// per-row scale sa ("quantize": u = a / sa, Algorithm 1 pair selection,
+// rintf rounding, exact log2f abfloat encode). w' is the weight code
+// decoded branch-free per pair: a neighbour holding the identifier makes
+// the value an abfloat outlier, holding it yourself makes you the victim
+// (0), otherwise the value is a normal code.
+//
+// Launch shape: grid (N / 16, ceil(R / 8), split), 256 threads. A block
+// owns 8 rows x 16 output columns and walks K inside the block in stages
+// of 256 pairs: each stage loads the packed weight rows with one 16-byte
+// load per row (16 columns of one K pair, coalesced along N) into shared
+// memory, quantizes the activation stage once in the prologue, and 16
+// k-groups of 16 threads accumulate disjoint pair subsets in registers;
+// a shared-memory reduction over the k-groups and the sa * sw epilogue
+// finish the tile. Narrow 16-column tiles are chosen for the decode
+// shapes of the serving path (rows = 4 slots, N = 1024 or 2816): they
+// give 64 or 176 blocks where 128-column tiles would give 8 or 22. When
+// the grid would still hold fewer than 100 blocks the wrapper splits K
+// in two along gridDim.z; each half adds its scaled partial into a zeroed
+// output with atomicAdd, which is order-independent for two addends, so
+// the result stays deterministic.
+//
+// What bounds it on the H100: at decode (R = 4) the packed weight bytes
+// (K/2 * N per call, 0.5-1.4 MB on the path) over 3.35 TB/s are well
+// under a microsecond, so launch latency and the serial load-decode-FMA
+// chain of each stage bound the kernel; nothing overlaps a stage's loads
+// with the previous stage's math yet (no cp.async/TMA pipeline, no
+// tensor cores). Making it fast is later work.
+//
+// Tolerance against the plain version (kernels/ovp_matmul.py,
+// fused_ovp_matmul_plain): decoded weights and quantized activations are
+// exact in both; only the fp32 summation order differs, so rtol 1e-5 and
+// atol 1e-5 * max|ref|.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BN = 16;        // output columns per block
+constexpr int BM = 8;         // rows per block
+constexpr int BK2 = 256;      // K pairs per stage
+constexpr int NT = 256;       // threads per block
+constexpr int KG = NT / BN;   // k-groups
+
+enum { DT_INT4 = 0, DT_FLINT4 = 1, DT_INT8 = 2 };
+enum { A_FP = 0, A_QUANT = 1 };
+
+struct Spec {
+  int ebits, mb, bias;
+};
+
+// abfloat layouts: E2M1 for the 4-bit types (bias 2 int4, 3 flint4),
+// E4M3 bias 4 for int8 (repro/core/datatypes.py ABFLOAT_FOR_NORMAL)
+__device__ __forceinline__ Spec spec_for(int dt) {
+  return dt == DT_INT8 ? Spec{4, 3, 4}
+                       : (dt == DT_FLINT4 ? Spec{2, 1, 3} : Spec{2, 1, 2});
+}
+
+__device__ __forceinline__ float dec_abfloat(int c, Spec s) {
+  const int nb = s.ebits + s.mb;
+  const int bits = c & ((1 << nb) - 1);
+  const int e = bits >> s.mb, m = bits & ((1 << s.mb) - 1);
+  const int mag = min(((1 << s.mb) + m) << (e + s.bias), 1 << 15);
+  const float v = ((c >> nb) & 1) ? -(float)mag : (float)mag;
+  return bits == 0 ? 0.f : v;
+}
+
+__device__ __forceinline__ float dec_normal(int c, int dt) {
+  if (dt == DT_INT8) return (float)(c >= 128 ? c - 256 : c);
+  if (dt == DT_INT4) return (float)(c >= 8 ? c - 16 : c);
+  const int idx = c & 7;  // flint4 magnitudes {0,1,2,3,4,6,8,16}
+  const float mag = idx <= 4 ? (float)idx
+                             : (idx == 5 ? 6.f : (idx == 6 ? 8.f : 16.f));
+  return ((c >> 3) & 1) ? -mag : mag;
+}
+
+__device__ __forceinline__ void dec_pair(int c0, int c1, int dt, float& v0,
+                                         float& v1) {
+  const int id = dt == DT_INT8 ? 0x80 : 0x8;
+  const Spec s = spec_for(dt);
+  v0 = c1 == id ? dec_abfloat(c0, s) : (c0 == id ? 0.f : dec_normal(c0, dt));
+  v1 = c0 == id ? dec_abfloat(c1, s) : (c1 == id ? 0.f : dec_normal(c1, dt));
+}
+
+__device__ __forceinline__ float rt_normal(float u, int dt) {
+  if (dt == DT_INT4) return fminf(fmaxf(rintf(u), -7.f), 7.f);
+  if (dt == DT_INT8) return fminf(fmaxf(rintf(u), -127.f), 127.f);
+  // flint4: nearest magnitude, midpoint ties to the smaller one
+  const float a = fabsf(u);
+  const float mag = a <= 0.5f ? 0.f : a <= 1.5f ? 1.f : a <= 2.5f ? 2.f
+                  : a <= 3.5f ? 3.f : a <= 5.f ? 4.f : a <= 7.f ? 6.f
+                  : a <= 12.f ? 8.f : 16.f;
+  return (u < 0.f && mag > 0.f) ? -mag : mag;
+}
+
+// abfloat encode -> decode (Algorithm 2): exact log2f, exact power-of-two
+// scaling and round-half-even, so it matches the plain version bit for bit
+__device__ __forceinline__ float rt_abfloat(float u, Spec s) {
+  const float lo = (float)(((1 << s.mb) + 1) << s.bias);
+  const long long top = (long long)((1 << (s.mb + 1)) - 1)
+                        << ((1 << s.ebits) - 1 + s.bias);
+  const float hi = (float)(top < (1 << 15) ? top : (1 << 15));
+  const float mag = fminf(fmaxf(fabsf(u), lo), hi);
+  int ex = (int)floorf(log2f(mag)) - s.mb;
+  int base = (int)rintf(ldexpf(mag, -ex));
+  if (base == (1 << (s.mb + 1))) {
+    ex += 1;
+    base = 1 << s.mb;
+  }
+  const int ef = min(max(ex - s.bias, 0), (1 << s.ebits) - 1);
+  int mf = base & ((1 << s.mb) - 1);
+  if (ef == 0 && mf == 0) mf = 1;  // the disabled e=0, m=0 code
+  const int m = min(((1 << s.mb) + mf) << (ef + s.bias), 1 << 15);
+  return u < 0.f ? -(float)m : (float)m;
+}
+
+// Algorithm 1 on one scaled activation pair, value domain
+__device__ __forceinline__ void quant_pair(float u0, float u1, int dt,
+                                           float& q0, float& q1) {
+  const float t = dt == DT_INT8 ? 127.f : (dt == DT_FLINT4 ? 16.f : 7.f);
+  const Spec s = spec_for(dt);
+  const float a0 = fabsf(u0), a1 = fabsf(u1);
+  const bool o0 = a0 > t, o1 = a1 > t;
+  const bool first = o0 && (!o1 || a0 >= a1);  // ties keep the left one
+  const bool second = o1 && !first;
+  q0 = first ? rt_abfloat(u0, s) : (second ? 0.f : rt_normal(u0, dt));
+  q1 = second ? rt_abfloat(u1, s) : (first ? 0.f : rt_normal(u1, dt));
+}
+
+template <int WDT>
+__global__ void __launch_bounds__(NT)
+ovp_mm_kernel(const float* __restrict__ a, const float* __restrict__ sa,
+              const uint8_t* __restrict__ w, const float* __restrict__ sw,
+              float* __restrict__ out, int R, int K, int N, int a_mode,
+              int a_dtype, int k2_per_split) {
+  constexpr int WROWS = WDT == DT_INT8 ? 2 : 1;  // weight byte rows per pair
+  __shared__ __align__(16) uint8_t w_s[BK2 * WROWS * BN];
+  __shared__ __align__(16) float a_s[BM][2 * BK2];
+  __shared__ float red[KG][BM][BN + 1];
+
+  const int tid = threadIdx.x, c = tid % BN, kg = tid / BN;
+  const int n0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
+  const int k2b = blockIdx.z * k2_per_split;
+  const int k2e = min(K / 2, k2b + k2_per_split);
+  float acc[BM];
+#pragma unroll
+  for (int r = 0; r < BM; ++r) acc[r] = 0.f;
+
+  for (int k0 = k2b; k0 < k2e; k0 += BK2) {
+    // weight stage: one 16-byte load per byte row, rows past the range
+    // read as code 0 (a normal 0 pair)
+    for (int i = tid; i < BK2 * WROWS; i += NT) {
+      const int row = k0 * WROWS + i;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (row < k2e * WROWS)
+        v = __ldg(reinterpret_cast<const uint4*>(w + (size_t)row * N + n0));
+      reinterpret_cast<uint4*>(w_s)[i] = v;
+    }
+    // activation prologue: each pair read once, OVP fake-quantized at
+    // the row scale in "quantize" mode
+    for (int i = tid; i < BM * BK2; i += NT) {
+      const int r = i / BK2, p = i % BK2;
+      const int row = r0 + r, k2 = k0 + p;
+      float q0 = 0.f, q1 = 0.f;
+      if (row < R && k2 < k2e) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(a + (size_t)row * K + 2 * k2);
+        if (a_mode == A_QUANT) {
+          const float s = sa[row];
+          quant_pair(x.x / s, x.y / s, a_dtype, q0, q1);
+        } else {
+          q0 = x.x;
+          q1 = x.y;
+        }
+      }
+      a_s[r][2 * p] = q0;
+      a_s[r][2 * p + 1] = q1;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int p = kg; p < BK2; p += KG) {
+      int c0, c1;
+      if (WDT == DT_INT8) {
+        c0 = w_s[(2 * p) * BN + c];
+        c1 = w_s[(2 * p + 1) * BN + c];
+      } else {
+        const int byte = w_s[p * BN + c];
+        c0 = byte >> 4;  // even k in the high nibble
+        c1 = byte & 15;
+      }
+      float w0, w1;
+      dec_pair(c0, c1, WDT, w0, w1);
+#pragma unroll
+      for (int r = 0; r < BM; ++r) {
+        const float2 av = *reinterpret_cast<const float2*>(&a_s[r][2 * p]);
+        acc[r] = fmaf(av.x, w0, acc[r]);
+        acc[r] = fmaf(av.y, w1, acc[r]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < BM; ++r) red[kg][r][c] = acc[r];
+  __syncthreads();
+  if (tid < BM * BN) {
+    const int r = tid / BN, cc = tid % BN;
+    const int row = r0 + r, col = n0 + cc;
+    float s = 0.f;
+    for (int g = 0; g < KG; ++g) s += red[g][r][cc];
+    if (row < R) {
+      const float v = (a_mode == A_QUANT ? s * sa[row] : s) * sw[col];
+      if (gridDim.z == 1)
+        out[(size_t)row * N + col] = v;
+      else
+        atomicAdd(out + (size_t)row * N + col, v);
+    }
+  }
+}
+
+}  // namespace
+
+// a (R, K) f32; sa (R,) f32 (read in "quantize" mode only); w (K/2, N)
+// packed nibbles or (K, N) int8 codes; sw (N,) f32; out (R, N) f32,
+// zeroed by the caller when split > 1. N must be a multiple of 16 and
+// every pointer 16-byte aligned. Returns cudaGetLastError().
+extern "C" int ovp_mm_launch(const void* a, const void* sa, const void* w,
+                             const void* sw, void* out, int R, int K, int N,
+                             int w_dtype, int a_mode, int a_dtype, int split,
+                             void* stream) {
+  const int k2 = K / 2;
+  const int per = ((k2 + split - 1) / split + BK2 - 1) / BK2 * BK2;
+  const dim3 grid(N / BN, (R + BM - 1) / BM, split);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  const float* saf = static_cast<const float*>(sa);
+  const uint8_t* wb = static_cast<const uint8_t*>(w);
+  const float* swf = static_cast<const float*>(sw);
+  float* of = static_cast<float*>(out);
+  switch (w_dtype) {
+    case DT_INT4:
+      ovp_mm_kernel<DT_INT4><<<grid, NT, 0, st>>>(af, saf, wb, swf, of, R, K,
+                                                  N, a_mode, a_dtype, per);
+      break;
+    case DT_FLINT4:
+      ovp_mm_kernel<DT_FLINT4><<<grid, NT, 0, st>>>(af, saf, wb, swf, of, R,
+                                                    K, N, a_mode, a_dtype,
+                                                    per);
+      break;
+    case DT_INT8:
+      ovp_mm_kernel<DT_INT8><<<grid, NT, 0, st>>>(af, saf, wb, swf, of, R, K,
+                                                  N, a_mode, a_dtype, per);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,100 @@
+"""Build and load the hand-written CUDA kernels in `csrc/`.
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled on
+first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC
+
+into `build/kernels/<name>-<hash>.so` at the repo root, keyed on a hash
+of the source and the flags, then loaded with `ctypes`. Fast-math is
+deliberately off: the abfloat encode needs exact `log2f`, IEEE division
+and `rintf` rounding to match the plain versions. Nothing is compiled at
+import time; CPU-only hosts never reach this module's build.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise KernelBuildError("nvcc not found (needs the CUDA toolkit)")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()
+    return BUILD / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every named source that is not built yet, all nvcc
+    processes at once. Returns {name: seconds} for the ones compiled."""
+    pending = {n: _target(n) for n in names if not _target(n).exists()}
+    if not pending:
+        return {}
+    BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name, out in pending.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, out)
+    took, errors = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{name}.cu:\n{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, out)
+        took[name] = time.perf_counter() - t0
+    if errors:
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
+    return took
+
+
+def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """The built library for `csrc/<name>.cu`, building it if needed.
+    `signatures` maps each exported function to its ctypes argtypes
+    (pointers and the stream as c_void_p); every function returns the
+    launch's cudaGetLastError() as an int."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError "
+                           f"{err}")

@@ -1,0 +1,104 @@
+"""Serving launcher for the port, with the reference launcher's flags.
+
+Builds `--arch` with random weights from `--seed`, applies OliVe PTQ
+under the `--quant` preset, and runs the slab continuous-batching engine
+on a synthetic request stream, on the CUDA device:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen1.5-0.5b --quant olive_serve
+
+As in the reference launcher, the preset is rewritten to fp32 compute
+with activations unquantized (`compute_dtype="float32"`, `abits=0`), so
+`olive_serve` serves W4 OVP weights over a 4-bit OVP KV cache. There is
+no CPU switch: without a card the launcher raises. `run(argv, device)`
+is the same path as a function (the tests call it with device="cpu").
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import backends
+from repro_torch.configs import get_config
+from repro_torch.core.policy import PRESETS, get_policy
+from repro_torch.core.qlinear import quantize_params
+from repro_torch.kernels import decode_attn, ovp_matmul
+from repro_torch.models.model import build_model
+from repro_torch.serve.engine import EngineCfg, ServingEngine
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--quant", default="olive_w4", choices=sorted(PRESETS),
+                    help="PTQ policy preset for the weights/KV")
+    ap.add_argument("--backend", default=None,
+                    choices=backends.available(),
+                    help="execution backend (default: the policy's, cuda)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
+    """Build, quantize and serve; returns the engine, model, params and
+    the run's numbers (tokens, seconds, tok/s, TTFT, step time)."""
+    args = parser().parse_args(argv)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch.launch.serve needs a CUDA device")
+    cfg = get_config(args.arch)
+    policy = get_policy(None if args.quant == "fp" else args.quant)
+    policy = policy.replace_all(compute_dtype="float32", abits=0)
+    if args.backend is not None:
+        policy = policy.with_backend(args.backend)
+    model = build_model(cfg, policy)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = model.init(gen, device=device)
+    t0 = time.perf_counter()
+    params = quantize_params(params, policy)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    ptq_s = time.perf_counter() - t0
+
+    eng = ServingEngine(model, params, EngineCfg(
+        batch_slots=args.slots, max_len=args.max_len), device=device)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 32)))
+               .astype(np.int32) for _ in range(args.requests)]
+    for p in prompts:
+        eng.submit(p, max_new_tokens=args.max_new)
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.out_tokens) for r in done)
+    return {"engine": eng, "model": model, "params": params,
+            "completed": done, "tokens": toks, "seconds": dt,
+            "ptq_s": ptq_s, "tok_per_s": toks / dt,
+            "mean_ttft_s": float(np.mean([r.t_first - r.t_submit
+                                          for r in done])),
+            "mean_step_s": dt / max(eng.steps_run, 1)}
+
+
+def main():
+    res = run()
+    print(f"[serve] PTQ in {res['ptq_s']:.1f}s")
+    print(f"[serve] {len(res['completed'])} requests, {res['tokens']} "
+          f"tokens in {res['seconds']:.2f}s ({res['tok_per_s']:.1f} tok/s)")
+    print(f"[serve] mean TTFT {res['mean_ttft_s'] * 1e3:.0f} ms, mean step "
+          f"{res['mean_step_s'] * 1e3:.1f} ms")
+    print(f"[serve] dispatch: {backends.dispatch_stats()}")
+    print(f"[serve] kernel launches: ovp_matmul="
+          f"{ovp_matmul.fused_ovp_matmul.launches} decode_attn="
+          f"{decode_attn.fused_decode_attention.launches}")
+
+
+if __name__ == "__main__":
+    main()

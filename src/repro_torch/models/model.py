@@ -1,0 +1,146 @@
+"""Model assembly for the dense decoder family. Port of the dense path of
+`repro/models/model.py`.
+
+The reference scans a stacked layer group; the port keeps layers
+unrolled (`params["layers"][i]`, site addresses `layers/<i>/...`) and
+runs a Python loop over them. `convert.params_from_numpy` unstacks a
+reference tree into this layout.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import qlinear
+from repro_torch.core.policy import QuantPolicy
+
+from . import layers as L
+
+Params = Dict[str, Any]
+
+
+def _normal(gen: torch.Generator, shape, scale: float, device):
+    return torch.randn(shape, generator=gen, device=device) * scale
+
+
+def block_params(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
+    """One attn + SwiGLU block, drawn as the reference draws it: normal
+    weights scaled by 1/sqrt(fan_in), zero biases, unit norms."""
+    d, hd = cfg.d_model, cfg.head_dim
+
+    def w(k, n):
+        return _normal(gen, (k, n), 1.0 / math.sqrt(k), device)
+
+    attn = {"wq": w(d, cfg.n_heads * hd), "wk": w(d, cfg.n_kv_heads * hd),
+            "wv": w(d, cfg.n_kv_heads * hd), "wo": w(cfg.n_heads * hd, d)}
+    if cfg.qkv_bias:
+        attn["bq"] = torch.zeros(cfg.n_heads * hd, device=device)
+        attn["bk"] = torch.zeros(cfg.n_kv_heads * hd, device=device)
+        attn["bv"] = torch.zeros(cfg.n_kv_heads * hd, device=device)
+    return {"ln1": {"gamma_scale": torch.ones(d, device=device)},
+            "attn": attn,
+            "ln2": {"gamma_scale": torch.ones(d, device=device)},
+            "mlp": {"wg": w(d, cfg.d_ff), "wu": w(d, cfg.d_ff),
+                    "wd": w(cfg.d_ff, d)}}
+
+
+def block_forward(p, x, positions, cfg: ArchConfig, policy: QuantPolicy,
+                  cache=None, mode: str = "prefill", site: str = ""):
+    """Pre-norm attention + SwiGLU with residuals. Returns (x, cache)."""
+    h, kv = L.attention_forward(
+        p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), positions, cfg,
+        policy, cache=None if cache is None else cache["kv"], mode=mode,
+        site=f"{site}/attn")
+    x = x + h
+    x = x + L.swiglu(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), policy,
+                     site=f"{site}/mlp")
+    return x, (None if cache is None else {"kv": kv})
+
+
+class Model:
+    """Dense LM for one ArchConfig under a QuantPolicy."""
+
+    def __init__(self, cfg: ArchConfig, policy: QuantPolicy = QuantPolicy()):
+        if cfg.family != "dense" or tuple(cfg.block_pattern) != ("attn",):
+            raise ValueError(f"the port runs the dense attn family only; "
+                             f"{cfg.name} is {cfg.family} "
+                             f"{cfg.block_pattern}")
+        self.cfg = cfg
+        self.policy = policy
+
+    def init(self, generator: torch.Generator, device="cuda") -> Params:
+        """Random weights from `generator`, with the reference's
+        distributions (embed N(0, 0.02²), head N(0, 1/d), blocks above).
+        torch and JAX draw different numbers from one seed: tests carry
+        the reference's weights over with `convert.params_from_numpy`."""
+        cfg = self.cfg
+        vp = cfg.padded_vocab
+        return {
+            "embed": {"table": _normal(generator, (vp, cfg.d_model), 0.02,
+                                       device)},
+            "final_norm": {"gamma_scale": torch.ones(cfg.d_model,
+                                                     device=device)},
+            "lm_head": {"w_out": _normal(generator, (cfg.d_model, vp),
+                                         1.0 / math.sqrt(cfg.d_model),
+                                         device)},
+            "layers": [block_params(generator, cfg, device)
+                       for _ in range(cfg.n_layers)],
+        }
+
+    def init_caches(self, batch: int, max_len: int, device="cuda",
+                    dtype=torch.float32):
+        """Slab KV caches; kv_bits resolves per cache site
+        (`layers/<i>/attn/kv`)."""
+        cfg = self.cfg
+        return {"layers": [
+            {"kv": L.make_kv_cache(
+                batch, max_len, cfg.n_kv_heads, cfg.head_dim,
+                kv_bits=self.policy.resolve(f"layers/{i}/attn/kv").kv_bits,
+                dtype=dtype, device=device)}
+            for i in range(cfg.n_layers)]}
+
+    def forward(self, params, batch: Dict[str, torch.Tensor], *,
+                mode: str = "prefill", caches=None):
+        """Returns (logits, caches).
+
+        prefill: batch["tokens"] (B, T), positions 0..T-1
+        decode:  batch["tokens"] (B, 1), batch["pos"] (B,)
+        """
+        cfg = self.cfg
+        cdt = getattr(torch, self.policy.compute_dtype)
+        tok = batch["tokens"]
+        x = params["embed"]["table"][tok].to(cdt) * math.sqrt(cfg.d_model)
+        b, t = tok.shape
+        if mode == "decode":
+            positions = batch["pos"][:, None]
+        else:
+            positions = torch.arange(t, device=tok.device)[None].expand(b, t)
+        new = []
+        for i, p in enumerate(params["layers"]):
+            x, nc = block_forward(p, x, positions, cfg, self.policy,
+                                  cache=None if caches is None
+                                  else caches["layers"][i], mode=mode,
+                                  site=f"layers/{i}")
+            new.append(nc)
+        return self._head(params, x), (None if caches is None
+                                       else {"layers": new})
+
+    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        head = params["embed"]["table"].T if cfg.tie_embeddings \
+            else params["lm_head"]["w_out"]
+        logits = qlinear.qmatmul(x, head, self.policy.resolve("lm_head/w_out"),
+                                 site="lm_head/w_out").to(torch.float32)
+        if cfg.padded_vocab != cfg.vocab:
+            col = torch.arange(logits.shape[-1], device=logits.device)
+            logits = torch.where(col >= cfg.vocab, -1e9, logits)
+        return logits
+
+
+def build_model(cfg: ArchConfig,
+                policy: QuantPolicy = QuantPolicy()) -> Model:
+    return Model(cfg, policy)
