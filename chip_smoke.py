@@ -23,7 +23,20 @@ CUDA toolkit. It builds the hand-written kernels from
    model run on the CPU through the plain versions;
 3. serve phase B — the same weights with 4-bit activations kept (W4A4 +
    KV4) through the engine API, 4 requests of 8 tokens, which puts K1's
-   in-kernel quantize prologue on the path.
+   in-kernel quantize prologue on the path;
+4. paged kernel phases — K3, paged decode attention (B=4, 16 pages of 16
+   per row in a shuffled pool, Hkv=16, D=64, packed and fp, pos
+   0/17/255/17 and a parked row), against its plain version and
+   bit-for-bit against K2 on the same tokens laid out as a slab; K4,
+   fused cache-write prefill (C=16 and 64, S=256, packed and fp), output,
+   page codes and scales against its plain version;
+5. serve phase C — the paged path through the launcher's entry point
+   (`--paged 16 --prefill-chunk 16`, the same 8 prompts and seed as
+   phase A), launch counters reset just before and read just after;
+   W4 over an fp32 paged cache, chunked paged prefill + 2 decode steps
+   held against the slab path on the card; and one 200-token prompt
+   prefilled in chunks of 64 beside 3 decoding requests, at most one
+   chunk per step.
 
 Any failure exits non-zero before the result line. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it lists every
@@ -48,11 +61,13 @@ def fail(msg: str) -> None:
     sys.exit(f"[chip_smoke] FAIL: {msg}")
 
 
-def time_ms(fn, iters: int = 50):
+def time_ms(fn, iters: int = 50, graph: bool = True):
     """(device ms, wall ms) per call. Device: `iters` calls captured in one
     CUDA graph and replayed between CUDA events, so host launch cost is
     out. Wall: CUDA events around the eager Python loop, host launch cost
-    in. Operands stay resident in L2 between calls in both."""
+    in. Operands stay resident in L2 between calls in both. `graph=False`
+    (a function that copies from the host, which capture refuses)
+    reports the wall time twice."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -69,14 +84,16 @@ def time_ms(fn, iters: int = 50):
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    if not graph:
+        return wall, wall
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
         for _ in range(iters):
             fn()
-    graph.replay()
+    cuda_graph.replay()
     torch.cuda.synchronize()
     start.record()
-    graph.replay()
+    cuda_graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, wall
@@ -241,30 +258,242 @@ def k2_phase(dev):
     return rows_out, worst, main
 
 
+def _paged_case(dev, packed: bool, parked: bool, gen):
+    """K3 inputs at the path's shapes: a slab of B=4 rows x 256 tokens
+    scattered over a shuffled pool of 80 pages of 16 (plus garbage in the
+    pages no row owns), its block table and positions. `parked` turns row
+    3 into a parked engine slot (all-zero table row, pos = s_len)."""
+    import torch
+    from repro_torch.models.layers import _quant_kv_token
+    b, n, ps, hkv, d, n_pool = 4, 16, 16, 16, 64, 80
+    q = torch.randn((b, 1, hkv, d), generator=gen, device=dev)
+    k = torch.randn((n_pool, ps, hkv, d), generator=gen, device=dev)
+    v = torch.randn((n_pool, ps, hkv, d), generator=gen, device=dev)
+    if packed:
+        kd, ks = _quant_kv_token(k)
+        vd, vs = _quant_kv_token(v)
+        cache = {"k_data": kd, "v_data": vd, "k_scl": ks, "v_scl": vs}
+    else:
+        cache = {"k": k, "v": v}
+    perm = torch.randperm(n_pool, generator=gen, device=dev)[:b * n]
+    bt = perm.reshape(b, n).to(torch.int32)
+    pos = [0, 17, 255, 17]
+    if parked:
+        bt[3] = 0
+        pos[3] = n * ps
+    cache["block_table"] = bt
+    return q, cache, torch.tensor(pos, dtype=torch.int32, device=dev), pos
+
+
+def k3_phase(dev):
+    """K3 against its plain version and, bit for bit, against K2 on the
+    same tokens gathered into a slab."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn as da
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows_out, worst, main = [], 0.0, None
+    for kind in ("packed", "fp"):
+        for parked in (False, True):
+            q, cache, pos, pl = _paged_case(dev, kind == "packed", parked,
+                                            gen)
+            slab = da.gather_paged_cache(cache)
+
+            def kern():
+                return da.fused_paged_decode_attention(q, cache, pos)
+
+            def plain():
+                return da.decode_attention_plain(q, cache, pos)
+
+            got, ref, k2 = kern(), plain(), da.fused_decode_attention(
+                q, slab, pos)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if not within(got, ref, 0.0, 1e-5):
+                fail(f"K3 {kind} pos={pl}: max abs err {err:.3e} over atol "
+                     f"1e-5")
+            if not torch.equal(got, k2):
+                fail(f"K3 {kind} pos={pl}: not bit-identical to K2 on the "
+                     f"same tokens as a slab (max diff "
+                     f"{float((got - k2).abs().max()):.3e})")
+            worst = max(worst, err)
+            kdense, vdense = da.read_cache_dense(cache, dtype=torch.float32)
+            s_len = kdense.shape[1]
+            mask = (torch.arange(s_len, device=dev)[None, :]
+                    <= pos[:, None].long())[:, None, None, :]
+            qh, kh, vh = (q.transpose(1, 2), kdense.transpose(1, 2),
+                          vdense.transpose(1, 2))
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask)
+
+            (ms, wall), (plain_ms, _), (lib_ms, _) = \
+                time_ms(kern), time_ms(plain), time_ms(library)
+            b, h, d = q.shape[0], q.shape[2], q.shape[3]
+            hkv = kdense.shape[2]
+            valid = int(sum(min(p + 1, s_len) for p in pl))
+            per_tok = hkv * (d // 2 * 2 + 8) if kind == "packed" \
+                else hkv * d * 4 * 2
+            n_bytes = 2 * b * h * d * 4 + b * 4 + cache["block_table"] \
+                .numel() * 4 + valid * per_tok
+            b_ms, b_by = bound_ms(n_bytes, 4.0 * valid * h * d)
+            rec = dict(cache=kind, pos=pl, max_abs_err=err, ms=ms,
+                       wall_ms=wall, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+            rows_out.append(rec)
+            if kind == "packed" and not parked:
+                main = rec
+            print(f"[k3] {kind:6s} pos={pl} err={err:.2e} (tol atol 1e-5) "
+                  f"bit-identical to K2 on the slab: yes "
+                  f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
+                  f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
+                  f"bound={b_ms:.5f}ms ({b_by})")
+    return rows_out, worst, main
+
+
+def _prefill_case(dev, packed: bool, c: int, gen):
+    """K4 inputs: a 256-token raw stage (Hkv=16, D=64) of one request
+    whose 16 page tiles map to shuffled pages of a 40-page pool holding
+    random old bytes, and the chunk of C queries at offset 256 - C."""
+    import torch
+    s, ps, hkv, d, n_pool = 256, 16, 16, 64, 40
+    if packed:
+        cache = {key: torch.randint(0, 256, (n_pool, ps, hkv, d // 2),
+                                    generator=gen, device=dev,
+                                    dtype=torch.uint8)
+                 for key in ("k_data", "v_data")}
+        cache.update({key: torch.rand((n_pool, ps, hkv), generator=gen,
+                                      device=dev)
+                      for key in ("k_scl", "v_scl")})
+    else:
+        cache = {key: torch.randn((n_pool, ps, hkv, d), generator=gen,
+                                  device=dev) for key in ("k", "v")}
+    pages = torch.randperm(n_pool, generator=gen, device=dev)[:s // ps]
+    cache["block_table"] = pages[None].to(torch.int32)
+    for key in ("stage_k", "stage_v"):
+        cache[key] = torch.randn((1, s, hkv, d), generator=gen, device=dev)
+    q = torch.randn((1, c, hkv, d), generator=gen, device=dev)
+    positions = torch.arange(s - c, s, device=dev)[None]
+    return q, cache, positions
+
+
+def k4_phase(dev):
+    """K4 against its plain version: output, page codes and scales, and
+    the pages outside the table untouched."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import prefill_attn as pa
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows_out, worst, main = [], 0.0, None
+    for kind in ("packed", "fp"):
+        for c in (16, 64):
+            q, cache, positions = _prefill_case(dev, kind == "packed", c,
+                                                gen)
+            keys = pa._pool_keys(cache)
+            before = {key: cache[key].clone() for key in keys}
+            ref_cache = dict(cache, **{key: before[key].clone()
+                                       for key in keys})
+
+            def kern():
+                return pa.fused_prefill_attention(q, cache, positions)[0]
+
+            def plain():
+                return pa.prefill_attention_plain(q, ref_cache,
+                                                  positions)[0]
+
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if not within(got, ref, 0.0, 1e-5):
+                fail(f"K4 {kind} C={c}: max abs err {err:.3e} over atol "
+                     f"1e-5")
+            worst = max(worst, err)
+            pages = cache["block_table"][0].long()
+            other = torch.ones(cache[keys[0]].shape[0], dtype=torch.bool,
+                               device=dev)
+            other[pages] = False
+            code_diff, code_total = 0, 0
+            for key in keys:
+                new, want = cache[key], ref_cache[key]
+                if not torch.equal(new[other], before[key][other]):
+                    fail(f"K4 {kind} C={c}: {key} changed a page outside "
+                         f"the request's table")
+                if new.dtype == torch.uint8:
+                    code_diff += int((new != want).sum())
+                    code_total += new[pages].numel()
+                elif kind == "packed" and not within(new, want, 1e-6, 0.0):
+                    fail(f"K4 {kind} C={c}: {key} scales over rtol 1e-6 "
+                         f"(max rel "
+                         f"{float(((new - want).abs() / want).max()):.2e})")
+                elif kind == "fp" and not torch.equal(new, want):
+                    fail(f"K4 fp C={c}: {key} pages not copied exactly")
+            if code_diff > 1e-4 * max(code_total, 1):
+                fail(f"K4 {kind} C={c}: {code_diff} of {code_total} code "
+                     f"bytes differ from the plain version (limit 0.01%)")
+            s, hkv, d = cache["stage_k"].shape[1:]
+            h = q.shape[2]
+            off = s - c
+            mask = (torch.arange(s, device=dev)[None, :]
+                    <= (off + torch.arange(c, device=dev))[:, None])
+            qh = q.transpose(1, 2)
+            kh, vh = (cache[key].transpose(1, 2)
+                      for key in ("stage_k", "stage_v"))
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask)
+
+            # the plain version's OVP encode copies a constant from the
+            # host, which graph capture refuses: it is timed eagerly
+            (ms, wall), (plain_ms, _), (lib_ms, _) = \
+                time_ms(kern), time_ms(plain, graph=False), time_ms(library)
+            page_bytes = 2 * s * hkv * ((d // 2 + 4) if kind == "packed"
+                                        else d * 4)
+            n_bytes = 2 * s * hkv * d * 4 + page_bytes + 2 * c * h * d * 4 \
+                + (s // 16) * 4 + 4
+            n_ops = 4.0 * h * d * sum(off + i + 1 for i in range(c))
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            rec = dict(cache=kind, C=c, max_abs_err=err, ms=ms, wall_ms=wall,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by, code_bytes_differ=code_diff)
+            rows_out.append(rec)
+            if kind == "packed" and c == 16:
+                main = rec
+            print(f"[k4] {kind:6s} C={c:2d} S={s} off={off} err={err:.2e} "
+                  f"(tol atol 1e-5) code bytes differing {code_diff}/"
+                  f"{code_total} (limit 0.01%) scales rtol 1e-6 ok "
+                  f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
+                  f"plain={plain_ms:.4f}ms (eager) sdpa(attention half only)="
+                  f"{lib_ms:.4f}ms bound={b_ms:.5f}ms ({b_by})")
+    return rows_out, worst, main
+
+
 # --------------------------------------------------------------------------
 # Serve phases
 # --------------------------------------------------------------------------
 def reset_counts():
     from repro_torch import backends
-    from repro_torch.kernels import decode_attn, ovp_matmul
+    from repro_torch.kernels import decode_attn, ovp_matmul, prefill_attn
     backends.reset_dispatch_stats()
     ovp_matmul.fused_ovp_matmul.launches = 0
     decode_attn.fused_decode_attention.launches = 0
+    decode_attn.fused_paged_decode_attention.launches = 0
+    prefill_attn.fused_prefill_attention.launches = 0
 
 
 def read_counts():
     from repro_torch import backends
-    from repro_torch.kernels import decode_attn, ovp_matmul
-    return {"ovp_matmul": ovp_matmul.fused_ovp_matmul.launches,
-            "decode_attn": decode_attn.fused_decode_attention.launches,
-            "dispatch": backends.dispatch_stats()}
+    from repro_torch.launch import serve
+    return dict(serve.kernel_launches(), dispatch=backends.dispatch_stats())
 
 
-def check_counts(counts, phase: str) -> None:
+def check_counts(counts, phase: str,
+                 kernels=("ovp_matmul", "decode_attn")) -> None:
     fallbacks = [k for k in counts["dispatch"] if "->fallback" in k]
     if fallbacks:
         fail(f"{phase}: dispatch fell back: {counts['dispatch']}")
-    for name in ("ovp_matmul", "decode_attn"):
+    for name in kernels:
         if counts[name] <= 0:
             fail(f"{phase}: kernel {name} was never launched")
 
@@ -306,19 +535,62 @@ def _to(tree, device):
                                scale=tree.scale.to(device))
 
 
-def _logits_on(model, params, device):
-    """Prefill of one 8-token prompt + 2 greedy decode steps: (3, V)."""
+PROMPT = [11, 2048, 77, 901, 5, 31337, 64, 7]
+
+
+def _logits_on(model, params, device, prompt=PROMPT):
+    """Prefill of one prompt + 2 greedy decode steps: (3, V)."""
     import torch
-    prompt = torch.tensor([[11, 2048, 77, 901, 5, 31337, 64, 7]]) \
-        % model.cfg.vocab
+    t = len(prompt)
     caches = model.init_caches(1, 32, device=device)
-    logits, caches = model.forward(params, {"tokens": prompt.to(device)},
-                                   mode="prefill", caches=caches)
+    logits, caches = model.forward(
+        params, {"tokens": torch.tensor([prompt], device=device)
+                 % model.cfg.vocab}, mode="prefill", caches=caches)
     steps = [logits[0, -1]]
     for i in range(2):
         tok = int(torch.argmax(steps[-1]))
         batch = {"tokens": torch.tensor([[tok]], device=device),
-                 "pos": torch.tensor([8 + i], device=device)}
+                 "pos": torch.tensor([t + i], device=device)}
+        logits, caches = model.forward(params, batch, mode="decode",
+                                       caches=caches)
+        steps.append(logits[0, 0])
+    return torch.stack(steps).float().cpu()
+
+
+def _paged_logits_on(model, params, device, prompt, chunk: int = 16):
+    """The same as `_logits_on` over a paged cache: the prompt prefilled
+    in chunks through the stage (K4 on the card) onto shuffled pages of
+    16 rows, then 2 greedy decode steps through the block table (K3)."""
+    import torch
+    ps, n = 16, 4
+    t = len(prompt)
+    stage_len = -(-t // chunk) * chunk
+    caches = model.init_paged_caches(n, ps, 1, n, device=device)
+    bt = torch.tensor([[2, 0, 3, 1]], dtype=torch.int32, device=device)
+    cfg = model.cfg
+    stages = []
+    for layer in caches["layers"]:
+        layer["kv"]["block_table"] = bt
+        stages.append({key: torch.zeros((1, stage_len, cfg.n_kv_heads,
+                                         cfg.head_dim), device=device)
+                       for key in ("stage_k", "stage_v")})
+    toks = torch.zeros((1, stage_len), dtype=torch.int64, device=device)
+    toks[0, :t] = torch.tensor(prompt, device=device) % cfg.vocab
+    view = {"layers": [{"kv": dict(layer["kv"],
+                                   block_table=bt[:, :stage_len // ps],
+                                   **stage)}
+                       for layer, stage in zip(caches["layers"], stages)]}
+    for off in range(0, stage_len, chunk):
+        logits, _ = model.forward(
+            params, {"tokens": toks[:, off:off + chunk]}, mode="prefill",
+            caches=view,
+            positions=torch.arange(off, off + chunk, device=device)[None])
+        if off <= t - 1 < off + chunk:
+            steps = [logits[0, t - 1 - off]]
+    for i in range(2):
+        tok = int(torch.argmax(steps[-1]))
+        batch = {"tokens": torch.tensor([[tok]], device=device),
+                 "pos": torch.tensor([t + i], device=device)}
         logits, caches = model.forward(params, batch, mode="decode",
                                        caches=caches)
         steps.append(logits[0, 0])
@@ -359,7 +631,7 @@ def reference_check(model, params, dev):
             fail(f"reference check {name}: card and CPU disagree")
 
 
-def profile_decode(res) -> None:
+def profile_decode(res, label: str = "W4 + KV4") -> None:
     """Where one decode step's time goes on the served model: 6 steps of
     4 active slots timed on the host clock, then 6 more under
     torch.profiler for the device busy time and the top kernels."""
@@ -371,7 +643,8 @@ def profile_decode(res) -> None:
     for _ in range(4):
         eng.submit(rng.integers(0, eng.model.cfg.vocab, size=12),
                    max_new_tokens=32)
-    eng.step()                            # admission + the first decode
+    while len(eng._active()) < 4:         # admission (and paged prefill)
+        eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(6):
@@ -388,7 +661,7 @@ def profile_decode(res) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 6
-    print(f"[profile] decode step (4 slots, W4 + KV4): {step_ms:.2f}ms "
+    print(f"[profile] decode step (4 slots, {label}): {step_ms:.2f}ms "
           f"wall; under the profiler {prof_ms:.2f}ms wall, device busy "
           + (f"{busy_ms:.3f}ms ({100 * busy_ms / prof_ms:.1f}% of wall)"
              if kernels else "not measured (no device events)"))
@@ -397,6 +670,112 @@ def profile_decode(res) -> None:
         print(f"[profile]   {e.self_device_time_total / 1e3 / 6:8.3f}ms/step"
               f" {e.count // 6:5d} launches/step  {e.key[:90]}")
     eng.run_until_drained()
+
+
+def serve_phase_c(dev, res_a, arch: str = ARCH):
+    """The paged path through the launcher's entry point, on phase A's
+    prompts and seed; tokens compared with phase A's (reported only)."""
+    from repro_torch.launch import serve
+    reset_counts()
+    res = serve.run(["--arch", arch, "--quant", "olive_serve",
+                     "--requests", "8", "--max-new", "16", "--slots", "4",
+                     "--max-len", "256", "--seed", "0", "--paged", "16",
+                     "--prefill-chunk", "16"], device=dev)
+    counts = read_counts()
+    check_counts(counts, "serve phase C",
+                 ("ovp_matmul", "paged_decode_attn", "prefill_attn"))
+    done = res["completed"]
+    if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+        fail(f"serve phase C: {len(done)} requests finished with "
+             f"{[len(r.out_tokens) for r in done]} tokens, expected 8 x 16")
+    st = res["engine"].stats()
+    pool = st["page_pool"]
+    if pool["used_pages"] != 0 or pool["allocs"] != pool["frees"]:
+        fail(f"serve phase C: pages not all returned: {pool}")
+    a_toks = {r.uid: r.out_tokens for r in res_a["completed"]}
+    differ = sum(int(x != y) for r in done
+                 for x, y in zip(r.out_tokens, a_toks[r.uid]))
+    print(f"[serve C] {arch} W4 + KV4 paged 16, prefill chunk 16: "
+          f"{res['tokens']} tokens in {res['seconds']:.3f}s = "
+          f"{res['tok_per_s']:.1f} tok/s, mean TTFT "
+          f"{res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+          f"{res['mean_step_s'] * 1e3:.2f}ms, {st['prefill_chunks_run']} "
+          f"prefill chunks, launches ovp_matmul={counts['ovp_matmul']} "
+          f"decode_attn={counts['decode_attn']} paged_decode_attn="
+          f"{counts['paged_decode_attn']} prefill_attn="
+          f"{counts['prefill_attn']}, dispatch {counts['dispatch']}")
+    print(f"[serve C] tokens differing from phase A (slab): {differ} of "
+          f"{res['tokens']} (reported, not bounded: chunked prefill "
+          f"changes K1's row counts and so the last bits before the "
+          f"4-bit KV quantization)")
+    print(f"[serve C] page pool: {pool}")
+    return res, counts
+
+
+def paged_reference_check(model, params, dev):
+    """W4 over an fp32 cache on the card: chunked paged prefill of a
+    24-token prompt (2 chunks of 16) + 2 decode steps against the slab
+    path; logits within 1e-3 * max|ref| and equal greedy tokens."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.model import build_model
+    fp_cache = build_model(model.cfg, dataclasses.replace(
+        model.policy, kv_bits=0))
+    prompt = PROMPT * 3
+    got = _paged_logits_on(fp_cache, params, dev, prompt)
+    ref = _logits_on(fp_cache, params, dev, prompt)
+    v = fp_cache.cfg.vocab
+    if not bool(torch.isfinite(got).all()):
+        fail("paged reference check: non-finite logits")
+    err = float((got[:, :v] - ref[:, :v]).abs().max())
+    tol = 1e-3 * float(ref[:, :v].abs().max())
+    same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+    print(f"[ref C] W4, fp32 KV: chunked paged prefill (2 x 16) + 2 decode "
+          f"steps vs the slab path on the card: max |diff| {err:.3e} (tol "
+          f"{tol:.3e}), greedy tokens {'equal' if same else 'differ'}")
+    if err > tol or not same:
+        fail("paged reference check: paged and slab paths disagree")
+
+
+def interleave_check(res, dev):
+    """A 200-token prompt prefilled in chunks of 64 through the engine
+    API beside 3 decoding requests: no step runs more than one chunk and
+    the decoding requests get a token every step of the prefill."""
+    import numpy as np
+    from repro_torch.serve.engine import EngineCfg, ServingEngine
+    from repro_torch.serve.paging import PagePoolCfg
+    eng = ServingEngine(res["model"], res["params"], EngineCfg(
+        batch_slots=4, max_len=256, page_pool=PagePoolCfg(16),
+        prefill_chunk=64), device=dev)
+    rng = np.random.default_rng(5)
+    vocab = res["model"].cfg.vocab
+    short = [eng.submit(rng.integers(0, vocab, size=12), max_new_tokens=24)
+             for _ in range(3)]
+    while len(eng._active()) < 3:
+        eng.step()
+    long_uid = eng.submit(rng.integers(0, vocab, size=200), max_new_tokens=4)
+    chunk_steps, stalled = 0, 0
+    while eng.has_work():
+        ev = eng.step()
+        if ev.prefill_chunks > 1:
+            fail(f"interleave check: step {ev.step} ran "
+                 f"{ev.prefill_chunks} prefill chunks")
+        if ev.prefill_chunks:
+            chunk_steps += 1
+            got = {t.uid for t in ev.tokens}
+            stalled += sum(1 for u in short
+                           if u not in got and any(
+                               r is not None and r.uid == u
+                               for r in eng.slots))
+    long_req = next(r for r in eng.completed if r.uid == long_uid)
+    if chunk_steps != 4 or stalled or len(long_req.out_tokens) != 4:
+        fail(f"interleave check: {chunk_steps} chunk steps (want 4), "
+             f"{stalled} stalled decodes, long request "
+             f"{len(long_req.out_tokens)} tokens")
+    print(f"[interleave] 200-token prompt, chunk 64: {chunk_steps} steps "
+          f"with one chunk each, the 3 decoding requests got a token "
+          f"every one of them")
 
 
 def serve_phase_b(model_a, params, dev):
@@ -448,16 +827,22 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    took = _build.build(["ovp_matmul", "decode_attn"])
+    took = _build.build(["ovp_matmul", "decode_attn", "prefill_attn"])
     print(f"[build] {json.dumps({k: round(v, 2) for k, v in took.items()})}"
           f" wall {time.perf_counter() - t0:.2f}s")
 
     _, k1_err, k1_main, k1_by = k1_phase(dev)
     _, k2_err, k2_main = k2_phase(dev)
+    _, k3_err, k3_main = k3_phase(dev)
+    _, k4_err, k4_main = k4_phase(dev)
     res, counts_a = serve_phase_a(dev)
     reference_check(res["model"], res["params"], dev)
     profile_decode(res)
     serve_phase_b(res["model"], res["params"], dev)
+    res_c, counts_c = serve_phase_c(dev, res)
+    profile_decode(res_c, "W4 + KV4, paged 16")
+    paged_reference_check(res["model"], res["params"], dev)
+    interleave_check(res_c, dev)
 
     kernels = [
         {"name": "ovp_matmul", "route": "cuda",
@@ -474,10 +859,28 @@ def main() -> int:
          "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": k2_main["library_ms"]},
+        {"name": "paged_decode_attn", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attn.cu",
+         "replaces": "src/repro/kernels/decode_attn.py:404",
+         "launches": counts_c["paged_decode_attn"], "max_abs_err": k3_err,
+         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
+         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+         "library_ms": k3_main["library_ms"]},
+        {"name": "prefill_attn", "route": "cuda",
+         "source": "src/repro_torch/csrc/prefill_attn.cu",
+         "replaces": "src/repro/kernels/prefill_attn.py:170",
+         "launches": counts_c["prefill_attn"], "max_abs_err": k4_err,
+         "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
+         "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
+         "library_ms": k4_main["library_ms"]},
     ]
     print("[note] ovp_matmul times are the 7 launches of one layer's decode "
           "step (rows 4, fp mode); decode_attn is one launch, packed cache, "
-          "pos (0, 17, 255, 17)")
+          "pos (0, 17, 255, 17); paged_decode_attn the same over a shuffled "
+          "pool of 16-row pages; prefill_attn one launch, packed, C=16 at "
+          "offset 240 of a 256-token stage (library: SDPA, attention half "
+          "only). Launches: ovp_matmul and decode_attn from serve phase A, "
+          "paged_decode_attn and prefill_attn from serve phase C")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,16 @@
 """Quantized-execution backend registry. Port of `repro/backends/`.
 
-`dispatch(x, w, policy)` executes every quantized matmul and
+`dispatch(x, w, policy)` executes every quantized matmul,
 `decode_attention(q, cache, pos, policy=...)` every decode-step
-attention on the backend `policy.backend` names:
+attention and `prefill_attention(q, cache, positions, policy=...)` every
+chunk of a paged prefill, on the backend `policy.backend` names:
   cuda   — the hand-written kernels (default; plain versions on CPU)
-  eager  — dequantize-then-torch.matmul and the dense attention path
+  eager  — dequantize-then-torch.matmul and the dense attention paths
            (the fallback)
 A backend that declines an operand layout falls back one hop, and
 `dispatch_stats()` counts served / declined-with-reason calls under the
 reference's key vocabulary ("cuda", "cuda->fallback:<code>",
-"...[decode_attn]").
+"...[decode_attn]", "...[prefill_attn]").
 """
 from __future__ import annotations
 
@@ -92,9 +93,25 @@ def decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
     return backend.decode_attention(q, cache, pos, window=window, ring=ring)
 
 
+def prefill_attention(q: torch.Tensor, cache, positions: torch.Tensor, *,
+                      policy: Optional[QuantPolicy] = None):
+    """Paged cache-write prefill of one chunk (q (1, C, H, D), positions
+    (1, C) absolute) on the policy's backend: `cuda` runs K4, `eager` the
+    dense twin; `policy=None` is the dense twin. Declines fall back one
+    hop and record a "...[prefill_attn]" key. Returns (out, cache) with
+    the pools written in place."""
+    backend = get_backend(policy.backend if policy is not None else "eager")
+    reason = backend.prefill_attn_decline_reason(q, cache)
+    _record(backend.name, reason, "[prefill_attn]")
+    if reason is not None:
+        backend = get_backend(backend.fallback)
+    return backend.prefill_attention(q, cache, positions)
+
+
 __all__ = ["QuantizedMatmulBackend", "register", "get_backend", "available",
            "DECLINE_CODES", "ALL_DECLINE_CODES", "DISPATCH_MARKERS",
            "decline", "dispatch_key", "dispatch",
-           "decode_attention", "dispatch_stats", "reset_dispatch_stats",
+           "decode_attention", "prefill_attention", "dispatch_stats",
+           "reset_dispatch_stats",
            "quantize_activation", "resolve_act_scale", "act_normal_dtype",
            "StaticScaleNotPortedError", "CudaBackend", "EagerBackend"]

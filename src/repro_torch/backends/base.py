@@ -127,8 +127,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 class QuantizedMatmulBackend:
     """One way to execute x @ dequant(w) under a policy, plus decode
-    attention. `decline_reason` returning a code makes the registry fall
-    back to `fallback` (one hop)."""
+    attention and paged cache-write prefill. `decline_reason` returning
+    a code makes the registry fall back to `fallback` (one hop)."""
 
     name: str = "?"
     fallback: str = "eager"
@@ -147,10 +147,34 @@ class QuantizedMatmulBackend:
 
     def decode_attention(self, q: torch.Tensor, cache, pos: torch.Tensor,
                          *, window: int = 0, ring: int = 0) -> torch.Tensor:
-        """Base = the dense path (whole-cache dequantize, then einsum)."""
+        """Base = the dense path (whole-cache dequantize, then einsum;
+        paged caches gather through the block table first)."""
         from repro_torch.kernels import decode_attn
         return decode_attn.xla_decode_attention(q, cache, pos,
                                                 window=window, ring=ring)
+
+    # True when `prefill_attention` runs the fused cache-write prefill
+    # kernel (K4); the base implementation is the dense twin.
+    fuses_prefill_attention: bool = False
+
+    def prefill_attn_decline_reason(self, q, cache) -> Optional[str]:
+        """None when this backend serves paged cache-write prefill over
+        this (q, cache) layout; the dense base path needs only the paged
+        layout itself (block_table + stage leaves)."""
+        if cache is None or "block_table" not in cache:
+            return decline("prefill_not_paged")
+        if "stage_k" not in cache or "stage_v" not in cache:
+            return decline("prefill_no_stage")
+        return None
+
+    def prefill_attention(self, q: torch.Tensor, cache,
+                          positions: torch.Tensor):
+        """Prefill one chunk of one request over a PAGED cache: causal
+        attention of q (1, C, H, D) against the raw stage, plus
+        quantize-and-write of the whole stage onto its block-table pages
+        (in place). Returns (out, cache). Base = the dense twin."""
+        from repro_torch.kernels import prefill_attn
+        return prefill_attn.xla_prefill_attention(q, cache, positions)
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"

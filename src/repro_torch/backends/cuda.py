@@ -1,8 +1,10 @@
 """CUDA backend (the reference's `pallas` role), the port's default: one
 launch of the fused OVP matmul kernel (K1, `kernels/ovp_matmul.py`) per
 quantized matmul, with in-kernel activation quantization at the dynamic
-3σ scale, and the slab decode-attention kernel (K2,
-`kernels/decode_attn.py`) for every decode step. CPU tensors take each
+3σ scale; the slab (K2) or paged (K3) decode-attention kernel
+(`kernels/decode_attn.py`) for every decode step; and the fused
+cache-write prefill kernel (K4, `kernels/prefill_attn.py`) for every
+chunk of a paged prefill. CPU tensors take each
 kernel's plain version, as `pallas_interpret` runs the reference's
 kernels on the CPU; CUDA tensors launch the kernel or raise."""
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 
 from repro_torch.core.ovp import QuantizedTensor
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.kernels import decode_attn, ovp_matmul
+from repro_torch.kernels import decode_attn, ovp_matmul, prefill_attn
 
 from .base import (QuantizedMatmulBackend, decline, resolve_act_scale,
                    torch_dtype)
@@ -49,3 +51,12 @@ class CudaBackend(QuantizedMatmulBackend):
                          *, window: int = 0, ring: int = 0) -> torch.Tensor:
         return decode_attn.fused_decode_attention(q, cache, pos,
                                                   window=window, ring=ring)
+
+    fuses_prefill_attention = True
+
+    def prefill_attn_decline_reason(self, q, cache) -> Optional[str]:
+        return decline(prefill_attn.prefill_decline_reason(q, cache))
+
+    def prefill_attention(self, q: torch.Tensor, cache,
+                          positions: torch.Tensor):
+        return prefill_attn.fused_prefill_attention(q, cache, positions)

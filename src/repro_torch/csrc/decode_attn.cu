@@ -1,16 +1,34 @@
-// Slab decode attention for Hopper (sm_90a), fp32 on the CUDA cores.
+// Decode attention for Hopper (sm_90a), fp32 on the CUDA cores: the slab
+// kernel (K2) and the paged kernel (K3) are one body, templated on how a
+// logical token row is addressed.
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attn.py:358
+// K2 replaces the TPU kernel src/repro/kernels/decode_attn.py:358
 // (_decode_attn_call -> pallas_call at :384 packed, :393 fp; bodies
 // _decode_attn_kernel_packed :308 and _decode_attn_kernel_fp :336, with
 // _online_softmax_step :247, _tile_mask :268 and _scores :284).
+// K3 replaces src/repro/kernels/decode_attn.py:404
+// (_paged_decode_attn_call -> pallas_call at :452), the same bodies with
+// kv tile j read from physical page block_table[b, j].
 //
-// Single-token GQA attention of q (B, H, D) against a slab KV cache,
-// either OVP-packed int4 nibbles (B, S, Hkv, D/2) u8 with per-(token,
-// head) f32 scales (B, S, Hkv), or an fp32 cache (B, S, Hkv, D):
+// Single-token GQA attention of q (B, H, D) against a KV cache, either
+// OVP-packed int4 nibbles (rows, Hkv, D/2) u8 with per-(token, head) f32
+// scales (rows, Hkv), or an fp32 cache (rows, Hkv, D):
 //   s = (q / sqrt(D)) . k_codes * k_scl, masked from pos (length, ring,
 //   sliding window, padded tail) to -1e30, online softmax in fp32,
 //   o += (p * v_scl) . v_codes, out = o / max(l, 1e-30).
+// Slab (K2): logical token s of batch row b is cache row b * S + s.
+// Paged (K3): the cache is a pool of P pages of ps rows and token s of
+// row b is pool row bt[b, s / ps] * ps + s % ps. There is no scalar
+// prefetch on the GPU: each block reads its own table entries while it
+// loads a tile (the table is 64 bytes per row on the serving path). The
+// tile size stays 32 logical tokens whatever the page size, and the
+// decode, score, softmax and PV arithmetic is shared verbatim, so K3 on a
+// pool is bit-identical to K2 on the same tokens laid out as a slab, for
+// any even page size. Table entries are clamped into [0, P) so a
+// malformed table can never read outside the pool; parked engine rows
+// (all-zero table rows, pos = s_len) attend over page 0 and are thrown
+// away by the caller.
+//
 // The output is written in the natural (B, 1, H, D) layout; the TPU
 // kernel's even/odd plane layout is not needed here.
 //
@@ -22,7 +40,8 @@
 // (query head, token), one warp per query head runs the online-softmax
 // update with shuffles, and one thread per (query head, lane) accumulates
 // p . V. On the serving path (B = 4 slots, S = max_len = 256, Hkv = 16,
-// G = 1, D = 64) that is 64 blocks of 8 tiles each.
+// G = 1, D = 64; paged: 16 pages of 16 rows per slot) that is 64 blocks
+// of 8 tiles each.
 //
 // What bounds it on the H100: the packed cache of one layer is 0.3 MB per
 // step (K and V nibbles plus scales), which 3.35 TB/s reads in about
@@ -32,10 +51,11 @@
 // blocks (flash-decoding) and overlapping tile loads are later work.
 //
 // Tolerance against the plain version (kernels/decode_attn.py,
-// decode_attention_plain): decoded codes are exact; the dot products,
-// the exp and the tile-wise softmax rescaling differ from the dense
-// softmax only in fp32 rounding order, so atol 1e-5 on outputs whose
-// values are O(1).
+// decode_attention_plain, which gathers a paged cache into a slab first):
+// decoded codes are exact; the dot products, the exp and the tile-wise
+// softmax rescaling differ from the dense softmax only in fp32 rounding
+// order, so atol 1e-5 on outputs whose values are O(1). K3 against K2 on
+// the same tokens: bit-identical (torch.equal).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +66,25 @@ constexpr int NT = 128;    // threads per block
 constexpr int DMAX = 128;  // largest head_dim the kernel takes
 constexpr int GMAX = 8;    // largest query-group size
 constexpr float NEG_INF = -1e30f;
+
+// Slab: logical token s of batch row b is cache row b * S + s.
+struct SlabRows {
+  int S;
+  __device__ __forceinline__ size_t operator()(int b, int s) const {
+    return (size_t)b * S + s;
+  }
+};
+
+// Paged: token s of batch row b is row s % ps of page bt[b, s / ps] of a
+// pool of P pages (bt is (B, n) int32; entries are clamped into [0, P)).
+struct PagedRows {
+  const int* bt;
+  int n, ps, P;
+  __device__ __forceinline__ size_t operator()(int b, int s) const {
+    const int page = min(max(bt[(size_t)b * n + s / ps], 0), P - 1);
+    return (size_t)page * ps + s % ps;
+  }
+};
 
 // int4 OVP pair decode with the E2M1 bias-2 outlier format
 __device__ __forceinline__ float dec_int4(int c, int neighbour) {
@@ -59,13 +98,15 @@ __device__ __forceinline__ float dec_int4(int c, int neighbour) {
   return (float)(c >= 8 ? c - 16 : c);
 }
 
-template <bool PACKED>
+// S is the logical cache length (the slab length, or s_len = ring or
+// n * ps for a pool); rows(b, s) addresses token s of batch row b.
+template <bool PACKED, class Rows>
 __global__ void __launch_bounds__(NT)
 decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ kd,
                    const void* __restrict__ vd, const float* __restrict__ ks,
                    const float* __restrict__ vs, const int* __restrict__ pos,
-                   float* __restrict__ out, int S, int Hkv, int G, int D,
-                   float qscale, int window, int ring) {
+                   float* __restrict__ out, Rows rows, int S, int Hkv, int G,
+                   int D, float qscale, int window, int ring) {
   __shared__ float k_s[TS][DMAX + 1];
   __shared__ __align__(16) float v_s[TS][DMAX];
   __shared__ float q_s[GMAX][DMAX];
@@ -100,7 +141,7 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ kd,
         const int t = i / W, wi = i % W, s = t0 + t;
         uint32_t kx = 0u, vx = 0u;
         if (s < S) {
-          const size_t off = (((size_t)b * S + s) * Hkv + h) * W + wi;
+          const size_t off = (rows(b, s) * Hkv + h) * W + wi;
           kx = kw[off];
           vx = vw[off];
         }
@@ -116,7 +157,7 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ kd,
       }
       for (int t = tid; t < TS; t += NT) {
         const int s = t0 + t;
-        const size_t off = ((size_t)b * S + s) * Hkv + h;
+        const size_t off = s < S ? rows(b, s) * Hkv + h : 0;
         kscl_s[t] = s < S ? ks[off] : 1.f;
         vscl_s[t] = s < S ? vs[off] : 1.f;
       }
@@ -128,7 +169,7 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ kd,
         const int t = i / W, wi = i % W, s = t0 + t;
         float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
         if (s < S) {
-          const size_t off = (((size_t)b * S + s) * Hkv + h) * W + wi;
+          const size_t off = (rows(b, s) * Hkv + h) * W + wi;
           kx = kf[off];
           vx = vf[off];
         }
@@ -205,18 +246,11 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ kd,
   }
 }
 
-}  // namespace
-
-// q (B, H, D) f32 with H = Hkv * G; packed: kd/vd (B, S, Hkv, D/2) u8 and
-// ks/vs (B, S, Hkv) f32; fp: kd/vd (B, S, Hkv, D) f32 (ks/vs unused);
-// pos (B,) i32; out (B, H, D) f32. Needs D % 8 == 0, D <= 128, G <= 8.
-// qscale = float32(sqrt(D)). Returns cudaGetLastError().
-extern "C" int decode_attn_launch(const void* q, const void* kd,
-                                  const void* vd, const void* ks,
-                                  const void* vs, const void* pos, void* out,
-                                  int B, int S, int Hkv, int G, int D,
-                                  int packed, float qscale, int window,
-                                  int ring, void* stream) {
+template <class Rows>
+int launch(const void* q, const void* kd, const void* vd, const void* ks,
+           const void* vs, const void* pos, void* out, Rows rows, int B,
+           int S, int Hkv, int G, int D, int packed, float qscale,
+           int window, int ring, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * Hkv);
   const float* qf = static_cast<const float*>(q);
@@ -225,10 +259,44 @@ extern "C" int decode_attn_launch(const void* q, const void* kd,
   const int* pi = static_cast<const int*>(pos);
   float* of = static_cast<float*>(out);
   if (packed)
-    decode_attn_kernel<true><<<grid, NT, 0, st>>>(
-        qf, kd, vd, ksf, vsf, pi, of, S, Hkv, G, D, qscale, window, ring);
+    decode_attn_kernel<true, Rows><<<grid, NT, 0, st>>>(
+        qf, kd, vd, ksf, vsf, pi, of, rows, S, Hkv, G, D, qscale, window,
+        ring);
   else
-    decode_attn_kernel<false><<<grid, NT, 0, st>>>(
-        qf, kd, vd, ksf, vsf, pi, of, S, Hkv, G, D, qscale, window, ring);
+    decode_attn_kernel<false, Rows><<<grid, NT, 0, st>>>(
+        qf, kd, vd, ksf, vsf, pi, of, rows, S, Hkv, G, D, qscale, window,
+        ring);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K2. q (B, H, D) f32 with H = Hkv * G; packed: kd/vd (B, S, Hkv, D/2) u8
+// and ks/vs (B, S, Hkv) f32; fp: kd/vd (B, S, Hkv, D) f32 (ks/vs unused);
+// pos (B,) i32; out (B, H, D) f32. Needs D % 8 == 0, D <= 128, G <= 8.
+// qscale = float32(sqrt(D)). Returns cudaGetLastError().
+extern "C" int decode_attn_launch(const void* q, const void* kd,
+                                  const void* vd, const void* ks,
+                                  const void* vs, const void* pos, void* out,
+                                  int B, int S, int Hkv, int G, int D,
+                                  int packed, float qscale, int window,
+                                  int ring, void* stream) {
+  return launch(q, kd, vd, ks, vs, pos, out, SlabRows{S}, B, S, Hkv, G, D,
+                packed, qscale, window, ring, stream);
+}
+
+// K3. As K2, over pools: packed kd/vd (P, ps, Hkv, D/2) u8 and ks/vs
+// (P, ps, Hkv) f32, or fp kd/vd (P, ps, Hkv, D) f32; bt (B, n) i32; S is
+// s_len (ring, or n * ps), at most n * ps. Returns cudaGetLastError().
+extern "C" int paged_decode_attn_launch(const void* q, const void* kd,
+                                        const void* vd, const void* ks,
+                                        const void* vs, const void* pos,
+                                        const void* bt, void* out, int B,
+                                        int S, int Hkv, int G, int D, int n,
+                                        int ps, int P, int packed,
+                                        float qscale, int window, int ring,
+                                        void* stream) {
+  const PagedRows rows{static_cast<const int*>(bt), n, ps, P};
+  return launch(q, kd, vd, ks, vs, pos, out, rows, B, S, Hkv, G, D, packed,
+                qscale, window, ring, stream);
 }

@@ -1,21 +1,28 @@
-"""K2: slab decode attention over (optionally OVP-packed) KV caches —
-hand-written CUDA kernel + plain version, and the dense path.
+"""K2 and K3: decode attention over slab and paged (optionally
+OVP-packed) KV caches — hand-written CUDA kernels + plain version, and the
+dense path.
 
-Replaces the TPU kernel `repro/kernels/decode_attn.py:358`
+K2 replaces the TPU kernel `repro/kernels/decode_attn.py:358`
 (`_decode_attn_call`, bodies `_decode_attn_kernel_packed` :308 and
-`_decode_attn_kernel_fp` :336) and its wrapper `fused_decode_attention`
-:485 for slab caches. Single-token GQA attention: q (B, 1, H, D) against
-a packed cache ({"k_data", "v_data"} (B, S, Hkv, D/2) uint8 nibbles +
-{"k_scl", "v_scl"} (B, S, Hkv) f32) or an fp32 cache ({"k", "v"}
-(B, S, Hkv, D)), with length / ring / sliding-window masking from `pos`
-(B,). The kernel source is `csrc/decode_attn.cu`.
+`_decode_attn_kernel_fp` :336) and K3 its paged twin
+`_paged_decode_attn_call` :404, with their wrapper
+`fused_decode_attention` :485. Single-token GQA attention: q (B, 1, H, D)
+against a packed cache ({"k_data", "v_data"} (B, S, Hkv, D/2) uint8
+nibbles + {"k_scl", "v_scl"} (B, S, Hkv) f32) or an fp32 cache ({"k",
+"v"} (B, S, Hkv, D)), with length / ring / sliding-window masking from
+`pos` (B,). A paged cache holds the same leaves as `(P, page_size, …)`
+pools plus a "block_table" (B, pages_per_row) int32 mapping logical page
+j of row b to a physical page. The kernel source is `csrc/decode_attn.cu`
+(one body for both layouts).
 
 `fused_decode_attention` takes `decode_attention_plain` for CPU tensors
-and launches the kernel for CUDA tensors (or raises);
-`fused_decode_attention.launches` counts kernel launches.
+and launches K2 (slab) for CUDA tensors, or raises; paged caches go to
+`fused_paged_decode_attention`, which launches K3. Each wrapper's
+`.launches` counts its kernel's launches.
 `xla_decode_attention` is the port of the reference's dense path (what
 the `eager` backend serves): whole-cache dequantize, then einsum, in
-bfloat16 for packed caches exactly as the reference rounds it.
+bfloat16 for packed caches exactly as the reference rounds it; a paged
+cache is gathered into a slab first (`gather_paged_cache`).
 """
 from __future__ import annotations
 
@@ -45,10 +52,43 @@ def dequant_kv(data: torch.Tensor, scl: torch.Tensor) -> torch.Tensor:
     return dequant_codes(data) * scl[..., None]
 
 
+_KV_KEYS = ("k", "v", "k_data", "v_data", "k_scl", "v_scl")
+
+
+def gather_paged_cache(cache):
+    """Materialize a paged cache into a `(B, pages_per_row * page_size,
+    …)` slab dict through its block table (the dense path's view of the
+    pool)."""
+    bt = cache["block_table"].to(torch.int64)               # (B, n)
+    b, n = bt.shape
+    out = {}
+    for key in _KV_KEYS:
+        if key in cache:
+            pool = cache[key]                               # (P, ps, …)
+            flat = pool[bt.reshape(-1)]
+            out[key] = flat.reshape((b, n * pool.shape[1]) + pool.shape[2:])
+    return out
+
+
+def _slab_view(cache, ring: int):
+    """A paged cache as a slab dict, trimmed to the ring length (the pool
+    rounds a ring up to whole pages and the modular slot arithmetic must
+    never see the rounding tail); slab caches pass through."""
+    if "block_table" not in cache:
+        return cache
+    slab = gather_paged_cache(cache)
+    if ring:
+        slab = {key: leaf[:, :ring] for key, leaf in slab.items()}
+    return slab
+
+
 def read_cache_dense(cache, dtype=None):
-    """(k, v) dense views of a slab cache dict. dtype=None keeps fp
-    caches native and decodes packed caches to bfloat16 (the reference's
-    `cache_read` contract)."""
+    """(k, v) dense views of a cache dict (paged caches materialize
+    through the block table first). dtype=None keeps fp caches native and
+    decodes packed caches to bfloat16 (the reference's `cache_read`
+    contract)."""
+    if "block_table" in cache:
+        cache = gather_paged_cache(cache)
     if "k" in cache:
         k, v = cache["k"], cache["v"]
         return (k, v) if dtype is None else (k.to(dtype), v.to(dtype))
@@ -83,8 +123,9 @@ def xla_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
                          window: int = 0, ring: int = 0) -> torch.Tensor:
     """Dense path: dequantize the whole cache, then einsum + softmax.
     Operands round to the cache's dense dtype (bfloat16 for packed
-    caches) and products accumulate in f32, as the reference does."""
-    k, v = read_cache_dense(cache)
+    caches) and products accumulate in f32, as the reference does. Paged
+    caches gather into a slab (trimmed to the ring) first."""
+    k, v = read_cache_dense(_slab_view(cache, ring))
     b, s_len, hkv, d = k.shape
     h = q.shape[2]
     g = h // hkv
@@ -101,14 +142,25 @@ def xla_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
 
 
 def decline_reason(q: torch.Tensor, cache) -> Optional[str]:
-    """None when the fused kernel serves this (q, cache) slab layout; the
-    codes are `backends.base.DECLINE_CODES["decode_attn"]` entries."""
+    """None when a fused kernel (K2 slab, K3 paged) serves this (q,
+    cache) layout; the codes are `backends.base.DECLINE_CODES
+    ["decode_attn"]` entries, in the reference's order."""
     if q.shape[1] != 1:
         return "decode_q_tokens_gt_1"
+    paged = "block_table" in cache
     leaf = cache.get("k", cache.get("k_data"))
     if leaf is None:
-        return "decode_no_kv_cache"
-    if leaf.shape[1] == 0:
+        return "paged_no_pool" if paged else "decode_no_kv_cache"
+    if paged:
+        bt = cache["block_table"]
+        if bt.ndim != 2 or bt.dtype.is_floating_point \
+                or bt.dtype.is_complex or bt.dtype == torch.bool:
+            return "paged_table_rank"
+        if leaf.shape[0] == 0 or bt.shape[1] == 0:
+            return "decode_empty_cache"
+        if leaf.shape[1] < 2 or leaf.shape[1] % 2 != 0:
+            return "paged_page_misaligned"
+    elif leaf.shape[1] == 0:
         return "decode_empty_cache"
     if "k" in cache and cache["k"].shape[-1] % 2 != 0:
         return "decode_head_dim_odd"
@@ -120,9 +172,12 @@ def decline_reason(q: torch.Tensor, cache) -> Optional[str]:
 # --------------------------------------------------------------------------
 def decode_attention_plain(q: torch.Tensor, cache, pos: torch.Tensor, *,
                            window: int = 0, ring: int = 0) -> torch.Tensor:
-    """The kernel's function in torch ops: scores from the decoded codes
+    """The kernels' function in torch ops: scores from the decoded codes
     times the K scale, mask, softmax with the -1e30 floor, probabilities
-    times the V scale, then PV / max(l, 1e-30)."""
+    times the V scale, then PV / max(l, 1e-30). A paged cache is gathered
+    into a slab (trimmed to the ring) first, which is what K3 computes
+    through its block table."""
+    cache = _slab_view(cache, ring)
     b, _, h, d = q.shape
     packed = "k_data" in cache
     if packed:
@@ -151,18 +206,21 @@ def decode_attention_plain(q: torch.Tensor, cache, pos: torch.Tensor, *,
 # --------------------------------------------------------------------------
 # CUDA launch
 # --------------------------------------------------------------------------
-_SIGNATURE = {"decode_attn_launch": [ctypes.c_void_p] * 7
-              + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_void_p]}
+_SIGNATURE = {
+    "decode_attn_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "paged_decode_attn_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
 
 def _launch(q: torch.Tensor, cache, pos: torch.Tensor, *, window: int,
             ring: int) -> torch.Tensor:
     b, _, h, d = q.shape
     packed = "k_data" in cache
+    paged = "block_table" in cache
     kd = cache["k_data"] if packed else cache["k"]
     vd = cache["v_data"] if packed else cache["v"]
-    s_len, hkv = kd.shape[1], kd.shape[2]
+    hkv = kd.shape[2]
     g = h // hkv
     if g * hkv != h or g > _GMAX or d > _DMAX or d % 8:
         raise ValueError(f"decode_attn kernel needs H % Hkv == 0, "
@@ -179,19 +237,34 @@ def _launch(q: torch.Tensor, cache, pos: torch.Tensor, *, window: int,
     pos32 = pos.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
     lib = _build.load("decode_attn", _SIGNATURE)
-    err = lib.decode_attn_launch(
-        *(t.data_ptr() for t in ops), pos32.data_ptr(), out.data_ptr(),
-        b, s_len, hkv, g, d, int(packed), _qscale(d), int(window),
-        int(ring), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "decode_attn")
-    fused_decode_attention.launches += 1
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if paged:
+        bt = cache["block_table"].to(device=q.device,
+                                     dtype=torch.int32).contiguous()
+        n, ps, n_pool = bt.shape[1], kd.shape[1], kd.shape[0]
+        s_len = ring if ring else n * ps
+        if bt.shape[0] != b or s_len > n * ps:
+            raise ValueError(f"paged decode_attn: block table "
+                             f"{tuple(bt.shape)} for batch {b}, ring {ring} "
+                             f"over {n} pages of {ps}")
+        err = lib.paged_decode_attn_launch(
+            *(t.data_ptr() for t in ops), pos32.data_ptr(), bt.data_ptr(),
+            out.data_ptr(), b, s_len, hkv, g, d, n, ps, n_pool, int(packed),
+            _qscale(d), int(window), int(ring), stream)
+        _build.check(err, "paged_decode_attn")
+        fused_paged_decode_attention.launches += 1
+    else:
+        err = lib.decode_attn_launch(
+            *(t.data_ptr() for t in ops), pos32.data_ptr(), out.data_ptr(),
+            b, kd.shape[1], hkv, g, d, int(packed), _qscale(d), int(window),
+            int(ring), stream)
+        _build.check(err, "decode_attn")
+        fused_decode_attention.launches += 1
     return out.to(q.dtype)
 
 
-def fused_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
-                           window: int = 0, ring: int = 0) -> torch.Tensor:
-    """Single-token attention over a slab cache, one kernel launch on
-    CUDA; CPU tensors take `decode_attention_plain`."""
+def _run(q: torch.Tensor, cache, pos: torch.Tensor, window: int,
+         ring: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache, pos, window=window,
                                       ring=ring)
@@ -200,4 +273,29 @@ def fused_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
     return _launch(q, cache, pos, window=window, ring=ring)
 
 
-fused_decode_attention.launches = 0
+def fused_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
+                           window: int = 0, ring: int = 0) -> torch.Tensor:
+    """Single-token attention over a KV cache, one kernel launch on CUDA
+    (K2 for a slab cache; a paged cache goes to
+    `fused_paged_decode_attention`); CPU tensors take
+    `decode_attention_plain`."""
+    if "block_table" in cache:
+        return fused_paged_decode_attention(q, cache, pos, window=window,
+                                            ring=ring)
+    return _run(q, cache, pos, window, ring)
+
+
+def fused_paged_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor,
+                                 *, window: int = 0,
+                                 ring: int = 0) -> torch.Tensor:
+    """Single-token attention over a paged cache: one K3 launch on CUDA,
+    reading K/V through the block table; CPU tensors take
+    `decode_attention_plain`."""
+    if "block_table" not in cache:
+        raise ValueError("fused_paged_decode_attention needs a paged cache "
+                         "(a block_table leaf)")
+    return _run(q, cache, pos, window, ring)
+
+
+fused_decode_attention.launches = 0          # K2 launches
+fused_paged_decode_attention.launches = 0    # K3 launches

@@ -1,11 +1,18 @@
 """Serving launcher for the port, with the reference launcher's flags.
 
 Builds `--arch` with random weights from `--seed`, applies OliVe PTQ
-under the `--quant` preset, and runs the slab continuous-batching engine
-on a synthetic request stream, on the CUDA device:
+under the `--quant` preset, and runs the continuous-batching engine on a
+synthetic request stream, on the CUDA device:
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen1.5-0.5b --quant olive_serve
+
+`--paged PAGE_SIZE` serves on the paged KV cache (a shared page pool and
+block tables instead of the slab), and `--prefill-chunk N` splits each
+prompt's prefill into chunks of N tokens interleaved with decode:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen1.5-0.5b --quant olive_serve --paged 16 --prefill-chunk 16
 
 As in the reference launcher, the preset is rewritten to fp32 compute
 with activations unquantized (`compute_dtype="float32"`, `abits=0`), so
@@ -26,9 +33,10 @@ from repro_torch import backends
 from repro_torch.configs import get_config
 from repro_torch.core.policy import PRESETS, get_policy
 from repro_torch.core.qlinear import quantize_params
-from repro_torch.kernels import decode_attn, ovp_matmul
+from repro_torch.kernels import decode_attn, ovp_matmul, prefill_attn
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import EngineCfg, ServingEngine
+from repro_torch.serve.paging import PagePoolCfg
 
 
 def parser() -> argparse.ArgumentParser:
@@ -43,14 +51,37 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--paged", type=int, default=0, metavar="PAGE_SIZE",
+                    help="serve on the paged KV cache: a block-table page "
+                         "pool with this page size instead of the (slots, "
+                         "max_len) slab; prefill writes pages through the "
+                         "fused cache-write kernel")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="paged mode: split long prompts into chunks of "
+                         "this many tokens, interleaved with decode steps "
+                         "(at most one chunk per step)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launch counts of the port's four kernels since they were last
+    reset."""
+    return {"ovp_matmul": ovp_matmul.fused_ovp_matmul.launches,
+            "decode_attn": decode_attn.fused_decode_attention.launches,
+            "paged_decode_attn":
+                decode_attn.fused_paged_decode_attention.launches,
+            "prefill_attn": prefill_attn.fused_prefill_attention.launches}
 
 
 def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     """Build, quantize and serve; returns the engine, model, params and
     the run's numbers (tokens, seconds, tok/s, TTFT, step time)."""
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.prefill_chunk and not args.paged:
+        ap.error("--prefill-chunk requires --paged (chunked prefill is a "
+                 "paged-cache feature)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("repro_torch.launch.serve needs a CUDA device")
@@ -68,8 +99,10 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
         torch.cuda.synchronize(device)
     ptq_s = time.perf_counter() - t0
 
+    page_pool = PagePoolCfg(page_size=args.paged) if args.paged else None
     eng = ServingEngine(model, params, EngineCfg(
-        batch_slots=args.slots, max_len=args.max_len), device=device)
+        batch_slots=args.slots, max_len=args.max_len, page_pool=page_pool,
+        prefill_chunk=args.prefill_chunk), device=device)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 32)))
                .astype(np.int32) for _ in range(args.requests)]
@@ -89,15 +122,19 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
 
 def main():
     res = run()
+    eng = res["engine"]
     print(f"[serve] PTQ in {res['ptq_s']:.1f}s")
     print(f"[serve] {len(res['completed'])} requests, {res['tokens']} "
           f"tokens in {res['seconds']:.2f}s ({res['tok_per_s']:.1f} tok/s)")
     print(f"[serve] mean TTFT {res['mean_ttft_s'] * 1e3:.0f} ms, mean step "
           f"{res['mean_step_s'] * 1e3:.1f} ms")
     print(f"[serve] dispatch: {backends.dispatch_stats()}")
-    print(f"[serve] kernel launches: ovp_matmul="
-          f"{ovp_matmul.fused_ovp_matmul.launches} decode_attn="
-          f"{decode_attn.fused_decode_attention.launches}")
+    if eng.paged:
+        st = eng.stats()
+        print(f"[serve] page pool: {st['page_pool']} "
+              f"(prefill chunks: {st['prefill_chunks_run']})")
+    print("[serve] kernel launches: " + " ".join(
+        f"{name}={n}" for name, n in kernel_launches().items()))
 
 
 if __name__ == "__main__":

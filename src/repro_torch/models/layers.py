@@ -1,7 +1,8 @@
 """Dense decoder building blocks. Port of the dense subset of
 `repro/models/layers.py`: RMSNorm, RoPE, causal prefill attention, slab
-KV caches (fp32 and OVP-packed), decode attention through the backend
-registry, the attention layer and SwiGLU.
+and paged KV caches (fp32 and OVP-packed), decode attention and paged
+cache-write prefill through the backend registry, the attention layer
+and SwiGLU.
 
 Params are plain dicts of tensors. Unlike the reference, cache writes
 update the cache tensors in place (the engine's caches are large and
@@ -18,6 +19,7 @@ from repro_torch import backends
 from repro_torch.core import qlinear
 from repro_torch.core.ovp import ovp_encode_codes, pack4
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.kernels import prefill_attn
 
 NEG_INF = -1e30
 
@@ -97,6 +99,33 @@ def make_kv_cache(batch: int, length: int, n_kv: int, head_dim: int, *,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def make_paged_kv_cache(n_pages: int, page_size: int, batch_slots: int,
+                        pages_per_row: int, n_kv: int, head_dim: int, *,
+                        kv_bits: int = 0, dtype=torch.float32,
+                        device="cuda"):
+    """PAGED KV cache dict for one cache site: a pool of
+    `(n_pages + 1, page_size, Hkv, …)` fixed-size pages plus a per-slot
+    "block_table" `(batch_slots, pages_per_row)` int32 mapping logical
+    page j of a slot to its physical page id (`serve/paging.py` owns the
+    ids of pages 0..n_pages-1; unset entries default to page 0, harmless
+    because every read masks by position).
+
+    The extra last page is a SINK that no request owns: a write to a row
+    past a slot's table capacity lands there instead of being dropped
+    (the reference's scatter mode="drop"), so parked slots, whose table
+    rows are all page 0, never overwrite a live request's page-0 rows,
+    and no host sync is needed to filter them."""
+    if page_size < 2 or page_size % 2:
+        raise ValueError(
+            f"page_size must be an even int >= 2 (OVP packs value pairs "
+            f"2-per-byte along head_dim); got {page_size}")
+    cache = make_kv_cache(n_pages + 1, page_size, n_kv, head_dim,
+                          kv_bits=kv_bits, dtype=dtype, device=device)
+    cache["block_table"] = torch.zeros((batch_slots, pages_per_row),
+                                       dtype=torch.int32, device=device)
+    return cache
+
+
 def _quant_kv_token(x: torch.Tensor):
     """x (B, T, Hkv, D) -> packed nibbles + per-(token, head) 3σ scales
     (population std, as the reference)."""
@@ -111,7 +140,8 @@ def _quant_kv_token(x: torch.Tensor):
 def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
                 pos: torch.Tensor):
     """Write T tokens per row at positions pos[b] + t, in place; rows past
-    the cache length drop (the reference's mode="drop")."""
+    the cache length drop (the reference's mode="drop"; a paged cache
+    routes them to its sink page)."""
     if "k" in cache:
         new = {"k": k_new.to(cache["k"].dtype),
                "v": v_new.to(cache["v"].dtype)}
@@ -119,6 +149,9 @@ def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
         kd, ks = _quant_kv_token(k_new)
         vd, vs = _quant_kv_token(v_new)
         new = {"k_data": kd, "v_data": vd, "k_scl": ks, "v_scl": vs}
+    if "block_table" in cache:
+        _paged_cache_write(cache, new, pos.to(torch.int64))
+        return cache
     b, t = k_new.shape[:2]
     length = cache[next(iter(new))].shape[1]
     pos = pos.to(torch.int64)
@@ -141,20 +174,44 @@ def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def _paged_cache_write(cache, new, pos: torch.Tensor) -> None:
+    """Scatter token rows through the block table, in place: logical row
+    idx = pos[b] + t of slot b lands in pool page block_table[b, idx //
+    ps] at page row idx % ps. Rows outside [0, pages_per_row * ps) go to
+    the sink page (the pool's last), which nothing reads, so the live
+    targets are all distinct and no index_put ordering matters."""
+    bt = cache["block_table"]                               # (B, n)
+    pool = cache[next(iter(new))]
+    ps, n, sink = pool.shape[1], bt.shape[1], pool.shape[0] - 1
+    t = next(iter(new.values())).shape[1]
+    idx = pos[:, None] + torch.arange(t, device=pos.device)  # (B, T)
+    page = torch.gather(bt.to(torch.int64), 1,
+                        torch.clamp(idx // ps, 0, n - 1))
+    page = torch.where((idx >= 0) & (idx < n * ps), page, sink)
+    row = torch.remainder(idx, ps)
+    for key, val in new.items():
+        cache[key][page, row] = val
+
+
 def decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
                      policy: Optional[QuantPolicy] = None) -> torch.Tensor:
-    """Single-token attention over a slab cache through the registry;
-    `policy` is the resolved policy of the cache site (`<block>/attn/kv`)
-    and its backend picks the kernel or the dense path."""
+    """Single-token attention over a slab or paged cache through the
+    registry; `policy` is the resolved policy of the cache site
+    (`<block>/attn/kv`) and its backend picks the kernel or the dense
+    path."""
     return backends.decode_attention(q, cache, pos, policy=policy)
 
 
 def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
                       policy: QuantPolicy, *, cache=None,
                       mode: str = "prefill", site: str = "attn"):
-    """Self-attention in "prefill" (causal over the prompt, cache written
-    from position 0) or "decode" (one token at positions[:, 0]) mode.
-    Returns (out, cache)."""
+    """Self-attention in "prefill" (causal over the prompt at `positions`,
+    cache written from positions[:, 0]) or "decode" (one token at
+    positions[:, 0]) mode. A paged cache that carries a request's raw
+    "stage_k"/"stage_v" takes the paged prefill path: the chunk's K/V is
+    appended to the stage at its positions, then one registry dispatch
+    attends the chunk over the stage and writes every stage tile onto its
+    pages. Returns (out, cache)."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = qlinear.linear(x, p["wq"], p.get("bq"), *rps(policy, site, "wq"))
@@ -167,6 +224,14 @@ def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
         cache = cache_write(cache, k, v, positions[:, 0])
         out = decode_attention(q, cache, positions[:, 0],
                                policy=rp(policy, site, "kv"))
+    elif mode == "prefill" and prefill_attn.is_paged_prefill(cache):
+        rows = positions[0].to(torch.int64)
+        cache["stage_k"][0].index_copy_(0, rows,
+                                        k[0].to(cache["stage_k"].dtype))
+        cache["stage_v"][0].index_copy_(0, rows,
+                                        v[0].to(cache["stage_v"].dtype))
+        out, cache = backends.prefill_attention(
+            q, cache, positions, policy=rp(policy, site, "kv"))
     elif mode == "prefill":
         out = causal_attention(q, k, v)
         if cache is not None:

@@ -102,11 +102,29 @@ class Model:
                 dtype=dtype, device=device)}
             for i in range(cfg.n_layers)]}
 
+    def init_paged_caches(self, n_pages: int, page_size: int,
+                          batch_slots: int, pages_per_row: int,
+                          device="cuda", dtype=torch.float32):
+        """PAGED KV caches: every cache site holds a pool of `n_pages`
+        pages (plus its sink page) and a `(batch_slots, pages_per_row)`
+        block table (`layers.make_paged_kv_cache`). Page ids are shared
+        across sites: one allocator row backs the same token rows in
+        every layer. kv_bits resolves per site (`layers/<i>/attn/kv`)."""
+        cfg = self.cfg
+        return {"layers": [
+            {"kv": L.make_paged_kv_cache(
+                n_pages, page_size, batch_slots, pages_per_row,
+                cfg.n_kv_heads, cfg.head_dim,
+                kv_bits=self.policy.resolve(f"layers/{i}/attn/kv").kv_bits,
+                dtype=dtype, device=device)}
+            for i in range(cfg.n_layers)]}
+
     def forward(self, params, batch: Dict[str, torch.Tensor], *,
-                mode: str = "prefill", caches=None):
+                mode: str = "prefill", caches=None, positions=None):
         """Returns (logits, caches).
 
-        prefill: batch["tokens"] (B, T), positions 0..T-1
+        prefill: batch["tokens"] (B, T), positions 0..T-1 unless
+                 `positions` (B, T) gives absolute ones (a prefill chunk)
         decode:  batch["tokens"] (B, 1), batch["pos"] (B,)
         """
         cfg = self.cfg
@@ -114,9 +132,9 @@ class Model:
         tok = batch["tokens"]
         x = params["embed"]["table"][tok].to(cdt) * math.sqrt(cfg.d_model)
         b, t = tok.shape
-        if mode == "decode":
+        if positions is None and mode == "decode":
             positions = batch["pos"][:, None]
-        else:
+        elif positions is None:
             positions = torch.arange(t, device=tok.device)[None].expand(b, t)
         new = []
         for i, p in enumerate(params["layers"]):

@@ -1,5 +1,5 @@
 """Batched serving engine: continuous batching over fixed decode slots.
-Port of the slab mode of `repro/serve/engine.py`.
+Port of the slab and paged modes of `repro/serve/engine.py`.
 
 Requests queue up; a free slot takes the next request, whose prompt is
 prefilled into a fresh one-row cache (right-padded to a power-of-two
@@ -9,6 +9,19 @@ step then runs one batched greedy decode over all slots; slots free on
 EOS, max-new-tokens or the length cap. `step()` returns `StepEvents`.
 Caches are fp32 (or OVP-packed when the policy's kv_bits = 4) and are
 updated in place.
+
+PAGED mode (`EngineCfg.page_pool`): every cache site holds a shared pool
+of fixed-size pages (`serve/paging.py`) and a per-slot block table maps
+logical token rows to physical pages. Admission reserves a request's
+worst-case pages up front (all or nothing; a head-of-line request that
+does not fit blocks the queue), so a running request never runs out of
+pages. Prefill runs in chunks of `EngineCfg.prefill_chunk` tokens (0: the
+whole staged prompt at once): each step runs at most ONE chunk, one
+fused cache-write prefill dispatch per layer (`backends.prefill_attention`,
+K4 on the card) that attends the chunk over the request's raw K/V stage
+and writes every stage tile onto its pages; decode reads K/V through the
+block table (K3 on the card). Slots free their pages on completion;
+`defrag()` compacts the pool.
 """
 from __future__ import annotations
 
@@ -22,7 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch import backends
+from repro_torch.kernels.prefill_attn import STAGE_KEYS
 from repro_torch.models.model import Model
+from repro_torch.serve.paging import PagePool, PagePoolCfg, pages_for
 
 
 @dataclasses.dataclass
@@ -56,11 +71,32 @@ class StepEvents:
     step: int
     t_start: float
     t_end: float
-    admitted: List[int]
-    decode_batch: int
+    admitted: List[int]         # uids leaving the queue this step
+    prefill_chunks: int         # chunked-prefill dispatches run (0 or 1)
+    decode_batch: int           # active slots in this step's decode
     tokens: List[TokenEvent]
-    queue_depth: int
-    active: int
+    queue_depth: int            # queued requests after the step
+    active: int                 # occupied decode slots after the step
+    prefilling: int             # requests mid-chunked-prefill after it
+
+
+@dataclasses.dataclass
+class _Prefilling:
+    """One request mid-chunked-prefill (paged mode): its pages are
+    reserved, its raw prompt K/V accumulates in per-layer stage tensors,
+    and `step()` feeds one chunk per step until `written` reaches
+    `target`."""
+    req: Request
+    slot: int
+    toks: np.ndarray        # (stage_len,) right-padded prompt
+    t: int                  # true prompt length
+    chunk: int              # tokens per chunk (page-size multiple)
+    stage_tiles: int        # staged rows // page_size
+    pages: List[int]        # physical pages, logical order
+    gen_pages: int          # pages kept after prefill (decode horizon)
+    target: int             # chunked tokens to run: ceil(t/chunk)*chunk
+    written: int            # tokens already prefilled
+    stage: list             # per layer {"stage_k", "stage_v"}
 
 
 @dataclasses.dataclass
@@ -70,11 +106,18 @@ class EngineCfg:
     eos_id: int = -1            # -1: no EOS, run to max_new_tokens
     # execution backend override; None keeps the model policy's backend
     backend: Optional[str] = None
+    # paged KV cache: a shared page pool + block tables instead of the
+    # (batch_slots, max_len) slab, with chunked prefill. None = slab.
+    page_pool: Optional[PagePoolCfg] = None
+    # chunked-prefill chunk size in tokens (paged mode; rounded up to a
+    # page multiple). 0 = the whole staged prompt in one chunk. Either
+    # way at most ONE chunk runs per engine step, interleaved with decode.
+    prefill_chunk: int = 0
 
 
 class ServingEngine:
-    """Single-device slab engine on `device` (the tensors' device decides
-    whether the kernels or their plain versions run)."""
+    """Single-device engine on `device` (the tensors' device decides
+    whether the kernels or their plain versions run), slab or paged."""
 
     def __init__(self, model: Model, params, cfg: EngineCfg,
                  device="cuda"):
@@ -95,10 +138,40 @@ class ServingEngine:
         self._uid = 0
         self.steps_run = 0
         self.prefills_run = 0
+        self.prefill_chunks_run = 0
         self._token_events: List[TokenEvent] = []
         self._admitted_uids: List[int] = []
-        self.caches = model.init_caches(cfg.batch_slots, cfg.max_len,
-                                        device=self.device)
+        self.paged = cfg.page_pool is not None
+        if not self.paged:
+            self.caches = model.init_caches(cfg.batch_slots, cfg.max_len,
+                                            device=self.device)
+            return
+        pp = cfg.page_pool
+        # the table covers the BUCKETED stage of the longest prompt, not
+        # just max_len (buckets round up to powers of two)
+        self.pages_per_row = pages_for(self._bucket(cfg.max_len),
+                                       pp.page_size)
+        n_pages = pp.n_pages or cfg.batch_slots * self.pages_per_row
+        self.pool = PagePool(n_pages, pp.page_size)
+        self._bt = np.zeros((cfg.batch_slots, self.pages_per_row), np.int32)
+        self.caches = model.init_paged_caches(
+            n_pages, pp.page_size, cfg.batch_slots, self.pages_per_row,
+            device=self.device)
+        # one device table shared by every site: page ids back the same
+        # token rows in every layer
+        self._bt_dev = torch.zeros(self._bt.shape, dtype=torch.int32,
+                                   device=self.device)
+        for site in self._sites():
+            site["block_table"] = self._bt_dev
+        self._prefilling: collections.deque[_Prefilling] = \
+            collections.deque()
+        self._prefill_slots: set = set()
+        # inactive slots decode in the batch like everyone else; park
+        # their write index past the table capacity so the write goes to
+        # the sink page instead of page 0, which a live request may own
+        self._pos_parked = self.pages_per_row * pp.page_size
+        self.pos[:] = self._pos_parked
+        self._sync_tables()
 
     # -------------------------------------------------------------- API
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16) -> int:
@@ -135,6 +208,12 @@ class ServingEngine:
         self.prefills_run += 1
         return logits[0, t - 1], row_cache
 
+    def _admit(self):
+        if self.paged:
+            self._admit_paged()
+        else:
+            self._admit_slab()
+
     def _admit_slab(self):
         """Fill free slots from the queue, one prefill per request."""
         for s in range(self.cfg.batch_slots):
@@ -167,15 +246,155 @@ class ServingEngine:
         self.completed.append(req)
         return True
 
+    # ------------------------------------------------------- paged mode
+    def _sites(self):
+        return [layer["kv"] for layer in self.caches["layers"]]
+
+    def _sync_tables(self):
+        """Push the host block table to the device table every site
+        shares."""
+        self._bt_dev.copy_(torch.from_numpy(self._bt))
+
+    def _fresh_stage(self, stage_len: int) -> list:
+        cfg = self.model.cfg
+        shape = (1, stage_len, cfg.n_kv_heads, cfg.head_dim)
+        return [{key: torch.zeros(shape, device=self.device)
+                 for key in STAGE_KEYS} for _ in self._sites()]
+
+    def _admit_paged(self):
+        """Reserve pages + a slot for queued requests and move them into
+        the chunked-prefill pipeline. Admission is all-or-nothing on the
+        request's WORST-CASE page budget (prompt stage + full decode
+        horizon), so a running request never runs out of pages; FIFO
+        order holds — a head-of-line request that does not fit blocks
+        the queue until frees make room."""
+        ps = self.pool.page_size
+        for s in range(self.cfg.batch_slots):
+            if not self.queue:
+                return
+            if self.slots[s] is not None or s in self._prefill_slots:
+                continue
+            req = self.queue[0]
+            t = len(req.prompt)
+            chunk = self.cfg.prefill_chunk
+            chunk = -(-chunk // ps) * ps if chunk else 0
+            stage_len = -(-self._bucket(t) // (chunk or ps)) * (chunk or ps)
+            chunk = chunk or stage_len
+            stage_tiles = stage_len // ps
+            horizon = min(t + req.max_new_tokens, self.cfg.max_len)
+            gen_pages = pages_for(horizon, ps)
+            need = max(gen_pages, stage_tiles)
+            got = self.pool.alloc(need, req.uid)
+            if got is None:
+                return
+            self.queue.popleft()
+            self._admitted_uids.append(req.uid)
+            toks = np.zeros((stage_len,), np.int64)
+            toks[:t] = req.prompt
+            self._bt[s, :] = 0
+            self._bt[s, :need] = got
+            self._sync_tables()
+            self._prefilling.append(_Prefilling(
+                req=req, slot=s, toks=toks, t=t, chunk=chunk,
+                stage_tiles=stage_tiles, pages=got,
+                gen_pages=gen_pages, target=-(-t // chunk) * chunk,
+                written=0, stage=self._fresh_stage(stage_len)))
+            self._prefill_slots.add(s)
+
+    def _run_prefill_chunk(self):
+        """Feed ONE chunk of the oldest mid-prefill request through the
+        fused cache-write prefill: the per-step prefill budget that keeps
+        long prompts from stalling the decode batch. The cache view
+        carries the request's single-row block table (1, stage_tiles) and
+        its stage; the pools are written in place."""
+        if not self._prefilling:
+            return
+        pf = self._prefilling[0]
+        off = pf.written
+        bt_row = torch.as_tensor(
+            np.asarray(pf.pages[:pf.stage_tiles], np.int32)[None],
+            device=self.device)
+        view = {"layers": [{"kv": dict(site, block_table=bt_row, **stage)}
+                           for site, stage in zip(self._sites(),
+                                                  pf.stage)]}
+        toks = torch.as_tensor(pf.toks[None, off:off + pf.chunk],
+                               device=self.device)
+        positions = torch.arange(off, off + pf.chunk,
+                                 device=self.device)[None]
+        logits, _ = self.model.forward(self.params, {"tokens": toks},
+                                       mode="prefill", caches=view,
+                                       positions=positions)
+        self.prefill_chunks_run += 1
+        pf.written += pf.chunk
+        if pf.written < pf.target:
+            return
+        # prompt fully prefilled: release the stage-only page surplus
+        # (stage tiles past the decode horizon) and activate the slot
+        req, s = pf.req, pf.slot
+        self._prefilling.popleft()
+        self._prefill_slots.discard(s)
+        if len(pf.pages) > pf.gen_pages:
+            self.pool.free(req.uid, pf.pages[pf.gen_pages:])
+        self._bt[s, :] = 0
+        self._bt[s, :pf.gen_pages] = pf.pages[:pf.gen_pages]
+        self._sync_tables()
+        nxt = int(torch.argmax(logits[0, min(max(pf.t - 1 - off, 0),
+                                             pf.chunk - 1)]))
+        req.out_tokens.append(nxt)
+        req.t_first = time.monotonic()
+        finished = self._finish_at_admit(req, nxt)
+        self._emit_token(req, nxt, first=True)
+        if finished:
+            self._free_slot_pages(s, req)
+            return
+        self.pos[s] = pf.t
+        self.slots[s] = req
+
+    def _free_slot_pages(self, s: int, req: Request):
+        self.pool.free(req.uid)
+        self._bt[s, :] = 0
+        self.pos[s] = self._pos_parked
+        self._sync_tables()
+
+    def defrag(self):
+        """Compact live pages onto the low end of the pool (paged mode):
+        gathers every site's pool by the compaction source map, in place
+        (the sink page stays last), and rebuilds the block tables. Pages
+        are position-independent, so served tokens do not change.
+        Returns the page-id remap, or None in slab mode."""
+        if not self.paged:
+            return None
+        src, remap = self.pool.compact()
+        n = self.pool.n_pages
+        src_dev = torch.as_tensor(src, dtype=torch.int64, device=self.device)
+        for site in self._sites():
+            for key, leaf in site.items():
+                if key != "block_table":
+                    leaf[:n] = leaf[src_dev]
+        self._bt[:] = 0
+        for pf in self._prefilling:
+            pf.pages = self.pool.pages_of(pf.req.uid)
+            self._bt[pf.slot, :len(pf.pages)] = pf.pages
+        for s, r in enumerate(self.slots):
+            if r is not None:
+                pages = self.pool.pages_of(r.uid)
+                self._bt[s, :len(pages)] = pages
+        self._sync_tables()
+        return remap
+
     def _active(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is not None]
 
     def step(self) -> StepEvents:
-        """Admit, then one batched greedy decode over every slot."""
+        """Admit, at most one prefill chunk (paged mode), then one batched
+        greedy decode over every active slot."""
         t_start = time.monotonic()
         self._token_events = []
         self._admitted_uids = []
-        self._admit_slab()
+        chunks_before = self.prefill_chunks_run
+        self._admit()
+        if self.paged:
+            self._run_prefill_chunk()
         act = self._active()
         if act:
             tokens = np.zeros((self.cfg.batch_slots, 1), np.int64)
@@ -206,17 +425,24 @@ class ServingEngine:
                 req.t_done = time.monotonic()
                 self.completed.append(req)
                 self.slots[i] = None
+                if self.paged:
+                    self._free_slot_pages(i, req)
                 self._emit_token(req, tok, first=False)
         ev = StepEvents(
             step=self.steps_run, t_start=t_start, t_end=time.monotonic(),
-            admitted=self._admitted_uids, decode_batch=len(act),
-            tokens=self._token_events, queue_depth=len(self.queue),
-            active=len(self._active()))
+            admitted=self._admitted_uids,
+            prefill_chunks=self.prefill_chunks_run - chunks_before,
+            decode_batch=len(act), tokens=self._token_events,
+            queue_depth=len(self.queue), active=len(self._active()),
+            prefilling=len(self._prefilling) if self.paged else 0)
         self.steps_run += 1
         return ev
 
     def has_work(self) -> bool:
-        return bool(self.queue or self._active())
+        """True while a step could make progress: requests queued,
+        decoding, or mid-chunked-prefill."""
+        return bool(self.queue or self._active()
+                    or (self.paged and self._prefilling))
 
     def run_until_drained(self, max_steps: int = 10000) -> List[Request]:
         steps = 0
@@ -226,9 +452,17 @@ class ServingEngine:
         return self.completed
 
     def stats(self) -> Dict[str, object]:
-        """Lifetime counters since construction."""
-        return {"steps_run": self.steps_run,
-                "prefills_run": self.prefills_run}
+        """Lifetime counters since construction (slab prefills, prefill
+        chunks, steps); in paged mode also the page pool's
+        `PagePool.stats()` under "page_pool", whose used/free/occupancy
+        entries are gauges."""
+        st: Dict[str, object] = {"steps_run": self.steps_run,
+                                 "prefills_run": self.prefills_run,
+                                 "prefill_chunks_run":
+                                     self.prefill_chunks_run}
+        if self.paged:
+            st["page_pool"] = self.pool.stats()
+        return st
 
 
 def _splice_slot(full_caches, row_caches, slot: int) -> None:

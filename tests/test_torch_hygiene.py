@@ -47,35 +47,38 @@ def test_port_has_no_broad_except(path):
 
 def test_port_serves_on_cpu_without_jax_or_kernels():
     """A fresh interpreter imports the launcher, serves the smoke model on
-    the CPU, and ends with no JAX module loaded and both kernel counters
-    at 0: CPU tensors only ever take the plain versions."""
+    the CPU in slab and in paged mode, and ends with no JAX module loaded
+    and every kernel counter at 0: CPU tensors only ever take the plain
+    versions."""
     code = (
         "import json, sys\n"
         "from repro_torch.launch import serve\n"
-        "from repro_torch.kernels import decode_attn, ovp_matmul\n"
-        "res = serve.run(['--arch', 'qwen1.5-0.5b-smoke', '--quant',\n"
-        "                 'olive_serve', '--requests', '3', '--max-new',\n"
-        "                 '3', '--slots', '2', '--max-len', '32'],\n"
-        "                device='cpu')\n"
+        "args = ['--arch', 'qwen1.5-0.5b-smoke', '--quant', 'olive_serve',\n"
+        "        '--requests', '3', '--max-new', '3', '--slots', '2',\n"
+        "        '--max-len', '32']\n"
+        "slab = serve.run(args, device='cpu')\n"
+        "paged = serve.run(args + ['--paged', '16', '--prefill-chunk',\n"
+        "                          '16'], device='cpu')\n"
         "print(json.dumps({'jax': sorted(m for m in sys.modules\n"
         "                   if m.split('.')[0] in ('jax', 'jaxlib')),\n"
-        "                  'tokens': res['tokens'],\n"
-        "                  'k1': ovp_matmul.fused_ovp_matmul.launches,\n"
-        "                  'k2':\n"
-        "                  decode_attn.fused_decode_attention.launches}))\n")
+        "                  'tokens': [slab['tokens'], paged['tokens']],\n"
+        "                  'launches': serve.kernel_launches()}))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          check=True).stdout
     res = json.loads(out.strip().splitlines()[-1])
-    assert res == {"jax": [], "tokens": 9, "k1": 0, "k2": 0}
+    assert res == {"jax": [], "tokens": [9, 9],
+                   "launches": {"ovp_matmul": 0, "decode_attn": 0,
+                                "paged_decode_attn": 0, "prefill_attn": 0}}
 
 
 def test_launcher_has_no_cpu_switch():
-    """The CLI's flags are the reference launcher's; there is no device
-    flag (without a card it raises)."""
+    """The CLI's flags are the reference launcher's (those ported so
+    far); there is no device flag (without a card it raises)."""
     from repro_torch.launch import serve
     flags = {a.option_strings[0] for a in serve.parser()._actions
              if a.option_strings and a.option_strings[0] != "-h"}
     assert flags == {"--arch", "--quant", "--backend", "--requests",
-                     "--max-new", "--slots", "--max-len", "--seed"}
+                     "--max-new", "--slots", "--max-len", "--paged",
+                     "--prefill-chunk", "--seed"}
