@@ -7,7 +7,7 @@ Run from the repo root on a machine with an NVIDIA H100 (sm_90a) and the
 CUDA toolkit. It builds the hand-written kernels from
 `src/repro_torch/csrc/` and then:
 
-1. kernel phase — every kernel of the serving path against its plain
+1. kernel phase — the attention and matmul kernels against their plain
    PyTorch version on the card, at the path's shapes (K1, the fused OVP
    matmul: rows 4 and 32, the three (K, N) of a Qwen1.5-0.5B layer,
    int4 weights, fp and quantize modes; K2, slab decode attention:
@@ -36,7 +36,23 @@ CUDA toolkit. It builds the hand-written kernels from
    W4 over an fp32 paged cache, chunked paged prefill + 2 decode steps
    held against the slab path on the card; and one 200-token prompt
    prefilled in chunks of 64 beside 3 decoding requests, at most one
-   chunk per step.
+   chunk per step;
+6. kernel phase for K5 (the static-scale matmul), K1's codes4 / codes8
+   modes and K7 (the OVP encoder): rows 4 and 32, the three (K, N) of a
+   layer, against their plain versions (K7 byte for byte), with times,
+   bounds and `torch.matmul` on the dequantized operands; plus K7 ->
+   codes4 against K5 at one scale; and the API phase, the kernel API as
+   a user calls it (`kernels.ops.ovp_encode` -> `ovp_matmul` /
+   `matmul_w4a4`, `matmul_w8a8`), counters reset before and read after;
+7. serve phase D — calibrate-then-serve through the launcher's entry
+   point (`--calibrate --calibration build/calib/qwen1.5-0.5b.json`,
+   phase A's prompts and seed), then again from the saved file, slab
+   and paged: K5 launched, the dynamic quantize mode never, no dynamic
+   scale resolution, no fallback; the static program over an fp32 KV
+   cache on the card against the CPU's plain versions; and one decode
+   step of phase B (dynamic 3-sigma scales) profiled beside one of
+   phase D (static scales): wall, device busy and device kernels per
+   step.
 
 Any failure exits non-zero before the result line. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it lists every
@@ -133,8 +149,8 @@ def k1_phase(dev):
         qt = quantize_weight(w, w4)
         weights[(k, n)] = (qt, ovp_dequantize(qt))
     rows_out, worst = [], 0.0
-    decode_fp = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                 "library_ms": 0.0}
+    decode = {mode: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0} for mode in ("fp", "quantize")}
     bound_by = "bytes"
     for rows in (4, 32):
         for mode in ("fp", "quantize"):
@@ -150,11 +166,12 @@ def k1_phase(dev):
 
                 def kern():
                     return mm.run(a, sa, qt.data, sw, w_dtype="int4",
-                                  a_dtype=a_dtype)
+                                  a_mode=mode, a_dtype=a_dtype)
 
                 def plain():
                     return mm.fused_ovp_matmul_plain(
-                        a, sa, qt.data, sw, w_dtype="int4", a_dtype=a_dtype)
+                        a, sa, qt.data, sw, w_dtype="int4", a_mode=mode,
+                        a_dtype="int4")
 
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
@@ -179,14 +196,14 @@ def k1_phase(dev):
                       f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
                       f"plain={plain_ms:.4f}ms matmul={lib_ms:.4f}ms "
                       f"bound={b_ms:.5f}ms ({b_by})")
-                if rows == 4 and mode == "fp":
+                if rows == 4:
                     count = layer.count((k, n))
                     for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                      ("bound_ms", b_ms),
                                      ("library_ms", lib_ms)):
-                        decode_fp[key] += count * val
+                        decode[mode][key] += count * val
                     bound_by = b_by
-    return rows_out, worst, decode_fp, bound_by
+    return rows_out, worst, decode, bound_by
 
 
 def k2_phase(dev):
@@ -469,27 +486,253 @@ def k4_phase(dev):
     return rows_out, worst, main
 
 
+def _layer_weights(dev, gen):
+    """One Qwen1.5-0.5B layer's (K, N) shapes with W4 (int4) and W8A8
+    (int8) OVP weights and their dequantized fp32 copies."""
+    import torch
+    from repro_torch.core import policy
+    from repro_torch.core.ovp import ovp_dequantize
+    from repro_torch.core.qlinear import quantize_weight
+    layer = [(1024, 1024)] * 4 + [(1024, 2816)] * 2 + [(2816, 1024)]
+    weights = {}
+    for k, n in sorted(set(layer)):
+        w = torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
+        for bits, pol in ((4, policy.OLIVE_W4), (8, policy.OLIVE_W8A8)):
+            qt = quantize_weight(w, pol.replace_all(compute_dtype="float32"))
+            weights[(k, n, bits)] = (qt, ovp_dequantize(qt))
+    return layer, weights
+
+
+def _outlier_acts(dev, gen, rows: int, k: int):
+    """Activations with every 13th value scaled by 25, so the abfloat
+    outlier and victim paths are on."""
+    import torch
+    a = torch.randn((rows, k), generator=gen, device=dev)
+    a.view(-1)[::13] *= 25.0
+    return a
+
+
+def k5_codes_phase(dev):
+    """K5 (static scale), K1 codes4 / codes8 and K7 against their plain
+    versions at the path's shapes, with times, bounds and a library
+    call, plus the cross-check K7 -> codes4 == K5 at one scale."""
+    import torch
+    from repro_torch.core.ovp import (QuantizedTensor, ovp_dequantize,
+                                      ovp_quantize)
+    from repro_torch.core.quantizer import sigma_init_scale
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ovp_encode as enc
+    from repro_torch.kernels import ovp_matmul as mm
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    layer, weights = _layer_weights(dev, gen)
+    names = ("quantize", "static", "codes4", "codes8", "encode")
+    rows_out = {name: [] for name in names}
+    worst = dict.fromkeys(names, 0.0)
+    main = {name: None for name in names}
+    decode_static = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0, "bound_by": "bytes"}
+    for rows in (4, 32):
+        for k, n in sorted(set(layer)):
+            qt, wd = weights[(k, n, 4)]
+            q8, wd8 = weights[(k, n, 8)]
+            sw = qt.scale.reshape(-1).contiguous()
+            sw8 = q8.scale.reshape(-1).contiguous()
+            a = _outlier_acts(dev, gen, rows, k)
+            s4 = float(sigma_init_scale(a, "int4"))
+            s8 = float(sigma_init_scale(a, "int8"))
+            inv4 = mm._reciprocal(s4)
+            u = a * inv4                     # K5's scaled activations
+            packed = enc.fused_ovp_encode(u)
+            x4 = QuantizedTensor(packed, torch.tensor(s4, device=dev),
+                                 "int4", -1, k)
+            x8 = ovp_quantize(a, s8, "int8")
+            sa4 = torch.full((rows,), s4, device=dev)
+            sa8 = torch.full((rows,), s8, device=dev)
+            k5 = dict(w_dtype="int4", a_mode="static", a_dtype="int4",
+                      s_static=s4)
+            c4 = dict(w_dtype="int4", a_mode="codes4", a_dtype="int4")
+            c8 = dict(w_dtype="int8", a_mode="codes8", a_dtype="int8")
+            kq = dict(w_dtype="int4", a_mode="quantize", a_dtype="int4")
+            cases = {
+                # K1's dynamic mode on the same data and scale: the
+                # like-for-like yardstick of K5 (outliers slow both)
+                "quantize": (lambda: mm.run(a, sa4, qt.data, sw, **kq),
+                             lambda: mm.fused_ovp_matmul_plain(
+                                 a, sa4, qt.data, sw, **kq),
+                             ovp_dequantize(x4), wd,
+                             rows * k * 4 + rows * 4 + k // 2 * n + n * 4
+                             + rows * n * 4),
+                "static": (lambda: mm.run(a, None, qt.data, sw, **k5),
+                           lambda: mm.fused_ovp_matmul_plain(
+                               a, None, qt.data, sw, **k5),
+                           ovp_dequantize(x4), wd,
+                           rows * k * 4 + 4 + k // 2 * n + n * 4
+                           + rows * n * 4),
+                "codes4": (lambda: mm.run(packed, sa4, qt.data, sw, **c4),
+                           lambda: mm.fused_ovp_matmul_plain(
+                               packed, sa4, qt.data, sw, **c4),
+                           ovp_dequantize(x4), wd,
+                           rows * k // 2 + rows * 4 + k // 2 * n + n * 4
+                           + rows * n * 4),
+                "codes8": (lambda: mm.run(x8.data, sa8, q8.data, sw8, **c8),
+                           lambda: mm.fused_ovp_matmul_plain(
+                               x8.data, sa8, q8.data, sw8, **c8),
+                           ovp_dequantize(x8), wd8,
+                           rows * k + rows * 4 + k * n + n * 4
+                           + rows * n * 4),
+            }
+            for name, (kern, plain, ad, wdense, n_bytes) in cases.items():
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                scale = float(ref.abs().max())
+                if not within(got, ref, 1e-5, 1e-5 * scale):
+                    fail(f"{name} rows={rows} K={k} N={n}: max abs err "
+                         f"{err:.3e} over tolerance (rtol 1e-5, atol "
+                         f"1e-5*{scale:.3e})")
+                worst[name] = max(worst[name], err)
+                (ms, wall), (plain_ms, _) = time_ms(kern), time_ms(plain)
+                lib_ms, _ = time_ms(lambda: torch.matmul(ad, wdense))
+                b_ms, b_by = bound_ms(n_bytes, 2.0 * rows * k * n)
+                rec = dict(rows=rows, K=k, N=n, max_abs_err=err, ms=ms,
+                           wall_ms=wall, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+                rows_out[name].append(rec)
+                if rows == 4 and (k, n) == (1024, 1024):
+                    main[name] = rec
+                if rows == 4 and name == "static":
+                    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                        decode_static[key] += layer.count((k, n)) * rec[key]
+                    decode_static["bound_by"] = b_by
+                print(f"[{name}] rows={rows:2d} K={k:4d} N={n:4d} "
+                      f"err={err:.2e} (tol rtol 1e-5, atol 1e-5*max|ref|) "
+                      f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
+                      f"plain={plain_ms:.4f}ms matmul(dequantized)="
+                      f"{lib_ms:.4f}ms bound={b_ms:.5f}ms ({b_by})")
+            # K7 -> codes4 against K5 at the same scale: the codes are the
+            # static prologue's (u = a * (1/s) in both), so only the
+            # epilogue order (acc * s * sw against acc * (s * sw)) and
+            # nothing else differs
+            via = ops.matmul_w4a4(packed, s4, qt.data, qt.scale)
+            direct = mm.run(a, None, qt.data, sw, **k5)
+            torch.cuda.synchronize()
+            scale = float(direct.abs().max())
+            err = float((via - direct).abs().max())
+            if not within(via, direct, 1e-5, 1e-5 * scale):
+                fail(f"K7 -> codes4 vs K5 rows={rows} K={k} N={n}: max abs "
+                     f"err {err:.3e}")
+            print(f"[k7->codes4] rows={rows:2d} K={k:4d} N={n:4d} against K5 "
+                  f"at the same scale: err={err:.2e} (tol rtol 1e-5, atol "
+                  f"1e-5*max|ref|)")
+            if n != 1024:
+                continue                # K7 depends on (rows, K) only
+
+            def kern7():
+                return enc.fused_ovp_encode(u)
+
+            def plain7():
+                return enc.ovp_encode_plain(u)
+
+            differ = int((kern7() != plain7()).sum())
+            if differ:
+                fail(f"K7 rows={rows} K={k}: {differ} bytes differ from "
+                     f"the plain version")
+            (ms, wall), (plain_ms, _) = time_ms(kern7), time_ms(
+                plain7, graph=False)
+            b_ms, b_by = bound_ms(rows * k * 4 + rows * k // 2, 0.0)
+            rec = dict(rows=rows, K=k, bytes_differ=differ, ms=ms,
+                       wall_ms=wall, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=b_ms, bound_by=b_by)
+            rows_out["encode"].append(rec)
+            if rows == 4 and k == 1024:
+                main["encode"] = rec
+            print(f"[k7] rows={rows:2d} K={k:4d} bytes differing {differ} "
+                  f"of {rows * k // 2} (limit 0) kernel={ms:.4f}ms (eager "
+                  f"call {wall:.4f}ms) plain={plain_ms:.4f}ms (eager) "
+                  f"library: none (no PyTorch call packs OVP codes) "
+                  f"bound={b_ms:.5f}ms ({b_by})")
+    return rows_out, worst, main, decode_static
+
+
+def api_phase(dev):
+    """The packed-operand kernel API as a user calls it (`kernels.ops`,
+    the paper's accelerator dataflow): encode real activations to OVP
+    bytes (K7), multiply them by the packed weight (K1 codes4, through
+    `ovp_matmul` and `matmul_w4a4`), and an int8-coded W8A8 product (K1
+    codes8), at one layer's q-projection shape (rows 4, K = N = 1024).
+    Counters are reset just before and read just after; the results are
+    held against the same calls on the CPU (plain versions)."""
+    import torch
+    from repro_torch.core.ovp import QuantizedTensor, ovp_quantize
+    from repro_torch.core.quantizer import sigma_init_scale
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    _, weights = _layer_weights(dev, gen)
+    qt, _ = weights[(1024, 1024, 4)]
+    q8, _ = weights[(1024, 1024, 8)]
+    a = _outlier_acts(dev, gen, 4, 1024)
+    s4 = float(sigma_init_scale(a, "int4"))
+    s8 = float(sigma_init_scale(a, "int8"))
+    x8 = ovp_quantize(a, s8, "int8")
+
+    def path(dev_):
+        to = (lambda t: t.to(dev_))
+        packed = ops.ovp_encode(to(a), s4)
+        xq = QuantizedTensor(packed, torch.tensor(s4, device=dev_), "int4",
+                             -1, 1024)
+        qw = QuantizedTensor(to(qt.data), to(qt.scale), "int4", -2, 1024)
+        return {"packed": packed, "ovp_matmul": ops.ovp_matmul(xq, qw),
+                "matmul_w4a4": ops.matmul_w4a4(packed, s4, qw.data,
+                                               qw.scale),
+                "matmul_w8a8": ops.matmul_w8a8(to(x8.data), s8,
+                                               to(q8.data), to(q8.scale))}
+
+    reset_counts()
+    got = path(dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, "API phase",
+                 ("ovp_encode", "ovp_matmul[codes4]", "ovp_matmul[codes8]"))
+    ref = path(torch.device("cpu"))
+    if not torch.equal(got["packed"].cpu(), ref["packed"]):
+        fail("API phase: ovp_encode bytes differ from the CPU's")
+    for key in ("ovp_matmul", "matmul_w4a4", "matmul_w8a8"):
+        g, r = got[key].cpu(), ref[key]
+        if g.shape != (4, 1024) or not bool(torch.isfinite(g).all()) or \
+                not within(g, r, 1e-5, 1e-5 * float(r.abs().max())):
+            fail(f"API phase: {key} {tuple(g.shape)} against the CPU: max "
+                 f"abs err {float((g - r).abs().max()):.3e}")
+    print(f"[api] ovp_encode -> ovp_matmul / matmul_w4a4 (codes4), "
+          f"matmul_w8a8 (codes8), rows 4, K = N = 1024: equal to the CPU "
+          f"plain path (bytes exact, products within rtol 1e-5); launches "
+          f"ovp_encode={counts['ovp_encode']} codes4="
+          f"{counts['ovp_matmul[codes4]']} codes8="
+          f"{counts['ovp_matmul[codes8]']}")
+    return counts
+
+
 # --------------------------------------------------------------------------
 # Serve phases
 # --------------------------------------------------------------------------
 def reset_counts():
     from repro_torch import backends
-    from repro_torch.kernels import decode_attn, ovp_matmul, prefill_attn
+    from repro_torch.launch import serve
     backends.reset_dispatch_stats()
-    ovp_matmul.fused_ovp_matmul.launches = 0
-    decode_attn.fused_decode_attention.launches = 0
-    decode_attn.fused_paged_decode_attention.launches = 0
-    prefill_attn.fused_prefill_attention.launches = 0
+    backends.reset_act_scale_stats()
+    serve.reset_kernel_launches()
 
 
 def read_counts():
     from repro_torch import backends
     from repro_torch.launch import serve
-    return dict(serve.kernel_launches(), dispatch=backends.dispatch_stats())
+    return dict(serve.kernel_launches(), dispatch=backends.dispatch_stats(),
+                act_scale=backends.act_scale_stats())
 
 
 def check_counts(counts, phase: str,
-                 kernels=("ovp_matmul", "decode_attn")) -> None:
+                 kernels=("ovp_matmul[fp]", "decode_attn")) -> None:
     fallbacks = [k for k in counts["dispatch"] if "->fallback" in k]
     if fallbacks:
         fail(f"{phase}: dispatch fell back: {counts['dispatch']}")
@@ -515,7 +758,7 @@ def serve_phase_a(dev, arch: str = ARCH):
           f"{res['seconds']:.3f}s = {res['tok_per_s']:.1f} tok/s, mean TTFT "
           f"{res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
           f"{res['mean_step_s'] * 1e3:.2f}ms, PTQ {res['ptq_s']:.2f}s, "
-          f"launches ovp_matmul={counts['ovp_matmul']} "
+          f"launches ovp_matmul[fp]={counts['ovp_matmul[fp]']} "
           f"decode_attn={counts['decode_attn']}, "
           f"dispatch {counts['dispatch']}")
     return res, counts
@@ -661,15 +904,19 @@ def profile_decode(res, label: str = "W4 + KV4") -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 6
+    n_kernels = sum(e.count for e in kernels) / 6
     print(f"[profile] decode step (4 slots, {label}): {step_ms:.2f}ms "
           f"wall; under the profiler {prof_ms:.2f}ms wall, device busy "
-          + (f"{busy_ms:.3f}ms ({100 * busy_ms / prof_ms:.1f}% of wall)"
+          + (f"{busy_ms:.3f}ms ({100 * busy_ms / prof_ms:.1f}% of wall), "
+             f"{n_kernels:.1f} device kernels per step"
              if kernels else "not measured (no device events)"))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         print(f"[profile]   {e.self_device_time_total / 1e3 / 6:8.3f}ms/step"
               f" {e.count // 6:5d} launches/step  {e.key[:90]}")
     eng.run_until_drained()
+    return {"step_ms": step_ms, "prof_ms": prof_ms, "busy_ms": busy_ms,
+            "kernels_per_step": n_kernels if kernels else None}
 
 
 def serve_phase_c(dev, res_a, arch: str = ARCH):
@@ -683,7 +930,7 @@ def serve_phase_c(dev, res_a, arch: str = ARCH):
                      "--prefill-chunk", "16"], device=dev)
     counts = read_counts()
     check_counts(counts, "serve phase C",
-                 ("ovp_matmul", "paged_decode_attn", "prefill_attn"))
+                 ("ovp_matmul[fp]", "paged_decode_attn", "prefill_attn"))
     done = res["completed"]
     if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
         fail(f"serve phase C: {len(done)} requests finished with "
@@ -700,7 +947,8 @@ def serve_phase_c(dev, res_a, arch: str = ARCH):
           f"{res['tok_per_s']:.1f} tok/s, mean TTFT "
           f"{res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
           f"{res['mean_step_s'] * 1e3:.2f}ms, {st['prefill_chunks_run']} "
-          f"prefill chunks, launches ovp_matmul={counts['ovp_matmul']} "
+          f"prefill chunks, launches ovp_matmul[fp]="
+          f"{counts['ovp_matmul[fp]']} "
           f"decode_attn={counts['decode_attn']} paged_decode_attn="
           f"{counts['paged_decode_attn']} prefill_attn="
           f"{counts['prefill_attn']}, dispatch {counts['dispatch']}")
@@ -798,15 +1046,156 @@ def serve_phase_b(model_a, params, dev):
     done = eng.run_until_drained()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    check_counts(counts, "serve phase B")
+    check_counts(counts, "serve phase B",
+                 ("ovp_matmul[quantize]", "decode_attn"))
     if len(done) != 4 or any(len(r.out_tokens) != 8 for r in done):
         fail("serve phase B: expected 4 requests x 8 tokens")
     toks = sum(len(r.out_tokens) for r in done)
-    print(f"[serve B] {model.cfg.name} W4A4 + KV4: {toks} tokens in "
-          f"{dt:.3f}s "
-          f"= {toks / dt:.1f} tok/s, launches ovp_matmul="
-          f"{counts['ovp_matmul']} decode_attn={counts['decode_attn']}")
-    return counts
+    print(f"[serve B] {model.cfg.name} W4A4 + KV4 (dynamic 3-sigma scales): "
+          f"{toks} tokens in {dt:.3f}s = {toks / dt:.1f} tok/s, launches "
+          f"ovp_matmul[quantize]={counts['ovp_matmul[quantize]']} "
+          f"decode_attn={counts['decode_attn']}, act-scale resolutions "
+          f"{counts['act_scale']}")
+    return {"engine": eng}, counts
+
+
+CALIB = os.path.join(ROOT, "build", "calib", f"{ARCH}.json")
+
+
+def serve_phase_d(dev, res_a, arch: str = ARCH):
+    """Calibrate-then-serve through the launcher's entry point, on phase
+    A's prompts and seed: `--calibrate --calibration build/calib/...`
+    (calibrate on the synthetic (2, 64) batch, save, serve W4A4 + KV4 on
+    static scales), then `--calibration` alone from the saved file, slab
+    and paged (`--paged 16 --prefill-chunk 16`). Counters are reset just
+    before and read just after each run: every quantized linear must run
+    K5 (`ovp_matmul[static]`), never the dynamic quantize mode, with no
+    dynamic scale resolution and no fallback."""
+    from repro_torch.launch import serve
+    base = ["--arch", arch, "--quant", "olive_serve", "--requests", "8",
+            "--max-new", "16", "--slots", "4", "--max-len", "256",
+            "--seed", "0", "--calibration", CALIB]
+    runs = {}
+    for label, extra, kernels in (
+            ("calibrate", ["--calibrate"], ("ovp_matmul[static]",
+                                            "decode_attn")),
+            ("load", [], ("ovp_matmul[static]", "decode_attn")),
+            ("paged", ["--paged", "16", "--prefill-chunk", "16"],
+             ("ovp_matmul[static]", "paged_decode_attn", "prefill_attn"))):
+        reset_counts()
+        res = serve.run(base + extra, device=dev)
+        counts = read_counts()
+        phase = f"serve phase D ({label})"
+        check_counts(counts, phase, kernels)
+        if counts["ovp_matmul[quantize]"] or counts["ovp_matmul[fp]"]:
+            fail(f"{phase}: the dynamic quantize or fp mode ran: {counts}")
+        if counts["act_scale"].get("dynamic", 0) or \
+                not counts["act_scale"].get("static", 0):
+            fail(f"{phase}: act-scale resolutions {counts['act_scale']}")
+        done = res["completed"]
+        if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+            fail(f"{phase}: {len(done)} requests finished with "
+                 f"{[len(r.out_tokens) for r in done]} tokens, expected "
+                 f"8 x 16")
+        sites = res["artifact"].sites()
+        want = res["model"].cfg.n_layers * 7 + 1   # 7 linears + the head
+        if len(sites) != want:
+            fail(f"{phase}: artifact has {len(sites)} sites, expected "
+                 f"{want}")
+        print(f"[serve D] {arch} W4A4 + KV4 static, {label}: "
+              f"{len(sites)} scales "
+              + (f"calibrated in {res['calib_s']:.2f}s, " if res["calib_s"]
+                 else "loaded, ")
+              + f"PTQ {res['ptq_s']:.2f}s, {res['tokens']} tokens in "
+              f"{res['seconds']:.3f}s = {res['tok_per_s']:.1f} tok/s, mean "
+              f"TTFT {res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+              f"{res['mean_step_s'] * 1e3:.2f}ms, launches "
+              + " ".join(f"{k}={counts[k]}" for k in kernels)
+              + f" ovp_matmul[quantize]={counts['ovp_matmul[quantize]']}, "
+              f"act-scale resolutions {counts['act_scale']}, dispatch "
+              f"{counts['dispatch']}")
+        runs[label] = (res, counts)
+    toks = {lab: {r.uid: r.out_tokens for r in res["completed"]}
+            for lab, (res, _) in runs.items()}
+    for lab in ("load", "paged"):
+        differ = sum(int(x != y) for uid, t in toks[lab].items()
+                     for x, y in zip(t, toks["calibrate"][uid]))
+        print(f"[serve D] {lab} vs calibrate run: {differ} of 128 tokens "
+              f"differ (reported, not bounded)")
+    a_toks = {r.uid: r.out_tokens for r in res_a["completed"]}
+    differ = sum(int(x != y) for uid, t in toks["calibrate"].items()
+                 for x, y in zip(t, a_toks[uid]))
+    print(f"[serve D] W4A4 static vs phase A's W4 (activations fp32): "
+          f"{differ} of 128 tokens differ (reported: 4-bit activations "
+          f"change the model)")
+    return runs
+
+
+def step_wall_ab(res_b, res_d, steps: int = 8) -> None:
+    """Decode-step wall time on the host clock of the dynamic (B) and the
+    static (D) W4A4 engines, 4 active slots each, in turns B, D, D, B, B,
+    D of `steps` steps, each step between two synchronizes: the two are
+    compared within one call and in alternation, since host-clock times
+    drift by a third between runs."""
+    import numpy as np
+    import torch
+    engs = {"B": res_b["engine"], "D": res_d["engine"]}
+    rng = np.random.default_rng(4)
+    for eng in engs.values():
+        for _ in range(4):
+            eng.submit(rng.integers(0, eng.model.cfg.vocab, size=12),
+                       max_new_tokens=64)
+        while len(eng._active()) < 4:
+            eng.step()
+    times = {"B": [], "D": []}
+    for label in ("B", "D", "D", "B", "B", "D"):
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engs[label].step()
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    for eng in engs.values():
+        eng.run_until_drained()
+    q = {k: np.percentile(v, [25, 50, 75]) for k, v in times.items()}
+    print(f"[profile] decode step wall, {3 * steps} steps each in turns "
+          f"B D D B B D: dynamic (B) median {q['B'][1]:.2f}ms (IQR "
+          f"{q['B'][0]:.2f}-{q['B'][2]:.2f}), static (D) median "
+          f"{q['D'][1]:.2f}ms (IQR {q['D'][0]:.2f}-{q['D'][2]:.2f})")
+
+
+STATIC_LOGIT_TOL = 1e-3
+
+
+def static_reference_check(res_d, dev):
+    """The static W4A4 program (the loaded artifact) over an fp32 KV cache
+    on the card against the same model on the CPU through the plain
+    versions: prefill of one prompt + 2 greedy decode steps. Greedy
+    tokens must be equal and max |logit diff| <= 1e-3 * max|ref|, the
+    bound of the other card-vs-CPU logit checks: the card's fp32 sums
+    differ from the CPU's only in the last bits, so a wrong scale route
+    or a wrong epilogue, whose errors are of the order of the logits,
+    fails it."""
+    import torch
+    from repro_torch.models.model import build_model
+    model, params = res_d["model"], res_d["params"]
+    fp_cache = build_model(model.cfg, model.policy.replace_all(kv_bits=0))
+    got = _logits_on(fp_cache, params, dev)
+    ref = _logits_on(fp_cache, _to(params, "cpu"), "cpu")
+    v = model.cfg.vocab
+    if got.shape != (3, model.cfg.padded_vocab) or \
+            not bool(torch.isfinite(got).all()):
+        fail(f"static reference check: logits shape {tuple(got.shape)} or "
+             f"non-finite values")
+    err = float((got[:, :v] - ref[:, :v]).abs().max())
+    tol = STATIC_LOGIT_TOL * float(ref[:, :v].abs().max())
+    same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+    print(f"[ref D] W4A4 static, fp32 KV: full-width prefill + 2 decode "
+          f"steps, card vs CPU plain versions: max |diff| {err:.3e} (tol "
+          f"{tol:.3e} = {STATIC_LOGIT_TOL} * max|ref|), greedy tokens "
+          f"{'equal' if same else 'differ'}")
+    if err > tol or not same:
+        fail("static reference check: card and CPU disagree")
 
 
 def main() -> int:
@@ -827,7 +1216,8 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    took = _build.build(["ovp_matmul", "decode_attn", "prefill_attn"])
+    took = _build.build(["ovp_matmul", "ovp_encode", "decode_attn",
+                         "prefill_attn"])
     print(f"[build] {json.dumps({k: round(v, 2) for k, v in took.items()})}"
           f" wall {time.perf_counter() - t0:.2f}s")
 
@@ -835,52 +1225,82 @@ def main() -> int:
     _, k2_err, k2_main = k2_phase(dev)
     _, k3_err, k3_main = k3_phase(dev)
     _, k4_err, k4_main = k4_phase(dev)
+    _, k5_err, k5_main, k5_decode = k5_codes_phase(dev)
+    counts_api = api_phase(dev)
     res, counts_a = serve_phase_a(dev)
     reference_check(res["model"], res["params"], dev)
     profile_decode(res)
-    serve_phase_b(res["model"], res["params"], dev)
+    res_b, counts_b = serve_phase_b(res["model"], res["params"], dev)
     res_c, counts_c = serve_phase_c(dev, res)
     profile_decode(res_c, "W4 + KV4, paged 16")
     paged_reference_check(res["model"], res["params"], dev)
     interleave_check(res_c, dev)
+    runs_d = serve_phase_d(dev, res)
+    static_reference_check(runs_d["load"][0], dev)
+    prof_b = profile_decode(res_b, "W4A4 + KV4, dynamic 3-sigma scales")
+    prof_d = profile_decode(runs_d["load"][0], "W4A4 + KV4, static scales")
+    if prof_b["kernels_per_step"] is not None and \
+            prof_d["kernels_per_step"] is not None:
+        print(f"[profile] dynamic (B) vs static (D) W4A4 decode step: "
+              f"{prof_b['kernels_per_step']:.1f} vs "
+              f"{prof_d['kernels_per_step']:.1f} device kernels "
+              f"({prof_b['kernels_per_step'] - prof_d['kernels_per_step']:.1f}"
+              f" fewer), wall {prof_b['step_ms']:.2f} vs "
+              f"{prof_d['step_ms']:.2f}ms, device busy "
+              f"{prof_b['busy_ms']:.3f} vs {prof_d['busy_ms']:.3f}ms")
+    step_wall_ab(res_b, runs_d["load"][0])
+    counts_d = runs_d["calibrate"][1]
 
+    def row(name, replaces, source, launches, err, rec, by=None):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": by or rec["bound_by"],
+                "library_ms": rec["library_ms"]}
+
+    k1_src = "src/repro/kernels/ovp_matmul.py:367"
     kernels = [
-        {"name": "ovp_matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/ovp_matmul.cu",
-         "replaces": "src/repro/kernels/ovp_matmul.py:367",
-         "launches": counts_a["ovp_matmul"], "max_abs_err": k1_err,
-         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
-         "bound_ms": k1_main["bound_ms"], "bound_by": k1_by,
-         "library_ms": k1_main["library_ms"]},
-        {"name": "decode_attn", "route": "cuda",
-         "source": "src/repro_torch/csrc/decode_attn.cu",
-         "replaces": "src/repro/kernels/decode_attn.py:358",
-         "launches": counts_a["decode_attn"], "max_abs_err": k2_err,
-         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
-         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-         "library_ms": k2_main["library_ms"]},
-        {"name": "paged_decode_attn", "route": "cuda",
-         "source": "src/repro_torch/csrc/decode_attn.cu",
-         "replaces": "src/repro/kernels/decode_attn.py:404",
-         "launches": counts_c["paged_decode_attn"], "max_abs_err": k3_err,
-         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
-         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
-         "library_ms": k3_main["library_ms"]},
-        {"name": "prefill_attn", "route": "cuda",
-         "source": "src/repro_torch/csrc/prefill_attn.cu",
-         "replaces": "src/repro/kernels/prefill_attn.py:170",
-         "launches": counts_c["prefill_attn"], "max_abs_err": k4_err,
-         "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
-         "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
-         "library_ms": k4_main["library_ms"]},
+        row("ovp_matmul[fp]", k1_src, "ovp_matmul.cu",
+            counts_a["ovp_matmul[fp]"], k1_err, k1_main["fp"], k1_by),
+        row("ovp_matmul[quantize]", k1_src, "ovp_matmul.cu",
+            counts_b["ovp_matmul[quantize]"], k1_err, k1_main["quantize"],
+            k1_by),
+        row("ovp_matmul[codes4]", k1_src, "ovp_matmul.cu",
+            counts_api["ovp_matmul[codes4]"], k5_err["codes4"],
+            k5_main["codes4"]),
+        row("ovp_matmul[codes8]", k1_src, "ovp_matmul.cu",
+            counts_api["ovp_matmul[codes8]"], k5_err["codes8"],
+            k5_main["codes8"]),
+        row("ovp_matmul[static]", "src/repro/kernels/ovp_matmul.py:263",
+            "ovp_matmul.cu", counts_d["ovp_matmul[static]"],
+            k5_err["static"], k5_decode),
+        row("decode_attn", "src/repro/kernels/decode_attn.py:358",
+            "decode_attn.cu", counts_a["decode_attn"], k2_err, k2_main),
+        row("paged_decode_attn", "src/repro/kernels/decode_attn.py:404",
+            "decode_attn.cu", counts_c["paged_decode_attn"], k3_err,
+            k3_main),
+        row("prefill_attn", "src/repro/kernels/prefill_attn.py:170",
+            "prefill_attn.cu", counts_c["prefill_attn"], k4_err, k4_main),
+        row("ovp_encode", "src/repro/kernels/ovp_encode.py:59",
+            "ovp_encode.cu", counts_api["ovp_encode"], 0.0,
+            k5_main["encode"]),
     ]
-    print("[note] ovp_matmul times are the 7 launches of one layer's decode "
-          "step (rows 4, fp mode); decode_attn is one launch, packed cache, "
-          "pos (0, 17, 255, 17); paged_decode_attn the same over a shuffled "
-          "pool of 16-row pages; prefill_attn one launch, packed, C=16 at "
-          "offset 240 of a 256-token stage (library: SDPA, attention half "
-          "only). Launches: ovp_matmul and decode_attn from serve phase A, "
-          "paged_decode_attn and prefill_attn from serve phase C")
+    print(f"[card] {smi.splitlines()[0]}")  # beside the numbers below
+    print("[note] ovp_matmul[fp], [quantize] and [static] times are the 7 "
+          "launches of one layer's decode step (rows 4); [codes4] and "
+          "[codes8] one launch at rows 4, K = N = 1024, library "
+          "torch.matmul on the dequantized operands; decode_attn is one "
+          "launch, packed cache, pos (0, 17, 255, 17); paged_decode_attn "
+          "the same over a shuffled pool of 16-row pages; prefill_attn one "
+          "launch, packed, C=16 at offset 240 of a 256-token stage "
+          "(library: SDPA, attention half only); ovp_encode one launch at "
+          "rows 4, K 1024 (max_abs_err: bytes differing, 0; library: "
+          "none). Launches: [fp] and decode_attn from serve phase A, "
+          "[quantize] from phase B, [static] from phase D's calibrate run, "
+          "paged_decode_attn and prefill_attn from phase C, [codes4], "
+          "[codes8] and ovp_encode from the API phase")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,8 @@ chunk of a paged prefill, on the backend `policy.backend` names:
 A backend that declines an operand layout falls back one hop, and
 `dispatch_stats()` counts served / declined-with-reason calls under the
 reference's key vocabulary ("cuda", "cuda->fallback:<code>",
-"...[decode_attn]", "...[prefill_attn]").
+"...[decode_attn]", "...[prefill_attn]"); `act_scale_stats()` counts
+how each quantized matmul resolved its activation scale.
 """
 from __future__ import annotations
 
@@ -21,10 +22,11 @@ import torch
 
 from repro_torch.core.policy import QuantPolicy
 
-from .base import (ALL_DECLINE_CODES, DECLINE_CODES, DISPATCH_MARKERS,
-                   QuantizedMatmulBackend, StaticScaleNotPortedError,
-                   act_normal_dtype, decline, dispatch_key,
-                   quantize_activation, resolve_act_scale)
+from .base import (ACT_SCALE_KEYS, ALL_DECLINE_CODES, DECLINE_CODES,
+                   DISPATCH_MARKERS, QuantizedMatmulBackend,
+                   act_normal_dtype, act_scale_stats, decline,
+                   dispatch_key, quantize_activation, record_act_scale,
+                   reset_act_scale_stats, resolve_act_scale)
 from .cuda import CudaBackend
 from .eager import EagerBackend
 
@@ -114,4 +116,5 @@ __all__ = ["QuantizedMatmulBackend", "register", "get_backend", "available",
            "decode_attention", "prefill_attention", "dispatch_stats",
            "reset_dispatch_stats",
            "quantize_activation", "resolve_act_scale", "act_normal_dtype",
-           "StaticScaleNotPortedError", "CudaBackend", "EagerBackend"]
+           "ACT_SCALE_KEYS", "act_scale_stats", "record_act_scale",
+           "reset_act_scale_stats", "CudaBackend", "EagerBackend"]

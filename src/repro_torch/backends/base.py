@@ -2,10 +2,11 @@
 of `repro/backends/base.py`.
 
 The activation scale rule lives here, not per backend, so every backend
-quantizes activations identically: the dynamic 3σ rule, ONE scalar per
-tensor over every row (`sigma_init_scale` with no axis). Static
-calibrated scales are not ported yet and raise
-`StaticScaleNotPortedError`.
+quantizes activations identically: a static calibrated scale (the
+policy's `static_act_scale`, or the caller's) in `act_scale_mode=
+"static"`, else the dynamic 3σ rule, ONE scalar per tensor over every
+row (`sigma_init_scale` with no axis). `act_scale_stats()` counts how
+each quantized matmul resolved its scale ("static" / "dynamic").
 
 `DECLINE_CODES` copies the reference registry so dispatch counts compare
 across the two packages; the port adds one matmul code,
@@ -13,10 +14,12 @@ across the two packages; the port adds one matmul code,
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.calibration import MissingStaticScaleError
 from repro_torch.core.ovp import QuantizedTensor, ovp_quantize
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.quantizer import sigma_init_scale
@@ -70,11 +73,8 @@ ALL_DECLINE_CODES = frozenset(
 
 DISPATCH_MARKERS: Tuple[str, ...] = ("[stacked]", "[decode_attn]",
                                      "[prefill_attn]")
-
-
-class StaticScaleNotPortedError(NotImplementedError):
-    """Static calibrated activation scales are ROADMAP.md queue 1, item 7
-    (static calibration) and are not in the port yet."""
+# act_scale_stats() keys: A-side scale resolution per quantized matmul
+ACT_SCALE_KEYS: Tuple[str, ...] = ("static", "dynamic")
 
 
 def decline(code: Optional[str]) -> Optional[str]:
@@ -100,15 +100,49 @@ def act_normal_dtype(policy: QuantPolicy) -> str:
     return policy.a_normal_dtype if policy.abits == 4 else "int8"
 
 
+_ACT_SCALE_STATS: collections.Counter = collections.Counter()
+
+
+def reset_act_scale_stats() -> None:
+    _ACT_SCALE_STATS.clear()
+
+
+def act_scale_stats() -> Dict[str, int]:
+    """Counter keyed "static" / "dynamic": how each quantized matmul
+    resolved its activation scale. A run served on a calibration
+    artifact shows `dynamic == 0`."""
+    return dict(_ACT_SCALE_STATS)
+
+
+def record_act_scale(kind: str) -> None:
+    if kind not in ACT_SCALE_KEYS:
+        raise KeyError(f"unregistered act-scale key {kind!r}; "
+                       f"options: {ACT_SCALE_KEYS}")
+    _ACT_SCALE_STATS[kind] += 1
+
+
 def resolve_act_scale(x: torch.Tensor, policy: QuantPolicy,
                       static_scale: Optional[torch.Tensor] = None):
-    """(scale, normal_dtype) for the A side of one matmul: the dynamic 3σ
+    """(scale, normal_dtype) for the A side of one matmul.
+
+    static mode: the caller's `static_scale` (per-tensor or per-row)
+    wins, else the policy's calibrated `static_act_scale`; a miss raises
+    rather than paying the dynamic std every step. A scalar static scale
+    comes back as a Python float (the one word a kernel takes by value),
+    a tensor one as an fp32 tensor on `x`'s device. Dynamic mode: the 3σ
     rule, one population-std scalar over the whole tensor."""
-    if policy.act_scale_mode == "static" or static_scale is not None:
-        raise StaticScaleNotPortedError(
-            "static activation scales are not ported yet (ROADMAP.md "
-            "queue 1, item 7: static calibration)")
     nd = act_normal_dtype(policy)
+    if policy.act_scale_mode == "static":
+        if static_scale is None:
+            static_scale = policy.static_act_scale
+        if static_scale is None:
+            raise MissingStaticScaleError(["<unresolved site>"])
+        record_act_scale("static")
+        if isinstance(static_scale, (int, float)):
+            return float(static_scale), nd
+        return torch.as_tensor(static_scale, dtype=torch.float32,
+                               device=x.device), nd
+    record_act_scale("dynamic")
     return sigma_init_scale(x.to(torch.float32), nd), nd
 
 

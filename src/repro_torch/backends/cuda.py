@@ -1,7 +1,9 @@
 """CUDA backend (the reference's `pallas` role), the port's default: one
-launch of the fused OVP matmul kernel (K1, `kernels/ovp_matmul.py`) per
+launch of the fused OVP matmul kernel (`kernels/ovp_matmul.py`) per
 quantized matmul, with in-kernel activation quantization at the dynamic
-3σ scale; the slab (K2) or paged (K3) decode-attention kernel
+3σ scale (K1) or, for a calibrated static site, at its scale passed to
+the kernel as one scalar with no per-step std (K5); the slab (K2) or
+paged (K3) decode-attention kernel
 (`kernels/decode_attn.py`) for every decode step; and the fused
 cache-write prefill kernel (K4, `kernels/prefill_attn.py`) for every
 chunk of a paged prefill. CPU tensors take each
@@ -37,11 +39,15 @@ class CudaBackend(QuantizedMatmulBackend):
     def matmul(self, x: torch.Tensor, w: QuantizedTensor,
                policy: QuantPolicy,
                act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-        a_dtype = scale = None
+        a_dtype = scale = static = None
         if policy.abits:
             scale, a_dtype = resolve_act_scale(x, policy, act_scale)
+            if isinstance(scale, float):
+                # calibrated scalar: no std, one scale word to K5
+                static, scale = scale, None
         out = ovp_matmul.fused_ovp_matmul(x, w, a_dtype=a_dtype,
-                                          act_scale=scale)
+                                          act_scale=scale,
+                                          static_act_scale=static)
         return out.to(torch_dtype(policy.compute_dtype))
 
     def decode_attn_decline_reason(self, q, cache) -> Optional[str]:

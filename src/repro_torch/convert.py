@@ -6,7 +6,8 @@ params)`), raw or already quantized. Quantized leaves arrive as dicts
 `{data, scale, normal_dtype, pair_axis, orig_dim}` or any object with
 those attributes. The scanned `blocks/<j>` stacks (leading group axis)
 unstack into the port's unrolled `layers` list, layer i = g * period + j,
-followed by the `tail` entries.
+followed by the `tail` entries; a tree the reference already unrolled
+(`unroll_params`) keeps its `layers` list.
 """
 from __future__ import annotations
 
@@ -68,7 +69,7 @@ def _n_groups(x) -> int:
 def params_from_numpy(tree, device="cuda"):
     """Reference tree (numpy leaves) -> port params on `device`."""
     out = {k: v for k, v in tree.items() if k not in ("blocks", "tail")}
-    layers = []
+    layers = list(tree.get("layers") or [])
     blocks = tree.get("blocks") or {}
     if blocks:
         period = len(blocks)

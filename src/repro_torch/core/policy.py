@@ -1,6 +1,7 @@
 """Quantization policy: which tensors get quantized, how, and on what
-backend. Port of `repro/core/policy.py` (flat policies, rules and the
-legacy-flag program; the mixed-precision program presets are not ported).
+backend. Port of `repro/core/policy.py` (flat policies, rules, the
+legacy-flag program and the program protocol that calibration overlays;
+the mixed-precision program presets are not ported).
 
 `QuantPolicy` is the per-site decision record. `PolicyProgram` holds
 ordered (glob pattern -> QuantPolicy) rules matched case-insensitively
@@ -62,6 +63,9 @@ class QuantPolicy:
     def backends(self) -> frozenset:
         return frozenset((self.backend,))
 
+    def as_program(self) -> "PolicyProgram":
+        return _compiled(self)
+
 
 @dataclasses.dataclass(frozen=True)
 class Rule:
@@ -96,6 +100,34 @@ class PolicyProgram:
 
     def resolve(self, site: str) -> QuantPolicy:
         return _program_resolve(self, site)
+
+    # what the model, the engine and quantize_params ask of a policy
+    @property
+    def enabled(self) -> bool:
+        return self.default.enabled or any(r.policy.enabled
+                                           for r in self.rules)
+
+    @property
+    def compute_dtype(self) -> str:
+        return self.default.compute_dtype
+
+    def backends(self) -> frozenset:
+        return frozenset([self.default.backend]
+                         + [r.policy.backend for r in self.rules])
+
+    def with_backend(self, name: str) -> "PolicyProgram":
+        return self.replace_all(backend=name)
+
+    def as_program(self) -> "PolicyProgram":
+        return self
+
+    def replace_all(self, **kw) -> "PolicyProgram":
+        """`dataclasses.replace` applied to every rule policy and the
+        default."""
+        return PolicyProgram(
+            rules=tuple(Rule(r.pattern, dataclasses.replace(r.policy, **kw),
+                             origin=r.origin) for r in self.rules),
+            default=dataclasses.replace(self.default, **kw), name=self.name)
 
     @classmethod
     def from_policy(cls, policy: QuantPolicy,
@@ -135,8 +167,15 @@ def _program_resolve(program: PolicyProgram, site: str) -> QuantPolicy:
     return program.default
 
 
-def resolve(policy: Union[QuantPolicy, PolicyProgram],
-            site: str) -> QuantPolicy:
+PolicyLike = Union[QuantPolicy, PolicyProgram]
+
+
+def as_program(policy: PolicyLike) -> PolicyProgram:
+    """Normalize either policy form to a PolicyProgram."""
+    return policy.as_program()
+
+
+def resolve(policy: PolicyLike, site: str) -> QuantPolicy:
     """The single resolution entry point consumers call per site."""
     return policy.resolve(site)
 

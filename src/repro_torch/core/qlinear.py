@@ -1,6 +1,6 @@
 """Quantized linear ops — the integration point between OliVe and the
-models. Port of `repro/core/qlinear.py` (PTQ serving only: no QAT, no
-baselines, no calibration tape).
+models. Port of `repro/core/qlinear.py` (PTQ serving and the
+calibration tape: no QAT, no baselines).
 
   raw weight                 -> plain matmul in the compute dtype
   QuantizedTensor            -> `repro_torch.backends.dispatch` on the
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch import backends
 
+from . import calibration
 from .ovp import QuantizedTensor
 from .policy import QuantPolicy, resolve
 from .quantizer import QuantSpec, quantize
@@ -41,8 +42,15 @@ def quantize_weight(w: torch.Tensor, policy: QuantPolicy) -> Weight:
 def qmatmul(x: torch.Tensor, w: Weight, policy: QuantPolicy, site: str = "",
             act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., K) @ w (K, N) with the policy's quantization applied.
-    `site` is the weight's "/"-joined param-tree address."""
+    `site` is the weight's "/"-joined param-tree address: it feeds the
+    calibration tape when one is active (raw and quantized weights
+    alike), and names the site when a static-scale policy arrives
+    without a calibrated scale."""
+    calibration.tap(site, x)
     if isinstance(w, QuantizedTensor):
+        if (policy.abits and policy.act_scale_mode == "static"
+                and act_scale is None and policy.static_act_scale is None):
+            raise calibration.MissingStaticScaleError([site or "<unknown>"])
         return backends.dispatch(x, w, policy, act_scale=act_scale)
     cdt = backends.base.torch_dtype(policy.compute_dtype)
     return torch.matmul(x.to(cdt), w.to(cdt))

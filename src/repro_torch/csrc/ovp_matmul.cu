@@ -1,45 +1,60 @@
 // Fused OVP matmul for Hopper (sm_90a), fp32 FMA on the CUDA cores.
 //
 // Replaces the TPU kernel src/repro/kernels/ovp_matmul.py:367
-// (fused_ovp_matmul_kernel -> pallas_call at :417, body _fused_mm_kernel
-// :224) in its "fp" and "quantize" activation modes, for int4 / flint4
-// packed-nibble weights and int8 one-code-per-byte weights.
+// (fused_ovp_matmul_kernel -> pallas_call at :417) in every activation
+// mode, for int4 / flint4 packed-nibble weights and int8
+// one-code-per-byte weights: K1 (body _fused_mm_kernel :224, modes fp,
+// quantize, codes4, codes8) and K5 (a_static=True, body
+// _fused_mm_kernel_static :263).
 //
 //   out[r, n] = (sum_k a'[r, k] * w'[k, n]) * sa[r] * sw[n]
 //
-// a' is the fp32 activation ("fp") or its OVP fake-quantization at the
-// per-row scale sa ("quantize": u = a / sa, Algorithm 1 pair selection,
-// rintf rounding, exact log2f abfloat encode). w' is the weight code
-// decoded branch-free per pair: a neighbour holding the identifier makes
-// the value an abfloat outlier, holding it yourself makes you the victim
-// (0), otherwise the value is a normal code.
+// a' is, by mode:
+//   fp        the fp32 activation, sa = 1;
+//   quantize  its OVP fake-quantization at the per-row scale sa (u = a /
+//             sa, Algorithm 1 pair selection, rintf rounding, exact log2f
+//             abfloat encode);
+//   static    the same at ONE calibrated scale s passed by value (K5):
+//             u = a * (1 / s) with 1 / s an IEEE division, and the
+//             epilogue acc * (s * sw[n]), in the Pallas body's order;
+//             no scale plane is read;
+//   codes4    pre-packed OVP nibbles (R, K/2), even k high, decoded with
+//             the weight side's pair decode; per-row sa;
+//   codes8    int8 OVP codes (R, K), one per byte; per-row sa.
+// w' is the weight code decoded branch-free per pair: a neighbour
+// holding the identifier makes the value an abfloat outlier, holding it
+// yourself makes you the victim (0), otherwise the value is a normal
+// code.
 //
 // Launch shape: grid (N / 16, ceil(R / 8), split), 256 threads. A block
 // owns 8 rows x 16 output columns and walks K inside the block in stages
 // of 256 pairs: each stage loads the packed weight rows with one 16-byte
 // load per row (16 columns of one K pair, coalesced along N) into shared
-// memory, quantizes the activation stage once in the prologue, and 16
-// k-groups of 16 threads accumulate disjoint pair subsets in registers;
-// a shared-memory reduction over the k-groups and the sa * sw epilogue
-// finish the tile. Narrow 16-column tiles are chosen for the decode
-// shapes of the serving path (rows = 4 slots, N = 1024 or 2816): they
-// give 64 or 176 blocks where 128-column tiles would give 8 or 22. When
-// the grid would still hold fewer than 100 blocks the wrapper splits K
-// in two along gridDim.z; each half adds its scaled partial into a zeroed
-// output with atomicAdd, which is order-independent for two addends, so
-// the result stays deterministic.
+// memory, runs the activation prologue once per stage (quantize or
+// decode into fp32 shared memory), and 16 k-groups of 16 threads
+// accumulate disjoint pair subsets in registers; a shared-memory
+// reduction over the k-groups and the scale epilogue finish the tile.
+// Narrow 16-column tiles are chosen for the decode shapes of the serving
+// path (rows = 4 slots, N = 1024 or 2816): they give 64 or 176 blocks
+// where 128-column tiles would give 8 or 22. When the grid would still
+// hold fewer than 100 blocks the wrapper splits K in two along
+// gridDim.z; each half adds its scaled partial into a zeroed output with
+// atomicAdd, which is order-independent for two addends, so the result
+// stays deterministic.
 //
 // What bounds it on the H100: at decode (R = 4) the packed weight bytes
 // (K/2 * N per call, 0.5-1.4 MB on the path) over 3.35 TB/s are well
 // under a microsecond, so launch latency and the serial load-decode-FMA
-// chain of each stage bound the kernel; nothing overlaps a stage's loads
-// with the previous stage's math yet (no cp.async/TMA pipeline, no
-// tensor cores). Making it fast is later work.
+// chain of each stage bound the kernel in every mode; nothing overlaps a
+// stage's loads with the previous stage's math yet (no cp.async/TMA
+// pipeline, no tensor cores). The codes modes read 1/8 (codes4) or 1/4
+// (codes8) of the fp32 activation bytes, which at R = 4 is a few KB and
+// moves nothing. Making it fast is later work.
 //
 // Tolerance against the plain version (kernels/ovp_matmul.py,
-// fused_ovp_matmul_plain): decoded weights and quantized activations are
-// exact in both; only the fp32 summation order differs, so rtol 1e-5 and
-// atol 1e-5 * max|ref|.
+// fused_ovp_matmul_plain): decoded weights, decoded codes and quantized
+// activations are exact in both; only the fp32 summation order differs,
+// so rtol 1e-5 and atol 1e-5 * max|ref|.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,7 +67,7 @@ constexpr int NT = 256;       // threads per block
 constexpr int KG = NT / BN;   // k-groups
 
 enum { DT_INT4 = 0, DT_FLINT4 = 1, DT_INT8 = 2 };
-enum { A_FP = 0, A_QUANT = 1 };
+enum { A_FP = 0, A_QUANT = 1, A_STATIC = 2, A_CODES4 = 3, A_CODES8 = 4 };
 
 struct Spec {
   int ebits, mb, bias;
@@ -138,10 +153,10 @@ __device__ __forceinline__ void quant_pair(float u0, float u1, int dt,
 
 template <int WDT>
 __global__ void __launch_bounds__(NT)
-ovp_mm_kernel(const float* __restrict__ a, const float* __restrict__ sa,
+ovp_mm_kernel(const void* __restrict__ a, const float* __restrict__ sa,
               const uint8_t* __restrict__ w, const float* __restrict__ sw,
               float* __restrict__ out, int R, int K, int N, int a_mode,
-              int a_dtype, int k2_per_split) {
+              int a_dtype, int k2_per_split, float s_static) {
   constexpr int WROWS = WDT == DT_INT8 ? 2 : 1;  // weight byte rows per pair
   __shared__ __align__(16) uint8_t w_s[BK2 * WROWS * BN];
   __shared__ __align__(16) float a_s[BM][2 * BK2];
@@ -151,6 +166,9 @@ ovp_mm_kernel(const float* __restrict__ a, const float* __restrict__ sa,
   const int n0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
   const int k2b = blockIdx.z * k2_per_split;
   const int k2e = min(K / 2, k2b + k2_per_split);
+  const float inv_static = 1.0f / s_static;  // IEEE: no fast-math
+  const float* af = static_cast<const float*>(a);
+  const uint8_t* ab = static_cast<const uint8_t*>(a);
   float acc[BM];
 #pragma unroll
   for (int r = 0; r < BM; ++r) acc[r] = 0.f;
@@ -166,20 +184,32 @@ ovp_mm_kernel(const float* __restrict__ a, const float* __restrict__ sa,
       reinterpret_cast<uint4*>(w_s)[i] = v;
     }
     // activation prologue: each pair read once, OVP fake-quantized at
-    // the row scale in "quantize" mode
+    // the row scale ("quantize") or the calibrated scalar ("static"),
+    // or decoded from its codes ("codes4", "codes8")
     for (int i = tid; i < BM * BK2; i += NT) {
       const int r = i / BK2, p = i % BK2;
       const int row = r0 + r, k2 = k0 + p;
       float q0 = 0.f, q1 = 0.f;
       if (row < R && k2 < k2e) {
-        const float2 x =
-            *reinterpret_cast<const float2*>(a + (size_t)row * K + 2 * k2);
-        if (a_mode == A_QUANT) {
-          const float s = sa[row];
-          quant_pair(x.x / s, x.y / s, a_dtype, q0, q1);
+        if (a_mode == A_CODES4) {
+          const int byte = ab[(size_t)row * (K / 2) + k2];
+          dec_pair(byte >> 4, byte & 15, a_dtype, q0, q1);
+        } else if (a_mode == A_CODES8) {
+          const uchar2 c =
+              *reinterpret_cast<const uchar2*>(ab + (size_t)row * K + 2 * k2);
+          dec_pair(c.x, c.y, DT_INT8, q0, q1);
         } else {
-          q0 = x.x;
-          q1 = x.y;
+          const float2 x =
+              *reinterpret_cast<const float2*>(af + (size_t)row * K + 2 * k2);
+          if (a_mode == A_QUANT) {
+            const float s = sa[row];
+            quant_pair(x.x / s, x.y / s, a_dtype, q0, q1);
+          } else if (a_mode == A_STATIC) {
+            quant_pair(x.x * inv_static, x.y * inv_static, a_dtype, q0, q1);
+          } else {
+            q0 = x.x;
+            q1 = x.y;
+          }
         }
       }
       a_s[r][2 * p] = q0;
@@ -217,7 +247,9 @@ ovp_mm_kernel(const float* __restrict__ a, const float* __restrict__ sa,
     float s = 0.f;
     for (int g = 0; g < KG; ++g) s += red[g][r][cc];
     if (row < R) {
-      const float v = (a_mode == A_QUANT ? s * sa[row] : s) * sw[col];
+      const float v = a_mode == A_FP       ? s * sw[col]
+                      : a_mode == A_STATIC ? s * (s_static * sw[col])
+                                           : s * sa[row] * sw[col];
       if (gridDim.z == 1)
         out[(size_t)row * N + col] = v;
       else
@@ -228,36 +260,39 @@ ovp_mm_kernel(const float* __restrict__ a, const float* __restrict__ sa,
 
 }  // namespace
 
-// a (R, K) f32; sa (R,) f32 (read in "quantize" mode only); w (K/2, N)
-// packed nibbles or (K, N) int8 codes; sw (N,) f32; out (R, N) f32,
-// zeroed by the caller when split > 1. N must be a multiple of 16 and
-// every pointer 16-byte aligned. Returns cudaGetLastError().
+// a (R, K) f32, or (R, K/2) packed nibbles (codes4), or (R, K) int8
+// codes (codes8); sa (R,) f32 (read in the quantize and codes modes);
+// w (K/2, N) packed nibbles or (K, N) int8 codes; sw (N,) f32; s_static
+// the calibrated scale (static mode); out (R, N) f32, zeroed by the
+// caller when split > 1. N must be a multiple of 16 and every pointer
+// 16-byte aligned. Returns cudaGetLastError().
 extern "C" int ovp_mm_launch(const void* a, const void* sa, const void* w,
                              const void* sw, void* out, int R, int K, int N,
                              int w_dtype, int a_mode, int a_dtype, int split,
-                             void* stream) {
+                             float s_static, void* stream) {
   const int k2 = K / 2;
   const int per = ((k2 + split - 1) / split + BK2 - 1) / BK2 * BK2;
   const dim3 grid(N / BN, (R + BM - 1) / BM, split);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* af = static_cast<const float*>(a);
   const float* saf = static_cast<const float*>(sa);
   const uint8_t* wb = static_cast<const uint8_t*>(w);
   const float* swf = static_cast<const float*>(sw);
   float* of = static_cast<float*>(out);
   switch (w_dtype) {
     case DT_INT4:
-      ovp_mm_kernel<DT_INT4><<<grid, NT, 0, st>>>(af, saf, wb, swf, of, R, K,
-                                                  N, a_mode, a_dtype, per);
+      ovp_mm_kernel<DT_INT4><<<grid, NT, 0, st>>>(a, saf, wb, swf, of, R, K,
+                                                  N, a_mode, a_dtype, per,
+                                                  s_static);
       break;
     case DT_FLINT4:
-      ovp_mm_kernel<DT_FLINT4><<<grid, NT, 0, st>>>(af, saf, wb, swf, of, R,
+      ovp_mm_kernel<DT_FLINT4><<<grid, NT, 0, st>>>(a, saf, wb, swf, of, R,
                                                     K, N, a_mode, a_dtype,
-                                                    per);
+                                                    per, s_static);
       break;
     case DT_INT8:
-      ovp_mm_kernel<DT_INT8><<<grid, NT, 0, st>>>(af, saf, wb, swf, of, R, K,
-                                                  N, a_mode, a_dtype, per);
+      ovp_mm_kernel<DT_INT8><<<grid, NT, 0, st>>>(a, saf, wb, swf, of, R, K,
+                                                  N, a_mode, a_dtype, per,
+                                                  s_static);
       break;
     default:
       return (int)cudaErrorInvalidValue;

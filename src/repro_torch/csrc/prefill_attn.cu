@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ovp_codec.cuh"
+
 namespace {
 
 constexpr int TS = 32;      // keys per attention tile (one per warp lane)
@@ -67,40 +69,6 @@ constexpr int NT = 128;     // threads per block
 constexpr int NW = NT / 32;
 constexpr int DMAX = 128;   // largest head_dim the kernel takes
 constexpr float NEG_INF = -1e30f;
-
-// int4 normal code: round half to even, clip to +-7, two's complement
-__device__ __forceinline__ int enc_int4(float u) {
-  const int q = (int)fminf(fmaxf(rintf(u), -7.f), 7.f);
-  return q & 15;
-}
-
-// int4's E2M1 abfloat (bias 2): magnitude clamped to [12, 96], exact
-// floor(log2) with the mantissa-overflow bump, the e=0, m=0 code disabled
-__device__ __forceinline__ int enc_abfloat4(float u) {
-  const int sign = u < 0.f ? 1 : 0;
-  const float mag = fminf(fmaxf(fabsf(u), 12.f), 96.f);
-  int ex = (int)floorf(log2f(mag)) - 1;
-  int base = (int)rintf(ldexpf(mag, -ex));
-  if (base == 4) {
-    ex += 1;
-    base = 2;
-  }
-  const int ef = min(max(ex - 2, 0), 3);
-  const int mf = base & 1;
-  const int code = (sign << 3) | (ef << 1) | mf;
-  return (ef == 0 && mf == 0) ? (code | 1) : code;
-}
-
-// Algorithm 1 on one scaled pair -> one packed byte (even code high)
-__device__ __forceinline__ uint8_t enc_pair(float u0, float u1) {
-  const float a0 = fabsf(u0), a1 = fabsf(u1);
-  const bool o0 = a0 > 7.f, o1 = a1 > 7.f;
-  const bool first = o0 && (!o1 || a0 >= a1);  // ties keep the left one
-  const bool second = o1 && !first;
-  const int c0 = first ? enc_abfloat4(u0) : (second ? 8 : enc_int4(u0));
-  const int c1 = second ? enc_abfloat4(u1) : (first ? 8 : enc_int4(u1));
-  return (uint8_t)((c0 << 4) | (c1 & 15));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -154,7 +122,7 @@ __device__ void write_tile(const float* __restrict__ sk,
 #pragma unroll
     for (int i = 0; i < DMAX / 64; ++i) {
       const int p = lane + 32 * i;
-      if (p < D2) y[p] = enc_pair(xv[i].x / s, xv[i].y / s);
+      if (p < D2) y[p] = ovp::enc_pair(xv[i].x / s, xv[i].y / s);
     }
     if (lane == 0) (is_v ? vs : ks)[dst] = s;
   }

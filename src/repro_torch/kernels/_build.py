@@ -1,13 +1,13 @@
 """Build and load the hand-written CUDA kernels in `csrc/`.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled on
-first use with
+Each `csrc/<name>.cu` exposes a plain C interface (and may include the
+shared `csrc/*.cuh` headers) and is compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
 
 into `build/kernels/<name>-<hash>.so` at the repo root, keyed on a hash
-of the source and the flags, then loaded with `ctypes`. Fast-math is
+of the source, the headers and the flags, then loaded with `ctypes`. Fast-math is
 deliberately off: the abfloat encode needs exact `log2f`, IEEE division
 and `rintf` rounding to match the plain versions. Nothing is compiled at
 import time; CPU-only hosts never reach this module's build.
@@ -43,7 +43,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()
     return BUILD / f"{name}-{digest[:16]}.so"
 

@@ -1,29 +1,39 @@
-"""K1: the fused OVP matmul — hand-written CUDA kernel + plain version.
+"""K1 and K5: the fused OVP matmul — hand-written CUDA kernel + plain
+version.
 
 Replaces the TPU kernel `repro/kernels/ovp_matmul.py:367`
-(`fused_ovp_matmul_kernel`, body `_fused_mm_kernel` :224) and its host
-wrapper `repro/kernels/ops.py:114` (`fused_ovp_matmul`) in the `fp` and
-`quantize` activation modes:
+(`fused_ovp_matmul_kernel`) in all its activation modes, and its host
+wrapper `repro/kernels/ops.py:114` (`fused_ovp_matmul`):
 
     out[..., n] = (Σ_k a'[..., k] · w'[k, n]) · sa[...] · sw[n]
 
 with w' the OVP-decoded weight (int4/flint4 nibbles packed along K, even
-k in the high nibble, or int8 codes) and a' the activation as-is (`fp`)
-or OVP fake-quantized in the kernel prologue at the per-row scale
-(`quantize`). The kernel source is `csrc/ovp_matmul.cu`; its header says
-how it is tiled and what bounds it on the H100.
+k in the high nibble, or int8 codes) and a' the activation in one of the
+modes of `A_MODES`:
+  fp        as-is, sa = 1 (W4A16);
+  quantize  OVP fake-quantized in the prologue at the per-row scale sa,
+            u = a / sa (K1, body `_fused_mm_kernel` :224, dynamic W4A4);
+  static    OVP fake-quantized at ONE calibrated scalar s passed by
+            value, u = a · (1/s), epilogue acc · (s · sw) (K5, body
+            `_fused_mm_kernel_static` :263, static W4A4 serving);
+  codes4    pre-packed OVP nibbles (…, K/2) decoded in the prologue,
+            per-row sa (K1 `_act_tile_planes` :203);
+  codes8    int8 OVP codes (…, K) decoded in the prologue, per-row sa.
+The kernel source is `csrc/ovp_matmul.cu`; its header says how it is
+tiled and what bounds it on the H100.
 
 `fused_ovp_matmul` folds the lead dims into rows, broadcasts the scales
 to (rows,) and (N,), and pads N to the kernel's 16-column tile. CPU
 tensors take `fused_ovp_matmul_plain`; CUDA tensors launch the kernel (or
-raise); `fused_ovp_matmul.launches` counts kernel launches. The
-pre-quantized `codes4`/`codes8` modes are not ported yet.
+raise). `fused_ovp_matmul.mode_launches[mode]` counts each mode's
+kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.datatypes import (ABFLOAT_FOR_NORMAL, NORMAL_MAX,
@@ -88,21 +98,41 @@ def quantize_pair_planes(u0: torch.Tensor, u1: torch.Tensor,
     return q0.to(torch.float32), q1.to(torch.float32)
 
 
+def _reciprocal(s: float) -> float:
+    """1/s rounded once in float32 (the static prologue's multiplier)."""
+    return float(np.float32(1.0) / np.float32(s))
+
+
+def act_planes(a: torch.Tensor, sa: Optional[torch.Tensor], a_mode: str,
+               a_dtype: str, s_static: Optional[float] = None):
+    """The activation prologue: (R, Ka) operand -> (even, odd) fp32
+    planes, each (R, K/2)."""
+    if a_mode == "codes4":
+        return decode_pair_planes((a >> 4) & 0xF, a & 0xF, a_dtype)
+    if a_mode == "codes8":
+        return decode_pair_planes(a[:, 0::2], a[:, 1::2], "int8")
+    af = a.to(torch.float32)
+    if a_mode == "fp":
+        return af[:, 0::2], af[:, 1::2]
+    u = af / sa[:, None] if a_mode == "quantize" \
+        else af * _reciprocal(s_static)
+    return quantize_pair_planes(u[:, 0::2], u[:, 1::2], a_dtype)
+
+
 def fused_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
                            w_data: torch.Tensor, sw: torch.Tensor, *,
-                           w_dtype: str, a_dtype: Optional[str]
+                           w_dtype: str, a_mode: str, a_dtype: str,
+                           s_static: Optional[float] = None
                            ) -> torch.Tensor:
-    """a (R, K) f32; sa (R,) row scales (quantize mode) or None (fp);
+    """a (R, Ka) f32 or codes; sa (R,) row scales (quantize and codes
+    modes) or None; `s_static` the calibrated scalar (static mode);
     w_data packed/int8 codes; sw (N,) -> (R, N) f32."""
     w_even, w_odd = weight_planes(w_data, w_dtype)
-    af = a.to(torch.float32)
-    if a_dtype is not None:
-        u = af / sa[:, None]
-        a_even, a_odd = quantize_pair_planes(u[:, 0::2], u[:, 1::2], a_dtype)
-    else:
-        a_even, a_odd = af[:, 0::2], af[:, 1::2]
+    a_even, a_odd = act_planes(a, sa, a_mode, a_dtype, s_static)
     acc = a_even @ w_even + a_odd @ w_odd
-    if a_dtype is not None:
+    if a_mode == "static":
+        return acc * (sw * float(np.float32(s_static)))[None, :]
+    if a_mode != "fp":
         acc = acc * sa[:, None]
     return acc * sw[None, :]
 
@@ -110,8 +140,9 @@ def fused_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
 # --------------------------------------------------------------------------
 # CUDA launch
 # --------------------------------------------------------------------------
+A_MODES = ("fp", "quantize", "static", "codes4", "codes8")
 _SIGNATURE = {"ovp_mm_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-              + [ctypes.c_void_p]}
+              + [ctypes.c_float, ctypes.c_void_p]}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -122,13 +153,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(a: torch.Tensor, sa: Optional[torch.Tensor],
             w_data: torch.Tensor, sw: torch.Tensor, *, w_dtype: str,
-            a_dtype: Optional[str]) -> torch.Tensor:
-    r, k = a.shape
+            a_mode: str, a_dtype: str, s_static: Optional[float]
+            ) -> torch.Tensor:
+    r, k = a.shape[0], w_data.shape[0] * (1 if w_dtype == "int8" else 2)
     n = w_data.shape[1]
-    if a.dtype != torch.float32 or w_data.dtype != torch.uint8:
-        raise TypeError(f"ovp_matmul kernel takes f32 activations and "
-                        f"uint8 codes, got {a.dtype} and {w_data.dtype}")
-    if {t.device for t in (a, w_data, sw)} != {a.device}:
+    a_type = torch.uint8 if a_mode.startswith("codes") else torch.float32
+    if a.dtype != a_type or w_data.dtype != torch.uint8:
+        raise TypeError(f"ovp_matmul kernel ({a_mode}) takes {a_type} "
+                        f"activations and uint8 codes, got {a.dtype} and "
+                        f"{w_data.dtype}")
+    if {t.device for t in (a, sa, w_data, sw) if t is not None} != \
+            {a.device}:
         raise ValueError("ovp_matmul operands must share one device")
     if n % _BN:
         pad = _BN - n % _BN
@@ -145,58 +180,107 @@ def _launch(a: torch.Tensor, sa: Optional[torch.Tensor],
     err = lib.ovp_mm_launch(
         a.data_ptr(), sa.data_ptr(), w_data.data_ptr(), sw.data_ptr(),
         out.data_ptr(), r, k, np_, _DTYPE_CODE[w_dtype],
-        0 if a_dtype is None else 1, _DTYPE_CODE[a_dtype or "int4"], split,
+        A_MODES.index(a_mode), _DTYPE_CODE[a_dtype], split,
+        float(np.float32(s_static or 1.0)),
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "ovp_matmul")
-    fused_ovp_matmul.launches += 1
+    fused_ovp_matmul.mode_launches[a_mode] += 1
     return out[:, :n]
 
 
 def run(a: torch.Tensor, sa: Optional[torch.Tensor], w_data: torch.Tensor,
-        sw: torch.Tensor, *, w_dtype: str, a_dtype: Optional[str]
+        sw: torch.Tensor, *, w_dtype: str, a_mode: str,
+        a_dtype: Optional[str] = None, s_static: Optional[float] = None
         ) -> torch.Tensor:
-    """(R, K) x codes -> (R, N): the plain version for CPU tensors, the
-    kernel for CUDA tensors, an error for anything else."""
-    expect = w_data.shape[0] * (1 if w_dtype == "int8" else 2)
-    if a.shape[1] != expect or a.shape[1] % 2:
-        raise ValueError(f"lhs K={a.shape[1]} does not match the "
+    """(R, Ka) x codes -> (R, N): the plain version for CPU tensors, the
+    kernel for CUDA tensors, an error for anything else. `a_dtype`
+    defaults to the weight's (fp mode ignores it); static mode needs
+    `s_static`, the quantize and codes modes `sa`."""
+    if a_mode not in A_MODES:
+        raise ValueError(f"activation mode {a_mode!r}; options: {A_MODES}")
+    a_dtype = a_dtype or w_dtype
+    if a_mode == "codes8" and a_dtype != "int8":
+        raise ValueError("codes8 activations are int8 OVP codes")
+    if (a_mode == "static") != (s_static is not None):
+        raise ValueError("s_static is the static mode's scale, and only "
+                         "its")
+    if a_mode in ("quantize", "codes4", "codes8") and sa is None:
+        raise ValueError(f"{a_mode} mode needs per-row scales sa")
+    k = w_data.shape[0] * (1 if w_dtype == "int8" else 2)
+    ka = a.shape[1] * (2 if a_mode == "codes4" else 1)
+    if ka != k or k % 2:
+        raise ValueError(f"lhs K={ka} ({a_mode}) does not match the "
                          f"{w_dtype} weight {tuple(w_data.shape)}")
+    kw = dict(w_dtype=w_dtype, a_mode=a_mode, a_dtype=a_dtype,
+              s_static=s_static)
     if a.device.type == "cpu":
-        return fused_ovp_matmul_plain(a, sa, w_data, sw, w_dtype=w_dtype,
-                                      a_dtype=a_dtype)
+        return fused_ovp_matmul_plain(a, sa, w_data, sw, **kw)
     if a.device.type != "cuda":
         raise ValueError(f"ovp_matmul runs on cpu or cuda, not {a.device}")
-    return _launch(a, sa, w_data, sw, w_dtype=w_dtype, a_dtype=a_dtype)
+    return _launch(a, sa, w_data, sw, **kw)
 
 
-def fused_ovp_matmul(x: torch.Tensor, w: QuantizedTensor, *,
+def _col_scale(s, n: int, device) -> torch.Tensor:
+    """A scalar or per-channel weight scale -> (N,) f32."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=device)
+    return torch.broadcast_to(s.reshape(-1) if s.ndim else s, (n,))
+
+
+def _row_scale(s, lead: tuple, device) -> torch.Tensor:
+    """A scalar or per-row scale (shaped `lead`, or anything that
+    broadcasts to `lead + (1,)`) -> one f32 scale per folded row."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=device)
+    if s.ndim and s.shape == lead:
+        s = s[..., None]
+    return torch.broadcast_to(s, tuple(lead) + (1,)).reshape(-1)
+
+
+def fused_ovp_matmul(x: Union[torch.Tensor, QuantizedTensor],
+                     w: QuantizedTensor, *,
                      a_dtype: Optional[str] = None,
-                     act_scale: Optional[torch.Tensor] = None
+                     act_scale: Optional[torch.Tensor] = None,
+                     static_act_scale: Optional[float] = None
                      ) -> torch.Tensor:
     """(…, K) @ OVP (K, N) -> (…, N) f32, one kernel launch on CUDA.
 
-    `a_dtype` set: activations are OVP-quantized in the prologue at
-    `act_scale` (a per-tensor scalar or one scale per row); unset: W4A16.
-    Weight pairs must run along K (`pair_axis == -2`)."""
+    `x` a pre-quantized `QuantizedTensor` (pairs along K): its codes are
+    decoded in the prologue (`codes4` packed, `codes8` int8) at its
+    scale. `x` real with `a_dtype` set: activations are OVP-quantized in
+    the prologue, at `static_act_scale` (a calibrated Python float,
+    passed to the kernel by value: K5) or else at `act_scale` (a
+    per-tensor scalar or one scale per row). Otherwise W4A16. Weight
+    pairs must run along K (`pair_axis == -2`)."""
     if w.data.ndim != 2 or w.pair_axis % 2 != 0:
         raise ValueError("fused_ovp_matmul takes a 2-D weight paired "
                          "along K")
-    n = w.data.shape[-1]
-    lead = x.shape[:-1]
-    a = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    sw = torch.broadcast_to(w.scale.to(torch.float32).reshape(-1)
-                            if w.scale.ndim else w.scale.float(), (n,))
-    sa = None
-    if a_dtype is not None:
-        if act_scale is None:
+    sw = _col_scale(w.scale, w.data.shape[-1], w.data.device)
+    sa = s_static = None
+    if isinstance(x, QuantizedTensor):
+        if x.pair_axis != -1:
+            raise ValueError("a pre-quantized lhs pairs along its last "
+                             "axis")
+        a_mode = "codes4" if x.is_packed else "codes8"
+        a_dtype = x.normal_dtype
+        lead = x.data.shape[:-1]
+        a = x.data.reshape(-1, x.data.shape[-1])
+        sa = _row_scale(x.scale, lead, x.data.device)
+    else:
+        lead = x.shape[:-1]
+        a = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        if a_dtype is None:
+            a_mode = "fp"
+        elif static_act_scale is not None:
+            a_mode, s_static = "static", float(static_act_scale)
+        elif act_scale is None:
             raise ValueError("in-kernel activation quantization needs an "
-                             "act_scale (per-tensor or per-row)")
-        s = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
-        if s.ndim and s.shape == lead:
-            s = s.reshape(-1)
-        sa = torch.broadcast_to(s, (a.shape[0],))
-    out = run(a, sa, w.data, sw, w_dtype=w.normal_dtype, a_dtype=a_dtype)
-    return out.reshape(*lead, n)
+                             "act_scale (per-tensor or per-row) or a "
+                             "static_act_scale constant")
+        else:
+            a_mode = "quantize"
+            sa = _row_scale(act_scale, lead, x.device)
+    out = run(a, sa, w.data, sw, w_dtype=w.normal_dtype, a_mode=a_mode,
+              a_dtype=a_dtype, s_static=s_static)
+    return out.reshape(*lead, sw.shape[0])
 
 
-fused_ovp_matmul.launches = 0
+fused_ovp_matmul.mode_launches = dict.fromkeys(A_MODES, 0)

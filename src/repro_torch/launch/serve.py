@@ -14,15 +14,30 @@ prompt's prefill into chunks of N tokens interleaved with decode:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen1.5-0.5b --quant olive_serve --paged 16 --prefill-chunk 16
 
+Static calibrated activation scales (paper §3.4): one command
+calibrates on a synthetic (2, 64) batch drawn from `--seed`, saves the
+artifact, and serves W4A4 on it, every quantized linear running the
+static-scale kernel (K5):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen1.5-0.5b --quant olive_serve \
+      --calibrate --calibration build/calib/qwen1.5-0.5b.json
+
+Without `--calibrate`, `--calibration PATH` loads the artifact and
+serves on it.
+
 As in the reference launcher, the preset is rewritten to fp32 compute
-with activations unquantized (`compute_dtype="float32"`, `abits=0`), so
-`olive_serve` serves W4 OVP weights over a 4-bit OVP KV cache. There is
-no CPU switch: without a card the launcher raises. `run(argv, device)`
-is the same path as a function (the tests call it with device="cpu").
+(`compute_dtype="float32"`). Without `--calibration` activations are
+left unquantized (`abits=0`), so `olive_serve` serves W4 OVP weights
+over a 4-bit OVP KV cache; with it the preset keeps its `abits` and
+resolves `act_scale_mode="static"`. There is no CPU switch: without a
+card the launcher raises. `run(argv, device)` is the same path as a
+function (the tests call it with device="cpu").
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -31,9 +46,12 @@ import torch
 
 from repro_torch import backends
 from repro_torch.configs import get_config
+from repro_torch.core.calibration import (CalibrationArtifact,
+                                          apply_calibration, calibrate_model)
 from repro_torch.core.policy import PRESETS, get_policy
 from repro_torch.core.qlinear import quantize_params
-from repro_torch.kernels import decode_attn, ovp_matmul, prefill_attn
+from repro_torch.kernels import (decode_attn, ovp_encode, ovp_matmul,
+                                 prefill_attn)
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import EngineCfg, ServingEngine
 from repro_torch.serve.paging import PagePoolCfg
@@ -47,6 +65,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default=None,
                     choices=backends.available(),
                     help="execution backend (default: the policy's, cuda)")
+    ap.add_argument("--calibration", default=None, metavar="PATH",
+                    help="CalibrationArtifact JSON: serve with static "
+                         "calibrated activation scales "
+                         "(act_scale_mode='static' on every quantized "
+                         "site; see docs/calibration.md)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="calibrate-then-serve: run the §3.4 calibration "
+                         "pass on a synthetic batch first, save the "
+                         "artifact to --calibration PATH, then serve on "
+                         "it (one command end to end)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
@@ -65,20 +93,37 @@ def parser() -> argparse.ArgumentParser:
 
 
 def kernel_launches() -> Dict[str, int]:
-    """Launch counts of the port's four kernels since they were last
-    reset."""
-    return {"ovp_matmul": ovp_matmul.fused_ovp_matmul.launches,
+    """Launch counts of the port's kernels since they were last reset:
+    the fused OVP matmul per activation mode (`ovp_matmul[static]` is
+    K5), the encoder (K7) and the three attention kernels."""
+    return {**{f"ovp_matmul[{mode}]": n for mode, n in
+               ovp_matmul.fused_ovp_matmul.mode_launches.items()},
+            "ovp_encode": ovp_encode.fused_ovp_encode.launches,
             "decode_attn": decode_attn.fused_decode_attention.launches,
             "paged_decode_attn":
                 decode_attn.fused_paged_decode_attention.launches,
             "prefill_attn": prefill_attn.fused_prefill_attention.launches}
 
 
+def reset_kernel_launches() -> None:
+    """Set every counter of `kernel_launches()` to 0."""
+    ovp_matmul.fused_ovp_matmul.mode_launches = dict.fromkeys(
+        ovp_matmul.A_MODES, 0)
+    for fn in (ovp_encode.fused_ovp_encode,
+               decode_attn.fused_decode_attention,
+               decode_attn.fused_paged_decode_attention,
+               prefill_attn.fused_prefill_attention):
+        fn.launches = 0
+
+
 def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
-    """Build, quantize and serve; returns the engine, model, params and
-    the run's numbers (tokens, seconds, tok/s, TTFT, step time)."""
+    """Build, (calibrate,) quantize and serve; returns the engine, model,
+    params, artifact and the run's numbers (tokens, seconds, tok/s, TTFT,
+    step time, calibration and PTQ seconds)."""
     ap = parser()
     args = ap.parse_args(argv)
+    if args.calibrate and not args.calibration:
+        ap.error("--calibrate needs --calibration PATH to save into")
     if args.prefill_chunk and not args.paged:
         ap.error("--prefill-chunk requires --paged (chunked prefill is a "
                  "paged-cache feature)")
@@ -87,12 +132,35 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
         raise RuntimeError("repro_torch.launch.serve needs a CUDA device")
     cfg = get_config(args.arch)
     policy = get_policy(None if args.quant == "fp" else args.quant)
-    policy = policy.replace_all(compute_dtype="float32", abits=0)
+    # a calibration artifact keeps the preset's abits: static scales
+    # exist to serve quantized activations without per-step scale work
+    if args.calibration:
+        policy = policy.replace_all(compute_dtype="float32",
+                                    act_scale_mode="static")
+    else:
+        policy = policy.replace_all(compute_dtype="float32", abits=0)
     if args.backend is not None:
         policy = policy.with_backend(args.backend)
     model = build_model(cfg, policy)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device=device)
+    artifact, calib_s = None, 0.0
+    if args.calibration:
+        if args.calibrate:
+            rng = np.random.default_rng(args.seed)
+            batch = {"tokens": torch.as_tensor(
+                rng.integers(0, cfg.vocab, size=(2, 64)), device=device)}
+            t0 = time.perf_counter()
+            artifact = calibrate_model(model, params, [batch])
+            calib_s = time.perf_counter() - t0
+            artifact.save(args.calibration)
+        else:
+            if not os.path.exists(args.calibration):
+                ap.error(f"--calibration {args.calibration} does not "
+                         f"exist; pass --calibrate to create it")
+            artifact = CalibrationArtifact.load(args.calibration)
+        policy = apply_calibration(policy, artifact)
+        model = build_model(cfg, policy)
     t0 = time.perf_counter()
     params = quantize_params(params, policy)
     if device.type == "cuda":
@@ -113,6 +181,7 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     dt = time.perf_counter() - t0
     toks = sum(len(r.out_tokens) for r in done)
     return {"engine": eng, "model": model, "params": params,
+            "artifact": artifact, "calib_s": calib_s,
             "completed": done, "tokens": toks, "seconds": dt,
             "ptq_s": ptq_s, "tok_per_s": toks / dt,
             "mean_ttft_s": float(np.mean([r.t_first - r.t_submit
@@ -123,6 +192,11 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
 def main():
     res = run()
     eng = res["engine"]
+    art = res["artifact"]
+    if art is not None:
+        how = (f"calibrated in {res['calib_s']:.1f}s" if res["calib_s"]
+               else "loaded")
+        print(f"[serve] {len(art.sites())} static scales {how}")
     print(f"[serve] PTQ in {res['ptq_s']:.1f}s")
     print(f"[serve] {len(res['completed'])} requests, {res['tokens']} "
           f"tokens in {res['seconds']:.2f}s ({res['tok_per_s']:.1f} tok/s)")
@@ -133,6 +207,9 @@ def main():
         st = eng.stats()
         print(f"[serve] page pool: {st['page_pool']} "
               f"(prefill chunks: {st['prefill_chunks_run']})")
+    if art is not None:
+        # static serving resolves no activation scale dynamically
+        print(f"[serve] act-scale resolutions: {backends.act_scale_stats()}")
     print("[serve] kernel launches: " + " ".join(
         f"{name}={n}" for name, n in kernel_launches().items()))
 

@@ -22,6 +22,12 @@ K4 on the card) that attends the chunk over the request's raw K/V stage
 and writes every stage tile onto its pages; decode reads K/V through the
 block table (K3 on the card). Slots free their pages on completion;
 `defrag()` compacts the pool.
+
+STATIC scales (`EngineCfg.calibration`, or a model policy already
+calibrated): the artifact is overlaid on the policy at construction, and
+every quantized site that wants a static activation scale must have one
+(`MissingStaticScaleError` lists the misses); the `cuda` backend then
+runs every such linear on the static-scale kernel (K5).
 """
 from __future__ import annotations
 
@@ -35,6 +41,11 @@ import numpy as np
 import torch
 
 from repro_torch import backends
+from repro_torch.core.calibration import (CalibrationArtifact,
+                                          MissingStaticScaleError,
+                                          apply_calibration,
+                                          static_scale_misses,
+                                          uses_static_scales)
 from repro_torch.kernels.prefill_attn import STAGE_KEYS
 from repro_torch.models.model import Model
 from repro_torch.serve.paging import PagePool, PagePoolCfg, pages_for
@@ -106,6 +117,11 @@ class EngineCfg:
     eos_id: int = -1            # -1: no EOS, run to max_new_tokens
     # execution backend override; None keeps the model policy's backend
     backend: Optional[str] = None
+    # calibrated static activation scales, overlaid on the model policy
+    # at construction (`apply_calibration`); with static-mode sites,
+    # construction checks that every one has a scale and raises
+    # `MissingStaticScaleError` with the full list otherwise
+    calibration: Optional[CalibrationArtifact] = None
     # paged KV cache: a shared page pool + block tables instead of the
     # (batch_slots, max_len) slab, with chunked prefill. None = slab.
     page_pool: Optional[PagePoolCfg] = None
@@ -125,8 +141,15 @@ class ServingEngine:
                 model.policy.backends() != frozenset((cfg.backend,)):
             model = copy.copy(model)
             model.policy = model.policy.with_backend(cfg.backend)
+        if cfg.calibration is not None:
+            model = copy.copy(model)
+            model.policy = apply_calibration(model.policy, cfg.calibration)
         for name in model.policy.backends():
             backends.get_backend(name)
+        if uses_static_scales(model.policy):
+            misses = static_scale_misses(params, model.policy)
+            if misses:
+                raise MissingStaticScaleError(misses)
         self.model = model
         self.params = params
         self.cfg = cfg

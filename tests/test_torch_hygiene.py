@@ -69,8 +69,13 @@ def test_port_serves_on_cpu_without_jax_or_kernels():
                          check=True).stdout
     res = json.loads(out.strip().splitlines()[-1])
     assert res == {"jax": [], "tokens": [9, 9],
-                   "launches": {"ovp_matmul": 0, "decode_attn": 0,
-                                "paged_decode_attn": 0, "prefill_attn": 0}}
+                   "launches": {"ovp_matmul[fp]": 0,
+                                "ovp_matmul[quantize]": 0,
+                                "ovp_matmul[static]": 0,
+                                "ovp_matmul[codes4]": 0,
+                                "ovp_matmul[codes8]": 0, "ovp_encode": 0,
+                                "decode_attn": 0, "paged_decode_attn": 0,
+                                "prefill_attn": 0}}
 
 
 def test_launcher_has_no_cpu_switch():
@@ -79,6 +84,6 @@ def test_launcher_has_no_cpu_switch():
     from repro_torch.launch import serve
     flags = {a.option_strings[0] for a in serve.parser()._actions
              if a.option_strings and a.option_strings[0] != "-h"}
-    assert flags == {"--arch", "--quant", "--backend", "--requests",
-                     "--max-new", "--slots", "--max-len", "--paged",
-                     "--prefill-chunk", "--seed"}
+    assert flags == {"--arch", "--quant", "--backend", "--calibration",
+                     "--calibrate", "--requests", "--max-new", "--slots",
+                     "--max-len", "--paged", "--prefill-chunk", "--seed"}
