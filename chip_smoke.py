@@ -52,7 +52,27 @@ CUDA toolkit. It builds the hand-written kernels from
    cache on the card against the CPU's plain versions; and one decode
    step of phase B (dynamic 3-sigma scales) profiled beside one of
    phase D (static scales): wall, device busy and device kernels per
-   step.
+   step;
+8. the MoE slice, after phases A-D's models are freed: K2, K3 and K4 at
+   Qwen3-30B-A3B's attention shapes (Hkv 4, G 8, D 128) with the same
+   checks; the K6 kernel phase (the grouped per-expert matmul, fp mode,
+   int4: decode B 4, E 128, C 4 at K 2048 -> N 768 and K 768 -> N 2048,
+   and a prefill B 1, C 4) against its plain version, timed beside it
+   and `torch.matmul` on the dequantized stack; and the K6 API phase
+   (`kernels.ops.grouped_ovp_matmul` in quantize, static, codes4 packed
+   by K7, and codes8 with int8 weights, at E 8, C 32, K = N = 1024, plus
+   a per-expert mixed W4/W8 stack through `backends.dispatch`);
+9. serve phase E: Qwen3-30B-A3B at full published width, 48 layers,
+   through the launcher's entry point (`--arch qwen3-moe-30b-a3b
+   --quant olive_serve`, phase A's prompts and seed, layer-by-layer
+   init + PTQ), slab and then paged (`--paged 16 --prefill-chunk 16`):
+   no fallback, `grouped[fp]` = 3 x layers x forward calls, K2 (slab),
+   K3 and K4 (paged), every page returned; PTQ seconds, peak device
+   memory, tok/s, TTFT, step time and a decode-step profile;
+10. the MoE card-vs-CPU check on a 2-layer truncation of the served
+   model (same widths and quantized params, fp32 KV): routed expert
+   indices equal first, then greedy tokens equal and max |logit diff|
+   <= 1e-3 * max|ref|.
 
 Any failure exits non-zero before the result line. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it lists every
@@ -206,16 +226,19 @@ def k1_phase(dev):
     return rows_out, worst, decode, bound_by
 
 
-def k2_phase(dev):
-    """K2 against its plain version at the serving path's shapes."""
+def k2_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
+    """K2 against its plain version at a serving path's shapes: Qwen1.5-
+    0.5B's (Hkv 16, G 1, D 64) by default, Qwen3-30B-A3B's with Hkv 4,
+    G 8, D 128."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attn as da
     from repro_torch.models.layers import _quant_kv_token
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    b, s_len, hkv, g, d = 4, 256, 16, 1, 64
+    b, s_len = 4, 256
     h = hkv * g
+    tag = f"Hkv={hkv} G={g} D={d}"
     q = torch.randn((b, 1, h, d), generator=gen, device=dev)
     k = torch.randn((b, s_len, hkv, d), generator=gen, device=dev)
     v = torch.randn((b, s_len, hkv, d), generator=gen, device=dev)
@@ -242,8 +265,8 @@ def k2_phase(dev):
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             if not within(got, ref, 0.0, 1e-5):
-                fail(f"K2 {kind} pos={pl}: max abs err {err:.3e} over "
-                     f"atol 1e-5")
+                fail(f"K2 {tag} {kind} pos={pl}: max abs err {err:.3e} "
+                     f"over atol 1e-5")
             worst = max(worst, err)
             mask = (torch.arange(s_len, device=dev)[None, :]
                     <= pos[:, None].long())[:, None, None, :]
@@ -251,8 +274,8 @@ def k2_phase(dev):
                           vdense.transpose(1, 2))
 
             def library():
-                return F.scaled_dot_product_attention(qh, kh, vh,
-                                                      attn_mask=mask)
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, enable_gqa=g > 1)
 
             (ms, wall), (plain_ms, _), (lib_ms, _) = \
                 time_ms(kern), time_ms(plain), time_ms(library)
@@ -268,22 +291,24 @@ def k2_phase(dev):
             rows_out.append(rec)
             if kind == "packed" and name == "mixed":
                 main = rec
-            print(f"[k2] {kind:6s} pos={pl} err={err:.2e} (tol atol 1e-5) "
+            print(f"[k2] {tag} {kind:6s} pos={pl} err={err:.2e} (tol atol "
+                  f"1e-5) "
                   f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
                   f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
                   f"bound={b_ms:.5f}ms ({b_by})")
     return rows_out, worst, main
 
 
-def _paged_case(dev, packed: bool, parked: bool, gen):
+def _paged_case(dev, packed: bool, parked: bool, gen, hkv: int = 16,
+                g: int = 1, d: int = 64):
     """K3 inputs at the path's shapes: a slab of B=4 rows x 256 tokens
     scattered over a shuffled pool of 80 pages of 16 (plus garbage in the
     pages no row owns), its block table and positions. `parked` turns row
     3 into a parked engine slot (all-zero table row, pos = s_len)."""
     import torch
     from repro_torch.models.layers import _quant_kv_token
-    b, n, ps, hkv, d, n_pool = 4, 16, 16, 16, 64, 80
-    q = torch.randn((b, 1, hkv, d), generator=gen, device=dev)
+    b, n, ps, n_pool = 4, 16, 16, 80
+    q = torch.randn((b, 1, hkv * g, d), generator=gen, device=dev)
     k = torch.randn((n_pool, ps, hkv, d), generator=gen, device=dev)
     v = torch.randn((n_pool, ps, hkv, d), generator=gen, device=dev)
     if packed:
@@ -302,18 +327,19 @@ def _paged_case(dev, packed: bool, parked: bool, gen):
     return q, cache, torch.tensor(pos, dtype=torch.int32, device=dev), pos
 
 
-def k3_phase(dev):
+def k3_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
     """K3 against its plain version and, bit for bit, against K2 on the
-    same tokens gathered into a slab."""
+    same tokens gathered into a slab (shapes as in `k2_phase`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attn as da
     gen = torch.Generator(device=dev).manual_seed(3)
     rows_out, worst, main = [], 0.0, None
+    tag = f"Hkv={hkv} G={g} D={d}"
     for kind in ("packed", "fp"):
         for parked in (False, True):
             q, cache, pos, pl = _paged_case(dev, kind == "packed", parked,
-                                            gen)
+                                            gen, hkv, g, d)
             slab = da.gather_paged_cache(cache)
 
             def kern():
@@ -327,10 +353,11 @@ def k3_phase(dev):
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             if not within(got, ref, 0.0, 1e-5):
-                fail(f"K3 {kind} pos={pl}: max abs err {err:.3e} over atol "
-                     f"1e-5")
+                fail(f"K3 {tag} {kind} pos={pl}: max abs err {err:.3e} over "
+                     f"atol 1e-5")
             if not torch.equal(got, k2):
-                fail(f"K3 {kind} pos={pl}: not bit-identical to K2 on the "
+                fail(f"K3 {tag} {kind} pos={pl}: not bit-identical to K2 on "
+                     f"the "
                      f"same tokens as a slab (max diff "
                      f"{float((got - k2).abs().max()):.3e})")
             worst = max(worst, err)
@@ -342,13 +369,12 @@ def k3_phase(dev):
                           vdense.transpose(1, 2))
 
             def library():
-                return F.scaled_dot_product_attention(qh, kh, vh,
-                                                      attn_mask=mask)
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, enable_gqa=g > 1)
 
             (ms, wall), (plain_ms, _), (lib_ms, _) = \
                 time_ms(kern), time_ms(plain), time_ms(library)
-            b, h, d = q.shape[0], q.shape[2], q.shape[3]
-            hkv = kdense.shape[2]
+            b, h = q.shape[0], q.shape[2]
             valid = int(sum(min(p + 1, s_len) for p in pl))
             per_tok = hkv * (d // 2 * 2 + 8) if kind == "packed" \
                 else hkv * d * 4 * 2
@@ -361,7 +387,8 @@ def k3_phase(dev):
             rows_out.append(rec)
             if kind == "packed" and not parked:
                 main = rec
-            print(f"[k3] {kind:6s} pos={pl} err={err:.2e} (tol atol 1e-5) "
+            print(f"[k3] {tag} {kind:6s} pos={pl} err={err:.2e} (tol atol "
+                  f"1e-5) "
                   f"bit-identical to K2 on the slab: yes "
                   f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
                   f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
@@ -369,12 +396,14 @@ def k3_phase(dev):
     return rows_out, worst, main
 
 
-def _prefill_case(dev, packed: bool, c: int, gen):
-    """K4 inputs: a 256-token raw stage (Hkv=16, D=64) of one request
-    whose 16 page tiles map to shuffled pages of a 40-page pool holding
-    random old bytes, and the chunk of C queries at offset 256 - C."""
+def _prefill_case(dev, packed: bool, c: int, gen, hkv: int = 16,
+                  g: int = 1, d: int = 64):
+    """K4 inputs: a 256-token raw stage (Hkv 16, D 64 by default) of one
+    request whose 16 page tiles map to shuffled pages of a 40-page pool
+    holding random old bytes, and the chunk of C queries (Hkv * G heads)
+    at offset 256 - C."""
     import torch
-    s, ps, hkv, d, n_pool = 256, 16, 16, 64, 40
+    s, ps, n_pool = 256, 16, 40
     if packed:
         cache = {key: torch.randint(0, 256, (n_pool, ps, hkv, d // 2),
                                     generator=gen, device=dev,
@@ -390,23 +419,24 @@ def _prefill_case(dev, packed: bool, c: int, gen):
     cache["block_table"] = pages[None].to(torch.int32)
     for key in ("stage_k", "stage_v"):
         cache[key] = torch.randn((1, s, hkv, d), generator=gen, device=dev)
-    q = torch.randn((1, c, hkv, d), generator=gen, device=dev)
+    q = torch.randn((1, c, hkv * g, d), generator=gen, device=dev)
     positions = torch.arange(s - c, s, device=dev)[None]
     return q, cache, positions
 
 
-def k4_phase(dev):
+def k4_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
     """K4 against its plain version: output, page codes and scales, and
-    the pages outside the table untouched."""
+    the pages outside the table untouched (shapes as in `k2_phase`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import prefill_attn as pa
     gen = torch.Generator(device=dev).manual_seed(4)
     rows_out, worst, main = [], 0.0, None
+    tag = f"Hkv={hkv} G={g} D={d}"
     for kind in ("packed", "fp"):
         for c in (16, 64):
             q, cache, positions = _prefill_case(dev, kind == "packed", c,
-                                                gen)
+                                                gen, hkv, g, d)
             keys = pa._pool_keys(cache)
             before = {key: cache[key].clone() for key in keys}
             ref_cache = dict(cache, **{key: before[key].clone()
@@ -423,8 +453,8 @@ def k4_phase(dev):
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             if not within(got, ref, 0.0, 1e-5):
-                fail(f"K4 {kind} C={c}: max abs err {err:.3e} over atol "
-                     f"1e-5")
+                fail(f"K4 {tag} {kind} C={c}: max abs err {err:.3e} over "
+                     f"atol 1e-5")
             worst = max(worst, err)
             pages = cache["block_table"][0].long()
             other = torch.ones(cache[keys[0]].shape[0], dtype=torch.bool,
@@ -434,21 +464,24 @@ def k4_phase(dev):
             for key in keys:
                 new, want = cache[key], ref_cache[key]
                 if not torch.equal(new[other], before[key][other]):
-                    fail(f"K4 {kind} C={c}: {key} changed a page outside "
-                         f"the request's table")
+                    fail(f"K4 {tag} {kind} C={c}: {key} changed a page "
+                         f"outside the request's table")
                 if new.dtype == torch.uint8:
                     code_diff += int((new != want).sum())
                     code_total += new[pages].numel()
                 elif kind == "packed" and not within(new, want, 1e-6, 0.0):
-                    fail(f"K4 {kind} C={c}: {key} scales over rtol 1e-6 "
+                    fail(f"K4 {tag} {kind} C={c}: {key} scales over rtol "
+                         f"1e-6 "
                          f"(max rel "
                          f"{float(((new - want).abs() / want).max()):.2e})")
                 elif kind == "fp" and not torch.equal(new, want):
-                    fail(f"K4 fp C={c}: {key} pages not copied exactly")
+                    fail(f"K4 {tag} fp C={c}: {key} pages not copied "
+                         f"exactly")
             if code_diff > 1e-4 * max(code_total, 1):
-                fail(f"K4 {kind} C={c}: {code_diff} of {code_total} code "
-                     f"bytes differ from the plain version (limit 0.01%)")
-            s, hkv, d = cache["stage_k"].shape[1:]
+                fail(f"K4 {tag} {kind} C={c}: {code_diff} of {code_total} "
+                     f"code bytes differ from the plain version (limit "
+                     f"0.01%)")
+            s = cache["stage_k"].shape[1]
             h = q.shape[2]
             off = s - c
             mask = (torch.arange(s, device=dev)[None, :]
@@ -458,8 +491,8 @@ def k4_phase(dev):
                       for key in ("stage_k", "stage_v"))
 
             def library():
-                return F.scaled_dot_product_attention(qh, kh, vh,
-                                                      attn_mask=mask)
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, enable_gqa=g > 1)
 
             # the plain version's OVP encode copies a constant from the
             # host, which graph capture refuses: it is timed eagerly
@@ -477,7 +510,8 @@ def k4_phase(dev):
             rows_out.append(rec)
             if kind == "packed" and c == 16:
                 main = rec
-            print(f"[k4] {kind:6s} C={c:2d} S={s} off={off} err={err:.2e} "
+            print(f"[k4] {tag} {kind:6s} C={c:2d} S={s} off={off} "
+                  f"err={err:.2e} "
                   f"(tol atol 1e-5) code bytes differing {code_diff}/"
                   f"{code_total} (limit 0.01%) scales rtol 1e-6 ok "
                   f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
@@ -874,10 +908,12 @@ def reference_check(model, params, dev):
             fail(f"reference check {name}: card and CPU disagree")
 
 
-def profile_decode(res, label: str = "W4 + KV4") -> None:
-    """Where one decode step's time goes on the served model: 6 steps of
-    4 active slots timed on the host clock, then 6 more under
-    torch.profiler for the device busy time and the top kernels."""
+def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
+                   max_new: int = 32) -> None:
+    """Where one decode step's time goes on the served model: `steps`
+    steps of 4 active slots timed on the host clock, then as many more
+    under torch.profiler for the device busy time and the top kernels
+    (4 requests of `max_new` tokens, drained after)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -885,35 +921,36 @@ def profile_decode(res, label: str = "W4 + KV4") -> None:
     rng = np.random.default_rng(3)
     for _ in range(4):
         eng.submit(rng.integers(0, eng.model.cfg.vocab, size=12),
-                   max_new_tokens=32)
+                   max_new_tokens=max_new)
     while len(eng._active()) < 4:         # admission (and paged prefill)
         eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(6):
+    for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 6 * 1e3
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(6):
+        for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) / 6 * 1e3
+        prof_ms = (time.perf_counter() - t0) / steps * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 6
-    n_kernels = sum(e.count for e in kernels) / 6
-    print(f"[profile] decode step (4 slots, {label}): {step_ms:.2f}ms "
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    n_kernels = sum(e.count for e in kernels) / steps
+    print(f"[profile] decode step (4 slots, {label}, {steps} steps): "
+          f"{step_ms:.2f}ms "
           f"wall; under the profiler {prof_ms:.2f}ms wall, device busy "
           + (f"{busy_ms:.3f}ms ({100 * busy_ms / prof_ms:.1f}% of wall), "
              f"{n_kernels:.1f} device kernels per step"
              if kernels else "not measured (no device events)"))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
-        print(f"[profile]   {e.self_device_time_total / 1e3 / 6:8.3f}ms/step"
-              f" {e.count // 6:5d} launches/step  {e.key[:90]}")
+        print(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f}"
+              f"ms/step {e.count // steps:5d} launches/step  {e.key[:90]}")
     eng.run_until_drained()
     return {"step_ms": step_ms, "prof_ms": prof_ms, "busy_ms": busy_ms,
             "kernels_per_step": n_kernels if kernels else None}
@@ -1198,6 +1235,354 @@ def static_reference_check(res_d, dev):
         fail("static reference check: card and CPU disagree")
 
 
+# --------------------------------------------------------------------------
+# MoE: K6 and serve phase E (Qwen3-30B-A3B)
+# --------------------------------------------------------------------------
+MOE_ARCH = "qwen3-moe-30b-a3b"
+
+
+def k6_phase(dev):
+    """K6 against its plain version at the MoE serving path's shapes, fp
+    mode (the expert einsums run weight-only), int4 weights: decode (B 4
+    slots, E 128, capacity C 4) for wg / wu (K 2048 -> N 768) and wd (K
+    768 -> N 2048), and a prefill (B 1, C 4: a 16- or 32-token bucket
+    gives capacity max(int(1.25 * T * 8 / 128), 4) = 4). Kernel timed by
+    CUDA-graph replay as K1 is; plain version and the library call (one
+    `torch.einsum` of the (B, E, C, K) lhs and the dequantized fp32
+    (E, K, N) stack) over fewer launches, their temporaries being large."""
+    import torch
+    from repro_torch.core import policy
+    from repro_torch.core.ovp import ovp_dequantize
+    from repro_torch.core.qlinear import quantize_weight
+    from repro_torch.kernels import ovp_matmul as mm
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w4 = policy.OLIVE_W4.replace_all(compute_dtype="float32")
+    e = 128
+    layer = [(2048, 768), (2048, 768), (768, 2048)]   # wg, wu, wd
+    weights = {}
+    for k, n in sorted(set(layer)):
+        w = torch.randn((e, k, n), generator=gen, device=dev) / k ** 0.5
+        qt = quantize_weight(w, w4)
+        weights[(k, n)] = (qt, ovp_dequantize(qt))
+    rows_out, worst = [], 0.0
+    decode = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "library_ms": 0.0, "bound_by": "operations"}
+    for label, b, c in (("decode", 4, 4), ("prefill", 1, 4)):
+        for k, n in sorted(set(layer)):
+            qt, wd = weights[(k, n)]
+            a = torch.randn((b, e, c, k), generator=gen, device=dev)
+            sw = qt.scale.reshape(e, n).contiguous()
+
+            def kern():
+                return mm.run_grouped(a, None, qt.data, sw, w_dtype="int4",
+                                      a_mode="fp")
+
+            def plain():
+                return mm.grouped_ovp_matmul_plain(
+                    a, None, qt.data, sw, w_dtype="int4", a_mode="fp",
+                    a_dtype="int4")
+
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            if not within(got, ref, 1e-5, 1e-5 * scale):
+                fail(f"K6 {label} B={b} E={e} C={c} K={k} N={n}: max abs "
+                     f"err {err:.3e} over tolerance (rtol 1e-5, atol "
+                     f"1e-5*{scale:.3e})")
+            worst = max(worst, err)
+            (ms, wall), (plain_ms, _) = time_ms(kern), time_ms(plain, 10)
+            lib_ms, _ = time_ms(
+                lambda: torch.einsum("beck,ekn->becn", a, wd), 10)
+            n_bytes = b * e * c * k * 4 + e * (k // 2) * n + e * n * 4 \
+                + b * e * c * n * 4
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * b * e * c * k * n)
+            rec = dict(shape=label, B=b, E=e, C=c, K=k, N=n,
+                       max_abs_err=err, ms=ms, wall_ms=wall,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+            rows_out.append(rec)
+            if label == "decode":
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                    decode[key] += layer.count((k, n)) * rec[key]
+                decode["bound_by"] = b_by
+            print(f"[k6] {label:7s} B={b} E={e} C={c} K={k:4d} N={n:4d} "
+                  f"err={err:.2e} (tol rtol 1e-5, atol 1e-5*max|ref|) "
+                  f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
+                  f"plain={plain_ms:.4f}ms einsum(dequantized stack)="
+                  f"{lib_ms:.4f}ms bound={b_ms:.5f}ms ({b_by})")
+    print(f"[k6] one MoE layer's 3 decode launches (wg, wu, wd): kernel "
+          f"{decode['ms']:.4f}ms, bound {decode['bound_ms']:.4f}ms "
+          f"({decode['bound_by']}), plain {decode['plain_ms']:.4f}ms, "
+          f"einsum {decode['library_ms']:.4f}ms")
+    return rows_out, worst, decode
+
+
+def k6_api_phase(dev):
+    """K6 in every activation mode through the kernel API as a user calls
+    it (`kernels.ops.grouped_ovp_matmul`), at E 8, C (rows per expert)
+    32, K = N = 1024, on outlier-laden activations: quantize and static
+    (in-kernel OVP at the 3-sigma scale, per-slot or by value), codes4
+    (packed by K7 at that scale) and codes8 with int8 weights; and a
+    per-expert mixed W4/W8 stack (`MixedExpertQuant`, expert 1 at W8)
+    through `backends.dispatch`. Counters are reset just before and read
+    just after; every result is held against its plain version on the
+    card (the mixed stack against the same dispatch on the CPU), rtol
+    1e-5 + atol 1e-5 * max|ref|, and each mode is timed beside its plain
+    version and `torch.matmul` on the dequantized operands."""
+    import dataclasses
+
+    import torch
+    from repro_torch import backends
+    from repro_torch.core import policy
+    from repro_torch.core.ovp import (QuantizedTensor, ovp_dequantize,
+                                      ovp_quantize)
+    from repro_torch.core.qlinear import quantize_params
+    from repro_torch.core.quantizer import sigma_init_scale
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ovp_encode as enc
+    from repro_torch.kernels import ovp_matmul as mm
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    e, c, k, n = 8, 32, 1024, 1024
+    w = torch.randn((e, k, n), generator=gen, device=dev) / k ** 0.5
+    w4p = policy.OLIVE_W4.replace_all(compute_dtype="float32")
+    w8p = policy.OLIVE_W8A8.replace_all(compute_dtype="float32", abits=0)
+    qt4 = quantize_params({"experts": {"wg": w}}, w4p)["experts"]["wg"]
+    qt8 = quantize_params({"experts": {"wg": w}}, w8p)["experts"]["wg"]
+    prog = policy.PolicyProgram(rules=(("experts/*/1", w8p),), default=w4p)
+    mixed = quantize_params({"experts": {"wg": w}}, prog)["experts"]["wg"]
+    a = torch.randn((e, c, k), generator=gen, device=dev)
+    a.view(-1)[::13] *= 25.0
+    s4 = float(sigma_init_scale(a, "int4"))
+    s8 = float(sigma_init_scale(a, "int8"))
+    x8 = ovp_quantize(a, s8, "int8")
+    sw4 = qt4.scale.reshape(e, n).contiguous()
+    sw8 = qt8.scale.reshape(e, n).contiguous()
+    sa4 = torch.full((1, e, c), s4, device=dev)
+    sa8 = torch.full((1, e, c), s8, device=dev)
+    s4_dev = torch.tensor(s4, device=dev)
+
+    reset_counts()
+    packed = enc.fused_ovp_encode(
+        (a * mm._reciprocal(s4)).reshape(-1, k)).reshape(e, c, k // 2)
+    x4 = QuantizedTensor(packed, s4_dev, "int4", -1, k)
+    calls = {
+        "quantize": lambda: ops.grouped_ovp_matmul(
+            a, qt4, a_dtype="int4", act_scale=s4_dev),
+        "static": lambda: ops.grouped_ovp_matmul(a, qt4, a_dtype="int4",
+                                                 static_act_scale=s4),
+        "codes4": lambda: ops.grouped_ovp_matmul(x4, qt4),
+        "codes8": lambda: ops.grouped_ovp_matmul(x8, qt8),
+    }
+    got = {mode: fn() for mode, fn in calls.items()}
+    got["mixed"] = backends.dispatch(a, mixed, w4p)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, "K6 API phase",
+                 ("ovp_encode", "grouped[quantize]", "grouped[static]",
+                  "grouped[codes4]", "grouped[codes8]", "grouped[fp]"))
+    a4 = a[None]
+    kq = dict(w_dtype="int4", a_mode="quantize", a_dtype="int4")
+    k5 = dict(w_dtype="int4", a_mode="static", a_dtype="int4", s_static=s4)
+    c4 = dict(w_dtype="int4", a_mode="codes4", a_dtype="int4")
+    c8 = dict(w_dtype="int8", a_mode="codes8", a_dtype="int8")
+    plains = {
+        "quantize": lambda: mm.grouped_ovp_matmul_plain(
+            a4, sa4, qt4.data, sw4, **kq)[0],
+        "static": lambda: mm.grouped_ovp_matmul_plain(
+            a4, None, qt4.data, sw4, **k5)[0],
+        "codes4": lambda: mm.grouped_ovp_matmul_plain(
+            packed[None], sa4, qt4.data, sw4, **c4)[0],
+        "codes8": lambda: mm.grouped_ovp_matmul_plain(
+            x8.data[None], sa8, qt8.data, sw8, **c8)[0],
+    }
+    dense = {"quantize": (ovp_dequantize(x4), ovp_dequantize(qt4)),
+             "codes8": (ovp_dequantize(x8), ovp_dequantize(qt8))}
+    dense["static"] = dense["codes4"] = dense["quantize"]
+    rows = {}
+    for mode, plain in plains.items():
+        g, r = got[mode], plain()
+        torch.cuda.synchronize()
+        err = float((g - r).abs().max())
+        if g.shape != (e, c, n) or not within(
+                g, r, 1e-5, 1e-5 * float(r.abs().max())):
+            fail(f"K6 API phase: {mode} {tuple(g.shape)} against its plain "
+                 f"version: max abs err {err:.3e}")
+        ad, wd = dense[mode]
+        (ms, wall), (plain_ms, _) = time_ms(calls[mode]), time_ms(plain)
+        lib_ms, _ = time_ms(lambda: torch.matmul(ad, wd))
+        a_bytes = {"quantize": e * c * k * 4, "static": e * c * k * 4,
+                   "codes4": e * c * k // 2, "codes8": e * c * k}[mode]
+        w_bytes = e * k * n if mode == "codes8" else e * k * n // 2
+        n_bytes = a_bytes + w_bytes + e * n * 4 + e * c * n * 4 \
+            + (0 if mode == "static" else e * c * 4)
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * e * c * k * n)
+        rows[mode] = dict(max_abs_err=err, ms=ms, wall_ms=wall,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        print(f"[k6 api] {mode:8s} E={e} C={c} K={k} N={n} err={err:.2e} "
+              f"(tol rtol 1e-5, atol 1e-5*max|ref|) kernel={ms:.4f}ms "
+              f"(eager call {wall:.4f}ms) plain={plain_ms:.4f}ms "
+              f"matmul(dequantized)={lib_ms:.4f}ms bound={b_ms:.5f}ms "
+              f"({b_by})")
+    cpu = [dataclasses.replace(q, data=q.data.cpu(), scale=q.scale.cpu())
+           for q in mixed.groups]
+    ref = backends.dispatch(a.cpu(), dataclasses.replace(
+        mixed, groups=tuple(cpu)), w4p)
+    g = got["mixed"].cpu()
+    err = float((g - ref).abs().max())
+    if g.shape != (e, c, n) or not within(g, ref, 1e-5,
+                                          1e-5 * float(ref.abs().max())):
+        fail(f"K6 API phase: mixed W4/W8 stack against the CPU: max abs err "
+             f"{err:.3e}")
+    ids = {q.normal_dtype: i for q, i in zip(mixed.groups,
+                                             mixed.expert_ids)}
+    print(f"[k6 api] MixedExpertQuant groups {ids} through "
+          f"backends.dispatch: err={err:.2e} against the CPU plain path (tol "
+          f"rtol 1e-5, atol 1e-5*max|ref|); launches "
+          + " ".join(f"{key}={counts[key]}" for key in
+                     ("ovp_encode", "grouped[quantize]", "grouped[static]",
+                      "grouped[codes4]", "grouped[codes8]", "grouped[fp]"))
+          + f", dispatch {counts['dispatch']}")
+    return rows, counts
+
+
+def free_device_memory() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_phase_e(dev):
+    """MoE serving through the launcher's entry point: Qwen3-30B-A3B at
+    full published width (`--arch qwen3-moe-30b-a3b --quant
+    olive_serve`, W4 OVP experts and attention, 4-bit OVP KV cache, fp32
+    activations), phase A's 8 prompts and seed, 16 new tokens, 4 slots,
+    max_len 256, first slab, then paged (`--paged 16 --prefill-chunk
+    16`). The launcher draws and quantizes one layer at a time. Counters
+    are reset just before and read just after each run: no dispatch
+    fallback, every expert matmul on K6 (`grouped[fp]` = `cuda[stacked]`
+    = 3 x layers x forward calls), K2 in the slab run, K3 and K4 in the
+    paged run, every page returned. Returns both runs."""
+    import torch
+    from repro_torch.launch import serve
+    base = ["--arch", MOE_ARCH, "--quant", "olive_serve", "--requests", "8",
+            "--max-new", "16", "--slots", "4", "--max-len", "256",
+            "--seed", "0"]
+    runs = {}
+    for label, extra, kernels in (
+            ("slab", [], ("grouped[fp]", "ovp_matmul[fp]", "decode_attn")),
+            ("paged", ["--paged", "16", "--prefill-chunk", "16"],
+             ("grouped[fp]", "ovp_matmul[fp]", "paged_decode_attn",
+              "prefill_attn"))):
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        res = serve.run(base + extra, device=dev)
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        phase = f"serve phase E ({label})"
+        check_counts(counts, phase, kernels)
+        n_layers = res["model"].cfg.n_layers
+        st = res["engine"].stats()
+        forwards = st["prefills_run"] + st["prefill_chunks_run"] \
+            + st["decodes_run"]
+        want = 3 * n_layers * forwards
+        if counts["grouped[fp]"] != want or \
+                counts["dispatch"].get("cuda[stacked]", 0) != want:
+            fail(f"{phase}: grouped[fp] launches {counts['grouped[fp]']}, "
+                 f"stacked dispatches "
+                 f"{counts['dispatch'].get('cuda[stacked]', 0)}, expected "
+                 f"3 x {n_layers} layers x {forwards} forward calls = "
+                 f"{want}")
+        done = res["completed"]
+        if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+            fail(f"{phase}: {len(done)} requests finished with "
+                 f"{[len(r.out_tokens) for r in done]} tokens, expected "
+                 f"8 x 16")
+        if label == "paged":
+            pool = st["page_pool"]
+            if pool["used_pages"] != 0 or pool["allocs"] != pool["frees"]:
+                fail(f"{phase}: pages not all returned: {pool}")
+        print(f"[serve E] {MOE_ARCH} ({n_layers} layers, the published "
+              f"depth) W4 "
+              f"experts + KV4, {label}: PTQ {res['ptq_s']:.2f}s (layer by "
+              f"layer), peak device memory {peak_gb:.2f} GB, "
+              f"{res['tokens']} tokens in {res['seconds']:.3f}s = "
+              f"{res['tok_per_s']:.2f} tok/s, mean TTFT "
+              f"{res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+              f"{res['mean_step_s'] * 1e3:.2f}ms, {forwards} forward calls, "
+              f"launches "
+              + " ".join(f"{key}={counts[key]}" for key in kernels)
+              + f", dispatch {counts['dispatch']}")
+        runs[label] = (res, counts)
+    toks = {lab: {r.uid: r.out_tokens for r in res["completed"]}
+            for lab, (res, _) in runs.items()}
+    differ = sum(int(x != y) for uid, t in toks["paged"].items()
+                 for x, y in zip(t, toks["slab"][uid]))
+    print(f"[serve E] paged vs slab: {differ} of 128 tokens differ "
+          f"(reported, not bounded: a 16-token chunk and a whole-prompt "
+          f"prefill have other capacities, so they drop other tokens, as "
+          f"in the reference)")
+    return runs
+
+
+def moe_reference_check(res, dev):
+    """A 2-layer truncation of the served full-width MoE model (same
+    widths, the same quantized params) over an fp32 KV cache, on the
+    card against the CPU's plain versions: prefill of one prompt + 2
+    greedy decode steps. First the routed expert indices of every MoE
+    call must be equal (a router near-tie summed in another order can
+    pick another expert, which moves the logits far more than rounding:
+    the failure says so); then the greedy tokens must be equal and max
+    |logit diff| <= 1e-3 * max|ref|, the bound of the other logit
+    checks."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.layers import recording_routes
+    from repro_torch.models.model import build_model
+    model, params = res["model"], res["params"]
+    small = build_model(dataclasses.replace(model.cfg, n_layers=2),
+                        model.policy.replace_all(kv_bits=0))
+    p2 = dict(params, layers=params["layers"][:2])
+    with recording_routes() as r_dev:
+        got = _logits_on(small, p2, dev)
+    with recording_routes() as r_cpu:
+        ref = _logits_on(small, _to(p2, "cpu"), "cpu")
+    if len(r_dev) != len(r_cpu):
+        fail(f"MoE reference check: {len(r_dev)} MoE calls on the card, "
+             f"{len(r_cpu)} on the CPU")
+    for i, (x, y) in enumerate(zip(r_dev, r_cpu)):
+        if not torch.equal(x.cpu(), y):
+            n_diff = int((x.cpu() != y).sum())
+            fail(f"MoE reference check: ROUTING differs at MoE call {i} "
+                 f"(layer {i % 2}): {n_diff} of {y.numel()} routed expert "
+                 f"indices differ between card and CPU (router logits "
+                 f"summed in another order picked another expert at a "
+                 f"near-tie); the logits were not compared")
+    v = small.cfg.vocab
+    if got.shape != (3, small.cfg.padded_vocab) or \
+            not bool(torch.isfinite(got).all()):
+        fail(f"MoE reference check: logits shape {tuple(got.shape)} or "
+             f"non-finite values")
+    err = float((got[:, :v] - ref[:, :v]).abs().max())
+    tol = 1e-3 * float(ref[:, :v].abs().max())
+    same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+    print(f"[ref E] {MOE_ARCH} truncated to 2 layers, W4 experts, fp32 KV: "
+          f"prefill + 2 decode steps, card vs CPU plain versions: routed "
+          f"expert indices equal in all {len(r_dev)} MoE calls, max |diff| "
+          f"{err:.3e} (tol {tol:.3e} = 1e-3 * max|ref|), greedy tokens "
+          f"{'equal' if same else 'differ'}")
+    if err > tol or not same:
+        fail("MoE reference check: card and CPU disagree")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1250,6 +1635,22 @@ def main() -> int:
               f"{prof_b['busy_ms']:.3f} vs {prof_d['busy_ms']:.3f}ms")
     step_wall_ab(res_b, runs_d["load"][0])
     counts_d = runs_d["calibrate"][1]
+    # the MoE slice: phases A-D's models are freed first
+    del res, res_b, res_c, runs_d, prof_b, prof_d
+    free_device_memory()
+    _, k2_err_moe, _ = k2_phase(dev, hkv=4, g=8, d=128)
+    _, k3_err_moe, _ = k3_phase(dev, hkv=4, g=8, d=128)
+    _, k4_err_moe, _ = k4_phase(dev, hkv=4, g=8, d=128)
+    _, k6_err, k6_decode = k6_phase(dev)
+    k6_api, counts_k6_api = k6_api_phase(dev)
+    free_device_memory()
+    runs_e = serve_phase_e(dev)
+    res_e, counts_e = runs_e["slab"]
+    profile_decode(res_e, f"{MOE_ARCH}, W4 experts + KV4", steps=3,
+                   max_new=10)
+    del runs_e
+    free_device_memory()
+    moe_reference_check(res_e, dev)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -1286,7 +1687,14 @@ def main() -> int:
         row("ovp_encode", "src/repro/kernels/ovp_encode.py:59",
             "ovp_encode.cu", counts_api["ovp_encode"], 0.0,
             k5_main["encode"]),
-    ]
+        row("grouped[fp]", "src/repro/kernels/ovp_matmul.py:436",
+            "ovp_matmul.cu", counts_e["grouped[fp]"], k6_err, k6_decode),
+    ] + [row(f"grouped[{mode}]", "src/repro/kernels/ovp_matmul.py:436",
+             "ovp_matmul.cu", counts_k6_api[f"grouped[{mode}]"],
+             k6_api[mode]["max_abs_err"], k6_api[mode])
+         for mode in ("quantize", "static", "codes4", "codes8")]
+    print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
+          f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}")
     print(f"[card] {smi.splitlines()[0]}")  # beside the numbers below
     print("[note] ovp_matmul[fp], [quantize] and [static] times are the 7 "
           "launches of one layer's decode step (rows 4); [codes4] and "
@@ -1297,10 +1705,16 @@ def main() -> int:
           "launch, packed, C=16 at offset 240 of a 256-token stage "
           "(library: SDPA, attention half only); ovp_encode one launch at "
           "rows 4, K 1024 (max_abs_err: bytes differing, 0; library: "
-          "none). Launches: [fp] and decode_attn from serve phase A, "
+          "none); grouped[fp] (K6) is the 3 launches of one Qwen3-30B-A3B "
+          "layer's decode step (B 4, E 128, C 4), library torch.einsum on "
+          "the dequantized fp32 stack; grouped[quantize|static|codes4|"
+          "codes8] one launch at E 8, C 32, K = N = 1024 (API). "
+          "Launches: [fp] and decode_attn from serve phase A, "
           "[quantize] from phase B, [static] from phase D's calibrate run, "
           "paged_decode_attn and prefill_attn from phase C, [codes4], "
-          "[codes8] and ovp_encode from the API phase")
+          "[codes8] and ovp_encode from the API phase, grouped[fp] from "
+          "serve phase E's slab run, the other grouped modes from the K6 "
+          "API phase")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,10 @@ chunk of a paged prefill, on the backend `policy.backend` names:
   cuda   — the hand-written kernels (default; plain versions on CPU)
   eager  — dequantize-then-torch.matmul and the dense attention paths
            (the fallback)
-A backend that declines an operand layout falls back one hop, and
+Stacked per-expert weights (3-D data) run the grouped path; a
+`MixedExpertQuant` dispatches each homogeneous group and puts the
+outputs back in expert order. A backend that declines an operand layout
+falls back one hop, and
 `dispatch_stats()` counts served / declined-with-reason calls under the
 reference's key vocabulary ("cuda", "cuda->fallback:<code>",
 "...[decode_attn]", "...[prefill_attn]"); `act_scale_stats()` counts
@@ -20,13 +23,14 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core.ovp import MixedExpertQuant, QuantizedTensor
 from repro_torch.core.policy import QuantPolicy
 
 from .base import (ACT_SCALE_KEYS, ALL_DECLINE_CODES, DECLINE_CODES,
                    DISPATCH_MARKERS, QuantizedMatmulBackend,
                    act_normal_dtype, act_scale_stats, decline,
                    dispatch_key, quantize_activation, record_act_scale,
-                   reset_act_scale_stats, resolve_act_scale)
+                   reset_act_scale_stats, resolve_act_scale, torch_dtype)
 from .cuda import CudaBackend
 from .eager import EagerBackend
 
@@ -73,13 +77,56 @@ def _record(backend_name: str, reason: Optional[str],
 def dispatch(x: torch.Tensor, w, policy: QuantPolicy,
              act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (…, K) @ dequant(w) (K, N) on the policy's backend, falling back
-    one hop when it declines the layout."""
+    one hop when it declines the layout. A stacked (E, K, N) weight takes
+    an (…, E, C, K) lhs; a `MixedExpertQuant` runs group by group."""
+    if isinstance(w, MixedExpertQuant):
+        backend = get_backend(policy.backend)
+        reason = backend.mixed_expert_decline_reason(x, w, policy)
+        if reason is not None:
+            _record(backend.name, reason, "[stacked]")
+            policy = policy.with_backend(backend.fallback)
+        return _dispatch_mixed_experts(x, w, policy, act_scale)
     backend = get_backend(policy.backend)
     reason = backend.decline_reason(x, w, policy)
     _record(backend.name, reason, "[stacked]" if w.data.ndim > 2 else "")
     if reason is not None:
         backend = get_backend(backend.fallback)
     return backend.matmul(x, w, policy, act_scale=act_scale)
+
+
+def _dispatch_mixed_experts(x: torch.Tensor, w: MixedExpertQuant,
+                            policy: QuantPolicy,
+                            act_scale: Optional[torch.Tensor]
+                            ) -> torch.Tensor:
+    """Per-expert mixed precision: each homogeneous group goes through
+    `dispatch` (W4 and W8 groups each run the grouped kernel), and the
+    group outputs are put back in expert order. Only the weight side is
+    per expert: the A side, backend and compute dtype come from the
+    call-site policy. An unquantized group runs a plain matmul. Per-slot
+    scales carrying the expert dim ((…, E, C, 1) or (…, E, C)) are
+    gathered down to each group's experts."""
+    cdt = torch_dtype(policy.compute_dtype)
+    outs = []
+    for qt, ids in zip(w.groups, w.expert_ids):
+        idx = torch.as_tensor(ids, dtype=torch.int64, device=x.device)
+        xg = torch.index_select(x, x.ndim - 3, idx)
+        scale = act_scale
+        if isinstance(scale, torch.Tensor) and scale.ndim:
+            if scale.ndim >= 3 and scale.shape[-3] == w.n_experts \
+                    and scale.shape[-1] == 1:
+                scale = torch.index_select(scale, scale.ndim - 3, idx)
+            elif scale.ndim >= 2 and scale.shape[-2:] == x.shape[-3:-1]:
+                scale = torch.index_select(scale, scale.ndim - 2, idx)
+        if isinstance(qt, QuantizedTensor):
+            outs.append(dispatch(xg, qt, policy, act_scale=scale))
+        else:
+            outs.append(torch.matmul(xg.to(cdt), qt.to(cdt)))
+    cat = torch.cat([o.to(cdt) for o in outs], dim=-3)
+    flat_ids = [e for ids in w.expert_ids for e in ids]
+    order = torch.as_tensor(sorted(range(len(flat_ids)),
+                                   key=flat_ids.__getitem__),
+                            dtype=torch.int64, device=x.device)
+    return torch.index_select(cat, cat.ndim - 3, order)
 
 
 def decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,

@@ -8,9 +8,8 @@ policy's `static_act_scale`, or the caller's) in `act_scale_mode=
 row (`sigma_init_scale` with no axis). `act_scale_stats()` counts how
 each quantized matmul resolved its scale ("static" / "dynamic").
 
-`DECLINE_CODES` copies the reference registry so dispatch counts compare
-across the two packages; the port adds one matmul code,
-`grouped_not_ported`, for stacked expert weights.
+`DECLINE_CODES` copies the reference registry, so dispatch counts
+compare across the two packages.
 """
 from __future__ import annotations
 
@@ -31,8 +30,6 @@ DECLINE_CODES: Dict[str, Dict[str, str]] = {
         "grouped_lhs_rank_lt_3": "stacked weight needs an (…, E, C, K) lhs",
         "grouped_lhs_expert_mismatch": "lhs expert dim != weight stack dim",
         "stacked_rank_gt_3": ">3-D weight stacks are not kernelized",
-        "grouped_not_ported":
-            "stacked (E, K, N) weights wait for the grouped kernel",
     },
     "sharded": {
         "shard_no_mesh": "no mesh configured (configure_mesh)",
@@ -169,6 +166,13 @@ class QuantizedMatmulBackend:
 
     def decline_reason(self, x, w: QuantizedTensor,
                        policy: QuantPolicy) -> Optional[str]:
+        return None
+
+    def mixed_expert_decline_reason(self, x, w,
+                                    policy: QuantPolicy) -> Optional[str]:
+        """None when this backend serves each homogeneous group of a
+        per-expert `MixedExpertQuant`; a code routes the whole stack to
+        `fallback`."""
         return None
 
     def matmul(self, x: torch.Tensor, w: QuantizedTensor,

@@ -2,7 +2,9 @@
 launch of the fused OVP matmul kernel (`kernels/ovp_matmul.py`) per
 quantized matmul, with in-kernel activation quantization at the dynamic
 3σ scale (K1) or, for a calibrated static site, at its scale passed to
-the kernel as one scalar with no per-step std (K5); the slab (K2) or
+the kernel as one scalar with no per-step std (K5); one launch of the
+grouped per-expert matmul (K6) per stacked (E, K, N) expert weight
+whose lhs carries the matching expert dim; the slab (K2) or
 paged (K3) decode-attention kernel
 (`kernels/decode_attn.py`) for every decode step; and the fused
 cache-write prefill kernel (K4, `kernels/prefill_attn.py`) for every
@@ -33,7 +35,12 @@ class CudaBackend(QuantizedMatmulBackend):
         if w.data.ndim == 2:
             return None if x.ndim >= 2 else decline("lhs_rank_lt_2")
         if w.data.ndim == 3:
-            return decline("grouped_not_ported")
+            # grouped path: the lhs carries the matching expert dim at -3
+            if x.ndim < 3:
+                return decline("grouped_lhs_rank_lt_3")
+            if x.shape[-3] != w.data.shape[0]:
+                return decline("grouped_lhs_expert_mismatch")
+            return None
         return decline("stacked_rank_gt_3")
 
     def matmul(self, x: torch.Tensor, w: QuantizedTensor,
@@ -45,9 +52,10 @@ class CudaBackend(QuantizedMatmulBackend):
             if isinstance(scale, float):
                 # calibrated scalar: no std, one scale word to K5
                 static, scale = scale, None
-        out = ovp_matmul.fused_ovp_matmul(x, w, a_dtype=a_dtype,
-                                          act_scale=scale,
-                                          static_act_scale=static)
+        mm = ovp_matmul.grouped_ovp_matmul if w.data.ndim == 3 \
+            else ovp_matmul.fused_ovp_matmul
+        out = mm(x, w, a_dtype=a_dtype, act_scale=scale,
+                 static_act_scale=static)
         return out.to(torch_dtype(policy.compute_dtype))
 
     def decode_attn_decline_reason(self, q, cache) -> Optional[str]:

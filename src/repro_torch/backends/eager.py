@@ -1,8 +1,9 @@
 """Eager decode-and-matmul backend (the reference's `xla` / `reference`
 role): dequantize the weight (and, with `policy.abits`, a materialized
 OVP round trip of the activation) to the compute dtype and run
-`torch.matmul`; decode attention takes the dense path. Serves any
-layout, so it is the registry's fallback."""
+`torch.matmul`, which broadcasts a stacked (E, K, N) expert weight
+against an (…, E, C, K) lhs; decode attention takes the dense path.
+Serves any layout, so it is the registry's fallback."""
 from __future__ import annotations
 
 from typing import Optional

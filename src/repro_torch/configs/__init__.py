@@ -1,9 +1,10 @@
-"""Architecture registry (the dense configs ported so far)."""
+"""Architecture registry (the dense and MoE configs ported so far)."""
 from .base import ArchConfig
 
-from . import qwen1_5_0_5b
+from . import grok_1_314b, qwen1_5_0_5b, qwen3_moe_30b_a3b
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (qwen1_5_0_5b,)}
+ARCHS = {m.CONFIG.name: m.CONFIG
+         for m in (qwen1_5_0_5b, qwen3_moe_30b_a3b, grok_1_314b)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,6 +1,6 @@
 """Architecture configuration schema. Port of `repro/configs/base.py`
-(the fields the dense decoder reads; other families come with their
-layers)."""
+(the fields the dense and MoE decoders read; other families come with
+their layers)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +10,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense (the only family ported)
+    family: str                      # dense | moe (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -20,6 +20,11 @@ class ArchConfig:
     head_dim: int = 0                # 0 -> d_model // n_heads
     qkv_bias: bool = False
     mlp_kind: str = "swiglu"
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    norm_topk: bool = False
+    capacity_factor: float = 1.25
     block_pattern: Tuple[str, ...] = ("attn",)
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
@@ -39,7 +44,8 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family/pattern, tiny dimensions (the
-        reference's `reduced()` for the dense family)."""
+        reference's `reduced()` for the dense and MoE families: at most 8
+        experts, top-k at most 2)."""
         period = len(self.block_pattern)
         return dataclasses.replace(
             self,
@@ -52,4 +58,6 @@ class ArchConfig:
             head_dim=16,
             d_ff=128 if self.d_ff else 0,
             vocab=512,
+            n_experts=min(self.n_experts, 8) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
         )

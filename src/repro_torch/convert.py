@@ -4,7 +4,12 @@
 dicts/lists of numpy arrays (`jax.tree_util.tree_map(np.asarray,
 params)`), raw or already quantized. Quantized leaves arrive as dicts
 `{data, scale, normal_dtype, pair_axis, orig_dim}` or any object with
-those attributes. The scanned `blocks/<j>` stacks (leading group axis)
+those attributes; stacked expert leaves are the same with an expert dim
+(`moe/experts/wg`: data (E, K/2, N), scale (E, 1, N), with a leading
+group axis in a scanned tree); per-expert mixed stacks arrive as
+`{groups, expert_ids, n_experts}` (or a `MixedExpertQuant`) and become
+the port's `MixedExpertQuant`. The scanned `blocks/<j>` stacks (leading
+group axis)
 unstack into the port's unrolled `layers` list, layer i = g * period + j,
 followed by the `tail` entries; a tree the reference already unrolled
 (`unroll_params`) keeps its `layers` list.
@@ -16,20 +21,32 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.ovp import QuantizedTensor
+from repro_torch.core.ovp import MixedExpertQuant, QuantizedTensor
 
 _QT_FIELDS = ("data", "scale", "normal_dtype", "pair_axis", "orig_dim")
+_MIXED_FIELDS = ("groups", "expert_ids", "n_experts")
 
 
-def _qt_fields(x):
-    if isinstance(x, dict) and set(_QT_FIELDS) <= set(x):
+def _fields(x, names):
+    if isinstance(x, dict) and set(names) <= set(x):
         return x
-    if all(hasattr(x, f) for f in _QT_FIELDS):
-        return {f: getattr(x, f) for f in _QT_FIELDS}
+    if all(hasattr(x, f) for f in names):
+        return {f: getattr(x, f) for f in names}
     return None
 
 
+def _qt_fields(x):
+    return _fields(x, _QT_FIELDS)
+
+
 def _convert(x, device) -> Any:
+    m = _fields(x, _MIXED_FIELDS)
+    if m is not None:
+        return MixedExpertQuant(
+            groups=tuple(_convert(g, device) for g in m["groups"]),
+            expert_ids=tuple(tuple(int(i) for i in ids)
+                             for ids in m["expert_ids"]),
+            n_experts=int(m["n_experts"]))
     q = _qt_fields(x)
     if q is not None:
         return QuantizedTensor(

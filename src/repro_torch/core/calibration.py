@@ -37,7 +37,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .ovp import QuantizedTensor
+from .ovp import MixedExpertQuant, QuantizedTensor
 from .policy import PolicyLike, PolicyProgram, QuantPolicy, as_program
 from .quantizer import ovp_search_scale
 
@@ -300,8 +300,11 @@ def calibrate_model(model, params, batches: Iterable,
 
 def static_scale_misses(params, policy: PolicyLike) -> List[str]:
     """Quantized-weight sites whose resolved policy quantizes activations
-    at a static scale but has none calibrated. The serving engine raises
-    `MissingStaticScaleError` on a non-empty result."""
+    at a static scale but has none calibrated. Expert stacks (3-D or
+    `MixedExpertQuant` leaves under `.../experts/...`) run weight-only
+    (`layers._expert_ein` forces `abits=0`) and are skipped, as in the
+    reference. The serving engine raises `MissingStaticScaleError` on a
+    non-empty result."""
     from .qlinear import tree_paths
 
     def needs_scale(pol: QuantPolicy) -> bool:
@@ -309,9 +312,18 @@ def static_scale_misses(params, policy: PolicyLike) -> List[str]:
                 and pol.act_scale_mode == "static"
                 and pol.static_act_scale is None)
 
-    return [path for path, w in tree_paths(params)
-            if isinstance(w, QuantizedTensor)
-            and needs_scale(policy.resolve(path))]
+    misses = []
+    for path, w in tree_paths(params):
+        if isinstance(w, MixedExpertQuant) or (
+                isinstance(w, QuantizedTensor) and w.data.ndim > 2):
+            if "/experts/" in f"/{path}/":
+                continue
+        if isinstance(w, QuantizedTensor):
+            misses += [path] if needs_scale(policy.resolve(path)) else []
+        elif isinstance(w, MixedExpertQuant):
+            misses += [f"{path}/{e}" for e in range(w.n_experts)
+                       if needs_scale(policy.resolve(f"{path}/{e}"))]
+    return misses
 
 
 def uses_static_scales(policy: PolicyLike) -> bool:

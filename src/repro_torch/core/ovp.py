@@ -7,7 +7,10 @@ Port of `repro/core/ovp.py`. Per adjacent pair along `pair_axis`:
   outlier–outlier -> the smaller magnitude is pruned; equal magnitudes
                      keep the left one
 4-bit codes pack two per byte (one byte is one pair, the even index in
-the high nibble); int8 codes stay one per byte.
+the high nibble); int8 codes stay one per byte. A stacked per-expert
+weight is one `QuantizedTensor` with (E, K/2, N) data and (E, 1, N)
+(or (E, 1, 1)) scales; `MixedExpertQuant` holds a stack whose experts
+quantized under different policies.
 """
 from __future__ import annotations
 
@@ -123,6 +126,27 @@ class QuantizedTensor:
         s = list(self.data.shape)
         s[self.pair_axis % len(s)] = self.orig_dim
         return tuple(s)
+
+
+@dataclasses.dataclass
+class MixedExpertQuant:
+    """A stacked (E, K, N) expert weight whose experts resolved to
+    different per-site policies (sites `<path>/<e>`), grouped by policy.
+
+    groups:     one entry per distinct policy: a stacked QuantizedTensor
+                (Ei, K/2 | K, N), or a raw (Ei, K, N) tensor for experts
+                left unquantized
+    expert_ids: expert_ids[g][i] is the original expert index of
+                groups[g]'s i-th slice
+    n_experts:  E, the stack the groups partition
+    """
+    groups: tuple
+    expert_ids: tuple
+    n_experts: int
+
+    @property
+    def shape(self):
+        return (self.n_experts,) + tuple(self.groups[0].shape[1:])
 
 
 def ovp_quantize(x: torch.Tensor, scale, normal_dtype: str = "int4",

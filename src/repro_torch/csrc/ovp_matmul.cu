@@ -5,9 +5,14 @@
 // mode, for int4 / flint4 packed-nibble weights and int8
 // one-code-per-byte weights: K1 (body _fused_mm_kernel :224, modes fp,
 // quantize, codes4, codes8) and K5 (a_static=True, body
-// _fused_mm_kernel_static :263).
+// _fused_mm_kernel_static :263); and the grouped per-expert matmul K6
+// (grouped_ovp_matmul_kernel :436 -> pallas_call at :489, bodies
+// _grouped_mm_kernel :300 and _grouped_mm_kernel_static :333), the same
+// body with an expert grid dimension (entry ovp_grouped_mm_launch).
 //
-//   out[r, n] = (sum_k a'[r, k] * w'[k, n]) * sa[r] * sw[n]
+//   K1/K5: out[r, n]       = (sum_k a'[r, k] * w'[k, n]) * sa[r] * sw[n]
+//   K6:    out[b, e, c, n] = (sum_k a'[b, e, c, k] * w'[e, k, n])
+//                            * sa[b, e, c] * sw[e, n]
 //
 // a' is, by mode:
 //   fp        the fp32 activation, sa = 1;
@@ -26,12 +31,12 @@
 // yourself makes you the victim (0), otherwise the value is a normal
 // code.
 //
-// Launch shape: grid (N / 16, ceil(R / 8), split), 256 threads. A block
-// owns 8 rows x 16 output columns and walks K inside the block in stages
-// of 256 pairs: each stage loads the packed weight rows with one 16-byte
-// load per row (16 columns of one K pair, coalesced along N) into shared
-// memory, runs the activation prologue once per stage (quantize or
-// decode into fp32 shared memory), and 16 k-groups of 16 threads
+// Launch shape (K1): grid (N / 16, ceil(R / 8), split), 256 threads. A
+// block owns 8 rows x 16 output columns and walks K inside the block in
+// stages of 256 pairs: each stage loads the packed weight rows with one
+// 16-byte load per row (16 columns of one K pair, coalesced along N) into
+// shared memory, runs the activation prologue once per stage (quantize
+// or decode into fp32 shared memory), and 16 k-groups of 16 threads
 // accumulate disjoint pair subsets in registers; a shared-memory
 // reduction over the k-groups and the scale epilogue finish the tile.
 // Narrow 16-column tiles are chosen for the decode shapes of the serving
@@ -51,17 +56,30 @@
 // (codes8) of the fp32 activation bytes, which at R = 4 is a few KB and
 // moves nothing. Making it fast is later work.
 //
-// Tolerance against the plain version (kernels/ovp_matmul.py,
-// fused_ovp_matmul_plain): decoded weights, decoded codes and quantized
-// activations are exact in both; only the fp32 summation order differs,
-// so rtol 1e-5 and atol 1e-5 * max|ref|.
+// K6 (the MoE expert einsums wg, wu, wd; weight-only "fp" on the serving
+// path, every mode through the kernel API): grid (N / 16, ceil(R / BM),
+// E), one expert per blockIdx.z, its R = B * C rows (batch folded into
+// the expert's rows by address arithmetic, no permute copy of the
+// (B, E, C, K) activation). At decode (4 slots, capacity 4) R = 16 and
+// BM = 16, so each expert's packed weight tile is read once per call;
+// every capacity slot is computed, empty ones included, as the reference
+// computes them. What bounds it: the fp32 FMAs of B * E * C rows (Qwen3-
+// 30B-A3B wg at decode: 2048 x 2048 x 768, 6.4 GFLOP, 0.096 ms at 67
+// TFLOP/s) over the packed weight bytes (101 MB, 0.030 ms at 3.35 TB/s);
+// each column tile re-reads its expert's activation rows from L2.
+//
+// Tolerance against the plain versions (kernels/ovp_matmul.py,
+// fused_ovp_matmul_plain and grouped_ovp_matmul_plain): decoded weights,
+// decoded codes and quantized activations are exact in both; only the
+// fp32 summation order differs, so rtol 1e-5 and atol 1e-5 * max|ref|.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int BN = 16;        // output columns per block
-constexpr int BM = 8;         // rows per block
+constexpr int BM_DENSE = 8;   // rows per block: K1, and K6 up to 8 rows
+constexpr int BM_GROUPED = 16;  // rows per block: K6 above 8 rows
 constexpr int BK2 = 256;      // K pairs per stage
 constexpr int NT = 256;       // threads per block
 constexpr int KG = NT / BN;   // k-groups
@@ -151,21 +169,33 @@ __device__ __forceinline__ void quant_pair(float u0, float u1, int dt,
   q1 = second ? rt_abfloat(u1, s) : (first ? 0.f : rt_normal(u1, dt));
 }
 
-template <int WDT>
+// One block: BM rows x BN output columns of ONE expert's problem (K1 is
+// the one-expert case), walking its K range in stages of BK2 pairs. Row
+// r in [0, R) of expert e is the global row ((r / C) * E + e) * C + r % C
+// of the (B, E, C, K) activation and (B, E, C, N) output, R = B * C, so
+// the batch dim folds into each expert's rows with no copy; K1 passes
+// E = 1, C = R (global row = r). blockIdx.z = e * split + the K split.
+template <int WDT, int BM>
 __global__ void __launch_bounds__(NT)
 ovp_mm_kernel(const void* __restrict__ a, const float* __restrict__ sa,
               const uint8_t* __restrict__ w, const float* __restrict__ sw,
-              float* __restrict__ out, int R, int K, int N, int a_mode,
-              int a_dtype, int k2_per_split, float s_static) {
+              float* __restrict__ out, int R, int K, int N, int E, int C,
+              int a_mode, int a_dtype, int split, int k2_per_split,
+              float s_static) {
   constexpr int WROWS = WDT == DT_INT8 ? 2 : 1;  // weight byte rows per pair
   __shared__ __align__(16) uint8_t w_s[BK2 * WROWS * BN];
+  // activation planes of a stage; after the K loop the same memory holds
+  // the k-group partial sums (KG * BM * (BN + 1) <= BM * 2 * BK2 floats)
   __shared__ __align__(16) float a_s[BM][2 * BK2];
-  __shared__ float red[KG][BM][BN + 1];
+  float(*red)[BM][BN + 1] = reinterpret_cast<float(*)[BM][BN + 1]>(&a_s[0][0]);
 
   const int tid = threadIdx.x, c = tid % BN, kg = tid / BN;
   const int n0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
-  const int k2b = blockIdx.z * k2_per_split;
+  const int e = blockIdx.z / split;
+  const int k2b = (blockIdx.z % split) * k2_per_split;
   const int k2e = min(K / 2, k2b + k2_per_split);
+  w += (size_t)e * (K / 2) * WROWS * N;          // this expert's stack entry
+  sw += (size_t)e * N;
   const float inv_static = 1.0f / s_static;  // IEEE: no fast-math
   const float* af = static_cast<const float*>(a);
   const uint8_t* ab = static_cast<const uint8_t*>(a);
@@ -188,19 +218,20 @@ ovp_mm_kernel(const void* __restrict__ a, const float* __restrict__ sa,
     // or decoded from its codes ("codes4", "codes8")
     for (int i = tid; i < BM * BK2; i += NT) {
       const int r = i / BK2, p = i % BK2;
-      const int row = r0 + r, k2 = k0 + p;
+      const int lr = r0 + r, k2 = k0 + p;
       float q0 = 0.f, q1 = 0.f;
-      if (row < R && k2 < k2e) {
+      if (lr < R && k2 < k2e) {
+        const size_t row = ((size_t)(lr / C) * E + e) * C + lr % C;
         if (a_mode == A_CODES4) {
-          const int byte = ab[(size_t)row * (K / 2) + k2];
+          const int byte = ab[row * (K / 2) + k2];
           dec_pair(byte >> 4, byte & 15, a_dtype, q0, q1);
         } else if (a_mode == A_CODES8) {
-          const uchar2 c =
-              *reinterpret_cast<const uchar2*>(ab + (size_t)row * K + 2 * k2);
-          dec_pair(c.x, c.y, DT_INT8, q0, q1);
+          const uchar2 cc =
+              *reinterpret_cast<const uchar2*>(ab + row * K + 2 * k2);
+          dec_pair(cc.x, cc.y, DT_INT8, q0, q1);
         } else {
           const float2 x =
-              *reinterpret_cast<const float2*>(af + (size_t)row * K + 2 * k2);
+              *reinterpret_cast<const float2*>(af + row * K + 2 * k2);
           if (a_mode == A_QUANT) {
             const float s = sa[row];
             quant_pair(x.x / s, x.y / s, a_dtype, q0, q1);
@@ -241,26 +272,62 @@ ovp_mm_kernel(const void* __restrict__ a, const float* __restrict__ sa,
 #pragma unroll
   for (int r = 0; r < BM; ++r) red[kg][r][c] = acc[r];
   __syncthreads();
-  if (tid < BM * BN) {
-    const int r = tid / BN, cc = tid % BN;
-    const int row = r0 + r, col = n0 + cc;
+  for (int i = tid; i < BM * BN; i += NT) {
+    const int r = i / BN, cc = i % BN;
+    const int lr = r0 + r, col = n0 + cc;
     float s = 0.f;
     for (int g = 0; g < KG; ++g) s += red[g][r][cc];
-    if (row < R) {
+    if (lr < R) {
+      const size_t row = ((size_t)(lr / C) * E + e) * C + lr % C;
       const float v = a_mode == A_FP       ? s * sw[col]
                       : a_mode == A_STATIC ? s * (s_static * sw[col])
                                            : s * sa[row] * sw[col];
-      if (gridDim.z == 1)
-        out[(size_t)row * N + col] = v;
+      if (split == 1)
+        out[row * N + col] = v;
       else
-        atomicAdd(out + (size_t)row * N + col, v);
+        atomicAdd(out + row * N + col, v);
     }
   }
 }
 
+template <int BM>
+int launch(const void* a, const void* sa, const void* w, const void* sw,
+           void* out, int R, int K, int N, int E, int C, int w_dtype,
+           int a_mode, int a_dtype, int split, float s_static,
+           void* stream) {
+  const int k2 = K / 2;
+  const int per = ((k2 + split - 1) / split + BK2 - 1) / BK2 * BK2;
+  const dim3 grid(N / BN, (R + BM - 1) / BM, E * split);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* saf = static_cast<const float*>(sa);
+  const uint8_t* wb = static_cast<const uint8_t*>(w);
+  const float* swf = static_cast<const float*>(sw);
+  float* of = static_cast<float*>(out);
+  switch (w_dtype) {
+    case DT_INT4:
+      ovp_mm_kernel<DT_INT4, BM><<<grid, NT, 0, st>>>(
+          a, saf, wb, swf, of, R, K, N, E, C, a_mode, a_dtype, split, per,
+          s_static);
+      break;
+    case DT_FLINT4:
+      ovp_mm_kernel<DT_FLINT4, BM><<<grid, NT, 0, st>>>(
+          a, saf, wb, swf, of, R, K, N, E, C, a_mode, a_dtype, split, per,
+          s_static);
+      break;
+    case DT_INT8:
+      ovp_mm_kernel<DT_INT8, BM><<<grid, NT, 0, st>>>(
+          a, saf, wb, swf, of, R, K, N, E, C, a_mode, a_dtype, split, per,
+          s_static);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// a (R, K) f32, or (R, K/2) packed nibbles (codes4), or (R, K) int8
+// K1: a (R, K) f32, or (R, K/2) packed nibbles (codes4), or (R, K) int8
 // codes (codes8); sa (R,) f32 (read in the quantize and codes modes);
 // w (K/2, N) packed nibbles or (K, N) int8 codes; sw (N,) f32; s_static
 // the calibrated scale (static mode); out (R, N) f32, zeroed by the
@@ -270,32 +337,26 @@ extern "C" int ovp_mm_launch(const void* a, const void* sa, const void* w,
                              const void* sw, void* out, int R, int K, int N,
                              int w_dtype, int a_mode, int a_dtype, int split,
                              float s_static, void* stream) {
-  const int k2 = K / 2;
-  const int per = ((k2 + split - 1) / split + BK2 - 1) / BK2 * BK2;
-  const dim3 grid(N / BN, (R + BM - 1) / BM, split);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* saf = static_cast<const float*>(sa);
-  const uint8_t* wb = static_cast<const uint8_t*>(w);
-  const float* swf = static_cast<const float*>(sw);
-  float* of = static_cast<float*>(out);
-  switch (w_dtype) {
-    case DT_INT4:
-      ovp_mm_kernel<DT_INT4><<<grid, NT, 0, st>>>(a, saf, wb, swf, of, R, K,
-                                                  N, a_mode, a_dtype, per,
-                                                  s_static);
-      break;
-    case DT_FLINT4:
-      ovp_mm_kernel<DT_FLINT4><<<grid, NT, 0, st>>>(a, saf, wb, swf, of, R,
-                                                    K, N, a_mode, a_dtype,
-                                                    per, s_static);
-      break;
-    case DT_INT8:
-      ovp_mm_kernel<DT_INT8><<<grid, NT, 0, st>>>(a, saf, wb, swf, of, R, K,
-                                                  N, a_mode, a_dtype, per,
-                                                  s_static);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch<BM_DENSE>(a, sa, w, sw, out, R, K, N, 1, R, w_dtype,
+                          a_mode, a_dtype, split, s_static, stream);
+}
+
+// K6: a (B, E, C, Ka) in the K1 layouts, sa (B, E, C) f32, w (E, Kw, N),
+// sw (E, N) f32, out (B, E, C, N) f32; every expert's R = B * C rows in
+// one launch, grid (N / 16, ceil(R / BM), E). Row tile BM = 16 when an
+// expert has more than 8 rows (16 at decode: 4 slots x capacity 4), so
+// each expert's weight tile is read once per call; else 8. Same layout
+// rules as K1. Returns cudaGetLastError().
+extern "C" int ovp_grouped_mm_launch(const void* a, const void* sa,
+                                     const void* w, const void* sw,
+                                     void* out, int B, int E, int C, int K,
+                                     int N, int w_dtype, int a_mode,
+                                     int a_dtype, float s_static,
+                                     void* stream) {
+  const int R = B * C;
+  return R > BM_DENSE
+             ? launch<BM_GROUPED>(a, sa, w, sw, out, R, K, N, E, C, w_dtype,
+                                  a_mode, a_dtype, 1, s_static, stream)
+             : launch<BM_DENSE>(a, sa, w, sw, out, R, K, N, E, C, w_dtype,
+                                a_mode, a_dtype, 1, s_static, stream);
 }

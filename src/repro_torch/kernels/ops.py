@@ -1,5 +1,4 @@
-"""Public kernel API: the port of `repro/kernels/ops.py` (the dense
-wrappers; the grouped per-expert ones wait for K6).
+"""Public kernel API: the port of `repro/kernels/ops.py`.
 
 These are the entry points of the paper's accelerator dataflow, in which
 both matmul operands arrive OVP-packed: `ovp_encode` packs real values
@@ -7,9 +6,10 @@ at a scale (K7), and `ovp_matmul`, `matmul_w4a4` and `matmul_w8a8`
 multiply a packed activation by a packed weight, decoding both in one
 launch of the fused matmul kernel (K1's `codes4` / `codes8` modes).
 `fused_ovp_matmul` is the single-dispatch matmul of every mode,
-including the static-scale K5 (`kernels/ovp_matmul.py`). CPU tensors
-take each kernel's plain version; CUDA tensors launch the kernel or
-raise. Results are f32.
+including the static-scale K5, and `grouped_ovp_matmul` its per-expert
+twin over a stacked (E, K, N) weight, one launch of K6, in the same
+modes (`kernels/ovp_matmul.py`). CPU tensors take each kernel's plain
+version; CUDA tensors launch the kernel or raise. Results are f32.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from repro_torch.core.ovp import QuantizedTensor
 
 from . import ovp_encode as _enc
 from . import ovp_matmul as _mm
-from .ovp_matmul import fused_ovp_matmul
+from .ovp_matmul import fused_ovp_matmul, grouped_ovp_matmul
 
 
 def _rows(s, a: torch.Tensor) -> torch.Tensor:
@@ -76,5 +76,5 @@ def ovp_encode(x: torch.Tensor, scale, normal_dtype: str = "int4"
     return _enc.fused_ovp_encode(u, normal_dtype)
 
 
-__all__ = ["fused_ovp_matmul", "matmul_w4a16", "matmul_w4a4",
-           "matmul_w8a8", "ovp_matmul", "ovp_encode"]
+__all__ = ["fused_ovp_matmul", "grouped_ovp_matmul", "matmul_w4a16",
+           "matmul_w4a4", "matmul_w8a8", "ovp_matmul", "ovp_encode"]

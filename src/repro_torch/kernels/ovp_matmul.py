@@ -1,5 +1,5 @@
-"""K1 and K5: the fused OVP matmul — hand-written CUDA kernel + plain
-version.
+"""K1, K5 and K6: the fused OVP matmul and its grouped per-expert twin —
+hand-written CUDA kernels + plain versions.
 
 Replaces the TPU kernel `repro/kernels/ovp_matmul.py:367`
 (`fused_ovp_matmul_kernel`) in all its activation modes, and its host
@@ -27,10 +27,25 @@ to (rows,) and (N,), and pads N to the kernel's 16-column tile. CPU
 tensors take `fused_ovp_matmul_plain`; CUDA tensors launch the kernel (or
 raise). `fused_ovp_matmul.mode_launches[mode]` counts each mode's
 kernel launches.
+
+K6 replaces `repro/kernels/ovp_matmul.py:436` (`grouped_ovp_matmul_kernel`,
+bodies `_grouped_mm_kernel` :300 and `_grouped_mm_kernel_static` :333)
+and its host wrapper `repro/kernels/ops.py:236` (`grouped_ovp_matmul`):
+
+    out[b, e, c, n] = (Σ_k a'[b, e, c, k] · w'[e, k, n]) · sa[b, e, c]
+                      · sw[e, n]
+
+over a stacked (E, K/2 | K, N) weight with per-expert scales, in every
+mode above (the MoE expert einsums run `fp`). `grouped_ovp_matmul`
+folds the dims left of (E, C, K) into B, broadcasts the scales to
+(B, E, C) and (E, N), and launches one kernel (`ovp_grouped_mm_launch`
+in the same source); `grouped_ovp_matmul.mode_launches[mode]` counts
+its launches apart from K1's.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Union
 
 import numpy as np
@@ -52,12 +67,25 @@ _SPLIT_BELOW = 100  # split K in two when the grid has fewer blocks
 # --------------------------------------------------------------------------
 # Plain version (the kernel's arithmetic in torch ops)
 # --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _byte_tables(w_dtype: str, device: torch.device):
+    """(even, odd) decoded values of each of the 256 packed bytes: a
+    4-bit pair is one byte, so a lookup decodes it exactly as
+    `decode_pair_planes` does, in one gather instead of a chain of
+    elementwise passes over the whole weight."""
+    b = torch.arange(256, device=device).to(torch.uint8)
+    return decode_pair_planes((b >> 4) & 0xF, b & 0xF, w_dtype)
+
+
 def weight_planes(w_data: torch.Tensor, w_dtype: str):
-    """Packed (K/2, N) nibbles or (K, N) int8 codes -> (even, odd)
-    decoded fp32 planes, each (K/2, N)."""
+    """Packed (…, K/2, N) nibbles or (…, K, N) int8 codes -> (even, odd)
+    decoded fp32 planes, each (…, K/2, N)."""
     if w_dtype == "int8":
-        return decode_pair_planes(w_data[0::2], w_data[1::2], w_dtype)
-    return decode_pair_planes((w_data >> 4) & 0xF, w_data & 0xF, w_dtype)
+        return decode_pair_planes(w_data[..., 0::2, :], w_data[..., 1::2, :],
+                                  w_dtype)
+    even, odd = _byte_tables(w_dtype, w_data.device)
+    idx = w_data.long()
+    return even[idx], odd[idx]
 
 
 def _roundtrip_normal(u: torch.Tensor, normal_dtype: str) -> torch.Tensor:
@@ -105,18 +133,18 @@ def _reciprocal(s: float) -> float:
 
 def act_planes(a: torch.Tensor, sa: Optional[torch.Tensor], a_mode: str,
                a_dtype: str, s_static: Optional[float] = None):
-    """The activation prologue: (R, Ka) operand -> (even, odd) fp32
-    planes, each (R, K/2)."""
+    """The activation prologue: (…, Ka) operand -> (even, odd) fp32
+    planes, each (…, K/2); `sa` has the operand's lead shape."""
     if a_mode == "codes4":
         return decode_pair_planes((a >> 4) & 0xF, a & 0xF, a_dtype)
     if a_mode == "codes8":
-        return decode_pair_planes(a[:, 0::2], a[:, 1::2], "int8")
+        return decode_pair_planes(a[..., 0::2], a[..., 1::2], "int8")
     af = a.to(torch.float32)
     if a_mode == "fp":
-        return af[:, 0::2], af[:, 1::2]
-    u = af / sa[:, None] if a_mode == "quantize" \
+        return af[..., 0::2], af[..., 1::2]
+    u = af / sa[..., None] if a_mode == "quantize" \
         else af * _reciprocal(s_static)
-    return quantize_pair_planes(u[:, 0::2], u[:, 1::2], a_dtype)
+    return quantize_pair_planes(u[..., 0::2], u[..., 1::2], a_dtype)
 
 
 def fused_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
@@ -137,12 +165,33 @@ def fused_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
     return acc * sw[None, :]
 
 
+def grouped_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
+                             w_data: torch.Tensor, sw: torch.Tensor, *,
+                             w_dtype: str, a_mode: str, a_dtype: str,
+                             s_static: Optional[float] = None
+                             ) -> torch.Tensor:
+    """K6's arithmetic: a (B, E, C, Ka) f32 or codes; sa (B, E, C) slot
+    scales (quantize and codes modes) or None; w_data (E, Kw, N) packed
+    nibbles or int8 codes; sw (E, N) -> (B, E, C, N) f32, scaled in the
+    Pallas body's order (acc · sa · sw; static acc · (s · sw))."""
+    w_even, w_odd = weight_planes(w_data, w_dtype)
+    a_even, a_odd = act_planes(a, sa, a_mode, a_dtype, s_static)
+    acc = a_even @ w_even + a_odd @ w_odd
+    if a_mode == "static":
+        return acc * (sw * float(np.float32(s_static)))[:, None, :]
+    if a_mode != "fp":
+        acc = acc * sa[..., None]
+    return acc * sw[:, None, :]
+
+
 # --------------------------------------------------------------------------
 # CUDA launch
 # --------------------------------------------------------------------------
 A_MODES = ("fp", "quantize", "static", "codes4", "codes8")
 _SIGNATURE = {"ovp_mm_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-              + [ctypes.c_float, ctypes.c_void_p]}
+              + [ctypes.c_float, ctypes.c_void_p],
+              "ovp_grouped_mm_launch": [ctypes.c_void_p] * 5
+              + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -151,31 +200,42 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _kernel_operands(a, sa, w_data, sw, a_mode: str, what: str):
+    """Check the operands' types and device, pad N (the last dim of the
+    codes and the scales) to the kernel's 16-column tile with scale 1,
+    and make every operand contiguous and 16-byte aligned. A missing
+    `sa` becomes a placeholder pointer the mode never reads."""
+    a_type = torch.uint8 if a_mode.startswith("codes") else torch.float32
+    if a.dtype != a_type or w_data.dtype != torch.uint8:
+        raise TypeError(f"{what} kernel ({a_mode}) takes {a_type} "
+                        f"activations and uint8 codes, got {a.dtype} and "
+                        f"{w_data.dtype}")
+    if {t.device for t in (a, sa, w_data, sw) if t is not None} != \
+            {a.device}:
+        raise ValueError(f"{what} operands must share one device")
+    n = w_data.shape[-1]
+    if n % _BN:
+        pad = _BN - n % _BN
+        w_data = torch.nn.functional.pad(w_data, (0, pad))
+        sw = torch.nn.functional.pad(sw, (0, pad), value=1.0)
+    sw = _aligned(sw.float())
+    return (_aligned(a), sw if sa is None else _aligned(sa.float()),
+            _aligned(w_data), sw)
+
+
 def _launch(a: torch.Tensor, sa: Optional[torch.Tensor],
             w_data: torch.Tensor, sw: torch.Tensor, *, w_dtype: str,
             a_mode: str, a_dtype: str, s_static: Optional[float]
             ) -> torch.Tensor:
     r, k = a.shape[0], w_data.shape[0] * (1 if w_dtype == "int8" else 2)
     n = w_data.shape[1]
-    a_type = torch.uint8 if a_mode.startswith("codes") else torch.float32
-    if a.dtype != a_type or w_data.dtype != torch.uint8:
-        raise TypeError(f"ovp_matmul kernel ({a_mode}) takes {a_type} "
-                        f"activations and uint8 codes, got {a.dtype} and "
-                        f"{w_data.dtype}")
-    if {t.device for t in (a, sa, w_data, sw) if t is not None} != \
-            {a.device}:
-        raise ValueError("ovp_matmul operands must share one device")
-    if n % _BN:
-        pad = _BN - n % _BN
-        w_data = torch.nn.functional.pad(w_data, (0, pad))
-        sw = torch.nn.functional.pad(sw, (0, pad), value=1.0)
+    a, sa, w_data, sw = _kernel_operands(a, sa, w_data, sw, a_mode,
+                                         "ovp_matmul")
     np_ = w_data.shape[1]
     blocks = (np_ // _BN) * (-(-r // _BM))
     split = 2 if blocks < _SPLIT_BELOW and k // 2 >= 2 * _BK2 else 1
     out = (torch.zeros if split > 1 else torch.empty)(
         (r, np_), dtype=torch.float32, device=a.device)
-    a, w_data, sw = _aligned(a), _aligned(w_data), _aligned(sw.float())
-    sa = sw if sa is None else _aligned(sa.float())
     lib = _build.load("ovp_matmul", _SIGNATURE)
     err = lib.ovp_mm_launch(
         a.data_ptr(), sa.data_ptr(), w_data.data_ptr(), sw.data_ptr(),
@@ -188,14 +248,10 @@ def _launch(a: torch.Tensor, sa: Optional[torch.Tensor],
     return out[:, :n]
 
 
-def run(a: torch.Tensor, sa: Optional[torch.Tensor], w_data: torch.Tensor,
-        sw: torch.Tensor, *, w_dtype: str, a_mode: str,
-        a_dtype: Optional[str] = None, s_static: Optional[float] = None
-        ) -> torch.Tensor:
-    """(R, Ka) x codes -> (R, N): the plain version for CPU tensors, the
-    kernel for CUDA tensors, an error for anything else. `a_dtype`
-    defaults to the weight's (fp mode ignores it); static mode needs
-    `s_static`, the quantize and codes modes `sa`."""
+def _checked_modes(a, sa, w_data, *, w_dtype: str, a_mode: str,
+                   a_dtype: Optional[str], s_static: Optional[float]):
+    """Validate one call's modes and K against the weight; returns the
+    plain version's and the launch's keyword arguments."""
     if a_mode not in A_MODES:
         raise ValueError(f"activation mode {a_mode!r}; options: {A_MODES}")
     a_dtype = a_dtype or w_dtype
@@ -206,13 +262,25 @@ def run(a: torch.Tensor, sa: Optional[torch.Tensor], w_data: torch.Tensor,
                          "its")
     if a_mode in ("quantize", "codes4", "codes8") and sa is None:
         raise ValueError(f"{a_mode} mode needs per-row scales sa")
-    k = w_data.shape[0] * (1 if w_dtype == "int8" else 2)
-    ka = a.shape[1] * (2 if a_mode == "codes4" else 1)
+    k = w_data.shape[-2] * (1 if w_dtype == "int8" else 2)
+    ka = a.shape[-1] * (2 if a_mode == "codes4" else 1)
     if ka != k or k % 2:
         raise ValueError(f"lhs K={ka} ({a_mode}) does not match the "
                          f"{w_dtype} weight {tuple(w_data.shape)}")
-    kw = dict(w_dtype=w_dtype, a_mode=a_mode, a_dtype=a_dtype,
-              s_static=s_static)
+    return dict(w_dtype=w_dtype, a_mode=a_mode, a_dtype=a_dtype,
+                s_static=s_static)
+
+
+def run(a: torch.Tensor, sa: Optional[torch.Tensor], w_data: torch.Tensor,
+        sw: torch.Tensor, *, w_dtype: str, a_mode: str,
+        a_dtype: Optional[str] = None, s_static: Optional[float] = None
+        ) -> torch.Tensor:
+    """(R, Ka) x codes -> (R, N): the plain version for CPU tensors, the
+    kernel for CUDA tensors, an error for anything else. `a_dtype`
+    defaults to the weight's (fp mode ignores it); static mode needs
+    `s_static`, the quantize and codes modes `sa`."""
+    kw = _checked_modes(a, sa, w_data, w_dtype=w_dtype, a_mode=a_mode,
+                        a_dtype=a_dtype, s_static=s_static)
     if a.device.type == "cpu":
         return fused_ovp_matmul_plain(a, sa, w_data, sw, **kw)
     if a.device.type != "cuda":
@@ -284,3 +352,125 @@ def fused_ovp_matmul(x: Union[torch.Tensor, QuantizedTensor],
 
 
 fused_ovp_matmul.mode_launches = dict.fromkeys(A_MODES, 0)
+
+
+# --------------------------------------------------------------------------
+# K6: the grouped per-expert matmul
+# --------------------------------------------------------------------------
+def _launch_grouped(a: torch.Tensor, sa: Optional[torch.Tensor],
+                    w_data: torch.Tensor, sw: torch.Tensor, *, w_dtype: str,
+                    a_mode: str, a_dtype: str, s_static: Optional[float]
+                    ) -> torch.Tensor:
+    b, e, c = a.shape[:3]
+    k = w_data.shape[1] * (1 if w_dtype == "int8" else 2)
+    n = w_data.shape[2]
+    a, sa, w_data, sw = _kernel_operands(a, sa, w_data, sw, a_mode,
+                                         "grouped ovp_matmul")
+    np_ = w_data.shape[2]
+    out = torch.empty((b, e, c, np_), dtype=torch.float32, device=a.device)
+    lib = _build.load("ovp_matmul", _SIGNATURE)
+    err = lib.ovp_grouped_mm_launch(
+        a.data_ptr(), sa.data_ptr(), w_data.data_ptr(), sw.data_ptr(),
+        out.data_ptr(), b, e, c, k, np_, _DTYPE_CODE[w_dtype],
+        A_MODES.index(a_mode), _DTYPE_CODE[a_dtype],
+        float(np.float32(s_static or 1.0)),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "grouped ovp_matmul")
+    grouped_ovp_matmul.mode_launches[a_mode] += 1
+    return out[..., :n]
+
+
+def run_grouped(a: torch.Tensor, sa: Optional[torch.Tensor],
+                w_data: torch.Tensor, sw: torch.Tensor, *, w_dtype: str,
+                a_mode: str, a_dtype: Optional[str] = None,
+                s_static: Optional[float] = None) -> torch.Tensor:
+    """(B, E, C, Ka) x stacked codes (E, Kw, N) -> (B, E, C, N): the
+    plain version for CPU tensors, K6 for CUDA tensors, an error for
+    anything else. Scales: sa (B, E, C), sw (E, N)."""
+    if a.ndim != 4 or w_data.ndim != 3 or a.shape[1] != w_data.shape[0]:
+        raise ValueError(f"grouped ovp_matmul takes a (B, E, C, K) lhs "
+                         f"and an (E, K, N) stack; got {tuple(a.shape)} "
+                         f"and {tuple(w_data.shape)}")
+    kw = _checked_modes(a, sa, w_data, w_dtype=w_dtype, a_mode=a_mode,
+                        a_dtype=a_dtype, s_static=s_static)
+    if a.device.type == "cpu":
+        return grouped_ovp_matmul_plain(a, sa, w_data, sw, **kw)
+    if a.device.type != "cuda":
+        raise ValueError(f"grouped ovp_matmul runs on cpu or cuda, not "
+                         f"{a.device}")
+    return _launch_grouped(a, sa, w_data, sw, **kw)
+
+
+def _as_4d(x: torch.Tensor):
+    """(…, E, C, K) -> ((B, E, C, K), lead): the dims left of (E, C, K)
+    fold into B."""
+    if x.ndim < 3:
+        raise ValueError(f"grouped lhs must be at least 3-D, got "
+                         f"{tuple(x.shape)}")
+    return x.reshape(-1, *x.shape[-3:]), tuple(x.shape[:-3])
+
+
+def _expert_row_scale(s, lead: tuple, device) -> torch.Tensor:
+    """A scalar or per-slot activation scale (shaped like the lhs without
+    K, or broadcastable to it with a trailing 1) -> (B, E, C) f32."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=device)
+    if s.ndim and s.shape == lead:
+        s = s[..., None]
+    return torch.broadcast_to(s, tuple(lead) + (1,)).reshape(
+        -1, *lead[-2:])
+
+
+def _expert_col_scale(s, e: int, n: int, device) -> torch.Tensor:
+    """Per-expert weight scales -> (E, N) f32: a scalar (shared), (E,)
+    or (E, 1, 1) per-expert tensor scales, or (E, 1, N) per-expert
+    channel scales."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=device)
+    if s.ndim == 0:
+        return torch.broadcast_to(s, (e, n))
+    return torch.broadcast_to(s.reshape(e, -1), (e, n))
+
+
+def grouped_ovp_matmul(x: Union[torch.Tensor, QuantizedTensor],
+                       w: QuantizedTensor, *,
+                       a_dtype: Optional[str] = None,
+                       act_scale: Optional[torch.Tensor] = None,
+                       static_act_scale: Optional[float] = None
+                       ) -> torch.Tensor:
+    """(…, E, C, K) @ stacked OVP (E, K, N) -> (…, E, C, N) f32, one
+    launch of K6 on CUDA: the per-expert mirror of `fused_ovp_matmul`,
+    with the same activation modes (fp lhs by default, in-kernel OVP
+    quantization with `a_dtype` and `act_scale` or `static_act_scale`,
+    or a pre-quantized `QuantizedTensor` lhs)."""
+    if w.data.ndim != 3 or w.pair_axis % 3 != 1:
+        raise ValueError("grouped_ovp_matmul takes an (E, K, N) stack "
+                         "paired along K")
+    e, n = w.data.shape[0], w.data.shape[-1]
+    sw = _expert_col_scale(w.scale, e, n, w.data.device)
+    sa = s_static = None
+    if isinstance(x, QuantizedTensor):
+        if x.pair_axis != -1:
+            raise ValueError("a pre-quantized lhs pairs along its last "
+                             "axis")
+        a_mode = "codes4" if x.is_packed else "codes8"
+        a_dtype = x.normal_dtype
+        a, lead = _as_4d(x.data)
+        sa = _expert_row_scale(x.scale, x.data.shape[:-1], x.data.device)
+    else:
+        a, lead = _as_4d(x.to(torch.float32))
+        if a_dtype is None:
+            a_mode = "fp"
+        elif static_act_scale is not None:
+            a_mode, s_static = "static", float(static_act_scale)
+        elif act_scale is None:
+            raise ValueError("in-kernel activation quantization needs an "
+                             "act_scale (per-tensor or per-slot) or a "
+                             "static_act_scale constant")
+        else:
+            a_mode = "quantize"
+            sa = _expert_row_scale(act_scale, x.shape[:-1], x.device)
+    out = run_grouped(a, sa, w.data, sw, w_dtype=w.normal_dtype,
+                      a_mode=a_mode, a_dtype=a_dtype, s_static=s_static)
+    return out.reshape(*lead, *out.shape[-3:])
+
+
+grouped_ovp_matmul.mode_launches = dict.fromkeys(A_MODES, 0)

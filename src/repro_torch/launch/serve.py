@@ -7,6 +7,14 @@ synthetic request stream, on the CUDA device:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen1.5-0.5b --quant olive_serve
 
+Any arch of `repro_torch.configs` (dense or MoE) is served the same way;
+the weights are drawn and quantized one layer at a time, so the fp32
+tree is never whole on the card (Qwen3-30B-A3B's is 122 GB, its W4 tree
+about 17 GB):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-30b-a3b --quant olive_serve
+
 `--paged PAGE_SIZE` serves on the paged KV cache (a shared page pool and
 block tables instead of the slab), and `--prefill-chunk N` splits each
 prompt's prefill into chunks of N tokens interleaved with decode:
@@ -24,7 +32,8 @@ static-scale kernel (K5):
       --calibrate --calibration build/calib/qwen1.5-0.5b.json
 
 Without `--calibrate`, `--calibration PATH` loads the artifact and
-serves on it.
+serves on it. `--calibrate` needs the whole fp32 tree on the device for
+the calibration forward, so it is the one path that does not stream.
 
 As in the reference launcher, the preset is rewritten to fp32 compute
 (`compute_dtype="float32"`). Without `--calibration` activations are
@@ -95,9 +104,13 @@ def parser() -> argparse.ArgumentParser:
 def kernel_launches() -> Dict[str, int]:
     """Launch counts of the port's kernels since they were last reset:
     the fused OVP matmul per activation mode (`ovp_matmul[static]` is
-    K5), the encoder (K7) and the three attention kernels."""
+    K5), the grouped per-expert matmul K6 per mode (`grouped[fp]` on the
+    MoE serving path), the encoder (K7) and the three attention
+    kernels."""
     return {**{f"ovp_matmul[{mode}]": n for mode, n in
                ovp_matmul.fused_ovp_matmul.mode_launches.items()},
+            **{f"grouped[{mode}]": n for mode, n in
+               ovp_matmul.grouped_ovp_matmul.mode_launches.items()},
             "ovp_encode": ovp_encode.fused_ovp_encode.launches,
             "decode_attn": decode_attn.fused_decode_attention.launches,
             "paged_decode_attn":
@@ -107,8 +120,8 @@ def kernel_launches() -> Dict[str, int]:
 
 def reset_kernel_launches() -> None:
     """Set every counter of `kernel_launches()` to 0."""
-    ovp_matmul.fused_ovp_matmul.mode_launches = dict.fromkeys(
-        ovp_matmul.A_MODES, 0)
+    for fn in (ovp_matmul.fused_ovp_matmul, ovp_matmul.grouped_ovp_matmul):
+        fn.mode_launches = dict.fromkeys(ovp_matmul.A_MODES, 0)
     for fn in (ovp_encode.fused_ovp_encode,
                decode_attn.fused_decode_attention,
                decode_attn.fused_paged_decode_attention,
@@ -141,31 +154,48 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
         policy = policy.replace_all(compute_dtype="float32", abits=0)
     if args.backend is not None:
         policy = policy.with_backend(args.backend)
+    artifact, calib_s = None, 0.0
+    if args.calibration and not args.calibrate:
+        if not os.path.exists(args.calibration):
+            ap.error(f"--calibration {args.calibration} does not exist; "
+                     f"pass --calibrate to create it")
+        artifact = CalibrationArtifact.load(args.calibration)
+        policy = apply_calibration(policy, artifact)
     model = build_model(cfg, policy)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init(gen, device=device)
-    artifact, calib_s = None, 0.0
-    if args.calibration:
-        if args.calibrate:
-            rng = np.random.default_rng(args.seed)
-            batch = {"tokens": torch.as_tensor(
-                rng.integers(0, cfg.vocab, size=(2, 64)), device=device)}
-            t0 = time.perf_counter()
-            artifact = calibrate_model(model, params, [batch])
-            calib_s = time.perf_counter() - t0
-            artifact.save(args.calibration)
-        else:
-            if not os.path.exists(args.calibration):
-                ap.error(f"--calibration {args.calibration} does not "
-                         f"exist; pass --calibrate to create it")
-            artifact = CalibrationArtifact.load(args.calibration)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    ptq_s = 0.0
+    if args.calibrate:
+        params = model.init(gen, device=device)
+        rng = np.random.default_rng(args.seed)
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, size=(2, 64)), device=device)}
+        t0 = time.perf_counter()
+        artifact = calibrate_model(model, params, [batch])
+        calib_s = time.perf_counter() - t0
+        artifact.save(args.calibration)
         policy = apply_calibration(policy, artifact)
         model = build_model(cfg, policy)
-    t0 = time.perf_counter()
-    params = quantize_params(params, policy)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    ptq_s = time.perf_counter() - t0
+        sync()
+        t0 = time.perf_counter()
+        params = quantize_params(params, policy)
+        sync()
+        ptq_s = time.perf_counter() - t0
+    else:
+        def quantize(tree, prefix):
+            nonlocal ptq_s
+            sync()
+            t0 = time.perf_counter()
+            tree = quantize_params(tree, policy, prefix=prefix)
+            sync()
+            ptq_s += time.perf_counter() - t0
+            return tree
+
+        params = model.init(gen, device=device, quantize=quantize)
 
     page_pool = PagePoolCfg(page_size=args.paged) if args.paged else None
     eng = ServingEngine(model, params, EngineCfg(

@@ -1,8 +1,9 @@
-"""Dense decoder building blocks. Port of the dense subset of
+"""Decoder building blocks. Port of the dense and MoE subset of
 `repro/models/layers.py`: RMSNorm, RoPE, causal prefill attention, slab
 and paged KV caches (fp32 and OVP-packed), decode attention and paged
-cache-write prefill through the backend registry, the attention layer
-and SwiGLU.
+cache-write prefill through the backend registry, the attention layer,
+SwiGLU, and the top-k token-choice MoE layer with capacity-based
+dispatch, whose expert einsums go through the registry (K6 on the card).
 
 Params are plain dicts of tensors. Unlike the reference, cache writes
 update the cache tensors in place (the engine's caches are large and
@@ -10,14 +11,17 @@ written every step); `attention_forward` returns the same cache dict.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from repro_torch import backends
 from repro_torch.core import qlinear
-from repro_torch.core.ovp import ovp_encode_codes, pack4
+from repro_torch.core.ovp import (MixedExpertQuant, QuantizedTensor,
+                                  ovp_encode_codes, pack4)
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels import prefill_attn
 
@@ -249,3 +253,133 @@ def swiglu(p, x: torch.Tensor, policy: QuantPolicy,
     u = qlinear.linear(x, p["wu"], None, *rps(policy, site, "wu"))
     return qlinear.linear(torch.nn.functional.silu(g) * u, p["wd"], None,
                           *rps(policy, site, "wd"))
+
+
+# --------------------------------------------------------------------------
+# Mixture of experts (capacity-based sort dispatch, per batch row)
+# --------------------------------------------------------------------------
+_ROUTES: Optional[List[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Collect the routed expert indices (B, T, k) of every `moe_layer`
+    call inside the block, in call order: a card-vs-CPU check compares
+    routing first, so that a near-tie that picks another expert reads
+    as what it is."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
+
+
+def moe_params(gen: torch.Generator, d_model: int, d_ff: int,
+               n_experts: int, device) -> dict:
+    """Router (d, E) and stacked experts wg, wu (E, d, F), wd (E, F, d),
+    drawn in the reference's order and scales (normal / sqrt(fan_in))."""
+    s = 1.0 / math.sqrt(d_model)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    return {"router": {"w_gate": normal((d_model, n_experts), s)},
+            "experts": {"wg": normal((n_experts, d_model, d_ff), s),
+                        "wu": normal((n_experts, d_model, d_ff), s),
+                        "wd": normal((n_experts, d_ff, d_model),
+                                     1.0 / math.sqrt(d_ff))}}
+
+
+def route(p, x: torch.Tensor, cfg):
+    """f32 router: softmax probabilities (B, T, E) and the top-k weights
+    and expert indices (B, T, k), renormalised when `cfg.norm_topk`.
+    Equal probabilities keep the lower expert first, as
+    `jax.lax.top_k` does (a stable descending sort; `torch.topk` breaks
+    ties in no fixed order)."""
+    logits = x.to(torch.float32) @ p["router"]["w_gate"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[..., :cfg.top_k], topi[..., :cfg.top_k]
+    if cfg.norm_topk:
+        topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+    return probs, topw, topi
+
+
+def moe_layer(p, x: torch.Tensor, cfg, policy: QuantPolicy,
+              capacity_factor: Optional[float] = None, site: str = "moe"):
+    """Top-k token-choice MoE with the reference's semantics. Returns
+    (y, aux): aux is the Switch load-balance loss (E · Σ me·ce / k).
+
+    Dispatch is per batch row: each row's T·k assignments are sorted by
+    expert with a STABLE sort (the rank of a token inside its expert
+    decides which tokens exceed the capacity cap = max(int(cf·T·k/E), 4)
+    and are dropped to the residual stream; `jnp.argsort` is stable too),
+    kept assignments fill slot e·cap + rank of a (B, E, cap, d) tensor and
+    dropped ones go to the scratch slot E·cap. The expert einsums run on
+    every slot, empty ones included. The combine gathers each token's
+    kept slots and sums their weighted outputs in ascending expert order:
+    deterministic (no atomics), and the order of the reference's
+    sequential slot scatter-add."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cf = cfg.capacity_factor if capacity_factor is None else capacity_factor
+    probs, topw, topi = route(p, x, cfg)
+    if _ROUTES is not None:
+        _ROUTES.append(topi)
+    me = probs.mean(dim=(0, 1))
+    ce = torch.nn.functional.one_hot(topi, e).to(torch.float32) \
+        .sum(dim=2).mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce) / k
+
+    cap = max(int(cf * t * k / e), 4)
+    dev = x.device
+    flat_e = topi.reshape(b, t * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    counts = torch.zeros((b, e), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, dim=-1) - counts
+    rank = torch.arange(t * k, device=dev)[None] - torch.gather(starts, 1,
+                                                                se)
+    dest_sorted = torch.where(rank < cap, se * cap + rank, e * cap)
+    dest = torch.empty_like(dest_sorted).scatter_(1, order, dest_sorted)
+    # slots: token j // k of assignment j; only the scratch slot E·cap
+    # can take several writes, and it is never read
+    tok = torch.arange(t, device=dev).repeat_interleave(k)
+    slots = x.new_zeros((b, e * cap + 1, d))
+    slots.scatter_(1, dest[..., None].expand(b, t * k, d), x[:, tok])
+    xg = slots[:, :e * cap].reshape(b, e, cap, d)
+
+    ew = p["experts"]
+    h = _expert_ein(xg, ew["wg"], rp(policy, site, "experts/wg"))
+    u = _expert_ein(xg, ew["wu"], rp(policy, site, "experts/wu"))
+    yg = _expert_ein(torch.nn.functional.silu(h) * u, ew["wd"],
+                     rp(policy, site, "experts/wd"))     # (B, E, cap, d)
+
+    yflat = torch.cat([yg.reshape(b, e * cap, d),
+                       yg.new_zeros((b, 1, d))], dim=1)   # scratch reads 0
+    keep = (dest < e * cap).reshape(b, t, k)
+    w = (topw * keep).to(yg.dtype)
+    by_expert = torch.argsort(topi, dim=-1)               # k distinct ids
+    dest_e = torch.gather(dest.reshape(b, t, k), 2, by_expert)
+    w_e = torch.gather(w, 2, by_expert)
+    picked = torch.gather(
+        yflat, 1, dest_e.reshape(b, t * k)[..., None].expand(b, t * k, d))
+    picked = picked.reshape(b, t, k, d) * w_e[..., None]
+    y = torch.zeros((b, t, d), dtype=yg.dtype, device=dev)
+    for j in range(k):
+        y = y + picked[:, :, j]
+    return y.to(x.dtype), aux
+
+
+def _expert_ein(xg: torch.Tensor, w, policy: QuantPolicy):
+    """(B, E, C, K) x (E, K, F) -> (B, E, C, F). Quantized stacks go
+    through the registry (the grouped kernel K6 on the `cuda` backend; a
+    `MixedExpertQuant` group by group), weight-only: the reference forces
+    `abits=0` here, since dispatched slots are capacity-padded and a 3σ
+    activation scale would see the padding."""
+    if isinstance(w, (QuantizedTensor, MixedExpertQuant)):
+        return backends.dispatch(xg, w, dataclasses.replace(policy, abits=0))
+    cdt = backends.base.torch_dtype(policy.compute_dtype)
+    return torch.matmul(xg.to(cdt), w.to(cdt))

@@ -1,15 +1,17 @@
-"""Model assembly for the dense decoder family. Port of the dense path of
-`repro/models/model.py`.
+"""Model assembly for the dense and MoE decoder families (block patterns
+("attn",) and ("moe",)). Port of those paths of `repro/models/model.py`.
 
 The reference scans a stacked layer group; the port keeps layers
 unrolled (`params["layers"][i]`, site addresses `layers/<i>/...`) and
 runs a Python loop over them. `convert.params_from_numpy` unstacks a
-reference tree into this layout.
+reference tree into this layout. `Model.init(..., quantize=...)` draws
+and quantizes one layer at a time, so a model whose fp32 weights do not
+fit on the card can still be built there.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -27,8 +29,9 @@ def _normal(gen: torch.Generator, shape, scale: float, device):
 
 
 def block_params(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
-    """One attn + SwiGLU block, drawn as the reference draws it: normal
-    weights scaled by 1/sqrt(fan_in), zero biases, unit norms."""
+    """One attn + SwiGLU block (or attn + MoE block for the moe family),
+    drawn as the reference draws it: normal weights scaled by
+    1/sqrt(fan_in), zero biases, unit norms."""
     d, hd = cfg.d_model, cfg.head_dim
 
     def w(k, n):
@@ -40,45 +43,69 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
         attn["bq"] = torch.zeros(cfg.n_heads * hd, device=device)
         attn["bk"] = torch.zeros(cfg.n_kv_heads * hd, device=device)
         attn["bv"] = torch.zeros(cfg.n_kv_heads * hd, device=device)
-    return {"ln1": {"gamma_scale": torch.ones(d, device=device)},
-            "attn": attn,
-            "ln2": {"gamma_scale": torch.ones(d, device=device)},
-            "mlp": {"wg": w(d, cfg.d_ff), "wu": w(d, cfg.d_ff),
-                    "wd": w(cfg.d_ff, d)}}
+    block = {"ln1": {"gamma_scale": torch.ones(d, device=device)},
+             "attn": attn,
+             "ln2": {"gamma_scale": torch.ones(d, device=device)}}
+    if cfg.family == "moe":
+        block["moe"] = L.moe_params(gen, d, cfg.d_ff, cfg.n_experts, device)
+    else:
+        block["mlp"] = {"wg": w(d, cfg.d_ff), "wu": w(d, cfg.d_ff),
+                        "wd": w(cfg.d_ff, d)}
+    return block
 
 
 def block_forward(p, x, positions, cfg: ArchConfig, policy: QuantPolicy,
                   cache=None, mode: str = "prefill", site: str = ""):
-    """Pre-norm attention + SwiGLU with residuals. Returns (x, cache)."""
+    """Pre-norm attention + SwiGLU (or MoE) with residuals. Returns (x,
+    cache); the MoE aux loss is dropped until training is ported."""
     h, kv = L.attention_forward(
         p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), positions, cfg,
         policy, cache=None if cache is None else cache["kv"], mode=mode,
         site=f"{site}/attn")
     x = x + h
-    x = x + L.swiglu(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), policy,
-                     site=f"{site}/mlp")
-    return x, (None if cache is None else {"kv": kv})
+    xm = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        h2, _ = L.moe_layer(p["moe"], xm, cfg, policy, site=f"{site}/moe")
+    else:
+        h2 = L.swiglu(p["mlp"], xm, policy, site=f"{site}/mlp")
+    return x + h2, (None if cache is None else {"kv": kv})
+
+
+FAMILIES = {"dense": ("attn",), "moe": ("moe",)}
 
 
 class Model:
-    """Dense LM for one ArchConfig under a QuantPolicy."""
+    """Dense or MoE LM for one ArchConfig under a QuantPolicy."""
 
     def __init__(self, cfg: ArchConfig, policy: QuantPolicy = QuantPolicy()):
-        if cfg.family != "dense" or tuple(cfg.block_pattern) != ("attn",):
-            raise ValueError(f"the port runs the dense attn family only; "
+        if FAMILIES.get(cfg.family) != tuple(cfg.block_pattern):
+            raise ValueError(f"the port runs the families {FAMILIES}; "
                              f"{cfg.name} is {cfg.family} "
                              f"{cfg.block_pattern}")
         self.cfg = cfg
         self.policy = policy
 
-    def init(self, generator: torch.Generator, device="cuda") -> Params:
+    def init(self, generator: torch.Generator, device="cuda",
+             quantize: Optional[Callable[[Params, str], Params]] = None
+             ) -> Params:
         """Random weights from `generator`, with the reference's
         distributions (embed N(0, 0.02²), head N(0, 1/d), blocks above).
         torch and JAX draw different numbers from one seed: tests carry
-        the reference's weights over with `convert.params_from_numpy`."""
+        the reference's weights over with `convert.params_from_numpy`.
+
+        `quantize(tree, prefix)` (e.g. `qlinear.quantize_params` under a
+        policy, with `prefix` the tree's site address) is applied to each
+        layer as soon as it is drawn, and to the embedding and head last.
+        The draws keep their order, so the result equals init-then-
+        quantize, but only one layer's fp32 weights exist at a time."""
         cfg = self.cfg
         vp = cfg.padded_vocab
-        return {
+
+        def layer(i):
+            p = block_params(generator, cfg, device)
+            return p if quantize is None else quantize(p, f"layers/{i}")
+
+        params = {
             "embed": {"table": _normal(generator, (vp, cfg.d_model), 0.02,
                                        device)},
             "final_norm": {"gamma_scale": torch.ones(cfg.d_model,
@@ -86,9 +113,12 @@ class Model:
             "lm_head": {"w_out": _normal(generator, (cfg.d_model, vp),
                                          1.0 / math.sqrt(cfg.d_model),
                                          device)},
-            "layers": [block_params(generator, cfg, device)
-                       for _ in range(cfg.n_layers)],
+            "layers": [layer(i) for i in range(cfg.n_layers)],
         }
+        if quantize is not None:
+            params.update(quantize({key: val for key, val in params.items()
+                                    if key != "layers"}, ""))
+        return params
 
     def init_caches(self, batch: int, max_len: int, device="cuda",
                     dtype=torch.float32):

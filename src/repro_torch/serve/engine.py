@@ -162,6 +162,7 @@ class ServingEngine:
         self.steps_run = 0
         self.prefills_run = 0
         self.prefill_chunks_run = 0
+        self.decodes_run = 0
         self._token_events: List[TokenEvent] = []
         self._admitted_uids: List[int] = []
         self.paged = cfg.page_pool is not None
@@ -428,6 +429,7 @@ class ServingEngine:
                 {"tokens": torch.as_tensor(tokens, device=self.device),
                  "pos": torch.as_tensor(self.pos, device=self.device)},
                 mode="decode", caches=self.caches)
+            self.decodes_run += 1
             nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
             for i in act:
                 req = self.slots[i]
@@ -476,13 +478,16 @@ class ServingEngine:
 
     def stats(self) -> Dict[str, object]:
         """Lifetime counters since construction (slab prefills, prefill
-        chunks, steps); in paged mode also the page pool's
+        chunks, batched decode forwards, steps; the model's forward calls
+        are the sum of the first three); in paged mode also the page
+        pool's
         `PagePool.stats()` under "page_pool", whose used/free/occupancy
         entries are gauges."""
         st: Dict[str, object] = {"steps_run": self.steps_run,
                                  "prefills_run": self.prefills_run,
                                  "prefill_chunks_run":
-                                     self.prefill_chunks_run}
+                                     self.prefill_chunks_run,
+                                 "decodes_run": self.decodes_run}
         if self.paged:
             st["page_pool"] = self.pool.stats()
         return st

@@ -73,7 +73,10 @@ def test_port_serves_on_cpu_without_jax_or_kernels():
                                 "ovp_matmul[quantize]": 0,
                                 "ovp_matmul[static]": 0,
                                 "ovp_matmul[codes4]": 0,
-                                "ovp_matmul[codes8]": 0, "ovp_encode": 0,
+                                "ovp_matmul[codes8]": 0,
+                                "grouped[fp]": 0, "grouped[quantize]": 0,
+                                "grouped[static]": 0, "grouped[codes4]": 0,
+                                "grouped[codes8]": 0, "ovp_encode": 0,
                                 "decode_attn": 0, "paged_decode_attn": 0,
                                 "prefill_attn": 0}}
 
