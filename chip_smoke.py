@@ -9,11 +9,20 @@ CUDA toolkit. It builds the hand-written kernels from
 
 1. kernel phase — the attention and matmul kernels against their plain
    PyTorch version on the card, at the path's shapes (K1, the fused OVP
-   matmul: rows 4 and 32, the three (K, N) of a Qwen1.5-0.5B layer,
-   int4 weights, fp and quantize modes; K2, slab decode attention:
-   packed and fp caches, B=4, S=256, 16 heads, D=64, pos 0/17/255),
-   with errors against the stated tolerances and CUDA-event timings
-   beside the plain version, a PyTorch library call and the bound;
+   matmul, int4 weights: rows 4 over the three (K, N) of a Qwen1.5-0.5B
+   layer in fp and quantize mode and over a Qwen3-30B-A3B attention
+   block in fp mode, and rows 8 to 512 of a Qwen1.5 layer with each of
+   the kernel's two bodies forced; K2, slab decode attention: packed
+   and fp caches, B=4, S=256, 16 heads, D=64, pos 0/17/255), with
+   errors against the stated tolerances and CUDA-event timings beside
+   the plain version, a PyTorch library call and the bound; then the
+   K1/K5 sweep: every activation mode with int4, flint4 and int8
+   weights at rows 1, 3, 4, 8, 16, 31 and 128, through both bodies, at
+   K 272 -> N 40, K 2816 -> N 1000, K 1040 -> N 1016 and K 1024 ->
+   N 2816, against the plain version; the quantize modes at rows 4 with
+   the cluster's shared quantization forced to each share; the
+   wrapper's host cost per call; and one profiled call per served mode,
+   which must be one device kernel;
 2. serve phase A — the main path through the serving entry point:
    full-width qwen1.5-0.5b, random weights from a seed, olive_serve
    rewritten as the launcher does (W4 OVP weights, 4-bit OVP KV cache,
@@ -150,8 +159,22 @@ def within(got, ref, rtol: float, atol: float) -> bool:
 # --------------------------------------------------------------------------
 # Kernel phase
 # --------------------------------------------------------------------------
+# (K, N) of one Qwen1.5-0.5B layer (q/k/v/o, gate/up, down) and of one
+# Qwen3-30B-A3B attention block (q, k/v, o): K1's decode launches
+QWEN15_LAYER = [(1024, 1024)] * 4 + [(1024, 2816)] * 2 + [(2816, 1024)]
+QWEN3_ATTN = [(2048, 4096)] + [(2048, 512)] * 2 + [(4096, 2048)]
+BODY_ROWS = (8, 16, 32, 64, 128, 256, 512)   # both K1 bodies timed
+
+
 def k1_phase(dev):
-    """K1 against its plain version at the serving path's shapes."""
+    """K1 against its plain version at the serving paths' shapes, timed
+    beside the plain version, `torch.matmul` on the dequantized weight
+    and the bound: rows 4 (decode) in fp and quantize mode over a
+    Qwen1.5-0.5B layer and in fp mode over a Qwen3-30B-A3B attention
+    block; rows 8-512 with each of the kernel's two bodies forced (the
+    decode body against the FMA body it falls back to). The eager
+    call's wall is the wrapper's host cost per call where that exceeds
+    the kernel's device time (rows 4)."""
     import torch
     from repro_torch.core import policy
     from repro_torch.core.ovp import ovp_dequantize
@@ -161,68 +184,87 @@ def k1_phase(dev):
 
     gen = torch.Generator(device=dev).manual_seed(1)
     w4 = policy.OLIVE_W4.replace_all(compute_dtype="float32")
-    # (K, N) of one Qwen1.5-0.5B layer: q/k/v/o, gate/up, down
-    layer = [(1024, 1024)] * 4 + [(1024, 2816)] * 2 + [(2816, 1024)]
     weights = {}
-    for k, n in sorted(set(layer)):
+    for k, n in sorted(set(QWEN15_LAYER + QWEN3_ATTN)):
         w = torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
         qt = quantize_weight(w, w4)
         weights[(k, n)] = (qt, ovp_dequantize(qt))
-    rows_out, worst = [], 0.0
-    decode = {mode: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                     "library_ms": 0.0} for mode in ("fp", "quantize")}
-    bound_by = "bytes"
-    for rows in (4, 32):
-        for mode in ("fp", "quantize"):
-            for k, n in sorted(set(layer)):
-                qt, wd = weights[(k, n)]
-                a = torch.randn((rows, k), generator=gen, device=dev)
-                a_dtype = sa = None
-                if mode == "quantize":
-                    a_dtype = "int4"
-                    sa = torch.broadcast_to(sigma_init_scale(a, "int4"),
-                                            (rows,)).contiguous()
-                sw = qt.scale.reshape(-1).contiguous()
+    keys = ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms")
+    sums = {}                   # (label, rows, mode, body) -> summed times
+    rows_out, worst, bound_by = [], 0.0, "bytes"
+    plan = [(4, mode, "qwen1.5 layer", QWEN15_LAYER, (None,))
+            for mode in ("fp", "quantize")]
+    plan.append((4, "fp", "qwen3 attention", QWEN3_ATTN, (None,)))
+    plan += [(rows, "fp", "qwen1.5 layer", QWEN15_LAYER, mm.BODIES)
+             for rows in BODY_ROWS]
+    for rows, mode, label, shapes, bodies in plan:
+        for k, n in sorted(set(shapes)):
+            qt, wd = weights[(k, n)]
+            a = torch.randn((rows, k), generator=gen, device=dev)
+            a_dtype = sa = None
+            if mode == "quantize":
+                a_dtype = "int4"
+                sa = torch.broadcast_to(sigma_init_scale(a, "int4"),
+                                        (rows,)).contiguous()
+            sw = qt.scale.reshape(-1).contiguous()
+
+            def plain():
+                return mm.fused_ovp_matmul_plain(
+                    a, sa, qt.data, sw, w_dtype="int4", a_mode=mode,
+                    a_dtype="int4")
+
+            ref = plain()
+            (plain_ms, _) = time_ms(plain)
+            lib_ms, _ = time_ms(lambda: torch.matmul(a, wd))
+            n_bytes = rows * k * 4 + k // 2 * n + n * 4 + rows * n * 4 \
+                + (rows * 4 if sa is not None else 0)
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * rows * k * n)
+            for body in bodies:
+                forced = None if body is None else mm.launch_plan(
+                    rows, k, n, "int4", body, mode)
 
                 def kern():
                     return mm.run(a, sa, qt.data, sw, w_dtype="int4",
-                                  a_mode=mode, a_dtype=a_dtype)
+                                  a_mode=mode, a_dtype=a_dtype, plan=forced)
 
-                def plain():
-                    return mm.fused_ovp_matmul_plain(
-                        a, sa, qt.data, sw, w_dtype="int4", a_mode=mode,
-                        a_dtype="int4")
-
-                got, ref = kern(), plain()
+                got = kern()
                 torch.cuda.synchronize()
                 err = float((got - ref).abs().max())
                 scale = float(ref.abs().max())
+                used = mm.launch_plan(rows, k, n, "int4", body, mode).body
                 if not within(got, ref, 1e-5, 1e-5 * scale):
-                    fail(f"K1 rows={rows} {mode} K={k} N={n}: max abs err "
-                         f"{err:.3e} over tolerance (rtol 1e-5, atol "
-                         f"1e-5*{scale:.3e})")
+                    fail(f"K1 rows={rows} {mode} ({used} body) K={k} "
+                         f"N={n}: max abs err {err:.3e} over tolerance "
+                         f"(rtol 1e-5, atol 1e-5*{scale:.3e})")
                 worst = max(worst, err)
-                (ms, wall), (plain_ms, _) = time_ms(kern), time_ms(plain)
-                lib_ms, _ = time_ms(lambda: torch.matmul(a, wd))
-                n_bytes = rows * k * 4 + k // 2 * n + n * 4 + rows * n * 4 \
-                    + (rows * 4 if sa is not None else 0)
-                b_ms, b_by = bound_ms(n_bytes, 2.0 * rows * k * n)
-                rows_out.append(dict(rows=rows, mode=mode, K=k, N=n,
-                                     max_abs_err=err, ms=ms, wall_ms=wall,
-                                     plain_ms=plain_ms, library_ms=lib_ms,
-                                     bound_ms=b_ms, bound_by=b_by))
-                print(f"[k1] rows={rows:2d} {mode:8s} K={k:4d} N={n:4d} "
-                      f"err={err:.2e} (tol rtol 1e-5, atol 1e-5*max|ref|) "
-                      f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
-                      f"plain={plain_ms:.4f}ms matmul={lib_ms:.4f}ms "
-                      f"bound={b_ms:.5f}ms ({b_by})")
-                if rows == 4:
-                    count = layer.count((k, n))
-                    for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                     ("bound_ms", b_ms),
-                                     ("library_ms", lib_ms)):
-                        decode[mode][key] += count * val
+                ms, wall = time_ms(kern)
+                rec = dict(rows=rows, mode=mode, body=used, K=k, N=n,
+                           max_abs_err=err, ms=ms, wall_ms=wall,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+                rows_out.append(rec)
+                print(f"[k1] rows={rows:2d} {mode:8s} {used:6s} K={k:4d} "
+                      f"N={n:4d} err={err:.2e} (tol rtol 1e-5, atol "
+                      f"1e-5*max|ref|) kernel={ms:.4f}ms (eager call "
+                      f"{wall:.4f}ms) plain={plain_ms:.4f}ms matmul="
+                      f"{lib_ms:.4f}ms bound={b_ms:.5f}ms ({b_by})")
+                tot = sums.setdefault((label, rows, mode, used),
+                                      dict.fromkeys(keys, 0.0))
+                for key in keys:
+                    tot[key] += shapes.count((k, n)) * rec[key]
+                if (rows, label) == (4, "qwen1.5 layer"):
                     bound_by = b_by
+    launches = {"qwen1.5 layer": len(QWEN15_LAYER),
+                "qwen3 attention": len(QWEN3_ATTN)}
+    for (label, rows, mode, used), tot in sums.items():
+        print(f"[k1 sum] {label} ({launches[label]} launches) rows={rows} "
+              f"{mode} {used} body: kernel "
+              f"{tot['ms']:.4f}ms (eager calls {tot['wall_ms']:.4f}ms) "
+              f"matmul {tot['library_ms']:.4f}ms bound "
+              f"{tot['bound_ms']:.5f}ms plain {tot['plain_ms']:.4f}ms")
+    decode = {mode: sums[("qwen1.5 layer", 4, mode, "decode")]
+              for mode in ("fp", "quantize")}
+    decode["moe_attn"] = sums[("qwen3 attention", 4, "fp", "decode")]
     return rows_out, worst, decode, bound_by
 
 
@@ -527,7 +569,7 @@ def _layer_weights(dev, gen):
     from repro_torch.core import policy
     from repro_torch.core.ovp import ovp_dequantize
     from repro_torch.core.qlinear import quantize_weight
-    layer = [(1024, 1024)] * 4 + [(1024, 2816)] * 2 + [(2816, 1024)]
+    layer = QWEN15_LAYER
     weights = {}
     for k, n in sorted(set(layer)):
         w = torch.randn((k, n), generator=gen, device=dev) / k ** 0.5
@@ -687,6 +729,230 @@ def k5_codes_phase(dev):
                   f"library: none (no PyTorch call packs OVP codes) "
                   f"bound={b_ms:.5f}ms ({b_by})")
     return rows_out, worst, main, decode_static
+
+
+SWEEP_ROWS = (1, 3, 4, 8, 16, 31, 128)
+SWEEP_SHAPES = ((272, 40), (2816, 1000), (1040, 1016), (1024, 2816))
+
+
+def k1_sweep_phase(dev):
+    """K1/K5 held against their plain versions in every activation mode,
+    with int4, flint4 and int8 weights, at rows 1, 3, 4, 8, 16, 31 and
+    128, each through both of the kernel's bodies, on outlier
+    activations, at ragged N with K off a 128-pair stage (K 272 -> N 40,
+    K 2816 -> N 1000, K 1040 -> N 1016) and at K 1024 -> N 2816; the
+    last two put the quantize modes' shared quantization on (2 and 8
+    column tiles a cluster). Per-row scales (quantize, codes modes)
+    differ from row to row. Any miss fails the run."""
+    import torch
+    from repro_torch.core.ovp import ovp_quantize
+    from repro_torch.kernels import ovp_matmul as mm
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    # per-column weight scales that put about 1 in 20 weights past the
+    # normal range, so outlier-victim pairs occur in every weight type
+    spread = {"int4": 20.0, "flint4": 40.0, "int8": 300.0}
+    n_cases, worst = 0, 0.0
+    for k, n in SWEEP_SHAPES:
+        w = torch.randn((k, n), generator=gen, device=dev)
+        w.view(-1)[::17] *= 8.0
+        for w_dtype in ("int4", "flint4", "int8"):
+            qt = ovp_quantize(w, w.abs().amax(0, keepdim=True)
+                              / spread[w_dtype], w_dtype, pair_axis=-2)
+            sw = qt.scale.reshape(-1).contiguous()
+            a4 = "int8" if w_dtype == "int8" else w_dtype
+            for rows in SWEEP_ROWS:
+                a = _outlier_acts(dev, gen, rows, k)
+                amax = a.abs().amax(-1)
+                sa = (amax / spread[a4]).contiguous()
+                c4 = "int4" if w_dtype == "int8" else w_dtype
+                sa4 = (amax / spread[c4]).contiguous()
+                sa8 = (amax / spread["int8"]).contiguous()
+                cases = {
+                    "fp": (a, None, dict(a_mode="fp")),
+                    "quantize": (a, sa, dict(a_mode="quantize",
+                                             a_dtype=a4)),
+                    "static": (a, None, dict(a_mode="static", a_dtype=a4,
+                                             s_static=float(sa.max()))),
+                    "codes4": (ovp_quantize(a, sa4[:, None], c4).data, sa4,
+                               dict(a_mode="codes4", a_dtype=c4)),
+                    "codes8": (ovp_quantize(a, sa8[:, None], "int8").data,
+                               sa8, dict(a_mode="codes8", a_dtype="int8")),
+                }
+                for mode, (x, s_row, kw) in cases.items():
+                    ref = mm.fused_ovp_matmul_plain(
+                        x, s_row, qt.data, sw, w_dtype=w_dtype,
+                        **dict(dict(a_dtype=a4), **kw))
+                    tol = 1e-5 * float(ref.abs().max())
+                    for body in mm.BODIES:
+                        forced = mm.launch_plan(rows, k, n, w_dtype, body,
+                                                mode)
+                        got = mm.run(x, s_row, qt.data, sw, w_dtype=w_dtype,
+                                     plan=forced, **kw)
+                        torch.cuda.synchronize()
+                        err = float((got - ref).abs().max())
+                        if got.shape != (rows, n) or \
+                                not within(got, ref, 1e-5, tol):
+                            fail(f"K1 sweep {mode} w={w_dtype} rows={rows} "
+                                 f"K={k} N={n} {body} body: shape "
+                                 f"{tuple(got.shape)}, max abs err "
+                                 f"{err:.3e} over tolerance (rtol 1e-5, "
+                                 f"atol {tol:.3e})")
+                        worst = max(worst, err / max(tol * 1e5, 1e-30))
+                        n_cases += 1
+    print(f"[k1 sweep] {n_cases} cases (fp, quantize, static, codes4, "
+          f"codes8 x int4 / flint4 / int8 weights x rows {SWEEP_ROWS} x "
+          f"(K, N) {SWEEP_SHAPES} x both bodies) within rtol 1e-5, atol "
+          f"1e-5*max|ref| of the plain versions; worst abs err "
+          f"{worst:.2e} of max|ref|")
+    return n_cases, worst
+
+
+def k1_share_phase(dev):
+    """K1 quantize and K5 (static) at rows 4 over the three (K, N) of a
+    Qwen1.5-0.5B layer, outlier activations, with the cluster's column
+    share forced to each value the split allows (1 = every block
+    quantizes its own slice), timed beside the plan's default and held
+    against the plain version: the evidence for quantizing once per
+    cluster."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.quantizer import sigma_init_scale
+    from repro_torch.kernels import ovp_matmul as mm
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    layer, weights = _layer_weights(dev, gen)
+    totals = {}                     # (mode, "default" | share) -> layer ms
+    for k, n in sorted(set(layer)):
+        qt, _ = weights[(k, n, 4)]
+        sw = qt.scale.reshape(-1).contiguous()
+        a = _outlier_acts(dev, gen, 4, k)
+        s4 = float(sigma_init_scale(a, "int4"))
+        sa = torch.full((4,), s4, device=dev)
+        for mode, s_row, extra in (("quantize", sa, {}),
+                                   ("static", None, {"s_static": s4})):
+            kw = dict(w_dtype="int4", a_mode=mode, a_dtype="int4", **extra)
+            ref = mm.fused_ovp_matmul_plain(a, s_row, qt.data, sw, **kw)
+            base = mm.launch_plan(4, k, n, "int4", None, mode)
+            shares = [g for g in (1, 2, 4, 8) if g * base.split <= 8
+                      and (base.n // 16) % g == 0]
+            for share in ["default"] + shares:
+                forced = None if share == "default" else \
+                    dataclasses.replace(base, share=share)
+
+                def kern():
+                    return mm.run(a, s_row, qt.data, sw, plan=forced, **kw)
+
+                got = kern()
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                tol = 1e-5 * float(ref.abs().max())
+                if not within(got, ref, 1e-5, tol):
+                    fail(f"K1 share {mode} K={k} N={n} share={share}: max "
+                         f"abs err {err:.3e} over tolerance (rtol 1e-5, "
+                         f"atol {tol:.3e})")
+                ms, _ = time_ms(kern)
+                label = f"share {share}" if share != "default" else \
+                    f"default (share {base.share})"
+                print(f"[k1 share] rows=4 {mode:8s} K={k:4d} N={n:4d} split "
+                      f"{base.split} {label}: kernel={ms:.4f}ms err="
+                      f"{err:.2e}")
+                if share in ("default", 1):
+                    key = (mode, share)
+                    totals[key] = totals.get(key, 0.0) + \
+                        layer.count((k, n)) * ms
+    for mode in ("quantize", "static"):
+        print(f"[k1 share] Qwen1.5 layer (7 launches, rows 4) {mode}: "
+              f"plan's default {totals[(mode, 'default')]:.4f}ms, share 1 "
+              f"everywhere {totals[(mode, 1)]:.4f}ms")
+
+
+def wrapper_host_phase(dev, reps: int = 5, calls: int = 1000):
+    """The K1/K5 wrapper's host cost per call, `mm.run` as the backend
+    calls it, in the three served modes at rows 4 over the three (K, N)
+    of a Qwen1.5-0.5B layer: `calls` eager calls on the host clock with
+    no sync between them (the kernel's device time is below the host's,
+    so the clock reads the host), median of `reps`. Uses only the
+    arguments every version of `run` takes, so it also times an older
+    tree's wrapper (import this script with that tree's `src` first on
+    the path)."""
+    import torch
+    from repro_torch.kernels import ovp_matmul as mm
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for mode in ("fp", "quantize", "static"):
+        per = []
+        for k, n in sorted(set(QWEN15_LAYER)):
+            codes = torch.randint(0, 256, (k // 2, n), generator=gen,
+                                  device=dev, dtype=torch.uint8)
+            sw = torch.rand(n, generator=gen, device=dev) + 0.5
+            a = torch.randn((4, k), generator=gen, device=dev)
+            sa = torch.full((4,), 0.5, device=dev)
+            kw = {"fp": dict(a_mode="fp"),
+                  "quantize": dict(a_mode="quantize", a_dtype="int4"),
+                  "static": dict(a_mode="static", a_dtype="int4",
+                                 s_static=0.5)}[mode]
+            s_row = sa if mode == "quantize" else None
+            for _ in range(20):
+                mm.run(a, s_row, codes, sw, w_dtype="int4", **kw)
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    mm.run(a, s_row, codes, sw, w_dtype="int4", **kw)
+                times.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+            per.append(sorted(times)[reps // 2])
+            print(f"[k1 host] {mode:8s} K={k:4d} N={n:4d}: "
+                  f"{per[-1]:.2f}us per call (median of {reps} x {calls} "
+                  f"eager calls)")
+        out[mode] = sum(per) / len(per)
+        print(f"[k1 host] {mode}: {out[mode]:.2f}us per call, mean over "
+              f"the three shapes")
+    return out
+
+
+def one_launch_check(dev):
+    """A K1/K5 call on CUDA tensors is one kernel launch: one call in each
+    served mode (fp, quantize, static) at rows 4, K = N = 1024, under
+    torch.profiler, must show exactly one device kernel, the decode
+    body's (no zero-fill, no second pass)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ovp_matmul as mm
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    codes = torch.randint(0, 256, (512, 1024), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    sw = torch.rand(1024, generator=gen, device=dev) + 0.5
+    a = torch.randn((4, 1024), generator=gen, device=dev)
+    sa = torch.full((4,), 0.5, device=dev)
+    calls = {"fp": lambda: mm.run(a, None, codes, sw, w_dtype="int4",
+                                  a_mode="fp"),
+             "quantize": lambda: mm.run(a, sa, codes, sw, w_dtype="int4",
+                                        a_mode="quantize"),
+             "static": lambda: mm.run(a, None, codes, sw, w_dtype="int4",
+                                      a_mode="static", s_static=0.5)}
+    for fn in calls.values():
+        fn()                                    # build and load first
+    torch.cuda.synchronize()
+    for mode, fn in calls.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not names:
+            print(f"[k1 launches] {mode}: not measured (no device events)")
+            continue
+        if len(names) != 1 or "ovp_dec_kernel" not in names[0]:
+            fail(f"K1 {mode} call launched {len(names)} device kernels "
+                 f"({names}), not one decode-body kernel")
+        print(f"[k1 launches] {mode}: 1 device kernel per call "
+              f"({names[0][:60]})")
 
 
 def api_phase(dev):
@@ -941,11 +1207,18 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     n_kernels = sum(e.count for e in kernels) / steps
+    # zero-fill kernels (torch.zeros / fill_): a split-K matmul needs one
+    n_fills = sum(e.count for e in kernels
+                  if "FillFunctor" in e.key) / steps
+    # K1/K5's decode-body kernels: each is one whole call
+    n_dense = sum(e.count for e in kernels
+                  if "ovp_dec_kernel" in e.key) / steps
     print(f"[profile] decode step (4 slots, {label}, {steps} steps): "
           f"{step_ms:.2f}ms "
           f"wall; under the profiler {prof_ms:.2f}ms wall, device busy "
           + (f"{busy_ms:.3f}ms ({100 * busy_ms / prof_ms:.1f}% of wall), "
-             f"{n_kernels:.1f} device kernels per step"
+             f"{n_kernels:.1f} device kernels per step, {n_fills:.1f} of "
+             f"them zero-fills, {n_dense:.1f} K1/K5 calls"
              if kernels else "not measured (no device events)"))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
@@ -1607,6 +1880,10 @@ def main() -> int:
           f" wall {time.perf_counter() - t0:.2f}s")
 
     _, k1_err, k1_main, k1_by = k1_phase(dev)
+    k1_sweep_phase(dev)
+    k1_share_phase(dev)
+    wrapper_host_phase(dev)
+    one_launch_check(dev)
     _, k2_err, k2_main = k2_phase(dev)
     _, k3_err, k3_main = k3_phase(dev)
     _, k4_err, k4_main = k4_phase(dev)
@@ -1696,6 +1973,10 @@ def main() -> int:
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}")
     print(f"[card] {smi.splitlines()[0]}")  # beside the numbers below
+    moe = k1_main["moe_attn"]
+    print(f"[k1 moe] Qwen3-30B-A3B attention block (4 launches, rows 4, "
+          f"fp): kernel {moe['ms']:.4f}ms, matmul {moe['library_ms']:.4f}ms,"
+          f" bound {moe['bound_ms']:.5f}ms, plain {moe['plain_ms']:.4f}ms")
     print("[note] ovp_matmul[fp], [quantize] and [static] times are the 7 "
           "launches of one layer's decode step (rows 4); [codes4] and "
           "[codes8] one launch at rows 4, K = N = 1024, library "

@@ -25,8 +25,13 @@ tiled and what bounds it on the H100.
 `fused_ovp_matmul` folds the lead dims into rows, broadcasts the scales
 to (rows,) and (N,), and pads N to the kernel's 16-column tile. CPU
 tensors take `fused_ovp_matmul_plain`; CUDA tensors launch the kernel (or
-raise). `fused_ovp_matmul.mode_launches[mode]` counts each mode's
-kernel launches.
+raise): one launch per call, which writes every output element once (no
+zero-fill, no atomics). `launch_plan` works out that launch: the decode
+body (row tile = rows up to 8, K split over a thread-block cluster of
+1-8 blocks to fill the SMs, the block's weight slice streamed in with
+cp.async) wherever its K slice fits shared memory, else the FMA body.
+`fused_ovp_matmul.mode_launches[mode]` counts each mode's kernel
+launches.
 
 K6 replaces `repro/kernels/ovp_matmul.py:436` (`grouped_ovp_matmul_kernel`,
 bodies `_grouped_mm_kernel` :300 and `_grouped_mm_kernel_static` :333)
@@ -45,6 +50,7 @@ its launches apart from K1's.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Union
 
@@ -58,10 +64,7 @@ from repro_torch.core.ovp import QuantizedTensor, decode_pair_planes
 from . import _build
 
 _DTYPE_CODE = {"int4": 0, "flint4": 1, "int8": 2}
-_BN = 16          # the kernel's output-column tile
-_BM = 8           # the kernel's row tile
-_BK2 = 256        # the kernel's K-stage, in pairs
-_SPLIT_BELOW = 100  # split K in two when the grid has fewer blocks
+_BN = 16            # both bodies' output-column tile
 
 
 # --------------------------------------------------------------------------
@@ -188,7 +191,7 @@ def grouped_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
 # CUDA launch
 # --------------------------------------------------------------------------
 A_MODES = ("fp", "quantize", "static", "codes4", "codes8")
-_SIGNATURE = {"ovp_mm_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+_SIGNATURE = {"ovp_mm_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
               + [ctypes.c_float, ctypes.c_void_p],
               "ovp_grouped_mm_launch": [ctypes.c_void_p] * 5
               + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]}
@@ -223,25 +226,132 @@ def _kernel_operands(a, sa, w_data, sw, a_mode: str, what: str):
             _aligned(w_data), sw)
 
 
+# The dense entry's launch plan (csrc/ovp_matmul.cu's header says why)
+BODIES = ("decode", "fma")
+_NT = 256             # threads per block, both bodies
+_DEC_RM = 8           # the decode body's row-tile cap
+_DEC_SLICE = 512      # most K pairs a decode block takes, when it can
+_DEC_WARPS = _NT // 32
+_TAB_COPIES = 16      # copies of the decode body's byte table
+_FMA_RM = 8           # the FMA body's row tile
+_MIN_BLOCKS = 132     # one wave: an H100 has 132 SMs
+_SPLITS = (1, 2, 4, 8)  # cluster sizes (8: the portable cap)
+_MIN_SLICE = 32       # no split below this many K pairs a block
+SMEM_MAX = 232448     # 227 KB, a block's dynamic shared-memory cap
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """The geometry of one dense launch (K1/K5), as the C entry
+    `ovp_mm_launch` takes it. A thread-block cluster is `share` column
+    tiles x `split` K slices (decode body): block (x, y), with c, u =
+    divmod(x, share·split) and t, rank = divmod(u, split), computes rows
+    [y·row_tile, (y+1)·row_tile) ∩ [0, rows) and the 16 columns of tile
+    c·share + t over the K pairs [rank·slice, (rank+1)·slice) ∩ [0, K/2).
+    The split blocks of a tile add their partials in rank order; the
+    share blocks of a K slice quantize its activations once between them
+    (quantize and static modes). The FMA body runs split = share = 1,
+    slice K/2 and static shared memory (`smem` 0)."""
+    body: str
+    rows: int
+    k2: int             # K pairs
+    n: int              # columns, padded to 16
+    row_tile: int
+    split: int
+    share: int
+    slice: int
+    smem: int           # dynamic shared bytes a block (decode body)
+
+    @property
+    def grid(self):
+        return ((self.n // _BN) * self.split,
+                -(-self.rows // self.row_tile), 1)
+
+    @property
+    def blocks(self) -> int:
+        x, y, z = self.grid
+        return x * y * z
+
+    def tile(self, x: int, y: int):
+        """Block (x, y)'s (rows, columns, K pairs) as three ranges."""
+        c, u = divmod(x, self.share * self.split)
+        t, rank = divmod(u, self.split)
+        n0 = (c * self.share + t) * _BN
+        r0 = y * self.row_tile
+        return (range(r0, min(self.rows, r0 + self.row_tile)),
+                range(n0, n0 + _BN),
+                range(rank * self.slice,
+                      min(self.k2, (rank + 1) * self.slice)))
+
+
+def _dec_smem(row_tile: int, slice_: int, w_rows: int, split: int) -> int:
+    """A decode block's dynamic shared bytes: weight slice, activation
+    planes, byte table (4-bit weights), warp partials and the cluster's
+    gathered partials (the C side's `dec_smem_bytes`)."""
+    return (slice_ * _BN * w_rows + row_tile * slice_ * 8
+            + (256 * _TAB_COPIES * 8 if w_rows == 1 else 0)
+            + _DEC_WARPS * row_tile * _BN * 4 + split * row_tile * _BN * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(rows: int, k: int, n: int, w_dtype: str,
+                body: Optional[str] = None, a_mode: str = "fp"
+                ) -> LaunchPlan:
+    """The launch of an (rows, K) x (K, n) dense call in `a_mode` (pure,
+    memoized: the wrapper asks for it on every call). The decode body
+    runs wherever its K slice fits shared memory; the FMA body is the
+    fallback (`body` forces one of `BODIES`, for tests and measurement).
+    The decode body takes the smallest cluster split that gives at least
+    one wave of blocks and at most `_DEC_SLICE` pairs a block (slices
+    stay at least `_MIN_SLICE` pairs), then a larger one if the slice
+    does not fit. In the quantize and static modes the cluster then
+    takes the most column tiles (`share`) that divide the tiles and keep
+    it at 8 blocks, so they quantize each activation pair once."""
+    if body not in (None,) + BODIES:
+        raise ValueError(f"body {body!r}; options: {BODIES}")
+    k2, n = k // 2, -(-n // _BN) * _BN
+    if body != "fma":
+        rt = min(rows, _DEC_RM)
+        w_rows = 2 if w_dtype == "int8" else 1
+        base = (n // _BN) * -(-rows // rt)
+        fits = [s for s in _SPLITS if s == 1 or k2 // s >= _MIN_SLICE]
+        fits = [s for s in fits
+                if _dec_smem(rt, -(-k2 // s), w_rows, s) <= SMEM_MAX]
+        good = [s for s in fits if base * s >= _MIN_BLOCKS
+                and -(-k2 // s) <= _DEC_SLICE]
+        if good or fits:
+            split = good[0] if good else fits[-1]
+            sl = -(-k2 // split)
+            share = 1
+            if a_mode in ("quantize", "static"):
+                share = max(g for g in _SPLITS if g * split <= _SPLITS[-1]
+                            and (n // _BN) % g == 0)
+            return LaunchPlan("decode", rows, k2, n, rt, split, share, sl,
+                              _dec_smem(rt, sl, w_rows, split))
+    return LaunchPlan("fma", rows, k2, n, _FMA_RM, 1, 1, k2, 0)
+
+
 def _launch(a: torch.Tensor, sa: Optional[torch.Tensor],
             w_data: torch.Tensor, sw: torch.Tensor, *, w_dtype: str,
-            a_mode: str, a_dtype: str, s_static: Optional[float]
-            ) -> torch.Tensor:
+            a_mode: str, a_dtype: str, s_static: Optional[float],
+            plan: Optional[LaunchPlan] = None) -> torch.Tensor:
     r, k = a.shape[0], w_data.shape[0] * (1 if w_dtype == "int8" else 2)
     n = w_data.shape[1]
+    if plan is None:
+        plan = launch_plan(r, k, n, w_dtype, None, a_mode)
+    elif (plan.rows, plan.k2, plan.n) != (r, k // 2, -(-n // _BN) * _BN):
+        raise ValueError(f"{plan} is not a plan for a ({r}, {k}) x "
+                         f"({k}, {n}) call")
     a, sa, w_data, sw = _kernel_operands(a, sa, w_data, sw, a_mode,
                                          "ovp_matmul")
-    np_ = w_data.shape[1]
-    blocks = (np_ // _BN) * (-(-r // _BM))
-    split = 2 if blocks < _SPLIT_BELOW and k // 2 >= 2 * _BK2 else 1
-    out = (torch.zeros if split > 1 else torch.empty)(
-        (r, np_), dtype=torch.float32, device=a.device)
+    out = torch.empty((r, plan.n), dtype=torch.float32, device=a.device)
     lib = _build.load("ovp_matmul", _SIGNATURE)
     err = lib.ovp_mm_launch(
         a.data_ptr(), sa.data_ptr(), w_data.data_ptr(), sw.data_ptr(),
-        out.data_ptr(), r, k, np_, _DTYPE_CODE[w_dtype],
-        A_MODES.index(a_mode), _DTYPE_CODE[a_dtype], split,
-        float(np.float32(s_static or 1.0)),
+        out.data_ptr(), r, k, plan.n, _DTYPE_CODE[w_dtype],
+        A_MODES.index(a_mode), _DTYPE_CODE[a_dtype],
+        BODIES.index(plan.body), plan.row_tile, plan.split, plan.share,
+        plan.slice, plan.smem, float(np.float32(s_static or 1.0)),
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "ovp_matmul")
     fused_ovp_matmul.mode_launches[a_mode] += 1
@@ -273,19 +383,21 @@ def _checked_modes(a, sa, w_data, *, w_dtype: str, a_mode: str,
 
 def run(a: torch.Tensor, sa: Optional[torch.Tensor], w_data: torch.Tensor,
         sw: torch.Tensor, *, w_dtype: str, a_mode: str,
-        a_dtype: Optional[str] = None, s_static: Optional[float] = None
-        ) -> torch.Tensor:
+        a_dtype: Optional[str] = None, s_static: Optional[float] = None,
+        plan: Optional[LaunchPlan] = None) -> torch.Tensor:
     """(R, Ka) x codes -> (R, N): the plain version for CPU tensors, the
     kernel for CUDA tensors, an error for anything else. `a_dtype`
     defaults to the weight's (fp mode ignores it); static mode needs
-    `s_static`, the quantize and codes modes `sa`."""
+    `s_static`, the quantize and codes modes `sa`. `plan` replaces
+    `launch_plan`'s launch (tests and measurement force a body or a
+    share with it); the plain version ignores it."""
     kw = _checked_modes(a, sa, w_data, w_dtype=w_dtype, a_mode=a_mode,
                         a_dtype=a_dtype, s_static=s_static)
     if a.device.type == "cpu":
         return fused_ovp_matmul_plain(a, sa, w_data, sw, **kw)
     if a.device.type != "cuda":
         raise ValueError(f"ovp_matmul runs on cpu or cuda, not {a.device}")
-    return _launch(a, sa, w_data, sw, **kw)
+    return _launch(a, sa, w_data, sw, plan=plan, **kw)
 
 
 def _col_scale(s, n: int, device) -> torch.Tensor:
