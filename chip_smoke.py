@@ -64,24 +64,41 @@ CUDA toolkit. It builds the hand-written kernels from
    step;
 8. the MoE slice, after phases A-D's models are freed: K2, K3 and K4 at
    Qwen3-30B-A3B's attention shapes (Hkv 4, G 8, D 128) with the same
-   checks; the K6 kernel phase (the grouped per-expert matmul, fp mode,
-   int4: decode B 4, E 128, C 4 at K 2048 -> N 768 and K 768 -> N 2048,
-   and a prefill B 1, C 4) against its plain version, timed beside it
-   and `torch.matmul` on the dequantized stack; and the K6 API phase
-   (`kernels.ops.grouped_ovp_matmul` in quantize, static, codes4 packed
-   by K7, and codes8 with int8 weights, at E 8, C 32, K = N = 1024, plus
-   a per-expert mixed W4/W8 stack through `backends.dispatch`);
+   checks, K4 also timed by halves (attention blocks alone, page-write
+   blocks alone) beside SDPA on the attention; the same three at the
+   widened layouts (G 16 / D 256, G 7 / D 128, bf16 and fp16 fp caches
+   and pools); the K6 kernel phase (the grouped per-expert matmul, fp
+   mode, int4, with the fill of a seeded top-8 routing: decode B 4, E
+   128, C 4 at K 2048 -> N 768 and K 768 -> N 2048, and a 16-token
+   prefill chunk) against its plain version on the filled rows, timed
+   with cold L2 (rotating over 4 layers' weight stacks) beside it,
+   `torch.einsum` on the dequantized stack and the touched-expert
+   bound; K6's other paths against the plain version (the FMA body
+   forced on those fills, a fill of B 72 x E 128 entries, too many to
+   cache in shared memory), and the decode launch with a fill touching
+   one expert and none, each timed under half the whole stack's read
+   time; K6 without a fill at E 8, 4-64 rows an expert, with each body
+   forced, in fp, quantize and codes8 modes; and the K6 API phase (`kernels.ops.grouped_ovp_matmul` in
+   quantize, static, codes4 packed by K7, and codes8 with int8 weights,
+   at E 8, C 32, K = N = 1024, plus a per-expert mixed W4/W8 stack
+   through `backends.dispatch`);
 9. serve phase E: Qwen3-30B-A3B at full published width, 48 layers,
    through the launcher's entry point (`--arch qwen3-moe-30b-a3b
    --quant olive_serve`, phase A's prompts and seed, layer-by-layer
-   init + PTQ), slab and then paged (`--paged 16 --prefill-chunk 16`):
+   init + PTQ), slab and then paged (`--paged 16 --prefill-chunk 16`),
+   the slab model freed before the paged one loads:
    no fallback, `grouped[fp]` = 3 x layers x forward calls, K2 (slab),
    K3 and K4 (paged), every page returned; PTQ seconds, peak device
-   memory, tok/s, TTFT, step time and a decode-step profile;
+   memory, tok/s, TTFT, step time and a decode-step profile (K6's
+   device ms per step, the device busy share);
 10. the MoE card-vs-CPU check on a 2-layer truncation of the served
-   model (same widths and quantized params, fp32 KV): routed expert
-   indices equal first, then greedy tokens equal and max |logit diff|
-   <= 1e-3 * max|ref|.
+   slab model (same widths and quantized params, fp32 KV): routed
+   expert indices equal first, then greedy tokens equal and max |logit
+   diff| <= 1e-3 * max|ref|.
+
+`attn_ab_phase(old_root)` (called by hand, not by `main`) times an
+older tree's K2 and K4 against this one, alternated in separate
+processes.
 
 Any failure exits non-zero before the result line. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it lists every
@@ -268,10 +285,13 @@ def k1_phase(dev):
     return rows_out, worst, decode, bound_by
 
 
-def k2_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
+def k2_phase(dev, hkv: int = 16, g: int = 1, d: int = 64,
+              fp_dtype: str = "float32", all_pos: bool = True):
     """K2 against its plain version at a serving path's shapes: Qwen1.5-
     0.5B's (Hkv 16, G 1, D 64) by default, Qwen3-30B-A3B's with Hkv 4,
-    G 8, D 128."""
+    G 8, D 128, and the widened layouts (G 7 / 16, D 256, fp caches in
+    `fp_dtype` bf16 or fp16). `all_pos` False runs the mixed positions
+    only."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attn as da
@@ -286,13 +306,18 @@ def k2_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
     v = torch.randn((b, s_len, hkv, d), generator=gen, device=dev)
     kd, ks = _quant_kv_token(k)
     vd, vs = _quant_kv_token(v)
+    fdt = getattr(torch, fp_dtype)
     caches = {"packed": {"k_data": kd, "v_data": vd, "k_scl": ks,
                          "v_scl": vs},
-              "fp": {"k": k, "v": v}}
+              "fp": {"k": k.to(fdt), "v": v.to(fdt)}}
     pos_cases = {"mixed": [0, 17, 255, 17], "0": [0] * b, "17": [17] * b,
                  "255": [255] * b}
+    if not all_pos:
+        pos_cases = {"mixed": pos_cases["mixed"]}
     rows_out, worst, main = [], 0.0, None
     for kind, cache in caches.items():
+        if kind == "fp":
+            kind = f"fp {fp_dtype}"
         kdense, vdense = da.read_cache_dense(cache, dtype=torch.float32)
         for name, pl in pos_cases.items():
             pos = torch.tensor(pl, dtype=torch.int32, device=dev)
@@ -323,7 +348,7 @@ def k2_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
                 time_ms(kern), time_ms(plain), time_ms(library)
             valid = int(sum(p + 1 for p in pl))   # slots the data needs
             per_tok = hkv * (d // 2 * 2 + 8) if kind == "packed" \
-                else hkv * d * 4 * 2
+                else hkv * d * fdt.itemsize * 2
             n_bytes = 2 * b * h * d * 4 + b * 4 + valid * per_tok
             b_ms, b_by = bound_ms(n_bytes, 4.0 * valid * h * d)
             rec = dict(cache=kind, pos=pl, max_abs_err=err, ms=ms,
@@ -342,7 +367,7 @@ def k2_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
 
 
 def _paged_case(dev, packed: bool, parked: bool, gen, hkv: int = 16,
-                g: int = 1, d: int = 64):
+                g: int = 1, d: int = 64, fp_dtype: str = "float32"):
     """K3 inputs at the path's shapes: a slab of B=4 rows x 256 tokens
     scattered over a shuffled pool of 80 pages of 16 (plus garbage in the
     pages no row owns), its block table and positions. `parked` turns row
@@ -358,7 +383,8 @@ def _paged_case(dev, packed: bool, parked: bool, gen, hkv: int = 16,
         vd, vs = _quant_kv_token(v)
         cache = {"k_data": kd, "v_data": vd, "k_scl": ks, "v_scl": vs}
     else:
-        cache = {"k": k, "v": v}
+        fdt = getattr(torch, fp_dtype)
+        cache = {"k": k.to(fdt), "v": v.to(fdt)}
     perm = torch.randperm(n_pool, generator=gen, device=dev)[:b * n]
     bt = perm.reshape(b, n).to(torch.int32)
     pos = [0, 17, 255, 17]
@@ -369,19 +395,21 @@ def _paged_case(dev, packed: bool, parked: bool, gen, hkv: int = 16,
     return q, cache, torch.tensor(pos, dtype=torch.int32, device=dev), pos
 
 
-def k3_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
+def k3_phase(dev, hkv: int = 16, g: int = 1, d: int = 64,
+              fp_dtype: str = "float32"):
     """K3 against its plain version and, bit for bit, against K2 on the
-    same tokens gathered into a slab (shapes as in `k2_phase`)."""
+    same tokens gathered into a slab (shapes and `fp_dtype` as in
+    `k2_phase`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attn as da
     gen = torch.Generator(device=dev).manual_seed(3)
     rows_out, worst, main = [], 0.0, None
     tag = f"Hkv={hkv} G={g} D={d}"
-    for kind in ("packed", "fp"):
+    for kind in ("packed", f"fp {fp_dtype}"):
         for parked in (False, True):
             q, cache, pos, pl = _paged_case(dev, kind == "packed", parked,
-                                            gen, hkv, g, d)
+                                            gen, hkv, g, d, fp_dtype)
             slab = da.gather_paged_cache(cache)
 
             def kern():
@@ -419,7 +447,7 @@ def k3_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
             b, h = q.shape[0], q.shape[2]
             valid = int(sum(min(p + 1, s_len) for p in pl))
             per_tok = hkv * (d // 2 * 2 + 8) if kind == "packed" \
-                else hkv * d * 4 * 2
+                else hkv * d * cache["k"].element_size() * 2
             n_bytes = 2 * b * h * d * 4 + b * 4 + cache["block_table"] \
                 .numel() * 4 + valid * per_tok
             b_ms, b_by = bound_ms(n_bytes, 4.0 * valid * h * d)
@@ -439,7 +467,7 @@ def k3_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
 
 
 def _prefill_case(dev, packed: bool, c: int, gen, hkv: int = 16,
-                  g: int = 1, d: int = 64):
+                  g: int = 1, d: int = 64, pool_dtype: str = "float32"):
     """K4 inputs: a 256-token raw stage (Hkv 16, D 64 by default) of one
     request whose 16 page tiles map to shuffled pages of a 40-page pool
     holding random old bytes, and the chunk of C queries (Hkv * G heads)
@@ -456,7 +484,8 @@ def _prefill_case(dev, packed: bool, c: int, gen, hkv: int = 16,
                       for key in ("k_scl", "v_scl")})
     else:
         cache = {key: torch.randn((n_pool, ps, hkv, d), generator=gen,
-                                  device=dev) for key in ("k", "v")}
+                                  device=dev).to(getattr(torch, pool_dtype))
+                 for key in ("k", "v")}
     pages = torch.randperm(n_pool, generator=gen, device=dev)[:s // ps]
     cache["block_table"] = pages[None].to(torch.int32)
     for key in ("stage_k", "stage_v"):
@@ -466,19 +495,28 @@ def _prefill_case(dev, packed: bool, c: int, gen, hkv: int = 16,
     return q, cache, positions
 
 
-def k4_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
-    """K4 against its plain version: output, page codes and scales, and
-    the pages outside the table untouched (shapes as in `k2_phase`)."""
+def k4_phase(dev, hkv: int = 16, g: int = 1, d: int = 64,
+             pool_dtype: str = "float32", cs=(16, 64)):
+    """K4 against its plain version: output, page codes and scales (fp
+    pools in `pool_dtype`: equal to the plain version's rounding), and
+    the pages outside the table untouched (shapes as in `k2_phase`), at
+    chunk lengths `cs`. The kernel splits each row tile's keys over a
+    cluster and combines the ranks' (m, l, o) partials in rank order (M
+    = max m, o = sum o_r exp(m_r - M) / sum l_r exp(m_r - M)), so its
+    output differs from the plain version's one softmax in fp32 rounding
+    only: atol 1e-5. Timed as a whole and by halves: the attention
+    blocks alone (beside SDPA on the same attention) and the page-write
+    blocks alone."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import prefill_attn as pa
     gen = torch.Generator(device=dev).manual_seed(4)
     rows_out, worst, main = [], 0.0, None
     tag = f"Hkv={hkv} G={g} D={d}"
-    for kind in ("packed", "fp"):
-        for c in (16, 64):
+    for kind in ("packed", f"fp {pool_dtype}"):
+        for c in cs:
             q, cache, positions = _prefill_case(dev, kind == "packed", c,
-                                                gen, hkv, g, d)
+                                                gen, hkv, g, d, pool_dtype)
             keys = pa._pool_keys(cache)
             before = {key: cache[key].clone() for key in keys}
             ref_cache = dict(cache, **{key: before[key].clone()
@@ -516,9 +554,9 @@ def k4_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
                          f"1e-6 "
                          f"(max rel "
                          f"{float(((new - want).abs() / want).max()):.2e})")
-                elif kind == "fp" and not torch.equal(new, want):
-                    fail(f"K4 {tag} fp C={c}: {key} pages not copied "
-                         f"exactly")
+                elif kind != "packed" and not torch.equal(new, want):
+                    fail(f"K4 {tag} {kind} C={c}: {key} pages not "
+                         f"written as the plain version rounds them")
             if code_diff > 1e-4 * max(code_total, 1):
                 fail(f"K4 {tag} {kind} C={c}: {code_diff} of {code_total} "
                      f"code bytes differ from the plain version (limit "
@@ -540,13 +578,18 @@ def k4_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
             # host, which graph capture refuses: it is timed eagerly
             (ms, wall), (plain_ms, _), (lib_ms, _) = \
                 time_ms(kern), time_ms(plain, graph=False), time_ms(library)
+            attn_ms, _ = time_ms(lambda: pa._launch(q, cache, positions,
+                                                    halves=1))
+            write_ms, _ = time_ms(lambda: pa._launch(q, cache, positions,
+                                                     halves=2))
             page_bytes = 2 * s * hkv * ((d // 2 + 4) if kind == "packed"
-                                        else d * 4)
+                                        else d * cache["k"].element_size())
             n_bytes = 2 * s * hkv * d * 4 + page_bytes + 2 * c * h * d * 4 \
                 + (s // 16) * 4 + 4
             n_ops = 4.0 * h * d * sum(off + i + 1 for i in range(c))
             b_ms, b_by = bound_ms(n_bytes, n_ops)
             rec = dict(cache=kind, C=c, max_abs_err=err, ms=ms, wall_ms=wall,
+                       attn_ms=attn_ms, write_ms=write_ms,
                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                        bound_by=b_by, code_bytes_differ=code_diff)
             rows_out.append(rec)
@@ -556,10 +599,98 @@ def k4_phase(dev, hkv: int = 16, g: int = 1, d: int = 64):
                   f"err={err:.2e} "
                   f"(tol atol 1e-5) code bytes differing {code_diff}/"
                   f"{code_total} (limit 0.01%) scales rtol 1e-6 ok "
-                  f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
+                  f"kernel={ms:.4f}ms (eager call {wall:.4f}ms; halves "
+                  f"apart: attention {attn_ms:.4f}ms, page writes "
+                  f"{write_ms:.4f}ms) "
                   f"plain={plain_ms:.4f}ms (eager) sdpa(attention half only)="
                   f"{lib_ms:.4f}ms bound={b_ms:.5f}ms ({b_by})")
     return rows_out, worst, main
+
+
+def attn_time(dev, kernel: str, hkv: int, g: int, d: int, reps: int = 3):
+    """K2's or K4's device time (ms, `reps` CUDA-graph replays of 50
+    launches) over a packed cache, on `k2_phase`'s mixed positions or
+    `k4_phase`'s first case (C 16) at these shapes. Uses only the
+    wrappers every version of the port has, so it also times an older
+    tree's kernels (import this script with that tree's `src` first on
+    the path)."""
+    import torch
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import prefill_attn as pa
+    from repro_torch.models.layers import _quant_kv_token
+    gen = torch.Generator(device=dev).manual_seed(4)
+    if kernel == "K4":
+        q, cache, positions = _prefill_case(dev, True, 16, gen, hkv, g, d)
+
+        def fn():
+            return pa.fused_prefill_attention(q, cache, positions)[0]
+    else:
+        q = torch.randn((4, 1, hkv * g, d), generator=gen, device=dev)
+        kv = [_quant_kv_token(torch.randn((4, 256, hkv, d), generator=gen,
+                                          device=dev)) for _ in range(2)]
+        cache = {"k_data": kv[0][0], "k_scl": kv[0][1],
+                 "v_data": kv[1][0], "v_scl": kv[1][1]}
+        pos = torch.tensor([0, 17, 255, 17], dtype=torch.int32, device=dev)
+
+        def fn():
+            return da.fused_decode_attention(q, cache, pos)
+    return [time_ms(fn)[0] for _ in range(reps)]
+
+
+def attn_ab_phase(old_root: str, order=("old", "new", "new", "old")):
+    """K2 and K4 of an older tree (unpacked with `git archive` at
+    `old_root`) against this one on the same card, alternated in separate
+    processes (`order`), packed, at Qwen1.5-0.5B's shape (Hkv 16, G 1, D
+    64) and Qwen3-30B-A3B's (Hkv 4, G 8, D 128); each process builds its
+    tree's kernels and reports 3 timings a case."""
+    trees = {"old": os.path.abspath(old_root), "new": ROOT}
+    cases = [(kern, sh) for kern in ("K2", "K4")
+             for sh in ((16, 1, 64), (4, 8, 128))]
+    got = {label: {case: [] for case in cases} for label in trees}
+    for label in order:
+        code = ("import json, sys, torch; "
+                f"sys.path.insert(0, {os.path.join(trees[label], 'src')!r}); "
+                f"sys.path.insert(0, {ROOT!r}); import chip_smoke as cs; "
+                "dev = torch.device('cuda:0'); "
+                f"print(json.dumps([cs.attn_time(dev, k, *sh) for k, sh in "
+                f"{cases!r}]))")
+        out = subprocess.run([sys.executable, "-c", code], check=True,
+                             capture_output=True, text=True).stdout
+        for case, ms in zip(cases, json.loads(out.strip().splitlines()[-1])):
+            got[label][case] += ms
+    for case in cases:
+        means = {label: sum(v[case]) / len(v[case])
+                 for label, v in got.items()}
+        (kern, (hkv, g, d)) = case
+        print(f"[attn a/b] {kern} Hkv={hkv} G={g} D={d} packed, "
+              f"{' '.join(order)}: old {got['old'][case]} new "
+              f"{got['new'][case]} ms; means old {means['old']:.4f} new "
+              f"{means['new']:.4f} ms")
+    return got
+
+
+# the layouts K2-K4 were widened to: recurrentgemma-9b's (Hkv 1, G 16,
+# D 256), qwen2-7b's (Hkv 4, G 7, D 128), and bf16 / fp16 fp caches
+WIDE_LAYOUTS = ((1, 16, 256), (4, 7, 128))
+
+
+def layouts_phase(dev):
+    """K2, K3 and K4 at the widened layouts against their plain versions
+    (K3 also bit for bit against K2): G 16 / D 256 and G 7 / D 128,
+    packed and over bf16 fp caches and pools, and the served shapes (G 8
+    / D 128, G 1 / D 64) over bf16 and fp16 ones. Returns the worst
+    error of each kernel."""
+    worst = {"k2": 0.0, "k3": 0.0, "k4": 0.0}
+    cases = [(hkv, g, d, "bfloat16") for hkv, g, d in
+             WIDE_LAYOUTS + ((4, 8, 128), (16, 1, 64))]
+    cases += [(4, 8, 128, "float16"), (1, 16, 256, "float16")]
+    for hkv, g, d, dt in cases:
+        worst["k2"] = max(worst["k2"], k2_phase(dev, hkv, g, d, dt,
+                                                 all_pos=False)[1])
+        worst["k3"] = max(worst["k3"], k3_phase(dev, hkv, g, d, dt)[1])
+        worst["k4"] = max(worst["k4"], k4_phase(dev, hkv, g, d, dt,
+                                                 cs=(16,))[1])
+    return worst
 
 
 def _layer_weights(dev, gen):
@@ -1213,12 +1344,18 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
     # K1/K5's decode-body kernels: each is one whole call
     n_dense = sum(e.count for e in kernels
                   if "ovp_dec_kernel" in e.key) / steps
+    # K6's persistent kernel (the MoE expert einsums)
+    grouped = [e for e in kernels if "ovp_grouped_dec_kernel" in e.key]
+    k6_ms = sum(e.self_device_time_total for e in grouped) / 1e3 / steps
+    k6_n = sum(e.count for e in grouped) / steps
     print(f"[profile] decode step (4 slots, {label}, {steps} steps): "
           f"{step_ms:.2f}ms "
           f"wall; under the profiler {prof_ms:.2f}ms wall, device busy "
           + (f"{busy_ms:.3f}ms ({100 * busy_ms / prof_ms:.1f}% of wall), "
              f"{n_kernels:.1f} device kernels per step, {n_fills:.1f} of "
              f"them zero-fills, {n_dense:.1f} K1/K5 calls"
+             + (f", K6 {k6_ms:.3f}ms over {k6_n:.1f} launches" if grouped
+                else "")
              if kernels else "not measured (no device events)"))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
@@ -1226,7 +1363,8 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
               f"ms/step {e.count // steps:5d} launches/step  {e.key[:90]}")
     eng.run_until_drained()
     return {"step_ms": step_ms, "prof_ms": prof_ms, "busy_ms": busy_ms,
-            "kernels_per_step": n_kernels if kernels else None}
+            "kernels_per_step": n_kernels if kernels else None,
+            "k6_ms": k6_ms if kernels else None}
 
 
 def serve_phase_c(dev, res_a, arch: str = ARCH):
@@ -1514,15 +1652,41 @@ def static_reference_check(res_d, dev):
 MOE_ARCH = "qwen3-moe-30b-a3b"
 
 
+def _routed_fill(gen, dev, b: int, tokens: int, e: int = 128,
+                 top_k: int = 8, cap: int = 4):
+    """A real routing's fill: each of `tokens` tokens of each of `b` batch
+    rows picks `top_k` distinct experts of `e` (a seeded draw); fill =
+    min(counts, cap), as `moe_layer` computes it."""
+    import torch
+    counts = torch.zeros((b, e), dtype=torch.int64, device=dev)
+    for row in range(b):
+        for _ in range(tokens):
+            picks = torch.randperm(e, generator=gen, device=dev)[:top_k]
+            counts[row, picks] += 1
+    return torch.clamp(counts, max=cap).to(torch.int32)
+
+
+K6_LAYERS = 4     # distinct weight stacks the cold-L2 timing rotates over
+
+
 def k6_phase(dev):
     """K6 against its plain version at the MoE serving path's shapes, fp
-    mode (the expert einsums run weight-only), int4 weights: decode (B 4
-    slots, E 128, capacity C 4) for wg / wu (K 2048 -> N 768) and wd (K
-    768 -> N 2048), and a prefill (B 1, C 4: a 16- or 32-token bucket
-    gives capacity max(int(1.25 * T * 8 / 128), 4) = 4). Kernel timed by
-    CUDA-graph replay as K1 is; plain version and the library call (one
-    `torch.einsum` of the (B, E, C, K) lhs and the dequantized fp32
-    (E, K, N) stack) over fewer launches, their temporaries being large."""
+    mode (the expert einsums run weight-only), int4 weights, with the
+    fill of a real routing: decode (B 4 slots x top-8 of E 128, capacity
+    C 4) for wg / wu (K 2048 -> N 768) and wd (K 768 -> N 2048), and a
+    16-token prefill chunk (B 1, C 4: max(int(1.25 * 16 * 8 / 128), 4)).
+    Filled rows are held to the plain version (rows past the fill are
+    unwritten by contract and not compared); the activation rows past
+    the fill hold random values, which must not matter. Timed by
+    CUDA-graph replay with cold L2: each timed launch reads a different
+    layer's weight stack, rotating over K6_LAYERS layers (1.2 GB of
+    stacks; a launch's touched experts are about 25 MB against the 50 MB
+    L2), beside the same launch warm (one stack replayed), the launch
+    without the fill (every slot of every expert), the plain version and
+    the library call (one `torch.einsum` of the (B, E, C, K) lhs and the
+    dequantized fp32 (E, K, N) stack). The bound counts what the fill
+    needs: the touched experts' packed weights and scales, the filled
+    rows' activations and outputs, and their FMAs."""
     import torch
     from repro_torch.core import policy
     from repro_torch.core.ovp import ovp_dequantize
@@ -1533,63 +1697,243 @@ def k6_phase(dev):
     w4 = policy.OLIVE_W4.replace_all(compute_dtype="float32")
     e = 128
     layer = [(2048, 768), (2048, 768), (768, 2048)]   # wg, wu, wd
-    weights = {}
+    stacks = {}                 # (K, N) -> [(codes, scales)] per layer
+    dense = {}
     for k, n in sorted(set(layer)):
         w = torch.randn((e, k, n), generator=gen, device=dev) / k ** 0.5
         qt = quantize_weight(w, w4)
-        weights[(k, n)] = (qt, ovp_dequantize(qt))
+        del w
+        dense[(k, n)] = ovp_dequantize(qt)
+        stacks[(k, n)] = [(qt.data, qt.scale.reshape(e, n).contiguous())]
+        for _ in range(1, K6_LAYERS):   # timing copies: random codes
+            stacks[(k, n)].append((
+                torch.randint(0, 256, qt.data.shape, generator=gen,
+                              device=dev, dtype=torch.uint8),
+                torch.rand((e, n), generator=gen, device=dev) + 0.5))
+    fills = {"decode": (4, _routed_fill(gen, dev, 4, 1)),
+             "prefill": (1, _routed_fill(gen, dev, 1, 16))}
     rows_out, worst = [], 0.0
-    decode = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "library_ms": 0.0, "bound_by": "operations"}
-    for label, b, c in (("decode", 4, 4), ("prefill", 1, 4)):
+    decode = {"ms": 0.0, "warm_ms": 0.0, "all_rows_ms": 0.0, "plain_ms": 0.0,
+              "bound_ms": 0.0, "library_ms": 0.0, "stack_bytes_ms": 0.0}
+    for label, (b, fill) in fills.items():
+        c = 4
+        live = torch.arange(c, device=dev) < fill[..., None]   # (B, E, C)
+        touched = int((fill.sum(0) > 0).sum())
+        filled = int(fill.sum())
         for k, n in sorted(set(layer)):
-            qt, wd = weights[(k, n)]
             a = torch.randn((b, e, c, k), generator=gen, device=dev)
-            sw = qt.scale.reshape(e, n).contiguous()
+            codes, sw = stacks[(k, n)][0]
 
-            def kern():
-                return mm.run_grouped(a, None, qt.data, sw, w_dtype="int4",
-                                      a_mode="fp")
+            def kern(i=0, f=fill):
+                cw, cs = stacks[(k, n)][i]
+                return mm.run_grouped(a, None, cw, cs, w_dtype="int4",
+                                      a_mode="fp", fill=f)
 
             def plain():
                 return mm.grouped_ovp_matmul_plain(
-                    a, None, qt.data, sw, w_dtype="int4", a_mode="fp",
-                    a_dtype="int4")
+                    a, None, codes, sw, w_dtype="int4", a_mode="fp",
+                    a_dtype="int4", fill=fill)
 
             got, ref = kern(), plain()
             torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            scale = float(ref.abs().max())
-            if not within(got, ref, 1e-5, 1e-5 * scale):
-                fail(f"K6 {label} B={b} E={e} C={c} K={k} N={n}: max abs "
-                     f"err {err:.3e} over tolerance (rtol 1e-5, atol "
-                     f"1e-5*{scale:.3e})")
+            plan = mm.grouped_launch_plan(b, e, c, k, n, "int4",
+                                          filled=True)
+            blocks = mm.grouped_grid_blocks(plan, "int4")
+            g, r = got[live], ref[live]
+            err = float((g - r).abs().max())
+            scale = float(r.abs().max())
+            if not within(g, r, 1e-5, 1e-5 * scale):
+                fail(f"K6 {label} B={b} E={e} C={c} K={k} N={n} with fill: "
+                     f"max abs err {err:.3e} on filled rows over tolerance "
+                     f"(rtol 1e-5, atol 1e-5*{scale:.3e})")
+            if not bool(torch.isfinite(ref[~live]).all()) or \
+                    bool((ref[~live] != 0).any()):
+                fail(f"K6 {label}: the plain version's rows past the fill "
+                     f"are not zeros")
             worst = max(worst, err)
-            (ms, wall), (plain_ms, _) = time_ms(kern), time_ms(plain, 10)
+            calls = [lambda i=i: kern(i) for i in range(K6_LAYERS)]
+
+            def cold():
+                for fn in calls:
+                    fn()
+
+            ms = time_ms(cold, 12)[0] / K6_LAYERS
+            warm_ms, wall = time_ms(kern)
+            all_ms, _ = time_ms(lambda: kern(0, None))
+            plain_ms, _ = time_ms(plain, 10)
             lib_ms, _ = time_ms(
-                lambda: torch.einsum("beck,ekn->becn", a, wd), 10)
-            n_bytes = b * e * c * k * 4 + e * (k // 2) * n + e * n * 4 \
-                + b * e * c * n * 4
-            b_ms, b_by = bound_ms(n_bytes, 2.0 * b * e * c * k * n)
+                lambda: torch.einsum("beck,ekn->becn", a, dense[(k, n)]), 10)
+            n_bytes = touched * (k // 2 * n + 4 * n) \
+                + filled * (k * 4 + n * 4) + b * e * 4
+            b_ms, b_by = bound_ms(n_bytes, 2.0 * filled * k * n)
+            stack_ms = (e * (k // 2 * n + 4 * n)) / HBM_BYTES_PER_S * 1e3
             rec = dict(shape=label, B=b, E=e, C=c, K=k, N=n,
-                       max_abs_err=err, ms=ms, wall_ms=wall,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by)
+                       touched_experts=touched, filled_rows=filled,
+                       grid_blocks=blocks, split=plan.split,
+                       max_abs_err=err, ms=ms, warm_ms=warm_ms,
+                       wall_ms=wall, all_rows_ms=all_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                       stack_bytes_ms=stack_ms)
             rows_out.append(rec)
             if label == "decode":
-                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                for key in ("ms", "warm_ms", "all_rows_ms", "plain_ms",
+                            "bound_ms", "library_ms", "stack_bytes_ms"):
                     decode[key] += layer.count((k, n)) * rec[key]
                 decode["bound_by"] = b_by
             print(f"[k6] {label:7s} B={b} E={e} C={c} K={k:4d} N={n:4d} "
-                  f"err={err:.2e} (tol rtol 1e-5, atol 1e-5*max|ref|) "
-                  f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
-                  f"plain={plain_ms:.4f}ms einsum(dequantized stack)="
-                  f"{lib_ms:.4f}ms bound={b_ms:.5f}ms ({b_by})")
-    print(f"[k6] one MoE layer's 3 decode launches (wg, wu, wd): kernel "
-          f"{decode['ms']:.4f}ms, bound {decode['bound_ms']:.4f}ms "
-          f"({decode['bound_by']}), plain {decode['plain_ms']:.4f}ms, "
-          f"einsum {decode['library_ms']:.4f}ms")
+                  f"fill: {touched} experts touched, {filled} rows; "
+                  f"persistent grid {blocks} blocks (split {plan.split}, "
+                  f"{plan.smem} shared bytes a block); "
+                  f"err={err:.2e} on filled rows (tol rtol 1e-5, atol "
+                  f"1e-5*max|ref|) kernel={ms:.4f}ms cold L2 ({warm_ms:.4f}"
+                  f"ms warm, eager call {wall:.4f}ms; every row without "
+                  f"the fill {all_ms:.4f}ms) plain={plain_ms:.4f}ms "
+                  f"einsum(dequantized stack)={lib_ms:.4f}ms bound="
+                  f"{b_ms:.5f}ms ({b_by}); reading the whole stack would "
+                  f"take {stack_ms:.4f}ms")
+    print(f"[k6] one MoE layer's 3 decode launches (wg, wu, wd) with the "
+          f"fill: kernel {decode['ms']:.4f}ms cold L2 ({decode['warm_ms']:.4f}"
+          f"ms warm; every row {decode['all_rows_ms']:.4f}ms), bound "
+          f"{decode['bound_ms']:.4f}ms ({decode['bound_by']}), plain "
+          f"{decode['plain_ms']:.4f}ms, einsum {decode['library_ms']:.4f}ms;"
+          f" whole stacks at 3.35 TB/s {decode['stack_bytes_ms']:.4f}ms")
+    k6_fill_paths(dev, gen, stacks, fills)
+    del stacks, dense
     return rows_out, worst, decode
+
+
+def k6_fill_paths(dev, gen, stacks, fills):
+    """The K6 paths the served shapes do not reach, at K 2048 -> N 768
+    (wg): the FMA body (K slices too large for shared memory) forced on
+    the decode (B 4: 16-row tiles) and prefill (B 1: 8-row tiles) fills;
+    a fill of B 72 x E 128 entries, above the FILL_SMEM that K6 caches in
+    shared memory, so every block reads it from global memory; each held
+    to the plain version on the filled rows (rtol 1e-5, atol 1e-5 *
+    max|ref|). Then the decode launch with a fill that touches one expert
+    (one row) and with a fill of zeros, timed with cold L2 as k6_phase
+    does, beside the time to read the whole stack: both must stay under
+    half of it, since they read at most one expert's weights."""
+    import torch
+    from repro_torch.kernels import ovp_matmul as mm
+
+    e, c, k, n = 128, 4, 2048, 768
+    codes, sw = stacks[(k, n)][0]
+    stack_ms = (e * (k // 2 * n + 4 * n)) / HBM_BYTES_PER_S * 1e3
+    big = 72
+    cases = [(f"FMA body, {label} fill", b, fill,
+              mm.grouped_launch_plan(b, e, c, k, n, "int4", body="fma"))
+             for label, (b, fill) in fills.items()]
+    cases.append((f"B {big} x E {e} = {big * e} fill entries (over "
+                  f"{mm._FILL_SMEM}: read from global memory)", big,
+                  _routed_fill(gen, dev, big, 1), None))
+    for label, b, fill, plan in cases:
+        a = torch.randn((b, e, c, k), generator=gen, device=dev)
+        got = mm.run_grouped(a, None, codes, sw, w_dtype="int4",
+                             a_mode="fp", fill=fill, plan=plan)
+        ref = mm.grouped_ovp_matmul_plain(a, None, codes, sw, w_dtype="int4",
+                                          a_mode="fp", a_dtype="int4",
+                                          fill=fill)
+        torch.cuda.synchronize()
+        live = torch.arange(c, device=dev) < fill[..., None]
+        g, r = got[live], ref[live]
+        err = float((g - r).abs().max())
+        if not within(g, r, 1e-5, 1e-5 * float(r.abs().max())):
+            fail(f"K6 {label}: max abs err {err:.3e} on filled rows over "
+                 f"tolerance (rtol 1e-5, atol 1e-5*max|ref|)")
+        print(f"[k6 paths] {label}: B={b} E={e} C={c} K={k} N={n}, "
+              f"{int(fill.sum())} filled rows, err={err:.2e} (tol rtol "
+              f"1e-5, atol 1e-5*max|ref|)")
+    b = 4
+    a = torch.randn((b, e, c, k), generator=gen, device=dev)
+    one = torch.zeros((b, e), dtype=torch.int32, device=dev)
+    one[1, 37] = 1
+    for label, fill in (("one expert, one row", one),
+                        ("no expert", torch.zeros_like(one))):
+        def cold(f=fill):
+            for cw, cs in stacks[(k, n)]:
+                mm.run_grouped(a, None, cw, cs, w_dtype="int4", a_mode="fp",
+                               fill=f)
+
+        ms = time_ms(cold, 12)[0] / len(stacks[(k, n)])
+        print(f"[k6 paths] decode B={b} E={e} C={c} K={k} N={n}, fill "
+              f"touching {label}: kernel={ms:.4f}ms cold L2; reading the "
+              f"whole stack would take {stack_ms:.4f}ms")
+        if ms >= stack_ms / 2:
+            fail(f"K6 with a fill touching {label} took {ms:.4f}ms, not "
+                 f"under half the whole stack's read time {stack_ms:.4f}ms")
+
+
+K6_BODY_ROWS = (4, 8, 16, 32, 64)   # rows per expert, both K6 bodies
+
+
+def k6_body_phase(dev):
+    """K6 without a fill (the API's all-rows call) with each of its two
+    bodies forced (`run_grouped(plan=)`), at E 8, K = N = 1024 and B 1 x
+    C rows per expert for C in K6_BODY_ROWS, in fp (int4), quantize (int4,
+    per-slot scale) and codes8 (int8 weights and activations) modes;
+    each result held to the plain version (rtol 1e-5, atol 1e-5 *
+    max|ref|) and timed, beside the body `grouped_launch_plan` picks.
+    The FMA body runs 8-row tiles up to 8 rows an expert, 16-row tiles
+    above. Returns {(mode, rows): {body: ms}}."""
+    import torch
+    from repro_torch.core import policy
+    from repro_torch.core.ovp import ovp_quantize
+    from repro_torch.core.qlinear import quantize_weight
+    from repro_torch.core.quantizer import sigma_init_scale
+    from repro_torch.kernels import ovp_matmul as mm
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    e, k, n = 8, 1024, 1024
+    w = torch.randn((e, k, n), generator=gen, device=dev) / k ** 0.5
+    w4 = quantize_weight(w, policy.OLIVE_W4.replace_all(
+        compute_dtype="float32"))
+    w8 = quantize_weight(w, policy.OLIVE_W8A8.replace_all(
+        compute_dtype="float32", abits=0))
+    out = {}
+    for c in K6_BODY_ROWS:
+        a = torch.randn((1, e, c, k), generator=gen, device=dev)
+        a.view(-1)[::13] *= 25.0
+        s4 = float(sigma_init_scale(a, "int4"))
+        s8 = float(sigma_init_scale(a, "int8"))
+        x8 = ovp_quantize(a, s8, "int8").data
+        cases = {
+            "fp": (a, None, w4, dict(w_dtype="int4", a_mode="fp",
+                                     a_dtype="int4")),
+            "quantize": (a, torch.full((1, e, c), s4, device=dev), w4,
+                         dict(w_dtype="int4", a_mode="quantize",
+                              a_dtype="int4")),
+            "codes8": (x8, torch.full((1, e, c), s8, device=dev), w8,
+                       dict(w_dtype="int8", a_mode="codes8",
+                            a_dtype="int8")),
+        }
+        for mode, (lhs, sa, qt, kw) in cases.items():
+            sw = qt.scale.reshape(e, n).contiguous()
+            ref = mm.grouped_ovp_matmul_plain(lhs, sa, qt.data, sw, **kw)
+            picked = mm.grouped_launch_plan(1, e, c, k, n, kw["w_dtype"],
+                                            mode).body
+            times = {}
+            for body in mm.BODIES:
+                plan = mm.grouped_launch_plan(1, e, c, k, n, kw["w_dtype"],
+                                              mode, body=body)
+
+                def call(plan=plan):
+                    return mm.run_grouped(lhs, sa, qt.data, sw, plan=plan,
+                                          **kw)
+
+                got = call()
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                if not within(got, ref, 1e-5, 1e-5 * float(ref.abs().max())):
+                    fail(f"K6 {body} body, {mode}, E={e} C={c} K={k} N={n}:"
+                         f" max abs err {err:.3e} against the plain version")
+                times[body] = time_ms(call)[0]
+            out[(mode, c)] = times
+            print(f"[k6 bodies] {mode:8s} E={e} C={c:2d} K={k} N={n} no fill:"
+                  f" decode body {times['decode']:.4f}ms, FMA body "
+                  f"{times['fma']:.4f}ms; the plan picks {picked}; both "
+                  f"within rtol 1e-5, atol 1e-5*max|ref| of the plain "
+                  f"version")
+    return out
 
 
 def k6_api_phase(dev):
@@ -1740,13 +2084,16 @@ def serve_phase_e(dev):
     are reset just before and read just after each run: no dispatch
     fallback, every expert matmul on K6 (`grouped[fp]` = `cuda[stacked]`
     = 3 x layers x forward calls), K2 in the slab run, K3 and K4 in the
-    paged run, every page returned. Returns both runs."""
+    paged run, every page returned. The slab model is profiled over
+    decode steps and held against the CPU (`moe_reference_check`), and
+    freed before the paged one loads, so each run's peak memory counts
+    one model. Returns each run's tokens and counts, and the profile."""
     import torch
     from repro_torch.launch import serve
     base = ["--arch", MOE_ARCH, "--quant", "olive_serve", "--requests", "8",
             "--max-new", "16", "--slots", "4", "--max-len", "256",
             "--seed", "0"]
-    runs = {}
+    runs, prof = {}, None
     for label, extra, kernels in (
             ("slab", [], ("grouped[fp]", "ovp_matmul[fp]", "decode_attn")),
             ("paged", ["--paged", "16", "--prefill-chunk", "16"],
@@ -1792,15 +2139,29 @@ def serve_phase_e(dev):
               f"launches "
               + " ".join(f"{key}={counts[key]}" for key in kernels)
               + f", dispatch {counts['dispatch']}")
-        runs[label] = (res, counts)
-    toks = {lab: {r.uid: r.out_tokens for r in res["completed"]}
-            for lab, (res, _) in runs.items()}
-    differ = sum(int(x != y) for uid, t in toks["paged"].items()
-                 for x, y in zip(t, toks["slab"][uid]))
+        if label == "slab":
+            prof = profile_decode(res, f"{MOE_ARCH}, W4 experts + KV4",
+                                  steps=3, max_new=10)
+            moe_reference_check(res, dev)
+        runs[label] = {"tokens": {r.uid: r.out_tokens for r in done},
+                       "counts": counts, "tok_per_s": res["tok_per_s"],
+                       "peak_gb": peak_gb}
+        del res, done
+    differ = sum(int(x != y) for uid, t in runs["paged"]["tokens"].items()
+                 for x, y in zip(t, runs["slab"]["tokens"][uid]))
     print(f"[serve E] paged vs slab: {differ} of 128 tokens differ "
           f"(reported, not bounded: a 16-token chunk and a whole-prompt "
           f"prefill have other capacities, so they drop other tokens, as "
-          f"in the reference)")
+          f"in the reference); peak device memory slab "
+          f"{runs['slab']['peak_gb']:.2f} GB, paged "
+          f"{runs['paged']['peak_gb']:.2f} GB (one model each)")
+    if prof is not None and prof["k6_ms"] is not None:
+        print(f"[serve E] decode step (slab, 4 slots): K6 "
+              f"{prof['k6_ms']:.3f} device ms per step, "
+              f"device busy {prof['busy_ms']:.3f}ms = "
+              f"{100 * prof['busy_ms'] / prof['prof_ms']:.1f}% of the "
+              f"profiled wall; tok/s slab {runs['slab']['tok_per_s']:.2f}, "
+              f"paged {runs['paged']['tok_per_s']:.2f}")
     return runs
 
 
@@ -1918,16 +2279,13 @@ def main() -> int:
     _, k2_err_moe, _ = k2_phase(dev, hkv=4, g=8, d=128)
     _, k3_err_moe, _ = k3_phase(dev, hkv=4, g=8, d=128)
     _, k4_err_moe, _ = k4_phase(dev, hkv=4, g=8, d=128)
+    wide = layouts_phase(dev)
     _, k6_err, k6_decode = k6_phase(dev)
+    k6_body_phase(dev)
     k6_api, counts_k6_api = k6_api_phase(dev)
     free_device_memory()
     runs_e = serve_phase_e(dev)
-    res_e, counts_e = runs_e["slab"]
-    profile_decode(res_e, f"{MOE_ARCH}, W4 experts + KV4", steps=3,
-                   max_new=10)
-    del runs_e
-    free_device_memory()
-    moe_reference_check(res_e, dev)
+    counts_e = runs_e["slab"]["counts"]
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -1971,7 +2329,9 @@ def main() -> int:
              k6_api[mode]["max_abs_err"], k6_api[mode])
          for mode in ("quantize", "static", "codes4", "codes8")]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
-          f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}")
+          f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
+          f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
+          f"{wide['k3']:.2e}, K4 {wide['k4']:.2e}")
     print(f"[card] {smi.splitlines()[0]}")  # beside the numbers below
     moe = k1_main["moe_attn"]
     print(f"[k1 moe] Qwen3-30B-A3B attention block (4 launches, rows 4, "
@@ -1983,12 +2343,15 @@ def main() -> int:
           "torch.matmul on the dequantized operands; decode_attn is one "
           "launch, packed cache, pos (0, 17, 255, 17); paged_decode_attn "
           "the same over a shuffled pool of 16-row pages; prefill_attn one "
-          "launch, packed, C=16 at offset 240 of a 256-token stage "
-          "(library: SDPA, attention half only); ovp_encode one launch at "
+          "launch, packed, C=16 at offset 240 of a 256-token stage, "
+          "Qwen1.5-0.5B's shape (library: SDPA, attention half only); "
+          "ovp_encode one launch at "
           "rows 4, K 1024 (max_abs_err: bytes differing, 0; library: "
           "none); grouped[fp] (K6) is the 3 launches of one Qwen3-30B-A3B "
-          "layer's decode step (B 4, E 128, C 4), library torch.einsum on "
-          "the dequantized fp32 stack; grouped[quantize|static|codes4|"
+          "layer's decode step (B 4, E 128, C 4) with a seeded top-8 "
+          "routing's fill, cold L2, bound from the touched experts' bytes, "
+          "library torch.einsum on the dequantized fp32 stack (every "
+          "slot); grouped[quantize|static|codes4|"
           "codes8] one launch at E 8, C 32, K = N = 1024 (API). "
           "Launches: [fp] and decode_attn from serve phase A, "
           "[quantize] from phase B, [static] from phase D's calibrate run, "

@@ -75,36 +75,41 @@ def _record(backend_name: str, reason: Optional[str],
 
 
 def dispatch(x: torch.Tensor, w, policy: QuantPolicy,
-             act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+             act_scale: Optional[torch.Tensor] = None,
+             fill: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (…, K) @ dequant(w) (K, N) on the policy's backend, falling back
     one hop when it declines the layout. A stacked (E, K, N) weight takes
-    an (…, E, C, K) lhs; a `MixedExpertQuant` runs group by group."""
+    an (…, E, C, K) lhs; a `MixedExpertQuant` runs group by group.
+    `fill` (…, E), stacked weights only: the filled capacity rows of each
+    (…, expert); a backend may leave the rows past it unwritten (K6
+    does), so the caller reads only filled rows."""
     if isinstance(w, MixedExpertQuant):
         backend = get_backend(policy.backend)
         reason = backend.mixed_expert_decline_reason(x, w, policy)
         if reason is not None:
             _record(backend.name, reason, "[stacked]")
             policy = policy.with_backend(backend.fallback)
-        return _dispatch_mixed_experts(x, w, policy, act_scale)
+        return _dispatch_mixed_experts(x, w, policy, act_scale, fill)
     backend = get_backend(policy.backend)
     reason = backend.decline_reason(x, w, policy)
     _record(backend.name, reason, "[stacked]" if w.data.ndim > 2 else "")
     if reason is not None:
         backend = get_backend(backend.fallback)
-    return backend.matmul(x, w, policy, act_scale=act_scale)
+    return backend.matmul(x, w, policy, act_scale=act_scale, fill=fill)
 
 
 def _dispatch_mixed_experts(x: torch.Tensor, w: MixedExpertQuant,
                             policy: QuantPolicy,
-                            act_scale: Optional[torch.Tensor]
+                            act_scale: Optional[torch.Tensor],
+                            fill: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """Per-expert mixed precision: each homogeneous group goes through
     `dispatch` (W4 and W8 groups each run the grouped kernel), and the
     group outputs are put back in expert order. Only the weight side is
     per expert: the A side, backend and compute dtype come from the
     call-site policy. An unquantized group runs a plain matmul. Per-slot
-    scales carrying the expert dim ((…, E, C, 1) or (…, E, C)) are
-    gathered down to each group's experts."""
+    scales carrying the expert dim ((…, E, C, 1) or (…, E, C)) and the
+    fill (…, E) are gathered down to each group's experts."""
     cdt = torch_dtype(policy.compute_dtype)
     outs = []
     for qt, ids in zip(w.groups, w.expert_ids):
@@ -118,7 +123,9 @@ def _dispatch_mixed_experts(x: torch.Tensor, w: MixedExpertQuant,
             elif scale.ndim >= 2 and scale.shape[-2:] == x.shape[-3:-1]:
                 scale = torch.index_select(scale, scale.ndim - 2, idx)
         if isinstance(qt, QuantizedTensor):
-            outs.append(dispatch(xg, qt, policy, act_scale=scale))
+            fg = None if fill is None else torch.index_select(
+                fill, fill.ndim - 1, idx)
+            outs.append(dispatch(xg, qt, policy, act_scale=scale, fill=fg))
         else:
             outs.append(torch.matmul(xg.to(cdt), qt.to(cdt)))
     cat = torch.cat([o.to(cdt) for o in outs], dim=-3)

@@ -177,7 +177,11 @@ class QuantizedMatmulBackend:
 
     def matmul(self, x: torch.Tensor, w: QuantizedTensor,
                policy: QuantPolicy,
-               act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               act_scale: Optional[torch.Tensor] = None,
+               fill: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x @ dequant(w). `fill` (…, E), stacked weights only: the
+        filled capacity rows of each (…, expert); rows past it may be
+        left unwritten, or computed."""
         raise NotImplementedError
 
     def decode_attn_decline_reason(self, q, cache) -> Optional[str]:

@@ -4,7 +4,8 @@ quantized matmul, with in-kernel activation quantization at the dynamic
 3σ scale (K1) or, for a calibrated static site, at its scale passed to
 the kernel as one scalar with no per-step std (K5); one launch of the
 grouped per-expert matmul (K6) per stacked (E, K, N) expert weight
-whose lhs carries the matching expert dim; the slab (K2) or
+whose lhs carries the matching expert dim, computing only the filled
+capacity rows when the caller passes the fill; the slab (K2) or
 paged (K3) decode-attention kernel
 (`kernels/decode_attn.py`) for every decode step; and the fused
 cache-write prefill kernel (K4, `kernels/prefill_attn.py`) for every
@@ -45,17 +46,19 @@ class CudaBackend(QuantizedMatmulBackend):
 
     def matmul(self, x: torch.Tensor, w: QuantizedTensor,
                policy: QuantPolicy,
-               act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               act_scale: Optional[torch.Tensor] = None,
+               fill: Optional[torch.Tensor] = None) -> torch.Tensor:
         a_dtype = scale = static = None
         if policy.abits:
             scale, a_dtype = resolve_act_scale(x, policy, act_scale)
             if isinstance(scale, float):
                 # calibrated scalar: no std, one scale word to K5
                 static, scale = scale, None
-        mm = ovp_matmul.grouped_ovp_matmul if w.data.ndim == 3 \
-            else ovp_matmul.fused_ovp_matmul
-        out = mm(x, w, a_dtype=a_dtype, act_scale=scale,
-                 static_act_scale=static)
+        kw = dict(a_dtype=a_dtype, act_scale=scale, static_act_scale=static)
+        if w.data.ndim == 3:
+            out = ovp_matmul.grouped_ovp_matmul(x, w, fill=fill, **kw)
+        else:
+            out = ovp_matmul.fused_ovp_matmul(x, w, **kw)
         return out.to(torch_dtype(policy.compute_dtype))
 
     def decode_attn_decline_reason(self, q, cache) -> Optional[str]:

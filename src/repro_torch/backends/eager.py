@@ -21,7 +21,9 @@ class EagerBackend(QuantizedMatmulBackend):
 
     def matmul(self, x: torch.Tensor, w: QuantizedTensor,
                policy: QuantPolicy,
-               act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               act_scale: Optional[torch.Tensor] = None,
+               fill: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # every row is computed: `fill` only says which are read
         cdt = torch_dtype(policy.compute_dtype)
         wd = ovp_dequantize(w, dtype=cdt)
         if policy.abits:

@@ -8,9 +8,9 @@
 // _fused_mm_kernel_static :263), both through the dense entry
 // ovp_mm_launch; and the grouped per-expert matmul K6
 // (grouped_ovp_matmul_kernel :436 -> pallas_call at :489, bodies
-// _grouped_mm_kernel :300 and _grouped_mm_kernel_static :333), the FMA
-// template below with an expert grid dimension (entry
-// ovp_grouped_mm_launch).
+// _grouped_mm_kernel :300 and _grouped_mm_kernel_static :333), a
+// persistent kernel on the decode body that computes only the filled
+// capacity rows (entry ovp_grouped_mm_launch).
 //
 //   K1/K5: out[r, n]       = (sum_k a'[r, k] * w'[k, n]) * sa[r] * sw[n]
 //   K6:    out[b, e, c, n] = (sum_k a'[b, e, c, k] * w'[e, k, n])
@@ -92,32 +92,56 @@
 //     attention K 2048 -> N 4096 split 2 (512 of 512), N 512 split 8
 //     (256 of 128), K 4096 -> N 2048 split 4 (512 of 512). 41-61 KB of
 //     shared memory a block, 32 KB of it the byte table (above);
-// * the FMA body (ovp_mm_kernel, the first template, which K6 runs), as
-//   the fallback where a decode block's slice would not fit shared
-//   memory (K above about 38,000 at 8 rows): an 8 x 16 tile per block
-//   over all of K in stages of 256 pairs, the prologue per stage, 16
-//   k-groups reduced in shared memory, one block per tile. Its loads
-//   and FMAs run in series; the decode body was 14-49 % faster at every
-//   row count timed, 8 to 512 (both bodies forced in one run of
-//   chip_smoke.py, PERF.md), so no row count selects it.
+// * the FMA body (ovp_mm_kernel, the first template), as the fallback
+//   where a decode block's slice would not fit shared memory (K above
+//   about 38,000 at 8 rows): an 8 x 16 tile per block over all of K in
+//   stages of 256 pairs, the prologue per stage, 16 k-groups reduced in
+//   shared memory, one block per tile. Its loads and FMAs run in series;
+//   the decode body was 14-49 % faster at every row count timed, 8 to
+//   512 (both bodies forced in one run of chip_smoke.py, PERF.md), so no
+//   row count selects it.
 //
 // K6 (the MoE expert einsums wg, wu, wd; weight-only "fp" on the serving
-// path, every mode through the kernel API): grid (N / 16, ceil(R / BM),
-// E), one expert per blockIdx.z, its R = B * C rows (batch folded into
-// the expert's rows by address arithmetic, no permute copy of the
-// (B, E, C, K) activation). At decode (4 slots, capacity 4) R = 16 and
-// BM = 16, so each expert's packed weight tile is read once per call;
-// every capacity slot is computed, empty ones included, as the reference
-// computes them. What bounds it: the fp32 FMAs of B * E * C rows (Qwen3-
-// 30B-A3B wg at decode: 2048 x 2048 x 768, 6.4 GFLOP, 0.096 ms at 67
-// TFLOP/s) over the packed weight bytes (101 MB, 0.030 ms at 3.35 TB/s);
-// each column tile re-reads its expert's activation rows from L2.
+// path, every mode through the kernel API) computes only the capacity
+// slots that hold a token. The MoE dispatch puts the kept assignments of
+// (batch row b, expert e) in slots 0..fill[b, e] - 1, and the caller
+// passes that fill (B, E) on the card (no host sync): at decode (4
+// slots x top-8 of Qwen3-30B-A3B's 128 experts, capacity 4) about 30
+// experts hold 32 rows of the 2,048 slots, and their weights are about a
+// quarter of the 101 MB stack. Rows past the fill are left unwritten
+// (nothing reads them; the plain version writes zeros there). The
+// design, ovp_grouped_dec_kernel:
+//   - persistent: one wave of blocks walks work items (expert, up to 4
+//     filled rows, 64 output columns); the per-expert row counts and
+//     item offsets are scanned from the fill in each block's shared
+//     memory, so an expert with no filled row has no item and no block
+//     reads a byte of its weights, and the grid does not depend on the
+//     data;
+//   - the decode body per item (the same dec_issue / dec_compute as K1):
+//     cp.async weight streaming, the 16-copy byte table (in fp16, which
+//     holds every decoded 4-bit value exactly, halving its shared
+//     memory), the real rows only, the batch folded into the expert's
+//     rows through a row list (global row (b * E + e) * C + c);
+//   - what bounds it is latency, not bytes: a handful of small items per
+//     block, each a memory round trip plus a table-lookup chain. So an
+//     item is 64 columns wide (64-byte weight rows, four times the bytes
+//     of a 16-column tile per round trip), the next item's loads (and
+//     its column scales) go out before the current one computes (two
+//     buffers), its row list comes from the fill cached in shared
+//     memory, the FMA loop keeps four pair rows in flight, and K is not
+//     split over a cluster where the slice fits (a split costs two
+//     cluster barriers an item, more than it saves; measured, PERF.md);
+//   - a call without a fill (the kernel API) with more than 8 rows an
+//     expert runs the FMA body instead, as the wrapper's plan picks it:
+//     its 16-row tiles decode each weight once for 16 rows, an item for
+//     at most 4 (measured, PERF.md).
 //
 // Tolerance against the plain versions (kernels/ovp_matmul.py,
 // fused_ovp_matmul_plain and grouped_ovp_matmul_plain): decoded weights,
 // decoded codes and quantized activations are exact in both; only the
 // fp32 summation order differs, so rtol 1e-5 and atol 1e-5 * max|ref|.
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -135,9 +159,11 @@ constexpr int KG = NT / BN;   // k-groups (FMA body)
 // decode body: 4 threads x 4 columns cover the 16-column tile, so 64
 // k-groups of 4 threads, 8 of them in each warp
 constexpr int DEC_CPT = 4;                // columns per thread
-constexpr int DEC_KG = NT / (BN / DEC_CPT);
 constexpr int DEC_WARPS = NT / 32;
 constexpr int DEC_RM_MAX = 8;             // row tile cap
+constexpr int GROUPED_RM = 4;             // K6's row tile cap
+constexpr int GBN = 64;                   // K6's output columns an item
+constexpr int FILL_SMEM = 8192;           // K6 fill entries cached
 constexpr int DEC_STAGE = 128;            // K pairs per cp.async group
 // copies of the byte table: lane l of a half-warp reads copy l % 16, so
 // the 16 lanes of a 64-bit shared load hit 16 distinct bank pairs
@@ -228,20 +254,13 @@ __device__ __forceinline__ void pick_outlier(float u0, float u1, int dt,
   second = o1 && !first;
 }
 
-// Algorithm 1 on one scaled activation pair, value domain
+// Algorithm 1 on one scaled activation pair, value domain: the outlier
+// (at most one of the two) takes the abfloat round trip, run once per
+// pair and only for a pair that holds an outlier (about 2 in 100 on
+// outlier data), its partner is the victim (0), otherwise both take the
+// normal round trip. Every quantizing prologue calls this one function.
 __device__ __forceinline__ void quant_pair(float u0, float u1, int dt,
                                            float& q0, float& q1) {
-  const Spec s = spec_for(dt);
-  bool first, second;
-  pick_outlier(u0, u1, dt, first, second);
-  q0 = first ? rt_abfloat(u0, s) : (second ? 0.f : rt_normal(u0, dt));
-  q1 = second ? rt_abfloat(u1, s) : (first ? 0.f : rt_normal(u1, dt));
-}
-
-// the same values, with the abfloat round trip run once per pair and
-// only for a pair that holds an outlier (about 2 in 100 on outlier data)
-__device__ __forceinline__ void quant_pair_lazy(float u0, float u1, int dt,
-                                                float& q0, float& q1) {
   bool first, second;
   pick_outlier(u0, u1, dt, first, second);
   float ov = 0.f;
@@ -461,6 +480,21 @@ inline int dec_smem_bytes(int rm, int slice, int wrows, int split) {
          + DEC_WARPS * rm * BN * 4 + split * rm * BN * 4;
 }
 
+// K6's decode block: two buffers of the weight slice and of rm
+// activation rows, the byte table (half2), partials for GROUPED_RM rows,
+// two buffers of the item's GBN column scales, two item row lists
+// (GROUPED_RM 8-byte global rows each), the per-expert row counts and
+// item offsets (2 E + 1 ints) and, when cached, the fill (B x E int16);
+// grouped_launch_plan computes the same sum
+inline int grouped_smem_bytes(int rm, int slice, int wrows, int split,
+                              int E, int fill_entries) {
+  return 2 * (slice * GBN * wrows + rm * slice * 8)
+         + (wrows == 1 ? 256 * TAB_COPIES * 4 : 0)
+         + DEC_WARPS * GROUPED_RM * GBN * 4 + split * GROUPED_RM * GBN * 4
+         + 2 * GBN * 4 + 2 * GROUPED_RM * 8 + (2 * E + 1) * 4
+         + fill_entries * 2;
+}
+
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
@@ -470,125 +504,138 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
 
 // the two halves of a cluster barrier: arrive at the start, wait just
 // before the first distributed-shared-memory access (a block's shared
-// memory may be written by its cluster only once every block runs)
+// memory may be written by its cluster only once every block runs). The
+// dense kernel arrives relaxed, once; K6 arrives with release semantics
+// at every work item, so no block writes a peer's memory before the
+// peer is done reading it for the previous item.
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// One block: RM rows x 16 columns x one K slice of `slice` pairs. A
-// cluster holds `share` column tiles x `split` K slices: block x = c *
-// (share * split) + t * split + rank has column tile c * share + t and K
-// slice [rank * slice, min(K / 2, (rank + 1) * slice)); rank 0 of a tile
-// adds the tile's split partials and writes it. With share > 1
-// (quantize and static modes) the share blocks of one K slice each
-// quantize 1/share of its activations and store them into all share
-// blocks (share 1: its whole slice, in place), so a cluster quantizes
-// each activation pair once. Row tile r0 = blockIdx.y * RM.
-template <int WDT, int RM>
-__global__ void __launch_bounds__(NT)
-ovp_dec_kernel(const void* __restrict__ a, const float* __restrict__ sa,
-               const uint8_t* __restrict__ w, const float* __restrict__ sw,
-               float* __restrict__ out, int R, int K, int N, int a_mode,
-               int a_dtype, int split, int share, int slice,
-               float s_static) {
+// the global row of a tile's row r: K1/K5 rows r0 + r
+struct DenseRows {
+  int r0;
+  __device__ __forceinline__ size_t operator()(int r) const {
+    return (size_t)(r0 + r);
+  }
+};
+
+// K6: the item's rows, listed in shared memory
+struct ListedRows {
+  const long long* row;
+  __device__ __forceinline__ size_t operator()(int r) const {
+    return (size_t)row[r];
+  }
+};
+
+// The decode body on one tile (`rows` real rows, row_of(r) their global
+// rows, x 16 columns from n0 x one K slice, `rank` of `split`, for the
+// block at column position t of its cluster's `share` tiles), in two
+// phases so that K6 can issue one tile's loads while it computes the one
+// before:
+//
+// dec_issue: the whole slice in flight, a first commit group holding the
+// block's (part of the) fp32 activations (fp, quantize, static; the
+// quantize modes take this block's part [q_lo, q_hi) of the slice, all
+// of it when share == 1) and, given sw_s (K6), the tile's column scales,
+// then one group per stage of DEC_STAGE weight pair rows of the tile's
+// BNW columns (16 for K1/K5, 64 for K6). Returns the number of groups
+// committed.
+template <int WDT, int BNW, class RowOf>
+__device__ __forceinline__ int dec_issue(const void* __restrict__ a,
+                                         const uint8_t* __restrict__ w,
+                                         RowOf row_of, int rows, int K,
+                                         int N, int n0, int k2b, int len,
+                                         int q_lo, int q_hi, bool act_async,
+                                         int slice, uint8_t* w_s,
+                                         float2* a_s,
+                                         const float* sw = nullptr,
+                                         float* sw_s = nullptr) {
   constexpr int WROWS = WDT == DT_INT8 ? 2 : 1;  // weight byte rows per pair
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* w_s = smem;
-  float2* a_s = reinterpret_cast<float2*>(smem + (size_t)slice * BN * WROWS);
-  float2* tab = a_s + RM * slice;  // [byte][copy]
-  float* red = reinterpret_cast<float*>(
-      tab + (WDT == DT_INT8 ? 0 : 256 * TAB_COPIES));  // [warp][RM][BN]
-  float* gather = red + DEC_WARPS * RM * BN;         // [rank][RM][BN]
-
   const int tid = threadIdx.x;
-  const int csize = split * share, crank = blockIdx.x % csize;
-  const int t = crank / split, rank = crank % split;
-  const int n0 = (blockIdx.x / csize * share + t) * BN, r0 = blockIdx.y * RM;
-  const int rows = min(RM, R - r0);  // real rows of this tile
-  const int k2b = rank * slice;
-  const int len = max(0, min(K / 2 - k2b, slice));
-  const int nst = (len + DEC_STAGE - 1) / DEC_STAGE;
-  // fp32 activations (fp, quantize, static) stream in ahead of the
-  // weights; the quantize modes take this block's part [q_lo, q_hi) of
-  // the slice (all of it when share == 1)
-  const bool quant = a_mode == A_QUANT || a_mode == A_STATIC;
-  const bool act_async = quant || a_mode == A_FP;
-  const int q_sub = (len + share - 1) / share;
-  const int q_lo = min(len, t * q_sub), q_hi = min(len, q_lo + q_sub);
   const float* af = static_cast<const float*>(a);
-  if (csize > 1) cluster_arrive_relaxed();
-
-  // the epilogue's scales, read now so the tail waits on no load
-  const int er = tid / BN, ec = tid % BN;
-  float swc = 0.f, sar = 1.f;
-  if (rank == 0 && tid < RM * BN && er < rows) {
-    swc = sw[n0 + ec];
-    sar = row_scale(sa, r0 + er, a_mode);
-  }
-
-  // 1. the whole slice in flight: a first commit group holding the
-  // block's (part of the) activations, then one group per stage of
-  // weight rows
-  if (act_async) {
+  int groups = 0;
+  if (act_async || sw_s != nullptr) {
     const int m = q_hi - q_lo;
-    for (int i = tid; i < rows * m; i += NT) {
-      const int r = i / m, p = q_lo + i - r * m;
-      cp_async8(a_s + r * slice + p,
-                af + (size_t)(r0 + r) * K + 2 * (k2b + p));
+    if (act_async)
+      for (int i = tid; i < rows * m; i += NT) {
+        const int r = i / m, p = q_lo + i - r * m;
+        cp_async8(a_s + r * slice + p, af + row_of(r) * K + 2 * (k2b + p));
+      }
+    if (sw_s != nullptr && tid < BNW / 4)  // the tile's column scales
+      cp_async16(sw_s + 4 * tid, sw + n0 + 4 * tid);
+    cp_async_commit();
+    ++groups;
+  }
+  constexpr int CH = BNW / 16;  // 16-byte chunks of a weight byte row
+  for (int p0 = 0; p0 < len; p0 += DEC_STAGE) {
+    const int cnt = min(DEC_STAGE, len - p0);
+    for (int i = tid; i < cnt * WROWS * CH; i += NT) {
+      const int row = i / CH, ch = i - row * CH;
+      const size_t brow = (size_t)(k2b + p0) * WROWS + row;
+      cp_async16(w_s + ((size_t)p0 * WROWS + row) * BNW + 16 * ch,
+                 w + brow * N + n0 + 16 * ch);
     }
     cp_async_commit();
+    ++groups;
   }
-  for (int s = 0; s < nst; ++s) {
-    const int p0 = s * DEC_STAGE, cnt = min(DEC_STAGE, len - p0);
-    for (int i = tid; i < cnt * WROWS; i += NT) {
-      const size_t brow = (size_t)(k2b + p0) * WROWS + i;
-      cp_async16(w_s + ((size_t)p0 * WROWS + i) * BN, w + brow * N + n0);
-    }
-    cp_async_commit();
-  }
-  // 2. while they land: zero planes for rows past R (last row tile only),
-  // the byte table of the 4-bit weight types, and the codes modes'
-  // prologue (decoded from direct loads)
-  for (int i = tid; i < (RM - rows) * len; i += NT)
-    a_s[(rows + i / len) * slice + i % len] = make_float2(0.f, 0.f);
-  if (WDT != DT_INT8) {
-    float v0, v1;
-    dec_pair(tid >> 4, tid & 15, WDT, v0, v1);  // NT == 256 entries
-    // copies in a rotated order: a half-warp's stores hit distinct banks
-    for (int c = 0; c < TAB_COPIES; ++c)
-      tab[tid * TAB_COPIES + ((c + tid) & (TAB_COPIES - 1))] =
-          make_float2(v0, v1);
-  }
-  if (!act_async)
-    for (int i = tid; i < rows * len; i += NT) {
-      const int r = i / len, p = i - r * len;
-      float q0, q1;
-      act_pair(a, sa, r0 + r, k2b + p, K, a_mode, a_dtype, 1.f, q0, q1);
-      a_s[r * slice + p] = make_float2(q0, q1);
-    }
-  // 3. quantize, static: once the activations land, quantize this
-  // block's part (each thread the pairs it copied, so its own wait
-  // suffices) in place, or with share > 1 into every block of the
-  // cluster that holds the same K slice, then one cluster barrier
+  return groups;
+}
+
+// dec_compute, once the tile's loads are issued and the codes modes'
+// prologue has filled its activation planes: quantize / static quantize
+// this block's part in place, or with share > 1 into every block of the
+// cluster that holds the same K slice, one cluster barrier; the FMAs;
+// the block's partial; the K split's partials added in rank order by
+// rank 0 through distributed shared memory, which writes the tile.
+// pending < 0 (K1/K5): the FMAs start on each weight stage as it lands;
+// pending >= 0 (K6): wait for this tile's groups at once, `pending`
+// groups of the next tile still in flight. RM is the register row tile;
+// with DYN the FMAs and reductions of rows past `rows` are skipped (K6,
+// whose row count is the data's), else all RM rows are computed (K1/K5,
+// rows = RM but in a last ragged tile, whose planes are zeroed). The
+// caller has arrived at the cluster barrier when split * share > 1 (one
+// wait here matches it). swc, sar: the epilogue's scales, read early.
+template <int WDT, int RM, bool DYN, int BNW, class RowOf>
+__device__ __forceinline__ void dec_compute(
+    const float* __restrict__ sa, float* __restrict__ out, RowOf row_of,
+    int rows, int K, int N, int n0, int t, int rank, int split, int share,
+    int slice, int len, int q_lo, int q_hi, int a_mode, int a_dtype,
+    float s_static, int pending, float swc, float sar, const uint8_t* w_s,
+    float2* a_s, const void* tab, float* red, float* gather,
+    const float* sw_s = nullptr) {
+  // K6 (DYN) keeps its byte table in half precision: every decoded 4-bit
+  // value (at most 192 in magnitude, a few significant bits) is exact in
+  // fp16, and half the bytes halve the table's shared-memory traffic
+  constexpr bool HT = DYN;
+  const int tid = threadIdx.x;
+  const int nst = (len + DEC_STAGE - 1) / DEC_STAGE;
+  const bool staged = pending < 0;
+  if (!staged) cp_async_wait(pending);
+  // quantize, static (each thread quantizes the pairs it copied, so its
+  // own wait suffices)
   const float inv_static = 1.0f / s_static;  // IEEE: no fast-math
-  if (quant) {
-    cp_async_wait(nst);  // the oldest group: the activations
-    if (share > 1) cluster_wait();  // every block of the cluster runs
+  if (a_mode == A_QUANT || a_mode == A_STATIC) {
+    if (staged) cp_async_wait(nst);  // the oldest group: the activations
+    if (share > 1) cluster_wait();   // every block of the cluster runs
     const int m = q_hi - q_lo;
     for (int i = tid; i < rows * m; i += NT) {
       const int r = i / m, p = q_lo + i - r * m;
       const float2 x = a_s[r * slice + p];
       float q0, q1;
       if (a_mode == A_QUANT) {
-        const float s_r = sa[r0 + r];
-        quant_pair_lazy(x.x / s_r, x.y / s_r, a_dtype, q0, q1);
+        const float s_r = sa[row_of(r)];
+        quant_pair(x.x / s_r, x.y / s_r, a_dtype, q0, q1);
       } else {
-        quant_pair_lazy(x.x * inv_static, x.y * inv_static, a_dtype, q0,
-                        q1);
+        quant_pair(x.x * inv_static, x.y * inv_static, a_dtype, q0, q1);
       }
       if (share == 1) {
         a_s[r * slice + p] = make_float2(q0, q1);
@@ -601,10 +648,15 @@ ovp_dec_kernel(const void* __restrict__ a, const float* __restrict__ sa,
     }
     if (share > 1) cg::this_cluster().sync();
   }
-  // 4. per stage as it lands, the FMAs. Thread (kg, q) owns columns
-  // 4q..4q+3 and the pairs kg, kg + 64, ...
-  const int q = tid % (BN / DEC_CPT), kg = tid / (BN / DEC_CPT);
-  const float2* my_tab = tab + (tid & (TAB_COPIES - 1));
+  // the FMAs. Thread (kg, q) owns columns 4q..4q+3 and the pairs kg,
+  // kg + KGN, ... (64 k-groups for a 16-column tile, 16 for 64 columns)
+  constexpr int QN = BNW / DEC_CPT, KGN = NT / QN;
+  static_assert(RM * BNW <= NT, "one output a thread");
+  const int q = tid % QN, kg = tid / QN;
+  const float2* my_tab =
+      static_cast<const float2*>(tab) + (tid & (TAB_COPIES - 1));
+  const __half2* my_htab =
+      static_cast<const __half2*>(tab) + (tid & (TAB_COPIES - 1));
   float acc[RM][DEC_CPT];
 #pragma unroll
   for (int r = 0; r < RM; ++r)
@@ -612,31 +664,35 @@ ovp_dec_kernel(const void* __restrict__ a, const float* __restrict__ sa,
     for (int j = 0; j < DEC_CPT; ++j) acc[r][j] = 0.f;
   for (int s = 0; s < nst; ++s) {
     const int p0 = s * DEC_STAGE, cnt = min(DEC_STAGE, len - p0);
-    cp_async_wait(nst - 1 - s);
+    if (staged) cp_async_wait(nst - 1 - s);
     __syncthreads();
-    for (int p = p0 + kg; p < p0 + cnt; p += DEC_KG) {
+    // one pair row of this thread's 4 columns: decode, then the FMAs
+    auto step = [&](int p) {
       float w0[DEC_CPT], w1[DEC_CPT];
       if (WDT == DT_INT8) {
         const uint32_t ev = *reinterpret_cast<const uint32_t*>(
-            w_s + (size_t)(2 * p) * BN + DEC_CPT * q);
+            w_s + (size_t)(2 * p) * BNW + DEC_CPT * q);
         const uint32_t od = *reinterpret_cast<const uint32_t*>(
-            w_s + (size_t)(2 * p + 1) * BN + DEC_CPT * q);
+            w_s + (size_t)(2 * p + 1) * BNW + DEC_CPT * q);
 #pragma unroll
         for (int j = 0; j < DEC_CPT; ++j)
           dec_pair((ev >> (8 * j)) & 255, (od >> (8 * j)) & 255, WDT, w0[j],
                    w1[j]);
       } else {
         const uint32_t b = *reinterpret_cast<const uint32_t*>(
-            w_s + (size_t)p * BN + DEC_CPT * q);
+            w_s + (size_t)p * BNW + DEC_CPT * q);
 #pragma unroll
         for (int j = 0; j < DEC_CPT; ++j) {
-          const float2 t = my_tab[((b >> (8 * j)) & 255) * TAB_COPIES];
-          w0[j] = t.x;
-          w1[j] = t.y;
+          const int byte = (b >> (8 * j)) & 255;
+          const float2 tv = HT ? __half22float2(my_htab[byte * TAB_COPIES])
+                               : my_tab[byte * TAB_COPIES];
+          w0[j] = tv.x;
+          w1[j] = tv.y;
         }
       }
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
+        if (DYN && r >= rows) break;
         const float2 av = a_s[r * slice + p];
 #pragma unroll
         for (int j = 0; j < DEC_CPT; ++j) {
@@ -644,46 +700,341 @@ ovp_dec_kernel(const void* __restrict__ a, const float* __restrict__ sa,
           acc[r][j] = fmaf(av.y, w1[j], acc[r][j]);
         }
       }
+    };
+    if (DYN && WDT != DT_INT8) {
+      // K6's item has a row or two: the table-lookup chain, not the FMAs,
+      // sets the pace, so four pair rows are in flight at once (int8's
+      // arithmetic decode would spill registers unrolled)
+#pragma unroll 4
+      for (int p = p0 + kg; p < p0 + cnt; p += KGN) step(p);
+    } else {
+      for (int p = p0 + kg; p < p0 + cnt; p += KGN) step(p);
     }
   }
-  // 5. the block's partial: the 8 k-groups of a warp by shuffles (lanes
-  // 4 apart share q), then the 8 warps in order
+  // the block's partial: the k-groups of a warp by shuffles (lanes QN
+  // apart share q), then the 8 warps in order
   const int warp = tid / 32, lane = tid % 32;
 #pragma unroll
-  for (int r = 0; r < RM; ++r)
+  for (int r = 0; r < RM; ++r) {
+    if (DYN && r >= rows) break;
 #pragma unroll
     for (int j = 0; j < DEC_CPT; ++j) {
       float v = acc[r][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < BN / DEC_CPT)
-        red[(warp * RM + r) * BN + DEC_CPT * lane + j] = v;
+#pragma unroll
+      for (int o = QN; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane < QN) red[(warp * RM + r) * BNW + DEC_CPT * lane + j] = v;
     }
+  }
   __syncthreads();
+  const int er = tid / BNW, ec = tid % BNW;
   float part = 0.f;
-  if (tid < RM * BN)
-    for (int g = 0; g < DEC_WARPS; ++g) part += red[g * RM * BN + tid];
-  // 6. the K split: every block stores its partial into the shared
-  // memory of its tile's rank 0 (distributed shared memory), one cluster
-  // barrier, and rank 0 adds them in rank order; no block reads another's
-  // memory after it
+  if (tid < RM * BNW && er < rows)
+    for (int g = 0; g < DEC_WARPS; ++g) part += red[g * RM * BNW + tid];
+  // the K split: every block stores its partial into the shared memory
+  // of its tile's rank 0, one cluster barrier, and rank 0 adds them in
+  // rank order; no block reads another's memory after it
   if (split > 1) {
     cg::cluster_group cluster = cg::this_cluster();
     if (share == 1) cluster_wait();  // every block of the cluster runs
-    if (tid < RM * BN)
-      cluster.map_shared_rank(gather, t * split)[rank * RM * BN + tid] =
+    if (tid < RM * BNW)
+      cluster.map_shared_rank(gather, t * split)[rank * RM * BNW + tid] =
           part;
     cluster.sync();
-    if (rank == 0 && tid < RM * BN) {
+    if (rank == 0 && tid < RM * BNW) {
       part = 0.f;
       for (int src = 0; src < split; ++src)
-        part += gather[src * RM * BN + tid];
+        part += gather[src * RM * BNW + tid];
     }
   }
-  if (rank == 0 && tid < RM * BN && er < rows)
-    out[(size_t)(r0 + er) * N + n0 + ec] =
+  if (rank == 0 && tid < RM * BNW && er < rows) {
+    if (sw_s != nullptr) swc = sw_s[ec];
+    out[row_of(er) * N + n0 + ec] =
         epilogue(part, a_mode, sar, swc, s_static);
+  }
+}
+
+// K1/K5: the epilogue's scales of thread tid's (row, column), read
+// before the tile's loads land so the tail waits on no load
+template <class RowOf>
+__device__ __forceinline__ void epilogue_scales(const float* sa,
+                                                const float* sw,
+                                                RowOf row_of, int rows,
+                                                int n0, int rank, int rm,
+                                                int a_mode, float& swc,
+                                                float& sar) {
+  const int tid = threadIdx.x, er = tid / BN, ec = tid % BN;
+  swc = 0.f;
+  sar = 1.f;
+  if (rank == 0 && tid < rm * BN && er < rows) {
+    swc = sw[n0 + ec];
+    sar = row_scale(sa, row_of(er), a_mode);
+  }
+}
+
+// the codes modes' prologue: decoded from direct loads into the planes
+template <class RowOf>
+__device__ __forceinline__ void codes_prologue(const void* a,
+                                               const float* sa,
+                                               RowOf row_of, int rows,
+                                               int K, int k2b, int len,
+                                               int slice, int a_mode,
+                                               int a_dtype, float2* a_s) {
+  for (int i = threadIdx.x; i < rows * len; i += NT) {
+    const int r = i / len, p = i - r * len;
+    float q0, q1;
+    act_pair(a, sa, row_of(r), k2b + p, K, a_mode, a_dtype, 1.f, q0, q1);
+    a_s[r * slice + p] = make_float2(q0, q1);
+  }
+}
+
+// the byte table of the 4-bit weight types, in TAB_COPIES copies, as
+// float2 (K1/K5) or half2 (K6, HT)
+template <int WDT, bool HT>
+__device__ __forceinline__ void build_table(void* tab) {
+  if (WDT == DT_INT8) return;
+  const int tid = threadIdx.x;
+  float v0, v1;
+  dec_pair(tid >> 4, tid & 15, WDT, v0, v1);  // NT == 256 entries
+  // copies in a rotated order: a half-warp's stores hit distinct banks
+  for (int c = 0; c < TAB_COPIES; ++c) {
+    const int at = tid * TAB_COPIES + ((c + tid) & (TAB_COPIES - 1));
+    if (HT)
+      static_cast<__half2*>(tab)[at] = __floats2half2_rn(v0, v1);
+    else
+      static_cast<float2*>(tab)[at] = make_float2(v0, v1);
+  }
+}
+
+// K1/K5, one block: RM rows x 16 columns x one K slice of `slice` pairs.
+// A cluster holds `share` column tiles x `split` K slices: block x = c *
+// (share * split) + t * split + rank has column tile c * share + t and K
+// slice [rank * slice, min(K / 2, (rank + 1) * slice)); rank 0 of a tile
+// adds the tile's split partials and writes it. With share > 1
+// (quantize and static modes) the share blocks of one K slice each
+// quantize 1/share of its activations and store them into all share
+// blocks (share 1: its whole slice, in place), so a cluster quantizes
+// each activation pair once. Row tile r0 = blockIdx.y * RM. While the
+// loads land: zero planes for rows past R (last row tile only), the
+// byte table, the codes modes' prologue.
+template <int WDT, int RM>
+__global__ void __launch_bounds__(NT)
+ovp_dec_kernel(const void* __restrict__ a, const float* __restrict__ sa,
+               const uint8_t* __restrict__ w, const float* __restrict__ sw,
+               float* __restrict__ out, int R, int K, int N, int a_mode,
+               int a_dtype, int split, int share, int slice,
+               float s_static) {
+  constexpr int WROWS = WDT == DT_INT8 ? 2 : 1;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* w_s = smem;
+  float2* a_s = reinterpret_cast<float2*>(smem + (size_t)slice * BN * WROWS);
+  float2* tab = a_s + RM * slice;  // [byte][copy]
+  float* red = reinterpret_cast<float*>(
+      tab + (WDT == DT_INT8 ? 0 : 256 * TAB_COPIES));  // [warp][RM][BN]
+  float* gather = red + DEC_WARPS * RM * BN;         // [rank][RM][BN]
+
+  const int tid = threadIdx.x;
+  const int csize = split * share, crank = blockIdx.x % csize;
+  const int t = crank / split, rank = crank % split;
+  const int n0 = (blockIdx.x / csize * share + t) * BN, r0 = blockIdx.y * RM;
+  const int rows = min(RM, R - r0);
+  const DenseRows row_of{r0};
+  const int k2b = rank * slice, len = max(0, min(K / 2 - k2b, slice));
+  const int q_sub = (len + share - 1) / share;
+  const int q_lo = min(len, t * q_sub), q_hi = min(len, q_lo + q_sub);
+  const bool act_async =
+      a_mode == A_FP || a_mode == A_QUANT || a_mode == A_STATIC;
+  if (csize > 1) cluster_arrive_relaxed();
+  float swc, sar;
+  epilogue_scales(sa, sw, row_of, rows, n0, rank, RM, a_mode, swc, sar);
+  dec_issue<WDT, BN>(a, w, row_of, rows, K, N, n0, k2b, len, q_lo, q_hi,
+                     act_async, slice, w_s, a_s);
+  for (int i = tid; i < (RM - rows) * len; i += NT)
+    a_s[(rows + i / len) * slice + i % len] = make_float2(0.f, 0.f);
+  build_table<WDT, false>(tab);
+  if (!act_async)
+    codes_prologue(a, sa, row_of, rows, K, k2b, len, slice, a_mode, a_dtype,
+                   a_s);
+  dec_compute<WDT, RM, false, BN>(sa, out, row_of, rows, K, N, n0, t, rank,
+                                  split, share, slice, len, q_lo, q_hi,
+                                  a_mode, a_dtype, s_static, -1, swc, sar,
+                                  w_s, a_s, tab, red, gather);
+}
+
+// K6, persistent (the header says why): gridDim.x blocks (whole
+// clusters of split x share) walk the call's work items. The per-expert
+// row counts come from the fill (or B * C each without it); an expert
+// with rows has ceil(rows / rm) row items, and an item is (row item,
+// group of `share` 64-column groups), in expert order. Cluster c takes
+// items c, c + clusters, ...; an expert with no filled row has no item.
+// The rows of item (e, y) are the expert's filled rows y * rm .. y * rm
+// + rm - 1 in batch order: row j of expert e is slot c of batch row b,
+// where the rows of batch rows before b take the first j - c; global
+// row (b * E + e) * C + c of the (B, E, C, K) activation and (B, E, C,
+// N) output. Rows past a (b, e)'s fill are never written. The fill is
+// copied to shared memory once (int16, when B x E is at most FILL_SMEM
+// entries; else it is read from global memory), every item's row list
+// is a scan of it, and the next item's loads are issued into the second
+// of two buffers before the current item computes; the byte table is
+// built once per block.
+template <int WDT>
+__global__ void __launch_bounds__(NT)
+ovp_grouped_dec_kernel(const void* __restrict__ a,
+                       const float* __restrict__ sa,
+                       const uint8_t* __restrict__ w,
+                       const float* __restrict__ sw,
+                       float* __restrict__ out, const int* __restrict__ fill,
+                       int B, int E, int C, int K, int N, int a_mode,
+                       int a_dtype, int rm, int split, int share, int slice,
+                       int fill_cached, float s_static) {
+  constexpr int WROWS = WDT == DT_INT8 ? 2 : 1;
+  constexpr int RM = GROUPED_RM;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int wbytes = slice * GBN * WROWS;
+  uint8_t* w_buf[2] = {smem, smem + wbytes};
+  float2* a_buf[2] = {reinterpret_cast<float2*>(smem + 2 * wbytes),
+                      reinterpret_cast<float2*>(smem + 2 * wbytes) +
+                          rm * slice};
+  __half2* tab = reinterpret_cast<__half2*>(a_buf[1] + rm * slice);
+  float* red = reinterpret_cast<float*>(
+      tab + (WDT == DT_INT8 ? 0 : 256 * TAB_COPIES));
+  float* gather = red + DEC_WARPS * RM * GBN;
+  float* sw_buf[2] = {gather + split * RM * GBN,
+                      gather + split * RM * GBN + GBN};
+  long long* rowlist = reinterpret_cast<long long*>(sw_buf[1] + GBN);
+  int* cnt = reinterpret_cast<int*>(rowlist + 2 * RM);  // [E] rows per expert
+  int* ystart = cnt + E;                                // [E + 1] first item
+  short* fill_s = reinterpret_cast<short*>(ystart + E + 1);  // [B][E]
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  if (fill != nullptr && fill_cached)
+    for (int i = tid; i < B * E; i += NT)
+      fill_s[i] = (short)min(max(fill[i], 0), C);
+  __syncthreads();
+  auto fill_at = [&](int b, int e) {
+    return fill_cached ? (int)fill_s[b * E + e]
+                       : min(max(fill[(size_t)b * E + e], 0), C);
+  };
+  for (int e = tid; e < E; e += NT) {
+    int c = B * C;
+    if (fill != nullptr) {
+      c = 0;
+      for (int b = 0; b < B; ++b) c += fill_at(b, e);
+    }
+    cnt[e] = c;
+  }
+  __syncthreads();
+  if (tid < 32) {  // exclusive scan of the row items per expert
+    int run = 0;
+    for (int e0 = 0; e0 < E; e0 += 32) {
+      const int e = e0 + lane;
+      const int v = e < E ? (cnt[e] + rm - 1) / rm : 0;
+      int incl = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += u;
+      }
+      if (e < E) ystart[e] = run + incl - v;
+      run += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) ystart[E] = run;
+  }
+  build_table<WDT, true>(tab);
+  __syncthreads();
+
+  const int csize = split * share, crank = blockIdx.x % csize;
+  const int t = crank / split, rank = crank % split;
+  const int groups = (N / GBN) / share;
+  const int items = ystart[E] * groups, stride = gridDim.x / csize;
+  const size_t wstride = (size_t)(K / 2) * WROWS * N;
+  const int k2b = rank * slice, len = max(0, min(K / 2 - k2b, slice));
+  const int q_sub = (len + share - 1) / share;
+  const int q_lo = min(len, t * q_sub), q_hi = min(len, q_lo + q_sub);
+  const bool act_async =
+      a_mode == A_FP || a_mode == A_QUANT || a_mode == A_STATIC;
+
+  // item it -> its expert, first row, rows and column offset; its row
+  // list into rowlist[buf * RM ...]
+  auto locate = [&](int it, int& e, int& rows, int& n0) {
+    const int yi = it / groups, cgi = it % groups;
+    int lo = 0, hi = E;  // the e with ystart[e] <= yi < ystart[e + 1]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) / 2;
+      if (ystart[mid] <= yi) lo = mid; else hi = mid;
+    }
+    e = lo;
+    const int r0 = (yi - ystart[e]) * rm;
+    rows = min(rm, cnt[e] - r0);
+    n0 = (cgi * share + t) * GBN;
+    return r0;
+  };
+  auto list_rows = [&](int e, int r0, int rows, long long* list) {
+    if (fill != nullptr) {
+      if (tid < 32) {  // scan the fill over batch rows, 32 at a time
+        int run = 0;
+        for (int b0 = 0; b0 < B && run < r0 + rows; b0 += 32) {
+          const int b = b0 + lane;
+          const int f = b < B ? fill_at(b, e) : 0;
+          int incl = f;
+          for (int o = 1; o < 32; o <<= 1) {
+            const int u = __shfl_up_sync(0xffffffffu, incl, o);
+            if (lane >= o) incl += u;
+          }
+          const int jlo = run + incl - f, jhi = run + incl;
+          for (int j = max(jlo, r0); j < min(jhi, r0 + rows); ++j)
+            list[j - r0] = ((long long)b * E + e) * C + (j - jlo);
+          run += __shfl_sync(0xffffffffu, incl, 31);
+        }
+      }
+    } else if (tid < rows) {
+      const int j = r0 + tid;
+      list[tid] = ((long long)(j / C) * E + e) * C + j % C;
+    }
+  };
+
+  int it = blockIdx.x / csize, e = 0, rows = 0, n0 = 0, pend = 0;
+  if (it < items) {
+    const int r0 = locate(it, e, rows, n0);
+    list_rows(e, r0, rows, rowlist);
+    __syncthreads();
+    dec_issue<WDT, GBN>(a, w + e * wstride, ListedRows{rowlist}, rows, K, N,
+                        n0, k2b, len, q_lo, q_hi, act_async, slice,
+                        w_buf[0], a_buf[0], sw + (size_t)e * N, sw_buf[0]);
+  }
+  for (int k = 0; it < items; it += stride, ++k) {
+    const int buf = k & 1;
+    const ListedRows cur{rowlist + buf * RM};
+    // the next item's loads go out before this one computes
+    const int nxt = it + stride;
+    int ne = 0, nrows = 0, nn0 = 0;
+    pend = 0;
+    if (nxt < items) {
+      const int nr0 = locate(nxt, ne, nrows, nn0);
+      list_rows(ne, nr0, nrows, rowlist + (buf ^ 1) * RM);
+      __syncthreads();
+      pend = dec_issue<WDT, GBN>(a, w + ne * wstride,
+                                 ListedRows{rowlist + (buf ^ 1) * RM}, nrows,
+                                 K, N, nn0, k2b, len, q_lo, q_hi, act_async,
+                                 slice, w_buf[buf ^ 1], a_buf[buf ^ 1],
+                                 sw + (size_t)ne * N, sw_buf[buf ^ 1]);
+    }
+    if (csize > 1) cluster_arrive();
+    // the column scale lands with the item's loads; the row scale (the
+    // quantize and codes modes only) is read here
+    const float sar =
+        row_scale(sa, cur(min((int)threadIdx.x / GBN, rows - 1)), a_mode);
+    if (!act_async)
+      codes_prologue(a, sa, cur, rows, K, k2b, len, slice, a_mode, a_dtype,
+                     a_buf[buf]);
+    dec_compute<WDT, RM, true, GBN>(sa, out, cur, rows, K, N, n0, t, rank,
+                                    split, share, slice, len, q_lo, q_hi,
+                                    a_mode, a_dtype, s_static, pend, 0.f,
+                                    sar, w_buf[buf], a_buf[buf], tab, red,
+                                    gather, sw_buf[buf]);
+    __syncthreads();  // the next issue rewrites this item's buffers
+    e = ne;
+    rows = nrows;
+    n0 = nn0;
+  }
 }
 
 template <int WDT, int RM>
@@ -737,6 +1088,85 @@ int launch_dec(int rm, const void* a, const float* sa, const uint8_t* w,
       return (int)cudaErrorInvalidValue;
   }
 #undef OVP_DEC_RM
+}
+
+// K6's persistent grid: as many whole clusters as are resident at once
+// on the card (one wave), at most one per work item of a full fill. The
+// kernel prefers the largest shared-memory carveout, so that as many
+// blocks share an SM as their dynamic shared memory allows; the
+// occupancy is asked once per (instantiation, shared bytes).
+template <int WDT>
+int grouped_grid(int B, int E, int C, int N, int rm, int split, int share,
+                 int smem, int* blocks) {
+  auto kern = ovp_grouped_dec_kernel<WDT>;
+  static cudaError_t attr_err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  static const cudaError_t carve_err =
+      attr_err != cudaSuccess ? attr_err
+                              : cudaFuncSetAttribute(
+                                    kern,
+                                    cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    (int)cudaSharedmemCarveoutMaxShared);
+  if (carve_err != cudaSuccess) return (int)carve_err;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  static int seen_smem[8] = {0}, seen_blocks[8] = {0};
+  int per_sm = 0;
+  for (int i = 0; i < 8 && seen_smem[i] != 0; ++i)
+    if (seen_smem[i] == smem) per_sm = seen_blocks[i];
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, NT, smem);
+    if (e != cudaSuccess) return (int)e;
+    per_sm = max(per_sm, 1);
+    for (int i = 0; i < 8; ++i)
+      if (seen_smem[i] == 0 || i == 7) {
+        seen_smem[i] = smem;
+        seen_blocks[i] = per_sm;
+        break;
+      }
+  }
+  const int csize = split * share;
+  const long long most = (long long)E * ((B * C + rm - 1) / rm) *
+                         ((N / GBN) / share);
+  *blocks = csize * (int)min(most, (long long)max(sms * per_sm / csize, 1));
+  return (int)cudaSuccess;
+}
+
+template <int WDT>
+int launch_grouped_dec(const void* a, const float* sa, const uint8_t* w,
+                       const float* sw, float* out, const int* fill, int B,
+                       int E, int C, int K, int N, int a_mode, int a_dtype,
+                       int rm, int split, int share, int slice, int smem,
+                       float s_static, cudaStream_t st) {
+  int blocks = 0;
+  const int err0 =
+      grouped_grid<WDT>(B, E, C, N, rm, split, share, smem, &blocks);
+  if (err0 != 0) return err0;
+  const int csize = split * share;
+  const int fill_cached = fill != nullptr && B * E <= FILL_SMEM;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = csize > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, ovp_grouped_dec_kernel<WDT>, a, sa, w, sw, out, fill, B, E, C,
+      K, N, a_mode, a_dtype, rm, split, share, slice, fill_cached, s_static);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -794,23 +1224,86 @@ extern "C" int ovp_mm_launch(const void* a, const void* sa, const void* w,
 }
 
 // K6: a (B, E, C, Ka) in the K1 layouts, sa (B, E, C) f32, w (E, Kw, N),
-// sw (E, N) f32, out (B, E, C, N) f32; every expert's R = B * C rows in
-// one launch, grid (N / 16, ceil(R / BM), E). Row tile BM = 16 when an
-// expert has more than 8 rows (16 at decode: 4 slots x capacity 4), so
-// each expert's weight tile is read once per call; else 8. Same layout
-// rules as K1. Returns cudaGetLastError().
+// sw (E, N) f32, out (B, E, C, N) f32; fill (B, E) int32 or null: row c
+// of (b, e) is computed only for c < fill[b, e] (clamped into [0, C];
+// null: every row), the other rows of out are left unwritten. body 0
+// (decode): the persistent grouped kernel with row tile rm (1..8, at
+// most B * C), a cluster of split x share blocks (as K1's), slice K
+// pairs a block and smem dynamic shared bytes (at least
+// grouped_smem_bytes); body 1 (FMA): the FMA template over every row of
+// every expert, grid (N / 16, ceil(B * C / BM), E) with BM 8 up to 8
+// rows an expert and 16 above, for a K slice that does not fit or a
+// call without a fill above 8 rows an expert (fill ignored: computing a
+// row past it is harmless, its value is unspecified). Same layout rules
+// as K1. Returns the launch's cudaError_t.
 extern "C" int ovp_grouped_mm_launch(const void* a, const void* sa,
                                      const void* w, const void* sw,
-                                     void* out, int B, int E, int C, int K,
-                                     int N, int w_dtype, int a_mode,
-                                     int a_dtype, float s_static,
+                                     void* out, const void* fill, int B,
+                                     int E, int C, int K, int N, int w_dtype,
+                                     int a_mode, int a_dtype, int body,
+                                     int rm, int split, int share, int slice,
+                                     int smem, float s_static,
                                      void* stream) {
   const int R = B * C;
-  return R > BM_DENSE
-             ? launch_fma<BM_GROUPED>(a, sa, w, sw, out, R, K, N, E, C,
+  if (body == BODY_FMA)
+    return R > BM_DENSE
+               ? launch_fma<BM_GROUPED>(a, sa, w, sw, out, R, K, N, E, C,
+                                        w_dtype, a_mode, a_dtype, s_static,
+                                        stream)
+               : launch_fma<BM_DENSE>(a, sa, w, sw, out, R, K, N, E, C,
                                       w_dtype, a_mode, a_dtype, s_static,
-                                      stream)
-             : launch_fma<BM_DENSE>(a, sa, w, sw, out, R, K, N, E, C,
-                                    w_dtype, a_mode, a_dtype, s_static,
-                                    stream);
+                                      stream);
+  const int wrows = w_dtype == DT_INT8 ? 2 : 1;
+  const bool pow2 = split > 0 && share > 0 && !(split & (split - 1)) &&
+                    !(share & (share - 1));
+  const int fill_entries = fill != nullptr && B * E <= FILL_SMEM ? B * E : 0;
+  if (body != BODY_DECODE || rm < 1 || rm > GROUPED_RM || rm > R ||
+      N % GBN != 0 || slice < 1 || !pow2 || split * share > 8 ||
+      (N / GBN) % share != 0 ||
+      (share > 1 && a_mode != A_QUANT && a_mode != A_STATIC) ||
+      (long long)split * slice < K / 2 || smem > SMEM_MAX ||
+      smem < grouped_smem_bytes(rm, slice, wrows, split, E, fill_entries))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* saf = static_cast<const float*>(sa);
+  const uint8_t* wb = static_cast<const uint8_t*>(w);
+  const float* swf = static_cast<const float*>(sw);
+  const int* fi = static_cast<const int*>(fill);
+  float* of = static_cast<float*>(out);
+  switch (w_dtype) {
+    case DT_INT4:
+      return launch_grouped_dec<DT_INT4>(a, saf, wb, swf, of, fi, B, E, C, K,
+                                         N, a_mode, a_dtype, rm, split,
+                                         share, slice, smem, s_static, st);
+    case DT_FLINT4:
+      return launch_grouped_dec<DT_FLINT4>(a, saf, wb, swf, of, fi, B, E, C,
+                                           K, N, a_mode, a_dtype, rm, split,
+                                           share, slice, smem, s_static, st);
+    case DT_INT8:
+      return launch_grouped_dec<DT_INT8>(a, saf, wb, swf, of, fi, B, E, C, K,
+                                         N, a_mode, a_dtype, rm, split,
+                                         share, slice, smem, s_static, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The block count of K6's persistent grid for this plan (what
+// ovp_grouped_mm_launch launches with body 0), into *blocks. Returns a
+// cudaError_t.
+extern "C" int ovp_grouped_grid(int B, int E, int C, int N, int w_dtype,
+                                int rm, int split, int share, int smem,
+                                void* blocks) {
+  int* out = static_cast<int*>(blocks);
+  switch (w_dtype) {
+    case DT_INT4:
+      return grouped_grid<DT_INT4>(B, E, C, N, rm, split, share, smem, out);
+    case DT_FLINT4:
+      return grouped_grid<DT_FLINT4>(B, E, C, N, rm, split, share, smem,
+                                     out);
+    case DT_INT8:
+      return grouped_grid<DT_INT8>(B, E, C, N, rm, split, share, smem, out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

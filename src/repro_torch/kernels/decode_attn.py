@@ -8,8 +8,9 @@ K2 replaces the TPU kernel `repro/kernels/decode_attn.py:358`
 `_paged_decode_attn_call` :404, with their wrapper
 `fused_decode_attention` :485. Single-token GQA attention: q (B, 1, H, D)
 against a packed cache ({"k_data", "v_data"} (B, S, Hkv, D/2) uint8
-nibbles + {"k_scl", "v_scl"} (B, S, Hkv) f32) or an fp32 cache ({"k",
-"v"} (B, S, Hkv, D)), with length / ring / sliding-window masking from
+nibbles + {"k_scl", "v_scl"} (B, S, Hkv) f32) or an fp cache ({"k",
+"v"} (B, S, Hkv, D) in f32, bf16 or fp16), with length / ring /
+sliding-window masking from
 `pos` (B,). A paged cache holds the same leaves as `(P, page_size, …)`
 pools plus a "block_table" (B, pages_per_row) int32 mapping logical page
 j of row b to a physical page. The kernel source is `csrc/decode_attn.cu`
@@ -18,7 +19,9 @@ j of row b to a physical page. The kernel source is `csrc/decode_attn.cu`
 `fused_decode_attention` takes `decode_attention_plain` for CPU tensors
 and launches K2 (slab) for CUDA tensors, or raises; paged caches go to
 `fused_paged_decode_attention`, which launches K3. Each wrapper's
-`.launches` counts its kernel's launches.
+`.launches` counts its kernel's launches. `kernel_layout` is the
+launch's layout check (any G, D % 8 == 0, tiles sized from (G, D) in
+dynamic shared memory), pure so that it is testable without a card.
 `xla_decode_attention` is the port of the reference's dense path (what
 the `eager` backend serves): whole-cache dequantize, then einsum, in
 bfloat16 for packed caches exactly as the reference rounds it; a paged
@@ -27,6 +30,7 @@ cache is gathered into a slab first (`gather_paged_cache`).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional
 
@@ -39,7 +43,6 @@ from . import _build
 
 NEG_INF = -1e30
 KV_NORMAL_DTYPE = "int4"
-_DMAX, _GMAX = 128, 8   # the kernel's shared-memory limits
 
 
 def dequant_codes(data: torch.Tensor) -> torch.Tensor:
@@ -212,6 +215,43 @@ _SIGNATURE = {
     "paged_decode_attn_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
+# the cache kinds of the C entries: OVP-packed, or fp in one of these
+FP_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
+SMEM_MAX = 232448     # 227 KB, a block's dynamic shared-memory cap
+_TS = 32              # kv tokens per tile
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLayout:
+    """One K2/K3 launch's layout: `g` query heads per kv head, head dim
+    `d`, cache `kind` (0 packed, else `FP_KINDS`) and the block's dynamic
+    shared bytes (csrc/decode_attn.cu's `smem_bytes`)."""
+    g: int
+    d: int
+    kind: int
+    smem: int
+
+
+def kernel_layout(h: int, hkv: int, d: int,
+                  fp_dtype: Optional[torch.dtype] = None) -> KernelLayout:
+    """The K2/K3 layout of H query heads over Hkv kv heads of dim D, for
+    a packed cache (`fp_dtype` None) or an fp cache of `fp_dtype`; raises
+    ValueError / TypeError on what the kernel cannot take."""
+    g = h // hkv if hkv > 0 else 0
+    if hkv < 1 or g * hkv != h or d < 8 or d % 8:
+        raise ValueError(f"decode_attn kernel needs H % Hkv == 0 and D % 8 "
+                         f"== 0; got H={h} Hkv={hkv} D={d}")
+    if fp_dtype is not None and fp_dtype not in FP_KINDS:
+        raise TypeError(f"decode_attn kernel takes fp caches in "
+                        f"{sorted(map(str, FP_KINDS))}, got {fp_dtype}")
+    smem = 4 * (_TS * d + _TS * (d + 1) + 2 * g * d + g * _TS + 3 * g
+                + 2 * _TS)
+    if smem > SMEM_MAX:
+        raise ValueError(f"decode_attn kernel: G={g}, D={d} needs {smem} "
+                         f"bytes of shared memory, over {SMEM_MAX}")
+    return KernelLayout(g, d, 0 if fp_dtype is None else FP_KINDS[fp_dtype],
+                        smem)
+
 
 def _launch(q: torch.Tensor, cache, pos: torch.Tensor, *, window: int,
             ring: int) -> torch.Tensor:
@@ -221,14 +261,10 @@ def _launch(q: torch.Tensor, cache, pos: torch.Tensor, *, window: int,
     kd = cache["k_data"] if packed else cache["k"]
     vd = cache["v_data"] if packed else cache["v"]
     hkv = kd.shape[2]
-    g = h // hkv
-    if g * hkv != h or g > _GMAX or d > _DMAX or d % 8:
-        raise ValueError(f"decode_attn kernel needs H % Hkv == 0, "
-                         f"G <= {_GMAX}, D <= {_DMAX} and D % 8 == 0; got "
-                         f"H={h} Hkv={hkv} D={d}")
-    if not packed and kd.dtype != torch.float32:
-        raise TypeError(f"decode_attn kernel takes f32 fp caches, got "
-                        f"{kd.dtype}")
+    lay = kernel_layout(h, hkv, d, None if packed else kd.dtype)
+    if not packed and vd.dtype != kd.dtype:
+        raise TypeError(f"decode_attn kernel: k cache {kd.dtype}, v cache "
+                        f"{vd.dtype}")
     ks = cache["k_scl"] if packed else kd
     vs = cache["v_scl"] if packed else vd
     ops = [t.contiguous() for t in (q.to(torch.float32), kd, vd, ks, vs)]
@@ -249,14 +285,14 @@ def _launch(q: torch.Tensor, cache, pos: torch.Tensor, *, window: int,
                              f"over {n} pages of {ps}")
         err = lib.paged_decode_attn_launch(
             *(t.data_ptr() for t in ops), pos32.data_ptr(), bt.data_ptr(),
-            out.data_ptr(), b, s_len, hkv, g, d, n, ps, n_pool, int(packed),
+            out.data_ptr(), b, s_len, hkv, lay.g, d, n, ps, n_pool, lay.kind,
             _qscale(d), int(window), int(ring), stream)
         _build.check(err, "paged_decode_attn")
         fused_paged_decode_attention.launches += 1
     else:
         err = lib.decode_attn_launch(
             *(t.data_ptr() for t in ops), pos32.data_ptr(), out.data_ptr(),
-            b, kd.shape[1], hkv, g, d, int(packed), _qscale(d), int(window),
+            b, kd.shape[1], hkv, lay.g, d, lay.kind, _qscale(d), int(window),
             int(ring), stream)
         _build.check(err, "decode_attn")
         fused_decode_attention.launches += 1

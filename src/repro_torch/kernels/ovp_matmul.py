@@ -45,7 +45,12 @@ mode above (the MoE expert einsums run `fp`). `grouped_ovp_matmul`
 folds the dims left of (E, C, K) into B, broadcasts the scales to
 (B, E, C) and (E, N), and launches one kernel (`ovp_grouped_mm_launch`
 in the same source); `grouped_ovp_matmul.mode_launches[mode]` counts
-its launches apart from K1's.
+its launches apart from K1's. Given the MoE dispatch's `fill` (B, E),
+the kernel computes only rows c < fill[b, e] and reads only the
+weights of experts with a filled row (a persistent grid on the decode
+body; `grouped_launch_plan` works out its geometry, `GroupedPlan.items`
+its work for a fill); the rows past the fill are left unwritten. A call
+without a fill with more than 8 rows an expert runs the FMA body.
 """
 from __future__ import annotations
 
@@ -171,20 +176,28 @@ def fused_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
 def grouped_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
                              w_data: torch.Tensor, sw: torch.Tensor, *,
                              w_dtype: str, a_mode: str, a_dtype: str,
-                             s_static: Optional[float] = None
+                             s_static: Optional[float] = None,
+                             fill: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """K6's arithmetic: a (B, E, C, Ka) f32 or codes; sa (B, E, C) slot
     scales (quantize and codes modes) or None; w_data (E, Kw, N) packed
     nibbles or int8 codes; sw (E, N) -> (B, E, C, N) f32, scaled in the
-    Pallas body's order (acc · sa · sw; static acc · (s · sw))."""
+    Pallas body's order (acc · sa · sw; static acc · (s · sw)). With
+    `fill` (B, E), rows c >= fill[b, e] are zeros (the kernel leaves them
+    unwritten)."""
     w_even, w_odd = weight_planes(w_data, w_dtype)
     a_even, a_odd = act_planes(a, sa, a_mode, a_dtype, s_static)
     acc = a_even @ w_even + a_odd @ w_odd
     if a_mode == "static":
-        return acc * (sw * float(np.float32(s_static)))[:, None, :]
-    if a_mode != "fp":
-        acc = acc * sa[..., None]
-    return acc * sw[:, None, :]
+        out = acc * (sw * float(np.float32(s_static)))[:, None, :]
+    else:
+        if a_mode != "fp":
+            acc = acc * sa[..., None]
+        out = acc * sw[:, None, :]
+    if fill is None:
+        return out
+    live = torch.arange(out.shape[2], device=out.device) < fill[..., None]
+    return torch.where(live[..., None], out, 0.0)
 
 
 # --------------------------------------------------------------------------
@@ -193,8 +206,9 @@ def grouped_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
 A_MODES = ("fp", "quantize", "static", "codes4", "codes8")
 _SIGNATURE = {"ovp_mm_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
               + [ctypes.c_float, ctypes.c_void_p],
-              "ovp_grouped_mm_launch": [ctypes.c_void_p] * 5
-              + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]}
+              "ovp_grouped_mm_launch": [ctypes.c_void_p] * 6
+              + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_void_p],
+              "ovp_grouped_grid": [ctypes.c_int] * 9 + [ctypes.c_void_p]}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -234,6 +248,7 @@ _DEC_SLICE = 512      # most K pairs a decode block takes, when it can
 _DEC_WARPS = _NT // 32
 _TAB_COPIES = 16      # copies of the decode body's byte table
 _FMA_RM = 8           # the FMA body's row tile
+_FMA_GROUPED_RM = 16  # K6's FMA row tile above _FMA_RM rows an expert
 _MIN_BLOCKS = 132     # one wave: an H100 has 132 SMs
 _SPLITS = (1, 2, 4, 8)  # cluster sizes (8: the portable cap)
 _MIN_SLICE = 32       # no split below this many K pairs a block
@@ -329,6 +344,125 @@ def launch_plan(rows: int, k: int, n: int, w_dtype: str,
             return LaunchPlan("decode", rows, k2, n, rt, split, share, sl,
                               _dec_smem(rt, sl, w_rows, split))
     return LaunchPlan("fma", rows, k2, n, _FMA_RM, 1, 1, k2, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedPlan:
+    """The geometry of one K6 launch (`ovp_grouped_mm_launch`). The
+    decode body is persistent: whole clusters of `share` 64-column
+    groups x `split` K slices walk the work items, and the work depends
+    on the data (the fill), so the plan fixes the tiling and `items`
+    lists the work that a given fill makes. The FMA body (K slices too
+    large for shared memory, and calls without a fill above `_FMA_RM`
+    rows an expert) runs every row of every expert, fill ignored, on
+    16-column tiles of `row_tile` rows."""
+    body: str
+    b: int
+    e: int
+    c: int
+    k2: int             # K pairs
+    n: int              # columns, padded to 64 (decode) or 16 (FMA)
+    row_tile: int       # rows an item holds
+    split: int
+    share: int
+    slice: int
+    smem: int           # dynamic shared bytes a block (decode body)
+
+    def items(self, fill: Optional[np.ndarray] = None):
+        """The decode body's work for a (B, E) fill (None: every row), in
+        the kernel's order: one entry per block of each cluster item,
+        (expert, global rows of the (B, E, C) slots, columns, K pairs).
+        An expert with no filled row has no entry."""
+        if fill is None:
+            fill = np.full((self.b, self.e), self.c)
+        fill = np.clip(np.asarray(fill), 0, self.c)
+        out = []
+        for e in range(self.e):
+            rows = [(b * self.e + e) * self.c + c for b in range(self.b)
+                    for c in range(int(fill[b, e]))]
+            for y in range(-(-len(rows) // self.row_tile)):
+                part = rows[y * self.row_tile:(y + 1) * self.row_tile]
+                for g in range(self.n // _GBN // self.share):
+                    for t in range(self.share):
+                        n0 = (g * self.share + t) * _GBN
+                        for rank in range(self.split):
+                            out.append((e, part, range(n0, n0 + _GBN),
+                                        range(rank * self.slice,
+                                              min(self.k2, (rank + 1)
+                                                  * self.slice))))
+        return out
+
+
+_GROUPED_RM = 4       # K6's row-tile cap
+_GBN = 64             # K6's output columns a work item
+_FILL_SMEM = 8192     # K6 caches a fill of at most this many entries
+
+
+def _fill_entries(b: int, e: int, filled: bool) -> int:
+    return b * e if filled and b * e <= _FILL_SMEM else 0
+
+
+def _grouped_smem(row_tile: int, slice_: int, w_rows: int, split: int,
+                  e: int, fill_entries: int) -> int:
+    """A K6 decode block's dynamic shared bytes: two buffers of the
+    weight slice (64 columns) and `row_tile` activation rows, the half2
+    byte table, partials for 4 rows, two buffers of column scales, two
+    item row lists, the per-expert row counts and item offsets, and the
+    cached fill (int16) (the C side's `grouped_smem_bytes`)."""
+    return (2 * (slice_ * _GBN * w_rows + row_tile * slice_ * 8)
+            + (256 * _TAB_COPIES * 4 if w_rows == 1 else 0)
+            + _DEC_WARPS * _GROUPED_RM * _GBN * 4
+            + split * _GROUPED_RM * _GBN * 4 + 2 * _GBN * 4
+            + 2 * _GROUPED_RM * 8 + (2 * e + 1) * 4 + fill_entries * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_launch_plan(b: int, e: int, c: int, k: int, n: int,
+                        w_dtype: str, a_mode: str = "fp",
+                        body: Optional[str] = None,
+                        filled: bool = False) -> GroupedPlan:
+    """The launch of a (B, E, C, K) x (E, K, n) grouped call, with a fill
+    when `filled` (pure, memoized). Decode body wherever its K slice fits
+    shared memory, a work item 64 columns x min(B·C, 4) rows (at decode
+    an expert holds a row or two; an item of more rows re-reads its
+    expert's weights from L2), N padded to 64; the smallest cluster
+    split whose slice fits (the persistent grid fills the card whatever
+    the split, and a split adds two cluster barriers to every item,
+    which cost more than the loads they share out); in the quantize and
+    static modes the cluster then shares quantization over the most
+    column groups that divide them, as K1's plan. Without a fill and
+    with more than `_FMA_RM` rows an expert, the FMA body: its 16-row
+    tiles decode each weight once for 16 rows where the decode body's
+    items do it for 4 (at E 8, K = N = 1024 and 16 rows an expert the
+    FMA body took 0.70× the decode body's time in quantize mode, 0.47× in
+    codes8 and 0.98× in fp, one H100 run). `body` forces one of
+    `BODIES` (measurement)."""
+    if body not in (None,) + BODIES:
+        raise ValueError(f"body {body!r}; options: {BODIES}")
+    if body is None and not filled and b * c > _FMA_RM:
+        body = "fma"
+    k2 = k // 2
+    fe = _fill_entries(b, e, filled)
+    if body != "fma":
+        n = -(-n // _GBN) * _GBN
+        rt = min(b * c, _GROUPED_RM)
+        w_rows = 2 if w_dtype == "int8" else 1
+        fits = [s for s in _SPLITS if s == 1 or k2 // s >= _MIN_SLICE]
+        fits = [s for s in fits if _grouped_smem(
+            rt, -(-k2 // s), w_rows, s, e, fe) <= SMEM_MAX]
+        if fits:
+            split = fits[0]
+            sl = -(-k2 // split)
+            share = 1
+            if a_mode in ("quantize", "static"):
+                share = max(g for g in _SPLITS if g * split <= _SPLITS[-1]
+                            and (n // _GBN) % g == 0)
+            return GroupedPlan("decode", b, e, c, k2, n, rt, split, share,
+                               sl, _grouped_smem(rt, sl, w_rows, split, e,
+                                                 fe))
+    rt = _FMA_RM if b * c <= _FMA_RM else _FMA_GROUPED_RM
+    return GroupedPlan("fma", b, e, c, k2, -(-n // _BN) * _BN, rt, 1, 1, k2,
+                       0)
 
 
 def _launch(a: torch.Tensor, sa: Optional[torch.Tensor],
@@ -469,22 +603,63 @@ fused_ovp_matmul.mode_launches = dict.fromkeys(A_MODES, 0)
 # --------------------------------------------------------------------------
 # K6: the grouped per-expert matmul
 # --------------------------------------------------------------------------
+def grouped_grid_blocks(plan: GroupedPlan, w_dtype: str) -> int:
+    """The block count of K6's persistent grid for `plan` on this card
+    (one wave of resident clusters; needs the card)."""
+    out = ctypes.c_int(0)
+    err = _build.load("ovp_matmul", _SIGNATURE).ovp_grouped_grid(
+        plan.b, plan.e, plan.c, plan.n, _DTYPE_CODE[w_dtype],
+        plan.row_tile, plan.split, plan.share, plan.smem,
+        ctypes.addressof(out))
+    _build.check(err, "grouped ovp_matmul grid")
+    return out.value
+
+
+def check_grouped_plan(plan: GroupedPlan, b: int, e: int, c: int, k: int,
+                       n: int) -> GroupedPlan:
+    """`plan` if it is a plan for a (B, E, C, K) x (E, K, n) call, else a
+    ValueError (a forced plan's shape, checked before the launch)."""
+    tile = _GBN if plan.body == "decode" else _BN
+    if (plan.b, plan.e, plan.c, plan.k2, plan.n) != (
+            b, e, c, k // 2, -(-n // tile) * tile):
+        raise ValueError(f"{plan} is not a plan for a ({b}, {e}, {c}, {k})"
+                         f" x ({e}, {k}, {n}) call")
+    return plan
+
+
 def _launch_grouped(a: torch.Tensor, sa: Optional[torch.Tensor],
                     w_data: torch.Tensor, sw: torch.Tensor, *, w_dtype: str,
-                    a_mode: str, a_dtype: str, s_static: Optional[float]
-                    ) -> torch.Tensor:
+                    a_mode: str, a_dtype: str, s_static: Optional[float],
+                    fill: Optional[torch.Tensor],
+                    plan: Optional[GroupedPlan] = None) -> torch.Tensor:
     b, e, c = a.shape[:3]
     k = w_data.shape[1] * (1 if w_dtype == "int8" else 2)
     n = w_data.shape[2]
+    if plan is None:
+        plan = grouped_launch_plan(b, e, c, k, n, w_dtype, a_mode,
+                                   filled=fill is not None)
+    else:
+        check_grouped_plan(plan, b, e, c, k, n)
+    if plan.n != n:    # the decode body's 64-column items: pad N
+        w_data = torch.nn.functional.pad(w_data, (0, plan.n - n))
+        sw = torch.nn.functional.pad(sw, (0, plan.n - n), value=1.0)
     a, sa, w_data, sw = _kernel_operands(a, sa, w_data, sw, a_mode,
                                          "grouped ovp_matmul")
-    np_ = w_data.shape[2]
-    out = torch.empty((b, e, c, np_), dtype=torch.float32, device=a.device)
+    if fill is not None:
+        if fill.shape != (b, e) or fill.device != a.device:
+            raise ValueError(f"grouped ovp_matmul: fill {tuple(fill.shape)} "
+                             f"on {fill.device}, expected ({b}, {e}) on "
+                             f"{a.device}")
+        fill = fill.to(torch.int32).contiguous()
+    out = torch.empty((b, e, c, plan.n), dtype=torch.float32,
+                      device=a.device)
     lib = _build.load("ovp_matmul", _SIGNATURE)
     err = lib.ovp_grouped_mm_launch(
         a.data_ptr(), sa.data_ptr(), w_data.data_ptr(), sw.data_ptr(),
-        out.data_ptr(), b, e, c, k, np_, _DTYPE_CODE[w_dtype],
-        A_MODES.index(a_mode), _DTYPE_CODE[a_dtype],
+        out.data_ptr(), 0 if fill is None else fill.data_ptr(), b, e, c, k,
+        plan.n, _DTYPE_CODE[w_dtype], A_MODES.index(a_mode),
+        _DTYPE_CODE[a_dtype], BODIES.index(plan.body), plan.row_tile,
+        plan.split, plan.share, plan.slice, plan.smem,
         float(np.float32(s_static or 1.0)),
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "grouped ovp_matmul")
@@ -495,10 +670,17 @@ def _launch_grouped(a: torch.Tensor, sa: Optional[torch.Tensor],
 def run_grouped(a: torch.Tensor, sa: Optional[torch.Tensor],
                 w_data: torch.Tensor, sw: torch.Tensor, *, w_dtype: str,
                 a_mode: str, a_dtype: Optional[str] = None,
-                s_static: Optional[float] = None) -> torch.Tensor:
+                s_static: Optional[float] = None,
+                fill: Optional[torch.Tensor] = None,
+                plan: Optional[GroupedPlan] = None) -> torch.Tensor:
     """(B, E, C, Ka) x stacked codes (E, Kw, N) -> (B, E, C, N): the
     plain version for CPU tensors, K6 for CUDA tensors, an error for
-    anything else. Scales: sa (B, E, C), sw (E, N)."""
+    anything else. Scales: sa (B, E, C), sw (E, N). `fill` (B, E) int:
+    only rows c < fill[b, e] are computed; the others are zeros on the
+    CPU and unwritten (unspecified) on the card. `plan` replaces
+    `grouped_launch_plan`'s launch (measurement forces a body with it; a
+    decode plan made with `filled` must come with a fill); the plain
+    version ignores it."""
     if a.ndim != 4 or w_data.ndim != 3 or a.shape[1] != w_data.shape[0]:
         raise ValueError(f"grouped ovp_matmul takes a (B, E, C, K) lhs "
                          f"and an (E, K, N) stack; got {tuple(a.shape)} "
@@ -506,11 +688,11 @@ def run_grouped(a: torch.Tensor, sa: Optional[torch.Tensor],
     kw = _checked_modes(a, sa, w_data, w_dtype=w_dtype, a_mode=a_mode,
                         a_dtype=a_dtype, s_static=s_static)
     if a.device.type == "cpu":
-        return grouped_ovp_matmul_plain(a, sa, w_data, sw, **kw)
+        return grouped_ovp_matmul_plain(a, sa, w_data, sw, fill=fill, **kw)
     if a.device.type != "cuda":
         raise ValueError(f"grouped ovp_matmul runs on cpu or cuda, not "
                          f"{a.device}")
-    return _launch_grouped(a, sa, w_data, sw, **kw)
+    return _launch_grouped(a, sa, w_data, sw, fill=fill, plan=plan, **kw)
 
 
 def _as_4d(x: torch.Tensor):
@@ -546,13 +728,18 @@ def grouped_ovp_matmul(x: Union[torch.Tensor, QuantizedTensor],
                        w: QuantizedTensor, *,
                        a_dtype: Optional[str] = None,
                        act_scale: Optional[torch.Tensor] = None,
-                       static_act_scale: Optional[float] = None
+                       static_act_scale: Optional[float] = None,
+                       fill: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """(…, E, C, K) @ stacked OVP (E, K, N) -> (…, E, C, N) f32, one
     launch of K6 on CUDA: the per-expert mirror of `fused_ovp_matmul`,
     with the same activation modes (fp lhs by default, in-kernel OVP
     quantization with `a_dtype` and `act_scale` or `static_act_scale`,
-    or a pre-quantized `QuantizedTensor` lhs)."""
+    or a pre-quantized `QuantizedTensor` lhs). `fill` (…, E) integer,
+    the filled capacity rows of each (…, expert): row c is computed only
+    where c < fill (the MoE dispatch's kept slots take ranks 0..fill-1);
+    the rows past it are zeros on the CPU and left unwritten on the card,
+    so no caller may read them. None computes every row."""
     if w.data.ndim != 3 or w.pair_axis % 3 != 1:
         raise ValueError("grouped_ovp_matmul takes an (E, K, N) stack "
                          "paired along K")
@@ -580,8 +767,11 @@ def grouped_ovp_matmul(x: Union[torch.Tensor, QuantizedTensor],
         else:
             a_mode = "quantize"
             sa = _expert_row_scale(act_scale, x.shape[:-1], x.device)
+    if fill is not None:
+        fill = fill.reshape(-1, e)
     out = run_grouped(a, sa, w.data, sw, w_dtype=w.normal_dtype,
-                      a_mode=a_mode, a_dtype=a_dtype, s_static=s_static)
+                      a_mode=a_mode, a_dtype=a_dtype, s_static=s_static,
+                      fill=fill)
     return out.reshape(*lead, *out.shape[-3:])
 
 

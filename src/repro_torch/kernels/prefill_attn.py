@@ -20,6 +20,10 @@ The kernel source is `csrc/prefill_attn.cu`.
 `fused_prefill_attention` takes `prefill_attention_plain` for CPU
 tensors and launches the kernel for CUDA tensors (or raises);
 `fused_prefill_attention.launches` counts kernel launches.
+`prefill_plan` is the launch's layout check and geometry (query rows a
+block, row tiles, the key split over a thread-block cluster, shared
+bytes), pure so that it is testable without a card. The kernel takes
+any G, D % 8 == 0 up to 256, and fp pools in f32, bf16 or fp16.
 `xla_prefill_attention` is the port of the reference's dense twin (what
 the `eager` backend serves): masked-einsum attention over the raw stage,
 whole-stage quantize, page scatter.
@@ -27,16 +31,17 @@ whole-stage quantize, page scatter.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .decode_attn import NEG_INF, _qscale
+from .decode_attn import FP_KINDS, NEG_INF, SMEM_MAX, _qscale
 
 STAGE_KEYS = ("stage_k", "stage_v")
-_DMAX = 128   # the kernel's shared-memory limit on head_dim
 
 
 def is_paged_prefill(cache) -> bool:
@@ -157,10 +162,107 @@ def prefill_attention_plain(q: torch.Tensor, cache,
 # CUDA launch
 # --------------------------------------------------------------------------
 _SIGNATURE = {"prefill_attn_launch": [ctypes.c_void_p] * 10
-              + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]}
+              + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 7
+              + [ctypes.c_void_p]}
+_TK = 32              # keys per attention tile
+_DMAX = 256           # float4 column groups a lane owns: at most 8
+_MIN_BLOCKS = 132     # one wave: an H100 has 132 SMs
 
 
-def _launch(q: torch.Tensor, cache, positions: torch.Tensor):
+@dataclasses.dataclass(frozen=True)
+class PrefillPlan:
+    """One K4 launch (csrc/prefill_attn.cu's header says why): blocks of
+    `warps` warps hold 4·warps query rows (row r = c·G + g of one kv
+    head); a kv head's C·G rows take `n_rt` row tiles; the keys of a row
+    tile split over a cluster of `split` blocks, rank j walking key tiles
+    [j·tpr, (j+1)·tpr) of 32 keys (`nbuf` buffers); then the write
+    blocks, one per (page tile, kv head), rounded up to whole clusters.
+    `kind` is the pool layout (0 packed, else `FP_KINDS`)."""
+    c: int
+    g: int
+    hkv: int
+    d: int
+    s: int
+    ps: int
+    kind: int
+    warps: int
+    n_rt: int
+    split: int
+    tpr: int
+    nbuf: int
+    smem: int
+
+    @property
+    def rows(self) -> int:
+        return 4 * self.warps
+
+    @property
+    def n_attn(self) -> int:
+        return self.hkv * self.n_rt * self.split
+
+    @property
+    def n_write(self) -> int:
+        return -(-self.hkv * (self.s // self.ps) // self.split) * self.split
+
+    def attention_block(self, x: int):
+        """Attention block x's (kv head, query rows, key tiles as the
+        rank's full share, before its causal limit)."""
+        pair, rank = divmod(x, self.split)
+        h, rt = divmod(pair, self.n_rt)
+        r0 = rt * self.rows
+        return (h, range(r0, min(r0 + self.rows, self.c * self.g)),
+                range(rank * self.tpr, (rank + 1) * self.tpr))
+
+
+def _smem(rows: int, d: int, nbuf: int, split: int) -> int:
+    """An attention block's dynamic shared bytes (the C side's
+    `smem_bytes`)."""
+    return 4 * (rows * d + nbuf * _TK * (d + 4) + nbuf * _TK * d
+                + rows * (_TK + 1) + 2 * rows + rows * (split + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_plan(c: int, h: int, hkv: int, d: int, s: int, ps: int,
+                 fp_dtype: Optional[torch.dtype] = None) -> PrefillPlan:
+    """The K4 launch of a C-query chunk of H heads over Hkv kv heads of
+    dim D against an S-token stage of pages of ps rows, for packed pools
+    (`fp_dtype` None) or fp pools of `fp_dtype` (pure, memoized); raises
+    ValueError / TypeError on what the kernel cannot take. Rows a block:
+    4 per warp, up to 8 warps; the key split: the smallest power of two
+    (up to 8, and no more than the stage's key tiles) that puts one wave
+    of attention blocks on the card."""
+    g = h // hkv if hkv > 0 else 0
+    if hkv < 1 or g * hkv != h or d < 8 or d % 8 or d > _DMAX or c < 1 \
+            or ps < 1 or s < ps or s % ps:
+        raise ValueError(f"prefill_attn kernel needs H % Hkv == 0, D % 8 == "
+                         f"0, D <= {_DMAX} and a stage of whole pages; got "
+                         f"C={c} H={h} Hkv={hkv} D={d} S={s} page size {ps}")
+    if fp_dtype is not None and fp_dtype not in FP_KINDS:
+        raise TypeError(f"prefill_attn kernel takes fp pools in "
+                        f"{sorted(map(str, FP_KINDS))}, got {fp_dtype}")
+    rows = c * g
+    warps = min(8, -(-rows // 4))
+    n_rt = -(-rows // (4 * warps))
+    tiles = -(-s // _TK)
+    split = 1
+    while split < 8 and 2 * split <= tiles \
+            and hkv * n_rt * split < _MIN_BLOCKS:
+        split *= 2
+    tpr = -(-tiles // split)
+    nbuf = 2 if tpr > 1 else 1
+    smem = _smem(4 * warps, d, nbuf, split)
+    if smem > SMEM_MAX:
+        raise ValueError(f"prefill_attn kernel: D={d} needs {smem} bytes of "
+                         f"shared memory, over {SMEM_MAX}")
+    kind = 0 if fp_dtype is None else FP_KINDS[fp_dtype]
+    return PrefillPlan(c, g, hkv, d, s, ps, kind, warps, n_rt, split, tpr,
+                       nbuf, smem)
+
+
+def _launch(q: torch.Tensor, cache, positions: torch.Tensor,
+            halves: int = 3):
+    """One K4 launch. `halves` 3 is the served call; 1 runs the attention
+    blocks alone and 2 the page-write blocks alone (measurement)."""
     b, c, h, d = q.shape
     packed = "k_data" in cache
     keys = _pool_keys(cache)
@@ -168,15 +270,14 @@ def _launch(q: torch.Tensor, cache, positions: torch.Tensor):
     stage_k, stage_v = cache["stage_k"], cache["stage_v"]
     s, hkv = stage_k.shape[1], stage_k.shape[2]
     n_pool, ps = pools[0].shape[:2]
-    g = h // hkv
-    if b != 1 or g * hkv != h or d > _DMAX or d % 8 or s % ps:
-        raise ValueError(f"prefill_attn kernel needs batch 1, H % Hkv == "
-                         f"0, D <= {_DMAX}, D % 8 == 0 and a stage of "
-                         f"whole pages; got q {tuple(q.shape)}, stage "
-                         f"{tuple(stage_k.shape)}, page size {ps}")
-    if not packed and pools[0].dtype != torch.float32:
-        raise TypeError(f"prefill_attn kernel takes f32 fp pools, got "
-                        f"{pools[0].dtype}")
+    if b != 1:
+        raise ValueError(f"prefill_attn kernel needs batch 1; got q "
+                         f"{tuple(q.shape)}")
+    plan = prefill_plan(c, h, hkv, d, s, ps,
+                        None if packed else pools[0].dtype)
+    if not packed and pools[1].dtype != pools[0].dtype:
+        raise TypeError(f"prefill_attn kernel: k pool {pools[0].dtype}, v "
+                        f"pool {pools[1].dtype}")
     if any(not p.is_contiguous() for p in pools):
         raise ValueError("prefill_attn writes the pools in place; they must "
                          "be contiguous")
@@ -195,8 +296,9 @@ def _launch(q: torch.Tensor, cache, positions: torch.Tensor):
     err = lib.prefill_attn_launch(
         *(t.data_ptr() for t in ops), pos32.data_ptr(), bt.data_ptr(),
         pools[0].data_ptr(), pools[1].data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), out.data_ptr(), c, s, hkv, g, d, ps, n_pool,
-        int(packed), _qscale(d),
+        vs.data_ptr(), out.data_ptr(), c, s, hkv, plan.g, d, ps, n_pool,
+        plan.kind, _qscale(d), plan.warps, plan.n_rt, plan.split, plan.tpr,
+        plan.nbuf, plan.smem, halves,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "prefill_attn")
     fused_prefill_attention.launches += 1

@@ -316,8 +316,12 @@ def moe_layer(p, x: torch.Tensor, cfg, policy: QuantPolicy,
     decides which tokens exceed the capacity cap = max(int(cf·T·k/E), 4)
     and are dropped to the residual stream; `jnp.argsort` is stable too),
     kept assignments fill slot e·cap + rank of a (B, E, cap, d) tensor and
-    dropped ones go to the scratch slot E·cap. The expert einsums run on
-    every slot, empty ones included. The combine gathers each token's
+    dropped ones go to the scratch slot E·cap, so the filled slots of
+    (b, e) are ranks 0..fill[b, e]-1 with fill = min(counts, cap). The
+    expert einsums get that fill: the reference computes every slot, K6
+    only the filled ones, and leaves the others unwritten (nothing reads
+    them: the wd input's empty rows go unread, and the combine reads kept
+    slots and the zero scratch row only). The combine gathers each token's
     kept slots and sums their weighted outputs in ascending expert order:
     deterministic (no atomics), and the order of the reference's
     sequential slot scatter-add."""
@@ -351,11 +355,12 @@ def moe_layer(p, x: torch.Tensor, cfg, policy: QuantPolicy,
     slots.scatter_(1, dest[..., None].expand(b, t * k, d), x[:, tok])
     xg = slots[:, :e * cap].reshape(b, e, cap, d)
 
+    fill = torch.clamp(counts, max=cap).to(torch.int32)   # (B, E)
     ew = p["experts"]
-    h = _expert_ein(xg, ew["wg"], rp(policy, site, "experts/wg"))
-    u = _expert_ein(xg, ew["wu"], rp(policy, site, "experts/wu"))
+    h = _expert_ein(xg, ew["wg"], rp(policy, site, "experts/wg"), fill)
+    u = _expert_ein(xg, ew["wu"], rp(policy, site, "experts/wu"), fill)
     yg = _expert_ein(torch.nn.functional.silu(h) * u, ew["wd"],
-                     rp(policy, site, "experts/wd"))     # (B, E, cap, d)
+                     rp(policy, site, "experts/wd"), fill)  # (B, E, cap, d)
 
     yflat = torch.cat([yg.reshape(b, e * cap, d),
                        yg.new_zeros((b, 1, d))], dim=1)   # scratch reads 0
@@ -373,13 +378,16 @@ def moe_layer(p, x: torch.Tensor, cfg, policy: QuantPolicy,
     return y.to(x.dtype), aux
 
 
-def _expert_ein(xg: torch.Tensor, w, policy: QuantPolicy):
+def _expert_ein(xg: torch.Tensor, w, policy: QuantPolicy,
+                fill: Optional[torch.Tensor] = None):
     """(B, E, C, K) x (E, K, F) -> (B, E, C, F). Quantized stacks go
     through the registry (the grouped kernel K6 on the `cuda` backend; a
     `MixedExpertQuant` group by group), weight-only: the reference forces
     `abits=0` here, since dispatched slots are capacity-padded and a 3σ
-    activation scale would see the padding."""
+    activation scale would see the padding. `fill` (B, E): rows past it
+    may come back unwritten; a raw stack computes them all."""
     if isinstance(w, (QuantizedTensor, MixedExpertQuant)):
-        return backends.dispatch(xg, w, dataclasses.replace(policy, abits=0))
+        return backends.dispatch(xg, w, dataclasses.replace(policy, abits=0),
+                                 fill=fill)
     cdt = backends.base.torch_dtype(policy.compute_dtype)
     return torch.matmul(xg.to(cdt), w.to(cdt))

@@ -17,7 +17,11 @@ on inputs made with numpy from a seed:
   experts): codes equal to the reference's vmapped quantize, scales
   within 1e-6 relative (XLA's std sums in another order, ROADMAP queue 3);
 - layer-streamed init + PTQ (`Model.init(..., quantize=...)`) equal to
-  init-then-`quantize_params`, leaf for leaf.
+  init-then-`quantize_params`, leaf for leaf;
+- the fill `moe_layer` passes to the expert einsums (min(counts, cap),
+  with the slots past it zero), and that no consumer reads a row past
+  it: with K6's plain version writing NaN there, the output is
+  unchanged, finite, and within 1e-5 of the reference.
 """
 from __future__ import annotations
 
@@ -35,11 +39,13 @@ from repro.core.ovp import MixedExpertQuant as JMixed
 from repro.core.qlinear import quantize_params as j_quantize_params
 from repro.core.qlinear import quantize_weight as j_quantize_weight
 from repro.models import layers as jlayers
+from repro_torch import backends as tbackends
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import policy as tpol
 from repro_torch.core import qlinear as tq
 from repro_torch.core.ovp import MixedExpertQuant, QuantizedTensor
+from repro_torch.kernels import ovp_matmul as tmm
 from repro_torch.models import layers as tlayers
 from repro_torch.models.model import build_model as t_build_model
 
@@ -238,3 +244,78 @@ def test_layer_streamed_init_equals_init_then_quantize(arch):
     assert any("experts/wg/data" in k for k in a) == (cfg.family == "moe")
     for key in a:
         assert torch.equal(a[key], b[key]), key
+
+
+def _w4_moe(seed):
+    """Smoke Qwen3 MoE params quantized W4 by the reference, on both
+    sides, with the reference's xla policy and the port's cuda one."""
+    jcfg, tcfg, p = _moe("qwen3-moe-30b-a3b-smoke", seed=seed)
+    jp = dataclasses.replace(jpol.OLIVE_W4, backend="xla", **F32)
+    tp = dataclasses.replace(tpol.OLIVE_W4, **F32)
+    p = j_quantize_params(p, jp)
+    return jcfg, tcfg, p, jp, tp
+
+
+@pytest.mark.parametrize("t,cf", [(16, 1.25), (32, 0.5)])
+def test_moe_fill_is_min_counts_cap_and_slots_past_it_are_zero(
+        monkeypatch, t, cf):
+    """The fill `moe_layer` hands each expert einsum is min(counts, cap)
+    of the routing (cf 0.5 at T 32 clamps: cap 4 for about 8 picks an
+    expert); the dispatched slots past it are zero and those below it
+    are the tokens."""
+    _, tcfg, p, _, tp = _w4_moe(seed=6)
+    x = _x((2, t, tcfg.d_model), seed=7)
+    tparams = _to_port(p)
+    seen = []
+    real = tbackends.dispatch
+
+    def spy(xg, w, policy, act_scale=None, fill=None):
+        seen.append((xg.clone(), None if fill is None else fill.clone()))
+        return real(xg, w, policy, act_scale=act_scale, fill=fill)
+
+    monkeypatch.setattr(tbackends, "dispatch", spy)
+    tlayers.moe_layer(tparams, torch.from_numpy(x), tcfg, tp,
+                      capacity_factor=cf)
+    e, k = tcfg.n_experts, tcfg.top_k
+    cap = max(int(cf * t * k / e), 4)
+    _, _, topi = tlayers.route(tparams, torch.from_numpy(x), tcfg)
+    counts = torch.nn.functional.one_hot(topi, e).sum(dim=(1, 2))
+    want = torch.clamp(counts, max=cap)
+    assert len(seen) == 3 and (want > 0).any()
+    if cf == 0.5:
+        assert (counts > cap).any()
+    for _, fill in seen:
+        assert fill is not None and torch.equal(fill.long(), want)
+    xg = seen[0][0]                                     # the wg lhs
+    live = torch.arange(cap) < want[..., None]          # (B, E, cap)
+    assert xg.shape[1:3] == (e, cap)
+    assert torch.equal(xg[~live], torch.zeros_like(xg[~live]))
+    assert bool((xg[live].abs().sum(dim=-1) > 0).all())
+
+
+def test_rows_past_the_fill_are_never_read(monkeypatch):
+    """With K6's plain version writing NaN past the fill (the kernel
+    leaves those rows unwritten), `moe_layer`'s output is unchanged and
+    finite and still matches the reference within 1e-5 of max|ref|: no
+    consumer reads a row past the fill."""
+    jcfg, tcfg, p, jp, tp = _w4_moe(seed=8)
+    x = _x((2, 16, jcfg.d_model), seed=9)
+    tparams = _to_port(p)
+    clean, _ = tlayers.moe_layer(tparams, torch.from_numpy(x), tcfg, tp)
+    real = tmm.grouped_ovp_matmul_plain
+    poisoned = []
+
+    def nan_past_fill(*args, fill=None, **kw):
+        out = real(*args, fill=fill, **kw)
+        assert fill is not None
+        live = torch.arange(out.shape[2]) < fill[..., None]
+        poisoned.append(int((~live).sum()))
+        return torch.where(live[..., None], out, float("nan"))
+
+    monkeypatch.setattr(tmm, "grouped_ovp_matmul_plain", nan_past_fill)
+    got, _ = tlayers.moe_layer(tparams, torch.from_numpy(x), tcfg, tp)
+    assert len(poisoned) == 3 and min(poisoned) > 0
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, clean)
+    ref, _ = jlayers.moe_layer(p, jnp.asarray(x), jcfg, jp)
+    assert _rel(got.numpy(), ref) <= 1e-5
