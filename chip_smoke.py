@@ -13,7 +13,10 @@ CUDA toolkit. It builds the hand-written kernels from
    layer in fp and quantize mode and over a Qwen3-30B-A3B attention
    block in fp mode, and rows 8 to 512 of a Qwen1.5 layer with each of
    the kernel's two bodies forced; K2, slab decode attention: packed
-   and fp caches, B=4, S=256, 16 heads, D=64, pos 0/17/255), with
+   and fp caches, B=4, S=256, 16 heads, D=64, pos mixed, 0, 17 and 255,
+   then held to the plain version with a window, a ring, a ring with a
+   window and rows with no valid slot, and with its cluster split
+   forced to each of 1, 2, 4 and 8 at five layouts), with
    errors against the stated tolerances and CUDA-event timings beside
    the plain version, a PyTorch library call and the bound; then the
    K1/K5 sweep: every activation mode with int4, flint4 and int8
@@ -21,8 +24,9 @@ CUDA toolkit. It builds the hand-written kernels from
    K 272 -> N 40, K 2816 -> N 1000, K 1040 -> N 1016 and K 1024 ->
    N 2816, against the plain version; the quantize modes at rows 4 with
    the cluster's shared quantization forced to each share; the
-   wrapper's host cost per call; and one profiled call per served mode,
-   which must be one device kernel;
+   wrappers' host cost per call (K1 and K2/K3); and one profiled call
+   per served K1 mode and of K2 and K3, each of which must be one
+   device kernel;
 2. serve phase A — the main path through the serving entry point:
    full-width qwen1.5-0.5b, random weights from a seed, olive_serve
    rewritten as the launcher does (W4 OVP weights, 4-bit OVP KV cache,
@@ -34,9 +38,10 @@ CUDA toolkit. It builds the hand-written kernels from
    KV4) through the engine API, 4 requests of 8 tokens, which puts K1's
    in-kernel quantize prologue on the path;
 4. paged kernel phases — K3, paged decode attention (B=4, 16 pages of 16
-   per row in a shuffled pool, Hkv=16, D=64, packed and fp, pos
-   0/17/255/17 and a parked row), against its plain version and
-   bit-for-bit against K2 on the same tokens laid out as a slab; K4,
+   per row in a shuffled pool, Hkv=16, D=64, packed and fp, K2's
+   positions, a parked row, and K2's mask cases with the ring at 200
+   slots), against its plain version and bit-for-bit against K2 on the
+   same tokens laid out as a slab; K4,
    fused cache-write prefill (C=16 and 64, S=256, packed and fp), output,
    page codes and scales against its plain version;
 5. serve phase C — the paged path through the launcher's entry point
@@ -89,15 +94,18 @@ CUDA toolkit. It builds the hand-written kernels from
    the slab model freed before the paged one loads:
    no fallback, `grouped[fp]` = 3 x layers x forward calls, K2 (slab),
    K3 and K4 (paged), every page returned; PTQ seconds, peak device
-   memory, tok/s, TTFT, step time and a decode-step profile (K6's
-   device ms per step, the device busy share);
+   memory, tok/s, TTFT, step time and decode-step profiles, slab and
+   paged (K6's and K2's / K3's device ms per step, the device busy
+   share); in phases A, C and E each attention kernel must have run
+   once per layer per decode step (K2 or K3) or prefill chunk (K4);
 10. the MoE card-vs-CPU check on a 2-layer truncation of the served
    slab model (same widths and quantized params, fp32 KV): routed
    expert indices equal first, then greedy tokens equal and max |logit
    diff| <= 1e-3 * max|ref|.
 
 `attn_ab_phase(old_root)` (called by hand, not by `main`) times an
-older tree's K2 and K4 against this one, alternated in separate
+older tree's K2, K3 and K4 (and its K2/K3 wrappers' host cost) against
+this one, alternated in separate
 processes.
 
 Any failure exits non-zero before the result line. The last line of
@@ -285,15 +293,42 @@ def k1_phase(dev):
     return rows_out, worst, decode, bound_by
 
 
+# K2/K3 position cases: timed (pos 0, 17 and 255 for every row, and
+# mixed), and mask cases held to the plain version only: a window, a
+# ring (past one lap), a ring with a window, and rows with no valid slot
+# (pos -1: the plain version averages V uniformly over all S slots)
+POS_CASES = {"mixed": [0, 17, 255, 17], "0": [0] * 4, "17": [17] * 4,
+             "255": [255] * 4}
+MASK_CASES = (("window 40", [0, 17, 255, 100], 40, 0),
+              ("ring 256", [17, 255, 300, 1000], 0, 256),
+              ("ring 256 window 64", [17, 255, 300, 1000], 64, 256),
+              ("no valid slot", [-1, 17, -1, 255], 0, 0))
+
+
+def _attn_library(q, kdense, vdense, pos, g: int):
+    """SDPA on the dense f32 K/V with the length mask: one PyTorch call
+    computing K2/K3's function (no window or ring)."""
+    import torch
+    import torch.nn.functional as F
+    s_len = kdense.shape[1]
+    mask = (torch.arange(s_len, device=q.device)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    qh, kh, vh = (q.transpose(1, 2), kdense.transpose(1, 2),
+                  vdense.transpose(1, 2))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                  attn_mask=mask,
+                                                  enable_gqa=g > 1)
+
+
 def k2_phase(dev, hkv: int = 16, g: int = 1, d: int = 64,
               fp_dtype: str = "float32", all_pos: bool = True):
     """K2 against its plain version at a serving path's shapes: Qwen1.5-
     0.5B's (Hkv 16, G 1, D 64) by default, Qwen3-30B-A3B's with Hkv 4,
     G 8, D 128, and the widened layouts (G 7 / 16, D 256, fp caches in
-    `fp_dtype` bf16 or fp16). `all_pos` False runs the mixed positions
-    only."""
+    `fp_dtype` bf16 or fp16), timed in `POS_CASES` beside the plain
+    version, SDPA and the bound, and held to the plain version in
+    `MASK_CASES`. `all_pos` False times the mixed positions only."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attn as da
     from repro_torch.models.layers import _quant_kv_token
 
@@ -310,10 +345,7 @@ def k2_phase(dev, hkv: int = 16, g: int = 1, d: int = 64,
     caches = {"packed": {"k_data": kd, "v_data": vd, "k_scl": ks,
                          "v_scl": vs},
               "fp": {"k": k.to(fdt), "v": v.to(fdt)}}
-    pos_cases = {"mixed": [0, 17, 255, 17], "0": [0] * b, "17": [17] * b,
-                 "255": [255] * b}
-    if not all_pos:
-        pos_cases = {"mixed": pos_cases["mixed"]}
+    pos_cases = POS_CASES if all_pos else {"mixed": POS_CASES["mixed"]}
     rows_out, worst, main = [], 0.0, None
     for kind, cache in caches.items():
         if kind == "fp":
@@ -335,15 +367,7 @@ def k2_phase(dev, hkv: int = 16, g: int = 1, d: int = 64,
                 fail(f"K2 {tag} {kind} pos={pl}: max abs err {err:.3e} "
                      f"over atol 1e-5")
             worst = max(worst, err)
-            mask = (torch.arange(s_len, device=dev)[None, :]
-                    <= pos[:, None].long())[:, None, None, :]
-            qh, kh, vh = (q.transpose(1, 2), kdense.transpose(1, 2),
-                          vdense.transpose(1, 2))
-
-            def library():
-                return F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask, enable_gqa=g > 1)
-
+            library = _attn_library(q, kdense, vdense, pos, g)
             (ms, wall), (plain_ms, _), (lib_ms, _) = \
                 time_ms(kern), time_ms(plain), time_ms(library)
             valid = int(sum(p + 1 for p in pl))   # slots the data needs
@@ -363,6 +387,20 @@ def k2_phase(dev, hkv: int = 16, g: int = 1, d: int = 64,
                   f"kernel={ms:.4f}ms (eager call {wall:.4f}ms) "
                   f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
                   f"bound={b_ms:.5f}ms ({b_by})")
+        for name, pl, window, ring in MASK_CASES:
+            pos = torch.tensor(pl, dtype=torch.int32, device=dev)
+            got = da.fused_decode_attention(q, cache, pos, window=window,
+                                            ring=ring)
+            ref = da.decode_attention_plain(q, cache, pos, window=window,
+                                            ring=ring)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if not within(got, ref, 0.0, 1e-5):
+                fail(f"K2 {tag} {kind} {name} pos={pl}: max abs err "
+                     f"{err:.3e} over atol 1e-5")
+            worst = max(worst, err)
+            print(f"[k2] {tag} {kind:6s} {name} pos={pl}: err={err:.2e} "
+                  f"(tol atol 1e-5)")
     return rows_out, worst, main
 
 
@@ -387,7 +425,7 @@ def _paged_case(dev, packed: bool, parked: bool, gen, hkv: int = 16,
         cache = {"k": k.to(fdt), "v": v.to(fdt)}
     perm = torch.randperm(n_pool, generator=gen, device=dev)[:b * n]
     bt = perm.reshape(b, n).to(torch.int32)
-    pos = [0, 17, 255, 17]
+    pos = list(POS_CASES["mixed"])
     if parked:
         bt[3] = 0
         pos[3] = n * ps
@@ -396,66 +434,77 @@ def _paged_case(dev, packed: bool, parked: bool, gen, hkv: int = 16,
 
 
 def k3_phase(dev, hkv: int = 16, g: int = 1, d: int = 64,
-              fp_dtype: str = "float32"):
+              fp_dtype: str = "float32", all_pos: bool = True):
     """K3 against its plain version and, bit for bit, against K2 on the
-    same tokens gathered into a slab (shapes and `fp_dtype` as in
-    `k2_phase`)."""
+    same tokens gathered into a slab (trimmed to the ring), shapes and
+    `fp_dtype` as in `k2_phase`: timed in `POS_CASES` (mixed only when
+    `all_pos` is False) and with a parked row (all-zero table row at pos
+    = s_len, the whole range live), held to the plain version and K2 in
+    `MASK_CASES` (the ring at 200 slots, not whole tiles, over the
+    16-page rows)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attn as da
     gen = torch.Generator(device=dev).manual_seed(3)
     rows_out, worst, main = [], 0.0, None
     tag = f"Hkv={hkv} G={g} D={d}"
+    pos_cases = POS_CASES if all_pos else {"mixed": POS_CASES["mixed"]}
     for kind in ("packed", f"fp {fp_dtype}"):
-        for parked in (False, True):
-            q, cache, pos, pl = _paged_case(dev, kind == "packed", parked,
-                                            gen, hkv, g, d, fp_dtype)
-            slab = da.gather_paged_cache(cache)
+        q, cache, _, _ = _paged_case(dev, kind == "packed", False, gen,
+                                     hkv, g, d, fp_dtype)
+        _, parked, parked_pos, parked_pl = _paged_case(
+            dev, kind == "packed", True, gen, hkv, g, d, fp_dtype)
+        cases = [(name, cache, pl, 0, 0, True)
+                 for name, pl in pos_cases.items()]
+        cases.append(("parked", parked, parked_pl, 0, 0, True))
+        cases += [(name, cache, pl, w, 200 if r else 0, False)
+                  for name, pl, w, r in MASK_CASES]
+        for name, cc, pl, window, ring, timed in cases:
+            pos = torch.tensor(pl, dtype=torch.int32, device=dev)
+            slab = da._slab_view(cc, ring)
 
             def kern():
-                return da.fused_paged_decode_attention(q, cache, pos)
+                return da.fused_paged_decode_attention(q, cc, pos,
+                                                       window=window,
+                                                       ring=ring)
 
             def plain():
-                return da.decode_attention_plain(q, cache, pos)
+                return da.decode_attention_plain(q, cc, pos, window=window,
+                                                 ring=ring)
 
             got, ref, k2 = kern(), plain(), da.fused_decode_attention(
-                q, slab, pos)
+                q, slab, pos, window=window, ring=ring)
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
+            what = f"K3 {tag} {kind} {name} pos={pl}" + (
+                f" window={window} ring={ring}" if window or ring else "")
             if not within(got, ref, 0.0, 1e-5):
-                fail(f"K3 {tag} {kind} pos={pl}: max abs err {err:.3e} over "
-                     f"atol 1e-5")
+                fail(f"{what}: max abs err {err:.3e} over atol 1e-5")
             if not torch.equal(got, k2):
-                fail(f"K3 {tag} {kind} pos={pl}: not bit-identical to K2 on "
-                     f"the "
-                     f"same tokens as a slab (max diff "
+                fail(f"{what}: not bit-identical to K2 on the same tokens as "
+                     f"a slab (max diff "
                      f"{float((got - k2).abs().max()):.3e})")
             worst = max(worst, err)
-            kdense, vdense = da.read_cache_dense(cache, dtype=torch.float32)
+            if not timed:
+                print(f"[k3] {what}: err={err:.2e} (tol atol 1e-5), "
+                      f"bit-identical to K2 on the slab: yes")
+                continue
+            kdense, vdense = da.read_cache_dense(cc, dtype=torch.float32)
             s_len = kdense.shape[1]
-            mask = (torch.arange(s_len, device=dev)[None, :]
-                    <= pos[:, None].long())[:, None, None, :]
-            qh, kh, vh = (q.transpose(1, 2), kdense.transpose(1, 2),
-                          vdense.transpose(1, 2))
-
-            def library():
-                return F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask, enable_gqa=g > 1)
-
+            library = _attn_library(q, kdense, vdense, pos, g)
             (ms, wall), (plain_ms, _), (lib_ms, _) = \
                 time_ms(kern), time_ms(plain), time_ms(library)
             b, h = q.shape[0], q.shape[2]
             valid = int(sum(min(p + 1, s_len) for p in pl))
             per_tok = hkv * (d // 2 * 2 + 8) if kind == "packed" \
-                else hkv * d * cache["k"].element_size() * 2
-            n_bytes = 2 * b * h * d * 4 + b * 4 + cache["block_table"] \
+                else hkv * d * cc["k"].element_size() * 2
+            n_bytes = 2 * b * h * d * 4 + b * 4 + cc["block_table"] \
                 .numel() * 4 + valid * per_tok
             b_ms, b_by = bound_ms(n_bytes, 4.0 * valid * h * d)
             rec = dict(cache=kind, pos=pl, max_abs_err=err, ms=ms,
                        wall_ms=wall, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
             rows_out.append(rec)
-            if kind == "packed" and not parked:
+            if kind == "packed" and name == "mixed":
                 main = rec
             print(f"[k3] {tag} {kind:6s} pos={pl} err={err:.2e} (tol atol "
                   f"1e-5) "
@@ -464,6 +513,58 @@ def k3_phase(dev, hkv: int = 16, g: int = 1, d: int = 64,
                   f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
                   f"bound={b_ms:.5f}ms ({b_by})")
     return rows_out, worst, main
+
+
+def k23_split_phase(dev):
+    """K2 with its cluster split forced to each of 1, 2, 4 and 8 (and
+    the buffer count that split needs) at the served shapes and at G 2 /
+    D 64, G 16 / D 256 and G 3 / D 40, packed and fp32, pos mixed and
+    with no valid slot, against the plain version (atol 1e-5): the plan
+    picks one split per shape, this holds the kernel at every split it
+    can pick. Returns the worst error."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.models.layers import _quant_kv_token
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    for hkv, g, d in ((16, 1, 64), (4, 8, 128), (8, 2, 64), (1, 16, 256),
+                      (4, 3, 40)):
+        q = torch.randn((4, 1, hkv * g, d), generator=gen, device=dev)
+        k = torch.randn((4, 256, hkv, d), generator=gen, device=dev)
+        v = torch.randn((4, 256, hkv, d), generator=gen, device=dev)
+        kd, ks = _quant_kv_token(k)
+        vd, vs = _quant_kv_token(v)
+        for cache in ({"k_data": kd, "v_data": vd, "k_scl": ks,
+                       "v_scl": vs}, {"k": k, "v": v}):
+            fp = None if "k_data" in cache else torch.float32
+            base = da.decode_plan(4, 256, hkv * g, hkv, d, fp)
+            for pl in (POS_CASES["mixed"], [-1, 100, 200, 31]):
+                pos = torch.tensor(pl, dtype=torch.int32, device=dev)
+                ref = da.decode_attention_plain(q, cache, pos)
+                errs = []
+                for split in (1, 2, 4, 8):
+                    tpr = -(-base.tiles // split)
+                    nbuf = 2 if tpr > 1 else 1
+                    plan = dataclasses.replace(
+                        base, split=split, tpr=tpr, nbuf=nbuf,
+                        smem=da._smem(base.g, d, base.kind, nbuf))
+                    got = da._launch(q, cache, pos, window=0, ring=0,
+                                     plan=plan)
+                    torch.cuda.synchronize()
+                    errs.append(float((got - ref).abs().max()))
+                    if errs[-1] > 1e-5:
+                        fail(f"K2 Hkv={hkv} G={g} D={d} split {split} "
+                             f"{'packed' if fp is None else 'fp32'} pos={pl}:"
+                             f" max abs err {errs[-1]:.3e} over atol 1e-5")
+                worst = max(worst, *errs)
+                print(f"[k2 split] Hkv={hkv} G={g} D={d} "
+                      f"{'packed' if fp is None else 'fp32'} pos={pl}: "
+                      f"splits 1/2/4/8 err "
+                      + " / ".join(f"{e:.2e}" for e in errs)
+                      + f" (tol atol 1e-5; the plan picks {base.split})")
+    return worst
 
 
 def _prefill_case(dev, packed: bool, c: int, gen, hkv: int = 16,
@@ -607,13 +708,14 @@ def k4_phase(dev, hkv: int = 16, g: int = 1, d: int = 64,
     return rows_out, worst, main
 
 
-def attn_time(dev, kernel: str, hkv: int, g: int, d: int, reps: int = 3):
-    """K2's or K4's device time (ms, `reps` CUDA-graph replays of 50
-    launches) over a packed cache, on `k2_phase`'s mixed positions or
-    `k4_phase`'s first case (C 16) at these shapes. Uses only the
-    wrappers every version of the port has, so it also times an older
-    tree's kernels (import this script with that tree's `src` first on
-    the path)."""
+def _attn_inputs(dev, kernel: str, hkv: int, g: int, d: int,
+                 fp_dtype=None, pos: str = "mixed"):
+    """The call `attn_time` and `attn_host_phase` make: K2 over a slab or
+    K3 over a shuffled pool (`k3_phase`'s) at `POS_CASES[pos]`, or K4 at
+    `k4_phase`'s first case (C 16); packed, or fp in `fp_dtype`. Uses
+    only the wrappers every version of the port has, so it also drives
+    an older tree's kernels (import this script with that tree's `src`
+    first on the path)."""
     import torch
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import prefill_attn as pa
@@ -621,52 +723,163 @@ def attn_time(dev, kernel: str, hkv: int, g: int, d: int, reps: int = 3):
     gen = torch.Generator(device=dev).manual_seed(4)
     if kernel == "K4":
         q, cache, positions = _prefill_case(dev, True, 16, gen, hkv, g, d)
-
-        def fn():
-            return pa.fused_prefill_attention(q, cache, positions)[0]
-    else:
-        q = torch.randn((4, 1, hkv * g, d), generator=gen, device=dev)
-        kv = [_quant_kv_token(torch.randn((4, 256, hkv, d), generator=gen,
-                                          device=dev)) for _ in range(2)]
+        return lambda: pa.fused_prefill_attention(q, cache, positions)[0]
+    rows = torch.tensor(POS_CASES[pos], dtype=torch.int32, device=dev)
+    if kernel == "K3":
+        q, cache, _, _ = _paged_case(dev, fp_dtype is None, False, gen,
+                                     hkv, g, d, fp_dtype or "float32")
+        return lambda: da.fused_paged_decode_attention(q, cache, rows)
+    q = torch.randn((4, 1, hkv * g, d), generator=gen, device=dev)
+    kv = [torch.randn((4, 256, hkv, d), generator=gen, device=dev)
+          for _ in range(2)]
+    if fp_dtype is None:
+        kv = [_quant_kv_token(x) for x in kv]
         cache = {"k_data": kv[0][0], "k_scl": kv[0][1],
                  "v_data": kv[1][0], "v_scl": kv[1][1]}
-        pos = torch.tensor([0, 17, 255, 17], dtype=torch.int32, device=dev)
+    else:
+        cache = {"k": kv[0].to(getattr(torch, fp_dtype)),
+                 "v": kv[1].to(getattr(torch, fp_dtype))}
+    return lambda: da.fused_decode_attention(q, cache, rows)
 
-        def fn():
-            return da.fused_decode_attention(q, cache, pos)
+
+def attn_time(dev, kernel: str, hkv: int, g: int, d: int, reps: int = 3,
+              fp_dtype=None, pos: str = "mixed"):
+    """K2's, K3's or K4's device time (ms, `reps` CUDA-graph replays of
+    50 launches) on `_attn_inputs`' call."""
+    fn = _attn_inputs(dev, kernel, hkv, g, d, fp_dtype, pos)
     return [time_ms(fn)[0] for _ in range(reps)]
 
 
-def attn_ab_phase(old_root: str, order=("old", "new", "new", "old")):
-    """K2 and K4 of an older tree (unpacked with `git archive` at
+def split_sweep_phase(dev, shapes=((16, 1, 64), (4, 8, 128), (1, 16, 256)),
+                      pos_cases=("0", "17", "46", "255", "mixed")):
+    """K2's device time with its cluster split forced to each of 1, 2, 4
+    and 8, packed and over a bf16 cache, at `shapes` (Hkv, G, D) and the
+    positions `pos_cases` (`POS_CASES`, plus "46", the longest row of
+    phase A's traffic, two live tiles): what the plan's choice of split
+    trades between short rows (one rank's chain, the larger cluster's
+    launch) and long ones (split tiles). Called by hand, not by
+    `main`."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.models.layers import _quant_kv_token
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = dict(POS_CASES, **{"46": [46] * 4})
+    for hkv, g, d in shapes:
+        q = torch.randn((4, 1, hkv * g, d), generator=gen, device=dev)
+        k = torch.randn((4, 256, hkv, d), generator=gen, device=dev)
+        v = torch.randn((4, 256, hkv, d), generator=gen, device=dev)
+        kd, ks = _quant_kv_token(k)
+        vd, vs = _quant_kv_token(v)
+        for name, cache in (("packed", {"k_data": kd, "v_data": vd,
+                                        "k_scl": ks, "v_scl": vs}),
+                            ("bf16", {"k": k.bfloat16(),
+                                      "v": v.bfloat16()})):
+            base = da.decode_plan(4, 256, hkv * g, hkv, d,
+                                  None if name == "packed"
+                                  else torch.bfloat16)
+            for pc in pos_cases:
+                pos = torch.tensor(cases[pc], dtype=torch.int32, device=dev)
+                ms = []
+                for split in (1, 2, 4, 8):
+                    tpr = -(-base.tiles // split)
+                    nbuf = 2 if tpr > 1 else 1
+                    plan = dataclasses.replace(
+                        base, split=split, tpr=tpr, nbuf=nbuf,
+                        smem=da._smem(base.g, d, base.kind, nbuf))
+                    ms.append(min(time_ms(
+                        lambda: da._launch(q, cache, pos, window=0, ring=0,
+                                           plan=plan))[0]
+                        for _ in range(3)))
+                print(f"[k2 sweep] Hkv={hkv} G={g} D={d} {name} pos="
+                      f"{cases[pc]}: split 1/2/4/8 "
+                      + " ".join(f"{x:.4f}" for x in ms)
+                      + f" ms (min of 3 replays; the plan picks "
+                        f"{base.split})")
+
+
+def attn_host_phase(dev, reps: int = 5, calls: int = 1000):
+    """K2's and K3's wrapper host cost per call, packed at Qwen1.5-0.5B's
+    decode shape (Hkv 16, G 1, D 64), measured as `wrapper_host_phase`
+    measures K1's: `calls` eager calls on the host clock with no sync
+    between them, median of `reps` (the device time is below the host's,
+    so the clock reads the host). Returns {kernel: us per call}."""
+    import torch
+    out = {}
+    for kernel in ("K2", "K3"):
+        fn = _attn_inputs(dev, kernel, 16, 1, 64)
+        for _ in range(20):
+            fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        out[kernel] = sorted(times)[reps // 2]
+        print(f"[attn host] {kernel} packed Hkv=16 G=1 D=64: "
+              f"{out[kernel]:.2f}us per call (median of {reps} x {calls} "
+              f"eager calls)")
+    return out
+
+
+# attn_ab_phase's cases: (kernel, (Hkv, G, D), fp dtype or None = packed)
+AB_CASES = [(kern, sh, fp) for kern in ("K2", "K3")
+            for sh, fps in (((16, 1, 64), (None, "float32")),
+                            ((4, 8, 128), (None, "bfloat16")),
+                            ((1, 16, 256), (None, "bfloat16")))
+            for fp in fps] + [("K4", sh, None)
+                              for sh in ((16, 1, 64), (4, 8, 128))]
+
+
+def attn_ab_phase(old_root: str, order=("old", "new", "new", "old"),
+                  pos_cases=("mixed",)):
+    """K2, K3 and K4 of an older tree (unpacked with `git archive` at
     `old_root`) against this one on the same card, alternated in separate
-    processes (`order`), packed, at Qwen1.5-0.5B's shape (Hkv 16, G 1, D
-    64) and Qwen3-30B-A3B's (Hkv 4, G 8, D 128); each process builds its
-    tree's kernels and reports 3 timings a case."""
+    processes (`order`), at Qwen1.5-0.5B's shape (Hkv 16, G 1, D 64),
+    Qwen3-30B-A3B's (Hkv 4, G 8, D 128) and, for K2/K3, G 16 / D 256,
+    packed and over fp caches (`AB_CASES`), K2/K3 at each of `pos_cases`
+    (`POS_CASES`); each process builds its tree's kernels, reports 3
+    timings a case and the K2/K3 wrappers' host cost per call
+    (`attn_host_phase`)."""
     trees = {"old": os.path.abspath(old_root), "new": ROOT}
-    cases = [(kern, sh) for kern in ("K2", "K4")
-             for sh in ((16, 1, 64), (4, 8, 128))]
-    got = {label: {case: [] for case in cases} for label in trees}
+    cases = [(k, sh, fp, pc) for k, sh, fp in AB_CASES
+             for pc in (pos_cases if k != "K4" else ("mixed",))]
+    got = {label: {case: [] for case in range(len(cases))}
+           for label in trees}
+    host = {label: {"K2": [], "K3": []} for label in trees}
     for label in order:
         code = ("import json, sys, torch; "
                 f"sys.path.insert(0, {os.path.join(trees[label], 'src')!r}); "
                 f"sys.path.insert(0, {ROOT!r}); import chip_smoke as cs; "
                 "dev = torch.device('cuda:0'); "
-                f"print(json.dumps([cs.attn_time(dev, k, *sh) for k, sh in "
-                f"{cases!r}]))")
+                "print(json.dumps([[cs.attn_time(dev, k, *sh, fp_dtype=fp, "
+                f"pos=pc) for k, sh, fp, pc in {cases!r}], "
+                "cs.attn_host_phase(dev)]))")
         out = subprocess.run([sys.executable, "-c", code], check=True,
                              capture_output=True, text=True).stdout
-        for case, ms in zip(cases, json.loads(out.strip().splitlines()[-1])):
+        times, us = json.loads(out.strip().splitlines()[-1])
+        for case, ms in enumerate(times):
             got[label][case] += ms
-    for case in cases:
+        for kern, v in us.items():
+            host[label][kern].append(v)
+    for case, (kern, (hkv, g, d), fp, pc) in enumerate(cases):
         means = {label: sum(v[case]) / len(v[case])
                  for label, v in got.items()}
-        (kern, (hkv, g, d)) = case
-        print(f"[attn a/b] {kern} Hkv={hkv} G={g} D={d} packed, "
+        where = f" pos={POS_CASES[pc]}" if kern != "K4" else ""
+        print(f"[attn a/b] {kern} Hkv={hkv} G={g} D={d} {fp or 'packed'}"
+              f"{where}, "
               f"{' '.join(order)}: old {got['old'][case]} new "
               f"{got['new'][case]} ms; means old {means['old']:.4f} new "
               f"{means['new']:.4f} ms")
-    return got
+    for kern in ("K2", "K3"):
+        print(f"[attn a/b host] {kern} wrapper host cost per call, "
+              f"{' '.join(order)}: old {host['old'][kern]} new "
+              f"{host['new'][kern]} us")
+    return got, host
 
 
 # the layouts K2-K4 were widened to: recurrentgemma-9b's (Hkv 1, G 16,
@@ -687,7 +900,8 @@ def layouts_phase(dev):
     for hkv, g, d, dt in cases:
         worst["k2"] = max(worst["k2"], k2_phase(dev, hkv, g, d, dt,
                                                  all_pos=False)[1])
-        worst["k3"] = max(worst["k3"], k3_phase(dev, hkv, g, d, dt)[1])
+        worst["k3"] = max(worst["k3"], k3_phase(dev, hkv, g, d, dt,
+                                                 all_pos=False)[1])
         worst["k4"] = max(worst["k4"], k4_phase(dev, hkv, g, d, dt,
                                                  cs=(16,))[1])
     return worst
@@ -1050,7 +1264,10 @@ def one_launch_check(dev):
     """A K1/K5 call on CUDA tensors is one kernel launch: one call in each
     served mode (fp, quantize, static) at rows 4, K = N = 1024, under
     torch.profiler, must show exactly one device kernel, the decode
-    body's (no zero-fill, no second pass)."""
+    body's (no zero-fill, no second pass). So must a K2 and a K3 call
+    (packed, Qwen1.5-0.5B's and Qwen3-30B-A3B's decode shapes, int32
+    positions as the engine passes them): the cluster split combines in
+    the same kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ovp_matmul as mm
@@ -1084,6 +1301,25 @@ def one_launch_check(dev):
                  f"({names}), not one decode-body kernel")
         print(f"[k1 launches] {mode}: 1 device kernel per call "
               f"({names[0][:60]})")
+    for kern in ("K2", "K3"):
+        for sh in ((16, 1, 64), (4, 8, 128)):
+            fn = _attn_inputs(dev, kern, *sh)
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            if not names:
+                print(f"[attn launches] {kern}: not measured (no device "
+                      f"events)")
+                continue
+            if len(names) != 1 or "decode_attn_kernel" not in names[0]:
+                fail(f"{kern} call (Hkv, G, D = {sh}) launched {len(names)} "
+                     f"device kernels ({names}), not one")
+            print(f"[attn launches] {kern} Hkv={sh[0]} G={sh[1]} D={sh[2]}: "
+                  f"1 device kernel per call ({names[0][:70]})")
 
 
 def api_phase(dev):
@@ -1172,6 +1408,22 @@ def check_counts(counts, phase: str,
             fail(f"{phase}: kernel {name} was never launched")
 
 
+def check_attn_counts(res, counts, phase: str, paged: bool) -> None:
+    """One attention launch per layer per forward call: K2 (slab) or K3
+    (paged) once per layer per decode step, K4 once per layer per paged
+    prefill chunk, and no other attention kernel."""
+    layers = res["model"].cfg.n_layers
+    st = res["engine"].stats()
+    want = {"decode_attn": 0 if paged else layers * st["decodes_run"],
+            "paged_decode_attn": layers * st["decodes_run"] if paged else 0,
+            "prefill_attn": layers * st["prefill_chunks_run"]}
+    got = {key: counts[key] for key in want}
+    if got != want:
+        fail(f"{phase}: attention launches {got}, expected {want} ({layers} "
+             f"layers, {st['decodes_run']} decode steps, "
+             f"{st['prefill_chunks_run']} prefill chunks)")
+
+
 def serve_phase_a(dev, arch: str = ARCH):
     """The main path through the launcher's entry point."""
     from repro_torch.launch import serve
@@ -1181,6 +1433,7 @@ def serve_phase_a(dev, arch: str = ARCH):
                      "--max-len", "256", "--seed", "0"], device=dev)
     counts = read_counts()
     check_counts(counts, "serve phase A")
+    check_attn_counts(res, counts, "serve phase A", paged=False)
     done = res["completed"]
     if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
         fail(f"serve phase A: {len(done)} requests finished with "
@@ -1348,6 +1601,10 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
     grouped = [e for e in kernels if "ovp_grouped_dec_kernel" in e.key]
     k6_ms = sum(e.self_device_time_total for e in grouped) / 1e3 / steps
     k6_n = sum(e.count for e in grouped) / steps
+    # K2 / K3 (one kernel template, slab or paged rows)
+    attn = [e for e in kernels if "decode_attn_kernel" in e.key]
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 / steps
+    attn_n = sum(e.count for e in attn) / steps
     print(f"[profile] decode step (4 slots, {label}, {steps} steps): "
           f"{step_ms:.2f}ms "
           f"wall; under the profiler {prof_ms:.2f}ms wall, device busy "
@@ -1356,6 +1613,7 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
              f"them zero-fills, {n_dense:.1f} K1/K5 calls"
              + (f", K6 {k6_ms:.3f}ms over {k6_n:.1f} launches" if grouped
                 else "")
+             + f", K2/K3 {attn_ms:.3f}ms over {attn_n:.1f} launches"
              if kernels else "not measured (no device events)"))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
@@ -1364,7 +1622,8 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
     eng.run_until_drained()
     return {"step_ms": step_ms, "prof_ms": prof_ms, "busy_ms": busy_ms,
             "kernels_per_step": n_kernels if kernels else None,
-            "k6_ms": k6_ms if kernels else None}
+            "k6_ms": k6_ms if kernels else None,
+            "attn_ms": attn_ms if kernels else None}
 
 
 def serve_phase_c(dev, res_a, arch: str = ARCH):
@@ -1379,6 +1638,7 @@ def serve_phase_c(dev, res_a, arch: str = ARCH):
     counts = read_counts()
     check_counts(counts, "serve phase C",
                  ("ovp_matmul[fp]", "paged_decode_attn", "prefill_attn"))
+    check_attn_counts(res, counts, "serve phase C", paged=True)
     done = res["completed"]
     if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
         fail(f"serve phase C: {len(done)} requests finished with "
@@ -2093,7 +2353,7 @@ def serve_phase_e(dev):
     base = ["--arch", MOE_ARCH, "--quant", "olive_serve", "--requests", "8",
             "--max-new", "16", "--slots", "4", "--max-len", "256",
             "--seed", "0"]
-    runs, prof = {}, None
+    runs, prof, prof_paged = {}, None, None
     for label, extra, kernels in (
             ("slab", [], ("grouped[fp]", "ovp_matmul[fp]", "decode_attn")),
             ("paged", ["--paged", "16", "--prefill-chunk", "16"],
@@ -2107,6 +2367,7 @@ def serve_phase_e(dev):
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         phase = f"serve phase E ({label})"
         check_counts(counts, phase, kernels)
+        check_attn_counts(res, counts, phase, paged=label == "paged")
         n_layers = res["model"].cfg.n_layers
         st = res["engine"].stats()
         forwards = st["prefills_run"] + st["prefill_chunks_run"] \
@@ -2143,6 +2404,10 @@ def serve_phase_e(dev):
             prof = profile_decode(res, f"{MOE_ARCH}, W4 experts + KV4",
                                   steps=3, max_new=10)
             moe_reference_check(res, dev)
+        else:
+            prof_paged = profile_decode(
+                res, f"{MOE_ARCH}, W4 experts + KV4, paged 16", steps=3,
+                max_new=10)
         runs[label] = {"tokens": {r.uid: r.out_tokens for r in done},
                        "counts": counts, "tok_per_s": res["tok_per_s"],
                        "peak_gb": peak_gb}
@@ -2157,7 +2422,8 @@ def serve_phase_e(dev):
           f"{runs['paged']['peak_gb']:.2f} GB (one model each)")
     if prof is not None and prof["k6_ms"] is not None:
         print(f"[serve E] decode step (slab, 4 slots): K6 "
-              f"{prof['k6_ms']:.3f} device ms per step, "
+              f"{prof['k6_ms']:.3f} device ms per step, K2 "
+              f"{prof['attn_ms']:.3f}, paged K3 {prof_paged['attn_ms']:.3f}, "
               f"device busy {prof['busy_ms']:.3f}ms = "
               f"{100 * prof['busy_ms'] / prof['prof_ms']:.1f}% of the "
               f"profiled wall; tok/s slab {runs['slab']['tok_per_s']:.2f}, "
@@ -2247,6 +2513,8 @@ def main() -> int:
     one_launch_check(dev)
     _, k2_err, k2_main = k2_phase(dev)
     _, k3_err, k3_main = k3_phase(dev)
+    k2_err = max(k2_err, k23_split_phase(dev))
+    attn_host_phase(dev)
     _, k4_err, k4_main = k4_phase(dev)
     _, k5_err, k5_main, k5_decode = k5_codes_phase(dev)
     counts_api = api_phase(dev)

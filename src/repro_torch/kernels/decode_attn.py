@@ -19,9 +19,13 @@ j of row b to a physical page. The kernel source is `csrc/decode_attn.cu`
 `fused_decode_attention` takes `decode_attention_plain` for CPU tensors
 and launches K2 (slab) for CUDA tensors, or raises; paged caches go to
 `fused_paged_decode_attention`, which launches K3. Each wrapper's
-`.launches` counts its kernel's launches. `kernel_layout` is the
-launch's layout check (any G, D % 8 == 0, tiles sized from (G, D) in
-dynamic shared memory), pure so that it is testable without a card.
+`.launches` counts its kernel's launches. `decode_plan` is the
+launch's layout check and geometry (the key split over a thread-block
+cluster, the tiles a rank walks, tile buffers, shared bytes; any G, D %
+8 == 0, tiles sized from (G, D) in dynamic shared memory), from shapes
+alone, pure and memoized so that it is testable without a card and
+costs a dictionary lookup a call; `live_tiles` is the kernel's
+live-tile range, read from `pos` on the card.
 `xla_decode_attention` is the port of the reference's dense path (what
 the `eager` backend serves): whole-cache dequantize, then einsum, in
 bfloat16 for packed caches exactly as the reference rounds it; a paged
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -117,6 +122,7 @@ def slot_validity(pos: torch.Tensor, slots: torch.Tensor, *, window: int,
     return abs_pos, valid
 
 
+@functools.lru_cache(maxsize=None)
 def _qscale(d: int) -> float:
     """float32(sqrt(D)), the divisor the reference scales queries by."""
     return float(np.float32(math.sqrt(d)))
@@ -211,92 +217,208 @@ def decode_attention_plain(q: torch.Tensor, cache, pos: torch.Tensor, *,
 # --------------------------------------------------------------------------
 _SIGNATURE = {
     "decode_attn_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "paged_decode_attn_launch": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+    + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 
 # the cache kinds of the C entries: OVP-packed, or fp in one of these
 FP_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 SMEM_MAX = 232448     # 227 KB, a block's dynamic shared-memory cap
 _TS = 32              # kv tokens per tile
+_MIN_BLOCKS = 132     # one wave: an H100 has 132 SMs
+_TAB_COPIES = 16      # copies of the packed byte table (half2 entries)
+
+
+def _geom(g: int, d: int):
+    """(wpr, ks, ncol, tsp, vs): csrc/decode_attn.cu's `geom`, how a
+    block's 4 warps share a tile (warps per query row, padded K row,
+    float4 columns of a warp's PV, lanes splitting its tokens, padded V
+    row)."""
+    wpr = 4 if g == 1 else 2 if g == 2 else 1
+    ncol = -(-(d // 4) // wpr)
+    tsp = 1
+    while tsp < 8 and 2 * tsp * ncol <= 32:
+        tsp *= 2
+    return wpr, d + 4 * wpr, ncol, tsp, d + (32 // tsp if tsp > 1 else 0)
+
+
+def _smem(g: int, d: int, kind: int, nbuf: int) -> int:
+    """A block's dynamic shared bytes (the C side's `smem_bytes`): nbuf
+    raw tile buffers, the decoded f32 K/V tiles (not for f32 caches), the
+    queries, the partial o, probabilities, scores, the packed byte table
+    (packed caches), m and l."""
+    wpr, ks, _, _, vs = _geom(g, d)
+    raw = (_TS * d + 8 * _TS if kind == 0 else
+           4 * _TS * (ks + vs) if kind == 1 else 4 * _TS * d)
+    dec = 0 if kind == 1 else 4 * _TS * (ks + vs)
+    tab = 4 * 256 * _TAB_COPIES if kind == 0 else 0
+    return nbuf * raw + dec + tab + 4 * (2 * g * d + g * wpr * _TS
+                                   + (g * _TS if wpr > 1 else 0)
+                                   + 2 * g * wpr)
+
+
+def live_tiles(pos: int, s: int, window: int = 0, ring: int = 0) -> range:
+    """The 32-token tiles of an S-slot cache that can hold a valid slot
+    at position `pos` (the kernel's `live_tiles`): 0 .. pos / 32, bounded
+    below by a window, all of S under a ring once pos >= ring - 1 (or
+    when the cache is longer than the ring). With no valid slot at all,
+    every tile: the plain version then averages V over all S slots."""
+    lo, hi = 0, min(pos, s - 1)
+    if window:
+        lo = max(pos - window + 1, 0)
+    if ring and (pos >= ring - 1 or s > ring):
+        lo, hi = 0, s - 1
+    if lo > hi:
+        lo, hi = 0, s - 1
+    return range(lo // _TS, hi // _TS + 1)
 
 
 @dataclasses.dataclass(frozen=True)
-class KernelLayout:
-    """One K2/K3 launch's layout: `g` query heads per kv head, head dim
-    `d`, cache `kind` (0 packed, else `FP_KINDS`) and the block's dynamic
-    shared bytes (csrc/decode_attn.cu's `smem_bytes`)."""
+class DecodePlan:
+    """One K2/K3 launch (csrc/decode_attn.cu's header says why): `b` x
+    `hkv` (row, kv head) pairs, each split over a cluster of `split`
+    blocks of 128 threads; the `g` query heads of a kv head of dim `d`
+    share each tile; an S-slot cache of `tiles` 32-token tiles, a rank
+    walking at most `tpr` of them through `nbuf` raw tile buffers; `smem`
+    dynamic shared bytes; `kind` the cache layout (0 packed, else
+    `FP_KINDS`)."""
+    b: int
+    s: int
     g: int
+    hkv: int
     d: int
     kind: int
+    split: int
+    tpr: int
+    nbuf: int
     smem: int
 
+    @property
+    def tiles(self) -> int:
+        return -(-self.s // _TS)
 
-def kernel_layout(h: int, hkv: int, d: int,
-                  fp_dtype: Optional[torch.dtype] = None) -> KernelLayout:
-    """The K2/K3 layout of H query heads over Hkv kv heads of dim D, for
-    a packed cache (`fp_dtype` None) or an fp cache of `fp_dtype`; raises
-    ValueError / TypeError on what the kernel cannot take."""
+    def rank_tiles(self, pos: int, rank: int, window: int = 0,
+                   ring: int = 0) -> range:
+        """The tiles cluster rank `rank` walks for a row at `pos`: its
+        contiguous share of the row's live tiles (empty for a rank past
+        them)."""
+        live = live_tiles(pos, self.s, window, ring)
+        per = -(-len(live) // self.split)
+        lo = min(live.start + rank * per, live.stop)
+        return range(lo, min(lo + per, live.stop))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(b: int, s: int, h: int, hkv: int, d: int,
+                fp_dtype: Optional[torch.dtype] = None) -> DecodePlan:
+    """The K2/K3 launch of B rows of H query heads over Hkv kv heads of
+    dim D against an S-slot cache (K3: s_len, the ring or n * page size),
+    packed (`fp_dtype` None) or fp of `fp_dtype` (pure, memoized; from
+    shapes alone, never from `pos`, so a CUDA graph can capture the
+    call). Raises ValueError / TypeError on what the kernel cannot take.
+    The key split: the smallest power of two (up to 8, and no more than
+    the cache's tiles) that puts one wave of blocks on the card; two raw
+    tile buffers where a rank can walk more than one tile and they fit."""
     g = h // hkv if hkv > 0 else 0
-    if hkv < 1 or g * hkv != h or d < 8 or d % 8:
+    if hkv < 1 or g * hkv != h or d < 8 or d % 8 or b < 1 or s < 1:
         raise ValueError(f"decode_attn kernel needs H % Hkv == 0 and D % 8 "
-                         f"== 0; got H={h} Hkv={hkv} D={d}")
+                         f"== 0; got B={b} S={s} H={h} Hkv={hkv} D={d}")
     if fp_dtype is not None and fp_dtype not in FP_KINDS:
         raise TypeError(f"decode_attn kernel takes fp caches in "
                         f"{sorted(map(str, FP_KINDS))}, got {fp_dtype}")
-    smem = 4 * (_TS * d + _TS * (d + 1) + 2 * g * d + g * _TS + 3 * g
-                + 2 * _TS)
+    kind = 0 if fp_dtype is None else FP_KINDS[fp_dtype]
+    tiles = -(-s // _TS)
+    split = 1
+    while split < 8 and 2 * split <= tiles and b * hkv * split < _MIN_BLOCKS:
+        split *= 2
+    tpr = -(-tiles // split)
+    nbuf = 2 if tpr > 1 and _smem(g, d, kind, 2) <= SMEM_MAX else 1
+    smem = _smem(g, d, kind, nbuf)
     if smem > SMEM_MAX:
         raise ValueError(f"decode_attn kernel: G={g}, D={d} needs {smem} "
                          f"bytes of shared memory, over {SMEM_MAX}")
-    return KernelLayout(g, d, 0 if fp_dtype is None else FP_KINDS[fp_dtype],
-                        smem)
+    return DecodePlan(b, s, g, hkv, d, kind, split, tpr, nbuf, smem)
+
+
+def kernel_layout(h: int, hkv: int, d: int,
+                  fp_dtype: Optional[torch.dtype] = None) -> DecodePlan:
+    """The layout check alone: the plan of one row over one tile (split
+    1, one buffer), the least any call of this (H, Hkv, D, cache) layout
+    needs; raises as `decode_plan` does."""
+    return decode_plan(1, _TS, h, hkv, d, fp_dtype)
+
+
+def _operand(t: torch.Tensor, dev: int) -> torch.Tensor:
+    """`t` on CUDA device `dev`, contiguous (no copy when it already is)."""
+    if t.get_device() != dev:
+        raise ValueError("decode_attn operands must share one device")
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def _launch(q: torch.Tensor, cache, pos: torch.Tensor, *, window: int,
-            ring: int) -> torch.Tensor:
+            ring: int, plan: Optional[DecodePlan] = None) -> torch.Tensor:
+    """One K2 or K3 launch. `plan` None is the served call; a plan made
+    for this call with another split or buffer count (measurement,
+    `dataclasses.replace`) forces it. The host cost is a few attribute
+    reads, one memoized plan lookup and the output's allocation: no
+    copy or cast of an operand that already is contiguous f32 (q),
+    int32 (pos, the block table) on the card."""
     b, _, h, d = q.shape
     packed = "k_data" in cache
     paged = "block_table" in cache
     kd = cache["k_data"] if packed else cache["k"]
     vd = cache["v_data"] if packed else cache["v"]
     hkv = kd.shape[2]
-    lay = kernel_layout(h, hkv, d, None if packed else kd.dtype)
-    if not packed and vd.dtype != kd.dtype:
-        raise TypeError(f"decode_attn kernel: k cache {kd.dtype}, v cache "
-                        f"{vd.dtype}")
-    ks = cache["k_scl"] if packed else kd
-    vs = cache["v_scl"] if packed else vd
-    ops = [t.contiguous() for t in (q.to(torch.float32), kd, vd, ks, vs)]
-    if any(t.device != q.device for t in ops):
-        raise ValueError("decode_attn operands must share one device")
-    pos32 = pos.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
-    lib = _build.load("decode_attn", _SIGNATURE)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     if paged:
-        bt = cache["block_table"].to(device=q.device,
-                                     dtype=torch.int32).contiguous()
+        bt = cache["block_table"]
         n, ps, n_pool = bt.shape[1], kd.shape[1], kd.shape[0]
         s_len = ring if ring else n * ps
         if bt.shape[0] != b or s_len > n * ps:
             raise ValueError(f"paged decode_attn: block table "
                              f"{tuple(bt.shape)} for batch {b}, ring {ring} "
                              f"over {n} pages of {ps}")
+    else:
+        s_len = kd.shape[1]
+    want = decode_plan(b, s_len, h, hkv, d, None if packed else kd.dtype)
+    if plan is None:
+        plan = want
+    elif (plan.b, plan.s, plan.g, plan.hkv, plan.d, plan.kind) != \
+            (want.b, want.s, want.g, want.hkv, want.d, want.kind):
+        raise ValueError(f"decode_attn: {plan} was made for another call "
+                         f"than {want}")
+    if not packed and vd.dtype != kd.dtype:
+        raise TypeError(f"decode_attn kernel: k cache {kd.dtype}, v cache "
+                        f"{vd.dtype}")
+    dev = q.get_device()
+    qf = q if q.dtype == torch.float32 else q.to(torch.float32)
+    ks = cache["k_scl"] if packed else kd
+    vs = cache["v_scl"] if packed else vd
+    ops = [_operand(t, dev) for t in (qf, kd, vd, ks, vs)]
+    if pos.dtype != torch.int32 or pos.get_device() != dev:
+        pos = pos.to(device=q.device, dtype=torch.int32)
+    pos = _operand(pos, dev)
+    out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    lib = _build.load("decode_attn", _SIGNATURE)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if paged:
+        if bt.dtype != torch.int32 or bt.get_device() != dev:
+            bt = bt.to(device=q.device, dtype=torch.int32)
+        bt = _operand(bt, dev)
         err = lib.paged_decode_attn_launch(
-            *(t.data_ptr() for t in ops), pos32.data_ptr(), bt.data_ptr(),
-            out.data_ptr(), b, s_len, hkv, lay.g, d, n, ps, n_pool, lay.kind,
-            _qscale(d), int(window), int(ring), stream)
+            *(t.data_ptr() for t in ops), pos.data_ptr(), bt.data_ptr(),
+            out.data_ptr(), b, s_len, hkv, plan.g, d, n, ps, n_pool,
+            plan.kind, _qscale(d), int(window), int(ring), plan.split,
+            plan.nbuf, plan.smem, stream)
         _build.check(err, "paged_decode_attn")
         fused_paged_decode_attention.launches += 1
     else:
         err = lib.decode_attn_launch(
-            *(t.data_ptr() for t in ops), pos32.data_ptr(), out.data_ptr(),
-            b, kd.shape[1], hkv, lay.g, d, lay.kind, _qscale(d), int(window),
-            int(ring), stream)
+            *(t.data_ptr() for t in ops), pos.data_ptr(), out.data_ptr(),
+            b, s_len, hkv, plan.g, d, plan.kind, _qscale(d), int(window),
+            int(ring), plan.split, plan.nbuf, plan.smem, stream)
         _build.check(err, "decode_attn")
         fused_decode_attention.launches += 1
-    return out.to(q.dtype)
+    return out if q.dtype == torch.float32 else out.to(q.dtype)
 
 
 def _run(q: torch.Tensor, cache, pos: torch.Tensor, window: int,
