@@ -55,9 +55,18 @@ CUDA toolkit. It builds the hand-written kernels from
    modes and K7 (the OVP encoder): rows 4 and 32, the three (K, N) of a
    layer, against their plain versions (K7 byte for byte), with times,
    bounds and `torch.matmul` on the dequantized operands; plus K7 ->
-   codes4 against K5 at one scale; and the API phase, the kernel API as
-   a user calls it (`kernels.ops.ovp_encode` -> `ovp_matmul` /
-   `matmul_w4a4`, `matmul_w8a8`), counters reset before and read after;
+   codes4 against K5 at one scale; the K7 phase: the served KV write's
+   shapes (R 64 x K 64 and R 16 x K 128, a scale a row) and a
+   prefill-size API call (R 2048 x K 4096, one scalar scale), f32 and
+   bf16, every scale kind (none, scalar, per row), the scalar path (K 6,
+   an unaligned row base) and fp16, 0 bytes differing from the plain
+   version, timed beside the plain version, the same encode as two
+   launches (divide, then K7) and the byte bound; one KV encode through
+   the cuda backend must be one device kernel; then every float32 bit
+   pattern (NaNs excepted) through K7 against the plain version; and the
+   API phase, the kernel API as a user calls it
+   (`kernels.ops.ovp_encode` -> `ovp_matmul` / `matmul_w4a4`,
+   `matmul_w8a8`), counters reset before and read after;
 7. serve phase D — calibrate-then-serve through the launcher's entry
    point (`--calibrate --calibration build/calib/qwen1.5-0.5b.json`,
    phase A's prompts and seed), then again from the saved file, slab
@@ -97,7 +106,13 @@ CUDA toolkit. It builds the hand-written kernels from
    memory, tok/s, TTFT, step time and decode-step profiles, slab and
    paged (K6's and K2's / K3's device ms per step, the device busy
    share); in phases A, C and E each attention kernel must have run
-   once per layer per decode step (K2 or K3) or prefill chunk (K4);
+   once per layer per decode step (K2 or K3) or prefill chunk (K4), and
+   in every serve phase (A-E) K7 twice per layer per forward call that
+   wrote the packed KV cache through `cache_write` (decode steps and
+   whole-prompt prefills: the served KV write packs K and V in one K7
+   launch each); after phases A and C one decode step runs under
+   `torch.cuda.set_sync_debug_mode("warn")` (the host syncs printed by
+   place, none from the KV write) and the KV write alone under "error";
 10. the MoE card-vs-CPU check on a 2-layer truncation of the served
    slab model (same widths and quantized params, fp32 KV): routed
    expert indices equal first, then greedy tokens equal and max |logit
@@ -106,7 +121,9 @@ CUDA toolkit. It builds the hand-written kernels from
 `attn_ab_phase(old_root)` (called by hand, not by `main`) times an
 older tree's K2, K3 and K4 (and its K2/K3 wrappers' host cost) against
 this one, alternated in separate
-processes.
+processes; `k7_ab_phase(old_root)` likewise times an older tree's
+encode at the K7 phase's shapes and profiles one decode step of phase
+A's and phase E's model (device kernels, busy and wall a step).
 
 Any failure exits non-zero before the result line. The last line of
 stdout is {"ok": true, "device": {...}}; the line before it lists every
@@ -934,9 +951,10 @@ def _outlier_acts(dev, gen, rows: int, k: int):
 
 
 def k5_codes_phase(dev):
-    """K5 (static scale), K1 codes4 / codes8 and K7 against their plain
+    """K5 (static scale) and K1 codes4 / codes8 against their plain
     versions at the path's shapes, with times, bounds and a library
-    call, plus the cross-check K7 -> codes4 == K5 at one scale."""
+    call, plus K7 on the pre-scaled activations (byte for byte) and the
+    cross-check K7 -> codes4 == K5 at one scale (`k7_phase` times K7)."""
     import torch
     from repro_torch.core.ovp import (QuantizedTensor, ovp_dequantize,
                                       ovp_quantize)
@@ -947,7 +965,7 @@ def k5_codes_phase(dev):
 
     gen = torch.Generator(device=dev).manual_seed(5)
     layer, weights = _layer_weights(dev, gen)
-    names = ("quantize", "static", "codes4", "codes8", "encode")
+    names = ("quantize", "static", "codes4", "codes8")
     rows_out = {name: [] for name in names}
     worst = dict.fromkeys(names, 0.0)
     main = {name: None for name in names}
@@ -1048,31 +1066,12 @@ def k5_codes_phase(dev):
                   f"1e-5*max|ref|)")
             if n != 1024:
                 continue                # K7 depends on (rows, K) only
-
-            def kern7():
-                return enc.fused_ovp_encode(u)
-
-            def plain7():
-                return enc.ovp_encode_plain(u)
-
-            differ = int((kern7() != plain7()).sum())
+            differ = int((packed != enc.ovp_encode_plain(u)).sum())
             if differ:
                 fail(f"K7 rows={rows} K={k}: {differ} bytes differ from "
                      f"the plain version")
-            (ms, wall), (plain_ms, _) = time_ms(kern7), time_ms(
-                plain7, graph=False)
-            b_ms, b_by = bound_ms(rows * k * 4 + rows * k // 2, 0.0)
-            rec = dict(rows=rows, K=k, bytes_differ=differ, ms=ms,
-                       wall_ms=wall, plain_ms=plain_ms, library_ms=None,
-                       bound_ms=b_ms, bound_by=b_by)
-            rows_out["encode"].append(rec)
-            if rows == 4 and k == 1024:
-                main["encode"] = rec
-            print(f"[k7] rows={rows:2d} K={k:4d} bytes differing {differ} "
-                  f"of {rows * k // 2} (limit 0) kernel={ms:.4f}ms (eager "
-                  f"call {wall:.4f}ms) plain={plain_ms:.4f}ms (eager) "
-                  f"library: none (no PyTorch call packs OVP codes) "
-                  f"bound={b_ms:.5f}ms ({b_by})")
+            print(f"[k7] rows={rows:2d} K={k:4d} pre-scaled: bytes "
+                  f"differing {differ} of {rows * k // 2} (limit 0)")
     return rows_out, worst, main, decode_static
 
 
@@ -1264,12 +1263,14 @@ def one_launch_check(dev):
     """A K1/K5 call on CUDA tensors is one kernel launch: one call in each
     served mode (fp, quantize, static) at rows 4, K = N = 1024, under
     torch.profiler, must show exactly one device kernel, the decode
-    body's (no zero-fill, no second pass). So must a K2 and a K3 call
-    (packed, Qwen1.5-0.5B's and Qwen3-30B-A3B's decode shapes, int32
-    positions as the engine passes them): the cluster split combines in
-    the same kernel."""
+    body's (no zero-fill, no second pass). So must one KV write's encode
+    through the cuda backend (K7), and a K2 and a K3 call (packed,
+    Qwen1.5-0.5B's and Qwen3-30B-A3B's decode shapes, int32 positions as
+    the engine passes them): the cluster split combines in the same
+    kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch import backends
     from repro_torch.kernels import ovp_matmul as mm
 
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -1301,6 +1302,25 @@ def one_launch_check(dev):
                  f"({names}), not one decode-body kernel")
         print(f"[k1 launches] {mode}: 1 device kernel per call "
               f"({names[0][:60]})")
+    # one KV write's encode through the cuda backend: one K7 launch
+    kv = torch.randn((4, 1, 16, 64), generator=gen, device=dev)
+    s = torch.rand((4, 1, 16), generator=gen, device=dev) + 0.1
+    cuda_backend = backends.get_backend("cuda")
+    cuda_backend.encode_kv(kv, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cuda_backend.encode_kv(kv, s)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        print("[k7 launches] not measured (no device events)")
+    elif len(names) != 1 or "ovp_encode_kernel" not in names[0]:
+        fail(f"the cuda backend's KV encode launched {len(names)} device "
+             f"kernels ({names}), not one K7")
+    else:
+        print(f"[k7 launches] one KV encode (4 x 1 x 16 x 64): 1 device "
+              f"kernel ({names[0][:60]})")
     for kern in ("K2", "K3"):
         for sh in ((16, 1, 64), (4, 8, 128)):
             fn = _attn_inputs(dev, kern, *sh)
@@ -1381,6 +1401,252 @@ def api_phase(dev):
 
 
 # --------------------------------------------------------------------------
+# K7: the OVP encoder at the served KV write's shapes and the API's
+# --------------------------------------------------------------------------
+# (label, R, K, the scale kind its caller passes): one decode step's KV
+# write of phase A (4 slots x 16 kv heads, D 64) and of phase E (4 slots x
+# 4 kv heads, D 128), each row at its 3-sigma scale, and a prefill-size
+# `kernels.ops.ovp_encode` call at one scalar scale
+K7_SHAPES = (("KV write A", 64, 64, "row"), ("KV write E", 16, 128, "row"),
+             ("API prefill", 2048, 4096, "scalar"))
+K7_DTYPES = ("float32", "bfloat16")
+
+
+def _k7_inputs(dev, gen, r: int, k: int, dtype: str):
+    """x (R, K) in `dtype` with outliers, and its scales by kind: none,
+    one scalar (the dynamic 3-sigma rule over the whole tensor) and one a
+    row (the KV write's population-std 3-sigma rule)."""
+    import torch
+    from repro_torch.core.quantizer import sigma_init_scale
+    x = _outlier_acts(dev, gen, r, k).to(getattr(torch, dtype))
+    xf = x.float()
+    row = torch.clamp(3.0 * xf.std(-1, unbiased=False) / 7.0, min=1e-6)
+    return x, {"none": None, "scalar": float(sigma_init_scale(xf, "int4")),
+               "row": row}
+
+
+def _k7_divisor(x, scale):
+    """The scale as a device tensor that broadcasts over x's rows."""
+    import torch
+    if isinstance(scale, float):
+        return torch.full((), scale, device=x.device)
+    return scale.reshape(-1, 1)
+
+
+def k7_phase(dev):
+    """K7 against its plain version on the card, 0 bytes differing, at
+    every shape of `K7_SHAPES`, f32 and bf16, with each scale kind (none,
+    scalar, per row), and on the scalar path (K 6, a row base that is not
+    16-byte aligned) and fp16; timed at the scale kind its caller passes,
+    beside the plain version, the same encode as two launches (an f32
+    divide, then K7 without a scale: how the parent tree's API ran) and
+    the byte bound. Returns (records, the main path's record: phase A's
+    KV write in f32)."""
+    import torch
+    from repro_torch.kernels import ovp_encode as enc
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def check(x, scales, what):
+        for kind, scale in scales.items():
+            got = enc.fused_ovp_encode(x, scale=scale)
+            ref = enc.ovp_encode_plain(x, scale)
+            differ = int((got != ref).sum())
+            if differ or got.shape != ref.shape:
+                fail(f"K7 {what} scale {kind}: {differ} of {ref.numel()} "
+                     f"bytes differ from the plain version")
+
+    recs, main = [], None
+    for label, r, k, kind in K7_SHAPES:
+        for dtype in K7_DTYPES:
+            x, scales = _k7_inputs(dev, gen, r, k, dtype)
+            check(x, scales, f"{label} R={r} K={k} {dtype}")
+            scale = scales[kind]
+            div = _k7_divisor(x, scale)
+            plan = enc.encode_plan(r, k, x.dtype, kind)
+            (ms, wall), (plain_ms, _) = (
+                time_ms(lambda: enc.fused_ovp_encode(x, scale=scale)),
+                time_ms(lambda: enc.ovp_encode_plain(x, scale), graph=False))
+            two_ms, _ = time_ms(
+                lambda: enc.fused_ovp_encode(x.to(torch.float32) / div))
+            n_bytes = r * k * x.element_size() + r * k // 2 \
+                + (4 * r if kind == "row" else 0)
+            b_ms, b_by = bound_ms(n_bytes, 0.0)
+            rec = dict(label=label, rows=r, K=k, dtype=dtype, scale=kind,
+                       bytes_differ=0, ms=ms, wall_ms=wall,
+                       plain_ms=plain_ms, two_launch_ms=two_ms,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       vec=plan.vec, blocks=plan.blocks)
+            recs.append(rec)
+            if label == "KV write A" and dtype == "float32":
+                main = rec
+            print(f"[k7] {label} R={r} K={k} {dtype} scale {kind}: bytes "
+                  f"differing 0 of {r * k // 2} at scales none/scalar/row "
+                  f"(limit 0); kernel={ms:.4f}ms (eager call {wall:.4f}ms)"
+                  f" = {100 * b_ms / ms:.1f}% of the bound, divide + K7 "
+                  f"without a scale={two_ms:.4f}ms, plain={plain_ms:.4f}ms "
+                  f"(eager), library: none, bound={b_ms:.3g}ms ({b_by}); "
+                  f"plan vec {plan.vec} x {plan.blocks} blocks of "
+                  f"{plan.threads}")
+    # the scalar path: K not a multiple of 8, and a row base off 16 bytes
+    x, scales = _k7_inputs(dev, gen, 64, 6, "float32")
+    check(x, scales, "R=64 K=6 (pairs)")
+    buf = torch.empty(64 * 64 + 1, device=dev)
+    x, scales = _k7_inputs(dev, gen, 64, 64, "float32")
+    off = buf[1:].view(64, 64)
+    off.copy_(x)
+    check(off, scales, "R=64 K=64 at a base 4 bytes off")
+    x, scales = _k7_inputs(dev, gen, 16, 128, "float16")
+    check(x, scales, "R=16 K=128 float16")
+    print("[k7] scalar path (K 6; a base 4 bytes off 16-byte alignment) "
+          "and fp16 inputs: 0 bytes differing at scales none/scalar/row")
+    return recs, main
+
+
+# k7_exhaustive's fixed scales: inside the range where K7's division keeps
+# its one-reciprocal fast path, and two outside it (its __fdiv_rn path)
+K7_EXHAUSTIVE_SCALES = (0.3, 0.52911, 1234.5, 1e-13, 3e12)
+
+
+def k7_exhaustive(dev, chunk: int = 1 << 25, patterns: int = 1 << 32
+                  ) -> None:
+    """Every float32 bit pattern but the NaNs through K7, each in both
+    slots of a pair beside a 0 (rows of 16: the 16-value vector path),
+    against the plain version on the card, without a scale (the int4
+    code, the outlier test and the abfloat code: ovp_codec.cuh's
+    exponent-field floor(log2) and add-rounding against torch's log2,
+    exp2 and round), at one scale a row drawn log-uniform from 2^-50 to
+    2^50 (K7's division on and off its fast path against torch's true
+    division) and at each of `K7_EXHAUSTIVE_SCALES`."""
+    import torch
+    from repro_torch.kernels import ovp_encode as enc
+    gen = torch.Generator(device=dev).manual_seed(32)
+    t0 = time.perf_counter()
+    passes = [("none", None), ("row", "row")] + [
+        (f"scalar {s!r}", s) for s in K7_EXHAUSTIVE_SCALES]
+    for label, scale in passes:
+        for start in range(0, patterns, chunk):
+            bits = torch.arange(start, start + chunk, dtype=torch.int64,
+                                device=dev)
+            v = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+                torch.int32).view(torch.float32)
+            v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
+            z = torch.zeros_like(v)
+            x = torch.stack([v, z, z, v], -1).reshape(-1, 16)
+            s = scale
+            if scale == "row":
+                s = torch.exp2(torch.rand(x.shape[0], generator=gen,
+                                          device=dev) * 100 - 50)
+            differ = (enc.fused_ovp_encode(x, scale=s)
+                      != enc.ovp_encode_plain(x, s))
+            n = int(differ.sum())
+            if n:
+                rows = differ.any(-1).nonzero()[:4, 0]
+                fail(f"K7 exhaustive, scale {label}: {n} bytes differ from "
+                     f"the plain version in the chunk from pattern "
+                     f"{start:#x}, e.g. rows {x[rows].tolist()}")
+    print(f"[k7 exhaustive] {patterns} float32 patterns (NaNs excepted) "
+          f"in both slots of a pair, at scales "
+          f"{', '.join(label for label, _ in passes)}: 0 bytes differing "
+          f"from the plain version ({time.perf_counter() - t0:.1f}s)")
+
+
+def k7_tree_times(dev):
+    """Device ms of one encode at each `K7_SHAPES` x `K7_DTYPES` case and
+    the caller's scale kind, as the tree on `sys.path` runs it: its
+    `fused_ovp_encode` with the scale where it takes one (one launch),
+    else the cast and divide to f32 and then its K7 (the parent tree's
+    `kernels.ops.ovp_encode`)."""
+    import inspect
+
+    import torch
+    from repro_torch.kernels import ovp_encode as enc
+    fused = "scale" in inspect.signature(enc.fused_ovp_encode).parameters
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = []
+    for label, r, k, kind in K7_SHAPES:
+        for dtype in K7_DTYPES:
+            x, scales = _k7_inputs(dev, gen, r, k, dtype)
+            scale = scales[kind]
+            div = _k7_divisor(x, scale)
+            if fused:
+                fn = (lambda x=x, scale=scale:
+                      enc.fused_ovp_encode(x, scale=scale))
+            else:
+                fn = (lambda x=x, div=div:
+                      enc.fused_ovp_encode(x.to(torch.float32) / div))
+            out.append(time_ms(fn)[0])
+    return out
+
+
+def step_kernels(dev, moe: bool = True):
+    """Device kernels, device busy ms and wall ms of one decode step (4
+    active slots, `profile_decode`) of phase A's model and, with `moe`,
+    phase E's (slab), each built through the launcher's entry point."""
+    from repro_torch.launch import serve
+    out = {}
+    for arch, label, steps in ((ARCH, "A", 6), (MOE_ARCH, "E", 3))[
+            :2 if moe else 1]:
+        free_device_memory()
+        res = serve.run(["--arch", arch, "--quant", "olive_serve",
+                         "--requests", "1", "--max-new", "2", "--slots",
+                         "4", "--max-len", "256", "--seed", "0"],
+                        device=dev)
+        prof = profile_decode(res, f"phase {label}", steps=steps,
+                              max_new=32 if label == "A" else 10)
+        out[label] = [prof["kernels_per_step"], prof["busy_ms"],
+                      prof["step_ms"]]
+        del res
+    return out
+
+
+def k7_ab_phase(old_root: str, order=("old", "new", "new", "old"),
+                moe: bool = True):
+    """The parent tree (unpacked with `git archive` at `old_root`)
+    against this one on the same card, alternated in separate processes
+    (`order`): each process times its tree's encode at every K7 case
+    (`k7_tree_times`) and profiles one decode step of phase A's and, with
+    `moe`, phase E's model (`step_kernels`)."""
+    trees = {"old": os.path.abspath(old_root), "new": ROOT}
+    cases = [(label, r, k, dt) for label, r, k, _ in K7_SHAPES
+             for dt in K7_DTYPES]
+    got = {label: [] for label in trees}
+    steps = {label: [] for label in trees}
+    for label in order:
+        code = ("import json, sys, torch; "
+                f"sys.path.insert(0, {os.path.join(trees[label], 'src')!r}); "
+                f"sys.path.insert(0, {ROOT!r}); import chip_smoke as cs; "
+                "dev = torch.device('cuda:0'); "
+                "t = cs.k7_tree_times(dev); "
+                f"print(json.dumps([t, cs.step_kernels(dev, {moe!r})]))")
+        out = subprocess.run([sys.executable, "-c", code], check=True,
+                             capture_output=True, text=True).stdout
+        lines = out.strip().splitlines()
+        for line in lines:
+            if line.startswith("[profile] decode step"):
+                print(f"[k7 a/b] {label}: {line}")
+        times, kern = json.loads(lines[-1])
+        got[label].append(times)
+        steps[label].append(kern)
+    ran = [lab for lab in trees if got[lab]]
+    for i, (name, r, k, dt) in enumerate(cases):
+        vals = {lab: [t[i] for t in got[lab]] for lab in ran}
+        print(f"[k7 a/b] {name} R={r} K={k} {dt}, {' '.join(order)}: "
+              + "; ".join(f"{lab} {vals[lab]} ms, mean "
+                          f"{sum(vals[lab]) / len(vals[lab]):.4f}"
+                          for lab in ran)
+              + " (old: cast/divide + K7; new: one K7)")
+    for phase in steps[ran[0]][0]:
+        for lab in ran:
+            rows = [s[phase] for s in steps[lab]]
+            print(f"[k7 a/b] phase {phase} decode step, {lab}: device "
+                  f"kernels {[round(x[0], 1) for x in rows]}, device busy "
+                  f"{[round(x[1], 3) for x in rows]} ms, wall "
+                  f"{[round(x[2], 2) for x in rows]} ms")
+    return got, steps
+
+
+# --------------------------------------------------------------------------
 # Serve phases
 # --------------------------------------------------------------------------
 def reset_counts():
@@ -1424,6 +1690,108 @@ def check_attn_counts(res, counts, phase: str, paged: bool) -> None:
              f"{st['prefill_chunks_run']} prefill chunks)")
 
 
+def check_encode_counts(eng, counts, phase: str) -> int:
+    """K7 once for K and once for V per layer per forward call that wrote
+    the packed cache through `cache_write`: every decode step and every
+    whole-prompt prefill (paged prefill chunks write their pages in K4).
+    Returns the count."""
+    layers = eng.model.cfg.n_layers
+    st = eng.stats()
+    want = 2 * layers * (st["decodes_run"] + st["prefills_run"])
+    if counts["ovp_encode"] != want:
+        fail(f"{phase}: ovp_encode launches {counts['ovp_encode']}, expected "
+             f"2 x {layers} layers x ({st['decodes_run']} decode steps + "
+             f"{st['prefills_run']} prefills) = {want}")
+    return want
+
+
+def sync_check(res, label: str) -> None:
+    """One decode step of 4 active slots under
+    `torch.cuda.set_sync_debug_mode("warn")`: the host syncs warned, by
+    where they were raised; none may come from the KV write
+    (`cache_write` and what it calls)."""
+    import inspect
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch import backends
+    from repro_torch.backends import base, cuda
+    from repro_torch.kernels import ovp_encode
+    from repro_torch.models import layers
+    eng = res["engine"]
+    rng = np.random.default_rng(5)
+    for _ in range(4):
+        eng.submit(rng.integers(0, eng.model.cfg.vocab, size=12),
+                   max_new_tokens=8)
+    while len(eng._active()) < 4:
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    kv_write = set()
+    for fn in (layers.cache_write, layers._quant_kv, layers._kv_scale,
+               layers._paged_cache_write, backends.encode_kv,
+               base.encode_rows, cuda.CudaBackend.encode_kv):
+        lines, first = inspect.getsourcelines(fn)
+        kv_write |= {(inspect.getsourcefile(fn), first + i)
+                     for i in range(len(lines))}
+    # the layers: the model code and what it calls (not the engine)
+    inside = tuple(os.path.join(ROOT, "src", "repro_torch", sub) + os.sep
+                   for sub in ("models", "core", "backends", "kernels"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.step()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    where = {}
+    for w in syncs:
+        key = (os.path.relpath(w.filename, ROOT), w.lineno)
+        where[key] = where.get(key, 0) + 1
+    in_layers = sum(1 for w in syncs
+                    if os.path.abspath(w.filename).startswith(inside))
+    from_kv = sum(1 for w in syncs
+                  if (os.path.abspath(w.filename), w.lineno) in kv_write
+                  or os.path.abspath(w.filename)
+                  == os.path.abspath(ovp_encode.__file__))
+    eng.run_until_drained()
+    # the KV write alone, at this step's shapes, under "error": a sync
+    # raises
+    cfg, served = eng.model.cfg, eng.caches["layers"][0]["kv"]
+    paged, dev = "block_table" in served, served["k_data"].device
+    cache = (layers.make_paged_kv_cache(16, 16, 4, 16, cfg.n_kv_heads,
+                                        cfg.head_dim, kv_bits=4, device=dev)
+             if paged else
+             layers.make_kv_cache(4, 256, cfg.n_kv_heads, cfg.head_dim,
+                                  kv_bits=4, device=dev))
+    kv = torch.randn((2, 4, 1, cfg.n_kv_heads, cfg.head_dim), device=dev)
+    pos = torch.tensor([0, 17, 255, 3], dtype=torch.int32, device=dev)
+    policy = layers.rp(eng.model.policy, "attn", "kv")
+    layers.cache_write(cache, kv[0], kv[1], pos, policy)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        layers.cache_write(cache, kv[0], kv[1], pos, policy)
+    except RuntimeError as err:
+        fail(f"sync check {label}: the KV write synchronized the host: "
+             f"{err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"[sync {label}] one decode step under sync debug mode: "
+          f"{len(syncs)} host syncs warned, {in_layers} inside the layers "
+          f"(models, core, backends, kernels), {from_kv} from the KV write "
+          f"(limit 0); by place: "
+          + (", ".join(f"{f}:{n} x{c}" for (f, n), c in sorted(where.items()))
+             or "none") + f"; the {'paged' if paged else 'slab'} KV write "
+          f"alone under \"error\": no sync")
+    if from_kv:
+        fail(f"sync check {label}: the KV write synchronized the host "
+             f"{from_kv} times")
+
+
 def serve_phase_a(dev, arch: str = ARCH):
     """The main path through the launcher's entry point."""
     from repro_torch.launch import serve
@@ -1434,6 +1802,7 @@ def serve_phase_a(dev, arch: str = ARCH):
     counts = read_counts()
     check_counts(counts, "serve phase A")
     check_attn_counts(res, counts, "serve phase A", paged=False)
+    check_encode_counts(res["engine"], counts, "serve phase A")
     done = res["completed"]
     if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
         fail(f"serve phase A: {len(done)} requests finished with "
@@ -1443,8 +1812,8 @@ def serve_phase_a(dev, arch: str = ARCH):
           f"{res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
           f"{res['mean_step_s'] * 1e3:.2f}ms, PTQ {res['ptq_s']:.2f}s, "
           f"launches ovp_matmul[fp]={counts['ovp_matmul[fp]']} "
-          f"decode_attn={counts['decode_attn']}, "
-          f"dispatch {counts['dispatch']}")
+          f"decode_attn={counts['decode_attn']} ovp_encode="
+          f"{counts['ovp_encode']}, dispatch {counts['dispatch']}")
     return res, counts
 
 
@@ -1639,6 +2008,7 @@ def serve_phase_c(dev, res_a, arch: str = ARCH):
     check_counts(counts, "serve phase C",
                  ("ovp_matmul[fp]", "paged_decode_attn", "prefill_attn"))
     check_attn_counts(res, counts, "serve phase C", paged=True)
+    check_encode_counts(res["engine"], counts, "serve phase C")
     done = res["completed"]
     if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
         fail(f"serve phase C: {len(done)} requests finished with "
@@ -1659,7 +2029,8 @@ def serve_phase_c(dev, res_a, arch: str = ARCH):
           f"{counts['ovp_matmul[fp]']} "
           f"decode_attn={counts['decode_attn']} paged_decode_attn="
           f"{counts['paged_decode_attn']} prefill_attn="
-          f"{counts['prefill_attn']}, dispatch {counts['dispatch']}")
+          f"{counts['prefill_attn']} ovp_encode={counts['ovp_encode']}, "
+          f"dispatch {counts['dispatch']}")
     print(f"[serve C] tokens differing from phase A (slab): {differ} of "
           f"{res['tokens']} (reported, not bounded: chunked prefill "
           f"changes K1's row counts and so the last bits before the "
@@ -1756,13 +2127,15 @@ def serve_phase_b(model_a, params, dev):
     counts = read_counts()
     check_counts(counts, "serve phase B",
                  ("ovp_matmul[quantize]", "decode_attn"))
+    check_encode_counts(eng, counts, "serve phase B")
     if len(done) != 4 or any(len(r.out_tokens) != 8 for r in done):
         fail("serve phase B: expected 4 requests x 8 tokens")
     toks = sum(len(r.out_tokens) for r in done)
     print(f"[serve B] {model.cfg.name} W4A4 + KV4 (dynamic 3-sigma scales): "
           f"{toks} tokens in {dt:.3f}s = {toks / dt:.1f} tok/s, launches "
           f"ovp_matmul[quantize]={counts['ovp_matmul[quantize]']} "
-          f"decode_attn={counts['decode_attn']}, act-scale resolutions "
+          f"decode_attn={counts['decode_attn']} ovp_encode="
+          f"{counts['ovp_encode']}, act-scale resolutions "
           f"{counts['act_scale']}")
     return {"engine": eng}, counts
 
@@ -1786,15 +2159,18 @@ def serve_phase_d(dev, res_a, arch: str = ARCH):
     runs = {}
     for label, extra, kernels in (
             ("calibrate", ["--calibrate"], ("ovp_matmul[static]",
-                                            "decode_attn")),
-            ("load", [], ("ovp_matmul[static]", "decode_attn")),
+                                            "decode_attn", "ovp_encode")),
+            ("load", [], ("ovp_matmul[static]", "decode_attn",
+                          "ovp_encode")),
             ("paged", ["--paged", "16", "--prefill-chunk", "16"],
-             ("ovp_matmul[static]", "paged_decode_attn", "prefill_attn"))):
+             ("ovp_matmul[static]", "paged_decode_attn", "prefill_attn",
+              "ovp_encode"))):
         reset_counts()
         res = serve.run(base + extra, device=dev)
         counts = read_counts()
         phase = f"serve phase D ({label})"
         check_counts(counts, phase, kernels)
+        check_encode_counts(res["engine"], counts, phase)
         if counts["ovp_matmul[quantize]"] or counts["ovp_matmul[fp]"]:
             fail(f"{phase}: the dynamic quantize or fp mode ran: {counts}")
         if counts["act_scale"].get("dynamic", 0) or \
@@ -2355,10 +2731,11 @@ def serve_phase_e(dev):
             "--seed", "0"]
     runs, prof, prof_paged = {}, None, None
     for label, extra, kernels in (
-            ("slab", [], ("grouped[fp]", "ovp_matmul[fp]", "decode_attn")),
+            ("slab", [], ("grouped[fp]", "ovp_matmul[fp]", "decode_attn",
+                          "ovp_encode")),
             ("paged", ["--paged", "16", "--prefill-chunk", "16"],
              ("grouped[fp]", "ovp_matmul[fp]", "paged_decode_attn",
-              "prefill_attn"))):
+              "prefill_attn", "ovp_encode"))):
         free_device_memory()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
@@ -2368,6 +2745,7 @@ def serve_phase_e(dev):
         phase = f"serve phase E ({label})"
         check_counts(counts, phase, kernels)
         check_attn_counts(res, counts, phase, paged=label == "paged")
+        check_encode_counts(res["engine"], counts, phase)
         n_layers = res["model"].cfg.n_layers
         st = res["engine"].stats()
         forwards = st["prefills_run"] + st["prefill_chunks_run"] \
@@ -2517,13 +2895,17 @@ def main() -> int:
     attn_host_phase(dev)
     _, k4_err, k4_main = k4_phase(dev)
     _, k5_err, k5_main, k5_decode = k5_codes_phase(dev)
+    _, k7_main = k7_phase(dev)
+    k7_exhaustive(dev)
     counts_api = api_phase(dev)
     res, counts_a = serve_phase_a(dev)
     reference_check(res["model"], res["params"], dev)
     profile_decode(res)
+    sync_check(res, "A")
     res_b, counts_b = serve_phase_b(res["model"], res["params"], dev)
     res_c, counts_c = serve_phase_c(dev, res)
     profile_decode(res_c, "W4 + KV4, paged 16")
+    sync_check(res_c, "C")
     paged_reference_check(res["model"], res["params"], dev)
     interleave_check(res_c, dev)
     runs_d = serve_phase_d(dev, res)
@@ -2588,8 +2970,7 @@ def main() -> int:
         row("prefill_attn", "src/repro/kernels/prefill_attn.py:170",
             "prefill_attn.cu", counts_c["prefill_attn"], k4_err, k4_main),
         row("ovp_encode", "src/repro/kernels/ovp_encode.py:59",
-            "ovp_encode.cu", counts_api["ovp_encode"], 0.0,
-            k5_main["encode"]),
+            "ovp_encode.cu", counts_a["ovp_encode"], 0.0, k7_main),
         row("grouped[fp]", "src/repro/kernels/ovp_matmul.py:436",
             "ovp_matmul.cu", counts_e["grouped[fp]"], k6_err, k6_decode),
     ] + [row(f"grouped[{mode}]", "src/repro/kernels/ovp_matmul.py:436",
@@ -2613,18 +2994,19 @@ def main() -> int:
           "the same over a shuffled pool of 16-row pages; prefill_attn one "
           "launch, packed, C=16 at offset 240 of a 256-token stage, "
           "Qwen1.5-0.5B's shape (library: SDPA, attention half only); "
-          "ovp_encode one launch at "
-          "rows 4, K 1024 (max_abs_err: bytes differing, 0; library: "
-          "none); grouped[fp] (K6) is the 3 launches of one Qwen3-30B-A3B "
+          "ovp_encode one launch of phase A's KV write (R 64 = 4 slots x "
+          "16 kv heads, K 64, f32, a 3-sigma scale a row; max_abs_err: "
+          "bytes differing, 0; library: none); grouped[fp] (K6) is the 3 launches of one Qwen3-30B-A3B "
           "layer's decode step (B 4, E 128, C 4) with a seeded top-8 "
           "routing's fill, cold L2, bound from the touched experts' bytes, "
           "library torch.einsum on the dequantized fp32 stack (every "
           "slot); grouped[quantize|static|codes4|"
           "codes8] one launch at E 8, C 32, K = N = 1024 (API). "
-          "Launches: [fp] and decode_attn from serve phase A, "
+          "Launches: [fp], decode_attn and ovp_encode from serve phase "
+          "A, "
           "[quantize] from phase B, [static] from phase D's calibrate run, "
-          "paged_decode_attn and prefill_attn from phase C, [codes4], "
-          "[codes8] and ovp_encode from the API phase, grouped[fp] from "
+          "paged_decode_attn and prefill_attn from phase C, [codes4] and "
+          "[codes8] from the API phase, grouped[fp] from "
           "serve phase E's slab run, the other grouped modes from the K6 "
           "API phase")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,10 @@
 
 `dispatch(x, w, policy)` executes every quantized matmul,
 `decode_attention(q, cache, pos, policy=...)` every decode-step
-attention and `prefill_attention(q, cache, positions, policy=...)` every
-chunk of a paged prefill, on the backend `policy.backend` names:
+attention, `prefill_attention(q, cache, positions, policy=...)` every
+chunk of a paged prefill and `encode_kv(x, scale, policy=...)` the
+packing of every other KV-cache write, on the backend `policy.backend`
+names:
   cuda   — the hand-written kernels (default; plain versions on CPU)
   eager  — dequantize-then-torch.matmul and the dense attention paths
            (the fallback)
@@ -149,6 +151,16 @@ def decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
     return backend.decode_attention(q, cache, pos, window=window, ring=ring)
 
 
+def encode_kv(x: torch.Tensor, scale: torch.Tensor, *,
+              policy: Optional[QuantPolicy] = None) -> torch.Tensor:
+    """Packed int4 OVP bytes (…, D/2) of one cache write's new K or V rows
+    x (…, D) at their per-row scale (…), on the cache site's backend:
+    `cuda` launches K7 once, `eager` and `policy=None` run the torch ops.
+    Not counted in `dispatch_stats()`, whose keys stay the reference's."""
+    backend = get_backend(policy.backend if policy is not None else "eager")
+    return backend.encode_kv(x, scale)
+
+
 def prefill_attention(q: torch.Tensor, cache, positions: torch.Tensor, *,
                       policy: Optional[QuantPolicy] = None):
     """Paged cache-write prefill of one chunk (q (1, C, H, D), positions
@@ -167,7 +179,8 @@ def prefill_attention(q: torch.Tensor, cache, positions: torch.Tensor, *,
 __all__ = ["QuantizedMatmulBackend", "register", "get_backend", "available",
            "DECLINE_CODES", "ALL_DECLINE_CODES", "DISPATCH_MARKERS",
            "decline", "dispatch_key", "dispatch",
-           "decode_attention", "prefill_attention", "dispatch_stats",
+           "decode_attention", "prefill_attention", "encode_kv",
+           "dispatch_stats",
            "reset_dispatch_stats",
            "quantize_activation", "resolve_act_scale", "act_normal_dtype",
            "ACT_SCALE_KEYS", "act_scale_stats", "record_act_scale",

@@ -156,6 +156,15 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def encode_rows(encode, x: torch.Tensor, scale: torch.Tensor
+                ) -> torch.Tensor:
+    """Apply an (R, K) encoder `encode(x, scale=)` to x (…, D) with one
+    scale per row (…): the leading dims fold into rows."""
+    d = x.shape[-1]
+    out = encode(x.reshape(-1, d), scale=scale.reshape(-1))
+    return out.reshape(*x.shape[:-1], d // 2)
+
+
 class QuantizedMatmulBackend:
     """One way to execute x @ dequant(w) under a policy, plus decode
     attention and paged cache-write prefill. `decline_reason` returning
@@ -194,6 +203,14 @@ class QuantizedMatmulBackend:
         from repro_torch.kernels import decode_attn
         return decode_attn.xla_decode_attention(q, cache, pos,
                                                 window=window, ring=ring)
+
+    def encode_kv(self, x: torch.Tensor, scale: torch.Tensor
+                  ) -> torch.Tensor:
+        """One cache write's new K or V rows x (…, D) at their per-row
+        scale (…) -> (…, D/2) packed int4 OVP bytes of x / scale. Base =
+        the plain torch ops (`layers._quant_kv_token`'s encode)."""
+        from repro_torch.kernels import ovp_encode
+        return encode_rows(ovp_encode.ovp_encode_plain, x, scale)
 
     # True when `prefill_attention` runs the fused cache-write prefill
     # kernel (K4); the base implementation is the dense twin.

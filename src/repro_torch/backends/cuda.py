@@ -7,9 +7,11 @@ grouped per-expert matmul (K6) per stacked (E, K, N) expert weight
 whose lhs carries the matching expert dim, computing only the filled
 capacity rows when the caller passes the fill; the slab (K2) or
 paged (K3) decode-attention kernel
-(`kernels/decode_attn.py`) for every decode step; and the fused
+(`kernels/decode_attn.py`) for every decode step; the fused
 cache-write prefill kernel (K4, `kernels/prefill_attn.py`) for every
-chunk of a paged prefill. CPU tensors take each
+chunk of a paged prefill; and one launch of the OVP encoder (K7,
+`kernels/ovp_encode.py`) for each of K and V of every other packed
+cache write, at the per-row 3σ scale. CPU tensors take each
 kernel's plain version, as `pallas_interpret` runs the reference's
 kernels on the CPU; CUDA tensors launch the kernel or raise."""
 from __future__ import annotations
@@ -20,10 +22,11 @@ import torch
 
 from repro_torch.core.ovp import QuantizedTensor
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.kernels import decode_attn, ovp_matmul, prefill_attn
+from repro_torch.kernels import (decode_attn, ovp_encode, ovp_matmul,
+                                 prefill_attn)
 
-from .base import (QuantizedMatmulBackend, decline, resolve_act_scale,
-                   torch_dtype)
+from .base import (QuantizedMatmulBackend, decline, encode_rows,
+                   resolve_act_scale, torch_dtype)
 
 
 class CudaBackend(QuantizedMatmulBackend):
@@ -68,6 +71,10 @@ class CudaBackend(QuantizedMatmulBackend):
                          *, window: int = 0, ring: int = 0) -> torch.Tensor:
         return decode_attn.fused_decode_attention(q, cache, pos,
                                                   window=window, ring=ring)
+
+    def encode_kv(self, x: torch.Tensor, scale: torch.Tensor
+                  ) -> torch.Tensor:
+        return encode_rows(ovp_encode.fused_ovp_encode, x, scale)
 
     fuses_prefill_attention = True
 

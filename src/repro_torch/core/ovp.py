@@ -49,12 +49,12 @@ def ovp_encode_codes(u: torch.Tensor, normal_dtype: str = "int4",
     o0, o1 = a0 > t, a1 > t
     first_out = o0 & (~o1 | (a0 >= a1))
     second_out = o1 & ~first_out
-    ident_t = torch.tensor(ident, dtype=torch.uint8, device=u.device)
+    # a Python scalar: no host-to-device copy (and stream sync) per call
     c0 = torch.where(first_out, abfloat_encode(x0, spec),
-                     torch.where(second_out, ident_t,
+                     torch.where(second_out, ident,
                                  normal_encode(x0, normal_dtype)))
     c1 = torch.where(second_out, abfloat_encode(x1, spec),
-                     torch.where(first_out, ident_t,
+                     torch.where(first_out, ident,
                                  normal_encode(x1, normal_dtype)))
     return torch.movedim(_interleave(c0, c1), -1, pair_axis)
 

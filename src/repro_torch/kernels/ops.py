@@ -69,11 +69,9 @@ def ovp_matmul(a: Union[torch.Tensor, QuantizedTensor],
 def ovp_encode(x: torch.Tensor, scale, normal_dtype: str = "int4"
                ) -> torch.Tensor:
     """x (M, K) real values -> packed OVP bytes (M, K/2) at `scale` (a
-    scalar or per-row (M, 1)): u = x / scale, then one launch of the
-    encoder kernel (K7)."""
-    u = x.to(torch.float32) / torch.as_tensor(scale, dtype=torch.float32,
-                                              device=x.device)
-    return _enc.fused_ovp_encode(u, normal_dtype)
+    scalar or per-row (M, 1)): u = x / scale and the encode in one launch
+    of the encoder kernel (K7), a scalar scale passed by value."""
+    return _enc.fused_ovp_encode(x, normal_dtype, scale=scale)
 
 
 __all__ = ["fused_ovp_matmul", "grouped_ovp_matmul", "matmul_w4a16",

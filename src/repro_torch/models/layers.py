@@ -130,28 +130,43 @@ def make_paged_kv_cache(n_pages: int, page_size: int, batch_slots: int,
     return cache
 
 
-def _quant_kv_token(x: torch.Tensor):
-    """x (B, T, Hkv, D) -> packed nibbles + per-(token, head) 3σ scales
+def _kv_scale(xf: torch.Tensor) -> torch.Tensor:
+    """(B, T, Hkv, D) f32 -> per-(token, head) 3σ scales (B, T, Hkv)
     (population std, as the reference)."""
-    xf = x.to(torch.float32)
     mu = xf.mean(dim=-1, keepdim=True)
     std = torch.sqrt(((xf - mu) ** 2).mean(dim=-1))
-    s = torch.clamp(3.0 * std / 7.0, min=1e-6)                # (B,T,Hkv)
+    return torch.clamp(3.0 * std / 7.0, min=1e-6)
+
+
+def _quant_kv_token(x: torch.Tensor):
+    """x (B, T, Hkv, D) -> packed nibbles + per-(token, head) 3σ scales,
+    in torch ops."""
+    xf = x.to(torch.float32)
+    s = _kv_scale(xf)
     codes = ovp_encode_codes(xf / s[..., None], "int4", pair_axis=-1)
     return pack4(codes, pair_axis=-1), s
 
 
+def _quant_kv(x: torch.Tensor, policy: Optional[QuantPolicy]):
+    """`_quant_kv_token`'s bytes and scales, the encode on the cache
+    site's backend: `cuda` launches K7 once at the per-row scale."""
+    s = _kv_scale(x.to(torch.float32))
+    return backends.encode_kv(x, s, policy=policy), s
+
+
 def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
-                pos: torch.Tensor):
+                pos: torch.Tensor, policy: Optional[QuantPolicy] = None):
     """Write T tokens per row at positions pos[b] + t, in place; rows past
     the cache length drop (the reference's mode="drop"; a paged cache
-    routes them to its sink page)."""
+    routes them to its sink page). `policy`, the cache site's resolved
+    policy, picks the backend that packs a quantized cache's K and V
+    (None: the torch ops)."""
     if "k" in cache:
         new = {"k": k_new.to(cache["k"].dtype),
                "v": v_new.to(cache["v"].dtype)}
     else:
-        kd, ks = _quant_kv_token(k_new)
-        vd, vs = _quant_kv_token(v_new)
+        kd, ks = _quant_kv(k_new, policy)
+        vd, vs = _quant_kv(v_new, policy)
         new = {"k_data": kd, "v_data": vd, "k_scl": ks, "v_scl": vs}
     if "block_table" in cache:
         _paged_cache_write(cache, new, pos.to(torch.int64))
@@ -224,22 +239,22 @@ def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
     q = rope(q.reshape(b, t, nh, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(b, t, nkv, hd), positions, cfg.rope_theta)
     v = v.reshape(b, t, nkv, hd)
+    kv_policy = rp(policy, site, "kv")
     if mode == "decode":
-        cache = cache_write(cache, k, v, positions[:, 0])
-        out = decode_attention(q, cache, positions[:, 0],
-                               policy=rp(policy, site, "kv"))
+        cache = cache_write(cache, k, v, positions[:, 0], kv_policy)
+        out = decode_attention(q, cache, positions[:, 0], policy=kv_policy)
     elif mode == "prefill" and prefill_attn.is_paged_prefill(cache):
         rows = positions[0].to(torch.int64)
         cache["stage_k"][0].index_copy_(0, rows,
                                         k[0].to(cache["stage_k"].dtype))
         cache["stage_v"][0].index_copy_(0, rows,
                                         v[0].to(cache["stage_v"].dtype))
-        out, cache = backends.prefill_attention(
-            q, cache, positions, policy=rp(policy, site, "kv"))
+        out, cache = backends.prefill_attention(q, cache, positions,
+                                                policy=kv_policy)
     elif mode == "prefill":
         out = causal_attention(q, k, v)
         if cache is not None:
-            cache = cache_write(cache, k, v, positions[:, 0])
+            cache = cache_write(cache, k, v, positions[:, 0], kv_policy)
     else:
         raise ValueError(f"mode {mode!r}: the port runs prefill and decode")
     out = qlinear.linear(out.reshape(b, t, nh * hd), p["wo"], None,

@@ -5,7 +5,11 @@ kernels run with `interpret=True`:
 - `codes4` / `codes8`: `kernels.ops.ovp_matmul`, `matmul_w4a4` and
   `matmul_w8a8` (and `matmul_w4a16`) against the reference's;
 - K7, the OVP encoder: `kernels.ops.ovp_encode` byte for byte against
-  the reference's, and against `ovp_encode_codes` + `pack4`.
+  the reference's, and against `ovp_encode_codes` + `pack4`;
+- the served 4-bit KV-cache write on the `cuda` backend, slab and paged:
+  greedy tokens equal to the reference's `pallas_interpret` engine, and
+  the backend's KV encode (K7 on the card) called twice per layer per
+  forward call that writes the cache through `cache_write`.
 
 Matmul tolerance: rtol 1e-5 and atol 1e-5 * max|ref|, K1's. Decoded
 codes are exact on both sides; only the fp32 summation order of the K
@@ -13,18 +17,34 @@ reduction differs.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from benchmarks import common
 from repro.core import ovp as jovp
+from repro.core import policy as jpol
+from repro.core.qlinear import quantize_params as j_quantize_params
 from repro.kernels import ops as jops
+from repro.models.model import build_model as j_build_model
+from repro.serve import engine as jeng
+from repro.serve import paging as jpg
+from repro_torch.backends import CudaBackend
+from repro_torch.configs.base import ArchConfig
+from repro_torch.convert import params_from_numpy
 from repro_torch.core import ovp as tovp
+from repro_torch.core import policy as tpol
 from repro_torch.core.ovp import QuantizedTensor
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ovp_encode as tenc
 from repro_torch.kernels import ovp_matmul as tmm
+from repro_torch.models.model import build_model as t_build_model
+from repro_torch.serve import engine as teng
+from repro_torch.serve import paging as tpg
 
 
 def _close(got, ref):
@@ -170,4 +190,74 @@ def test_cpu_tensors_launch_no_kernel():
     tops.ovp_matmul(tovp.ovp_quantize(x, 0.5, "int4"), qt)
     tops.ovp_encode(x, 0.5)
     assert tmm.fused_ovp_matmul.mode_launches == before
+    assert tenc.fused_ovp_encode.launches == 0
+
+
+# --------------------------------------------------------------------------
+# The served KV-cache write through K7's route
+# --------------------------------------------------------------------------
+def _engine_inputs():
+    """(reference cfg and W4 params, port cfg and params, prompts) of the
+    committed `bench_lm_30.npz` fixture (4 layers, GQA 4/2, head_dim 32):
+    six requests, prompts of 4-24 tokens and one of 40."""
+    jcfg = common._lm_cfg()
+    _, params, _ = common.trained_lm(steps=30)
+    qparams = jax.jit(j_quantize_params, static_argnums=1)(
+        params, dataclasses.replace(jpol.OLIVE_W4, kv_bits=0,
+                                    compute_dtype="float32"))
+    fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    tcfg = ArchConfig(**{k: v for k, v in dataclasses.asdict(jcfg).items()
+                         if k in fields})
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, qparams),
+                                device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, jcfg.vocab, size=int(rng.integers(4, 25)))
+               .astype(np.int32) for _ in range(5)]
+    prompts.insert(2, rng.integers(0, jcfg.vocab, size=40).astype(np.int32))
+    return jcfg, qparams, tcfg, tparams, prompts
+
+
+def _drain(eng, prompts):
+    for p in prompts:
+        eng.submit(p, max_new_tokens=6)
+    return {r.uid: list(r.out_tokens) for r in eng.run_until_drained()}
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_served_kv4_write_encodes_through_the_backend(paged, monkeypatch):
+    """W4 + a 4-bit OVP KV cache served on the `cuda` backend (plain
+    versions on the CPU), slab and paged with 16-token prefill chunks:
+    greedy tokens equal the reference's on its `pallas_interpret` backend
+    (fp32 attention, as K2-K4's), and the backend's KV encode (K7 on the
+    card) ran once for K and once for V per layer per forward call that
+    wrote the cache through `cache_write`: every decode step and every
+    slab prefill; paged prefill chunks write their pages in K4."""
+    jcfg, qparams, tcfg, tparams, prompts = _engine_inputs()
+    cfg = dict(batch_slots=4, max_len=64)
+    if paged:
+        cfg.update(prefill_chunk=16)
+    jp = dataclasses.replace(jpol.OLIVE_W4, kv_bits=4,
+                             compute_dtype="float32")
+    ref = _drain(jeng.ServingEngine(
+        j_build_model(jcfg, jp, remat=False), qparams, jeng.EngineCfg(
+            backend="pallas_interpret",
+            page_pool=jpg.PagePoolCfg(16) if paged else None, **cfg)),
+        prompts)
+    calls = []
+    orig = CudaBackend.encode_kv
+    monkeypatch.setattr(CudaBackend, "encode_kv",
+                        lambda self, x, s: calls.append(x.shape)
+                        or orig(self, x, s))
+    tp = dataclasses.replace(tpol.OLIVE_W4, kv_bits=4,
+                             compute_dtype="float32")
+    eng = teng.ServingEngine(t_build_model(tcfg, tp), tparams,
+                             teng.EngineCfg(
+                                 backend="cuda",
+                                 page_pool=tpg.PagePoolCfg(16) if paged
+                                 else None, **cfg), device="cpu")
+    assert _drain(eng, prompts) == ref
+    st = eng.stats()
+    assert (st["prefill_chunks_run"] > 0) == paged
+    assert len(calls) == 2 * tcfg.n_layers * (st["decodes_run"]
+                                              + st["prefills_run"]) > 0
     assert tenc.fused_ovp_encode.launches == 0
