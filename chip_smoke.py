@@ -118,6 +118,24 @@ CUDA toolkit. It builds the hand-written kernels from
    expert indices equal first, then greedy tokens equal and max |logit
    diff| <= 1e-3 * max|ref|.
 
+Every serve phase runs the engine's captured steps (CUDA graphs, the
+default) and checks them: the trace audit (`audit_check`: the decode step
+built once, one prefill entry per prompt bucket or paged stage length
+seen, each captured, none evicted); graph against eager in the same
+engine (`capture_gate`: decode steps of 4 slots from the same caches
+through the graph and through the same step run eagerly,
+bit-identical logits, 0 cache bytes differing, equal greedy tokens), in
+phases A, B, C, D (load and paged) and E (slab and paged); the sync
+check allows no host sync in a captured decode step but the token
+fetch; and in phases A and E (slab) the launcher's workload is drained
+by an eager twin of the served engine (`capture=False`) and by the
+captured engine in turns eager, graph, graph, eager (`capture_ab`:
+tok/s, mean TTFT, decode-step walls, peak memory, equal greedy tokens),
+then both are profiled; `lru_check` evicts graphs at a prefill cache of
+one entry (phase A's model, slab and paged), and `defrag_check` compacts
+a paged pool under captured steps (phase C's model), with the tokens of
+the run without compaction.
+
 `attn_ab_phase(old_root)` (called by hand, not by `main`) times an
 older tree's K2, K3 and K4 (and its K2/K3 wrappers' host cost) against
 this one, alternated in separate
@@ -1706,11 +1724,14 @@ def check_encode_counts(eng, counts, phase: str) -> int:
 
 
 def sync_check(res, label: str) -> None:
-    """One decode step of 4 active slots under
+    """One captured decode step of 4 active slots under
     `torch.cuda.set_sync_debug_mode("warn")`: the host syncs warned, by
-    where they were raised; none may come from the KV write
-    (`cache_write` and what it calls)."""
+    where they were raised; the only one allowed is the engine's token
+    fetch (the line of `ServingEngine.step` that reads the greedy tokens
+    with `.cpu()`), and none may come from the KV write (`cache_write`
+    and what it calls)."""
     import inspect
+    import traceback
     import warnings
 
     import numpy as np
@@ -1719,6 +1740,7 @@ def sync_check(res, label: str) -> None:
     from repro_torch.backends import base, cuda
     from repro_torch.kernels import ovp_encode
     from repro_torch.models import layers
+    from repro_torch.serve.engine import ServingEngine
     eng = res["engine"]
     rng = np.random.default_rng(5)
     for _ in range(4):
@@ -1738,15 +1760,38 @@ def sync_check(res, label: str) -> None:
     # the layers: the model code and what it calls (not the engine)
     inside = tuple(os.path.join(ROOT, "src", "repro_torch", sub) + os.sep
                    for sub in ("models", "core", "backends", "kernels"))
-    with warnings.catch_warnings(record=True) as caught:
+    lines, first = inspect.getsourcelines(ServingEngine.step)
+    fetch = [(inspect.getsourcefile(ServingEngine.step), first + i)
+             for i, line in enumerate(lines) if ".cpu()" in line]
+    if len(fetch) != 1:
+        fail(f"sync check {label}: ServingEngine.step has {len(fetch)} "
+             f"lines with .cpu(), expected the one token fetch")
+    caught = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        caught.append(warnings.WarningMessage(message, category, filename,
+                                              lineno))
+        caught[-1].stack = traceback.format_stack()[:-1]
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             eng.step()
-            torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    torch.cuda.synchronize()
+    # the mode's own first-use notice mentions synchronization too
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    others = [w for w in syncs
+              if (os.path.abspath(w.filename), w.lineno)
+              != (os.path.abspath(fetch[0][0]), fetch[0][1])]
+    other = len(others)
+    for w in others:
+        print(f"[sync {label}] a sync other than the token fetch, raised "
+              f"from:\n" + "".join(w.stack[-8:]))
     where = {}
     for w in syncs:
         key = (os.path.relpath(w.filename, ROOT), w.lineno)
@@ -1780,16 +1825,226 @@ def sync_check(res, label: str) -> None:
              f"{err}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    print(f"[sync {label}] one decode step under sync debug mode: "
-          f"{len(syncs)} host syncs warned, {in_layers} inside the layers "
-          f"(models, core, backends, kernels), {from_kv} from the KV write "
-          f"(limit 0); by place: "
+    print(f"[sync {label}] one captured decode step under sync debug mode: "
+          f"{len(syncs)} host syncs warned, {other} other than the token "
+          f"fetch (limit 0), {in_layers} inside the layers (models, core, "
+          f"backends, kernels), {from_kv} from the KV write (limit 0); by "
+          f"place: "
           + (", ".join(f"{f}:{n} x{c}" for (f, n), c in sorted(where.items()))
              or "none") + f"; the {'paged' if paged else 'slab'} KV write "
           f"alone under \"error\": no sync")
     if from_kv:
         fail(f"sync check {label}: the KV write synchronized the host "
              f"{from_kv} times")
+    if other:
+        fail(f"sync check {label}: {other} host syncs besides the token "
+             f"fetch in one decode step")
+
+
+def _prefill_keys(eng) -> set:
+    """The compiled prefill entries the engine's completed requests
+    needed: one per prompt bucket (slab) or ("paged", stage length), by
+    the engine's own rounding."""
+    keys = set()
+    for req in eng.completed:
+        bucket = eng._bucket(len(req.prompt))
+        if not eng.paged:
+            keys.add(bucket)
+            continue
+        ps = eng.pool.page_size
+        unit = -(-eng.cfg.prefill_chunk // ps) * ps or ps
+        keys.add(("paged", -(-bucket // unit) * unit))
+    return keys
+
+
+def audit_check(eng, phase: str) -> None:
+    """The engine's trace audit after its run: the decode step built
+    once, no entry built twice, one prefill entry per bucket or stage
+    length seen (none evicted: the runs see at most 3 keys, under the
+    cap of 8), and the decode step and every cached prefill entry
+    captured as a CUDA graph."""
+    audit, st = eng.trace_audit(), eng.stats()
+    keys = _prefill_keys(eng)
+    graphs = [key for key, entry in eng._prefill_cache.items()
+              if entry.graph is None]
+    print(f"[audit {phase}] {audit}, prefill cache "
+          f"{st['prefill_cache_size']} entries "
+          f"{sorted(map(str, eng._prefill_cache))}, "
+          f"{st['prefill_cache_evictions']} evictions; keys seen "
+          f"{sorted(map(str, keys))}")
+    if audit["decode_traces"] != 1 or audit["unexpected_retraces"] != 0 \
+            or audit["prefill_jits"] != len(keys) \
+            or audit["prefill_traces"] != len(keys) \
+            or st["prefill_cache_evictions"] != 0:
+        fail(f"{phase}: trace audit {audit} for {len(keys)} prefill keys "
+             f"{sorted(map(str, keys))}")
+    if eng._decode.graph is None or graphs:
+        fail(f"{phase}: not captured: decode "
+             f"{eng._decode.graph is not None}, prefill entries without a "
+             f"graph {graphs}")
+
+
+def capture_gate(eng, phase: str, steps: int = 6) -> None:
+    """Graph against eager in the same engine: 4 requests admitted (their
+    prefills through the cached entries), then from the same caches
+    `steps` decode steps through the captured decode step and as many
+    through the same step run eagerly on the same static buffers
+    (`StepGraph(..., capture=False)`, what `capture=False` runs): the
+    logits must be bit-identical, every cache byte equal after the
+    steps, and the greedy tokens equal. The caches are put back after,
+    and the requests drained."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.capture import StepGraph
+    g = eng._decode
+    rng = np.random.default_rng(6)
+    for _ in range(4):
+        eng.submit(rng.integers(0, eng.model.cfg.vocab, size=12),
+                   max_new_tokens=steps + 4)
+    while len(eng._active()) < 4:
+        eng.step()
+    if g.graph is None:
+        fail(f"capture gate {phase}: the decode step is not captured")
+    eager = StepGraph(g.fn, g.inputs, capture=False)
+    leaves = [leaf for layer in eng.caches["layers"]
+              for leaf in layer["kv"].values()]
+    start = [leaf.clone() for leaf in leaves]
+    tok0 = np.array([[r.out_tokens[-1]] for r in eng.slots], np.int64)
+    runs = {}
+    for name, entry in (("graph", g), ("eager", eager)):
+        for leaf, s in zip(leaves, start):
+            leaf.copy_(s)
+        tok, pos = tok0, eng.pos.copy()
+        logits, toks = [], []
+        for _ in range(steps):
+            row, nxt = entry.run(tokens=tok, pos=pos)
+            logits.append(row.clone())
+            nxt = nxt.cpu().numpy()
+            toks.append(nxt)
+            tok, pos = nxt[:, None].astype(np.int64), pos + 1
+        runs[name] = (torch.stack(logits), np.stack(toks),
+                      [leaf.clone() for leaf in leaves])
+    for leaf, s in zip(leaves, start):
+        leaf.copy_(s)
+    eng.run_until_drained()
+    (lg, tg, cg), (le, te, ce) = runs["graph"], runs["eager"]
+    same_logits = bool(torch.equal(lg, le))
+    diff = float((lg - le).abs().max())
+    bytes_diff = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                     for a, b in zip(cg, ce))
+    n_bytes = sum(a.numel() * a.element_size() for a in cg)
+    same_toks = bool(np.array_equal(tg, te))
+    print(f"[capture {phase}] {steps} decode steps of 4 slots, graph vs "
+          f"eager in one engine: logits "
+          f"{'bit-identical' if same_logits else f'differ (max {diff:.3e})'}"
+          f", {bytes_diff} of {n_bytes} cache bytes differ, greedy tokens "
+          f"{'equal' if same_toks else 'differ'}")
+    if not same_logits or bytes_diff or not same_toks:
+        fail(f"capture gate {phase}: graph and eager disagree")
+
+
+def capture_ab(res, phase: str, order=("eager", "graph", "graph", "eager"),
+               steps: int = 6, max_new: int = 32):
+    """The launcher's workload (its 8 seeded prompts of 4-31 tokens, 16
+    new tokens each) drained by the served engine (captured steps) and by
+    an eager twin over the same model, params and config
+    (`capture=False`), in turns `order` in this process: tok/s, mean
+    TTFT and the median decode-step wall (host clock of steps that only
+    decode, 4 slots) per turn; every turn's greedy tokens must be
+    equal. Then both are profiled (`profile_decode`). Returns the
+    graph's and the eager twin's profiles."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import ServingEngine
+    eng_g = res["engine"]
+    engs = {"graph": eng_g,
+            "eager": ServingEngine(eng_g.model, eng_g.params, eng_g.cfg,
+                                   device=eng_g.device, capture=False)}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, eng_g.model.cfg.vocab,
+                            size=int(rng.integers(4, 32))).astype(np.int32)
+               for _ in range(8)]
+    got, first = {k: [] for k in engs}, None
+    for label in order:
+        eng = engs[label]
+        uids = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        walls = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        while eng.has_work():
+            ev = eng.step()
+            if ev.decode_batch == 4 and not ev.admitted \
+                    and not ev.prefill_chunks:
+                walls.append((ev.t_end - ev.t_start) * 1e3)
+        dt = time.perf_counter() - t0
+        done = {r.uid: r for r in eng.completed if r.uid in uids}
+        out = [done[u].out_tokens for u in uids]
+        n = sum(len(t) for t in out)
+        first = first or out
+        if out != first:
+            fail(f"capture a/b {phase}: greedy tokens differ between turns "
+                 f"({' '.join(order)}; {label})")
+        ttft = np.mean([done[u].t_first - done[u].t_submit for u in uids])
+        got[label].append((n / dt, ttft * 1e3, float(np.median(walls)),
+                           np.percentile(walls, 25),
+                           np.percentile(walls, 75),
+                           torch.cuda.max_memory_allocated() / 1e9))
+    for label in engs:
+        print(f"[capture a/b {phase}] {label} in turns {' '.join(order)}: "
+              + "; ".join(f"{tps:.2f} tok/s, mean TTFT {ttft:.2f}ms, decode "
+                          f"step median {med:.3f}ms (IQR {lo:.3f}-{hi:.3f}), "
+                          f"peak device memory {gb:.2f} GB"
+                          for tps, ttft, med, lo, hi, gb in got[label]))
+    print(f"[capture a/b {phase}] greedy tokens equal in every turn "
+          f"({sum(len(t) for t in first)} tokens a turn)")
+    return {label: profile_decode({"engine": eng},
+                                  f"phase {phase}, {label}", steps=steps,
+                                  max_new=max_new)
+            for label, eng in engs.items()}
+
+
+def lru_check(res) -> None:
+    """The served model in engines of one slot, max_len 64, slab and
+    paged (page 16, chunk 16), with `prefill_cache_cap=1` and at the
+    default cap (8), on prompts of 5, 20 and 9 tokens (buckets and stage
+    lengths 16, 32, 16), as the reference's
+    `test_prefill_cache_lru_eviction`: at cap 1 two evictions drop two
+    graphs and the returning key is captured again (3 prefill builds, one
+    entry left), at cap 8 nothing is evicted, and the greedy tokens are
+    equal."""
+    import numpy as np
+    from repro_torch.serve.engine import EngineCfg, ServingEngine
+    from repro_torch.serve.paging import PagePoolCfg
+    eng_a = res["engine"]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, eng_a.model.cfg.vocab, size=n)
+               for n in (5, 20, 9)]
+    for mode, extra in (("slab", {}), ("paged", {
+            "page_pool": PagePoolCfg(16), "prefill_chunk": 16})):
+        toks, stats = {}, {}
+        for cap in (1, 8):
+            eng = ServingEngine(eng_a.model, eng_a.params, EngineCfg(
+                batch_slots=1, max_len=64, prefill_cache_cap=cap, **extra),
+                device=eng_a.device)
+            for p in prompts:
+                eng.submit(p, max_new_tokens=4)
+            toks[cap] = [r.out_tokens for r in eng.run_until_drained()]
+            stats[cap] = (eng.trace_audit(), eng.stats())
+        (a1, s1), (a8, s8) = stats[1], stats[8]
+        print(f"[lru {mode}] cap 1: {a1}, cache size "
+              f"{s1['prefill_cache_size']}, evictions "
+              f"{s1['prefill_cache_evictions']}; cap 8: {a8}, cache size "
+              f"{s8['prefill_cache_size']}, evictions "
+              f"{s8['prefill_cache_evictions']}; greedy tokens "
+              f"{'equal' if toks[1] == toks[8] else 'differ'}")
+        if (s1["prefill_cache_size"], s1["prefill_cache_evictions"],
+                a1["prefill_traces"], a1["prefill_jits"],
+                a1["unexpected_retraces"]) != (1, 2, 3, 3, 0) \
+                or (s8["prefill_cache_size"],
+                    s8["prefill_cache_evictions"]) != (2, 0) \
+                or toks[1] != toks[8]:
+            fail(f"LRU check ({mode}): the prefill cache at cap 1 and 8")
 
 
 def serve_phase_a(dev, arch: str = ARCH):
@@ -2103,6 +2358,42 @@ def interleave_check(res, dev):
     print(f"[interleave] 200-token prompt, chunk 64: {chunk_steps} steps "
           f"with one chunk each, the 3 decoding requests got a token "
           f"every one of them")
+
+
+def defrag_check(res) -> None:
+    """Phase C's model in a paged engine of 2 slots (page 16, chunk 16),
+    4 prompts of 12-40 tokens, 6 new tokens each, compacting the pool
+    (`defrag()`) every second step once the decode step is captured: the
+    graphs read the pools and the block table in place, so the greedy
+    tokens must equal those of the same run without compaction."""
+    import numpy as np
+    from repro_torch.serve.engine import EngineCfg, ServingEngine
+    from repro_torch.serve.paging import PagePoolCfg
+    eng_c = res["engine"]
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, eng_c.model.cfg.vocab, size=n)
+               for n in (12, 40, 20, 33)]
+    toks, moved = {}, 0
+    for label in ("plain", "defrag"):
+        eng = ServingEngine(eng_c.model, eng_c.params, EngineCfg(
+            batch_slots=2, max_len=256, page_pool=PagePoolCfg(16),
+            prefill_chunk=16), device=eng_c.device)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=6)
+        steps = 0
+        while eng.has_work():
+            eng.step()
+            steps += 1
+            if label == "defrag" and steps % 2 == 0 and eng._decode.built:
+                remap = eng.defrag()
+                moved += sum(old != new for old, new in remap.items())
+        toks[label] = {r.uid: r.out_tokens for r in eng.completed}
+    same = toks["plain"] == toks["defrag"]
+    print(f"[defrag] paged engine on captured steps, the pool compacted "
+          f"every second step: {moved} page moves, greedy tokens "
+          f"{'equal' if same else 'differ'} to the run without")
+    if not moved or not same:
+        fail("defrag check: compaction under captured steps")
 
 
 def serve_phase_b(model_a, params, dev):
@@ -2778,9 +3069,10 @@ def serve_phase_e(dev):
               f"launches "
               + " ".join(f"{key}={counts[key]}" for key in kernels)
               + f", dispatch {counts['dispatch']}")
+        audit_check(res["engine"], phase)
+        capture_gate(res["engine"], f"E ({label})", steps=3)
         if label == "slab":
-            prof = profile_decode(res, f"{MOE_ARCH}, W4 experts + KV4",
-                                  steps=3, max_new=10)
+            prof = capture_ab(res, "E", steps=3, max_new=10)["graph"]
             moe_reference_check(res, dev)
         else:
             prof_paged = profile_decode(
@@ -2899,16 +3191,28 @@ def main() -> int:
     k7_exhaustive(dev)
     counts_api = api_phase(dev)
     res, counts_a = serve_phase_a(dev)
+    audit_check(res["engine"], "serve phase A")
     reference_check(res["model"], res["params"], dev)
-    profile_decode(res)
+    capture_ab(res, "A")
+    capture_gate(res["engine"], "A")
+    lru_check(res)
     sync_check(res, "A")
     res_b, counts_b = serve_phase_b(res["model"], res["params"], dev)
+    audit_check(res_b["engine"], "serve phase B")
+    capture_gate(res_b["engine"], "B")
     res_c, counts_c = serve_phase_c(dev, res)
+    audit_check(res_c["engine"], "serve phase C")
     profile_decode(res_c, "W4 + KV4, paged 16")
+    capture_gate(res_c["engine"], "C")
     sync_check(res_c, "C")
     paged_reference_check(res["model"], res["params"], dev)
     interleave_check(res_c, dev)
+    defrag_check(res_c)
     runs_d = serve_phase_d(dev, res)
+    for label, (res_d, _) in runs_d.items():
+        audit_check(res_d["engine"], f"serve phase D ({label})")
+        if label != "calibrate":
+            capture_gate(res_d["engine"], f"D ({label})")
     static_reference_check(runs_d["load"][0], dev)
     prof_b = profile_decode(res_b, "W4A4 + KV4, dynamic 3-sigma scales")
     prof_d = profile_decode(runs_d["load"][0], "W4A4 + KV4, static scales")
@@ -2924,7 +3228,7 @@ def main() -> int:
     step_wall_ab(res_b, runs_d["load"][0])
     counts_d = runs_d["calibrate"][1]
     # the MoE slice: phases A-D's models are freed first
-    del res, res_b, res_c, runs_d, prof_b, prof_d
+    del res, res_b, res_c, runs_d, res_d, prof_b, prof_d
     free_device_memory()
     _, k2_err_moe, _ = k2_phase(dev, hkv=4, g=8, d=128)
     _, k3_err_moe, _ = k3_phase(dev, hkv=4, g=8, d=128)

@@ -59,9 +59,8 @@ from repro_torch.core.calibration import (CalibrationArtifact,
                                           apply_calibration, calibrate_model)
 from repro_torch.core.policy import PRESETS, get_policy
 from repro_torch.core.qlinear import quantize_params
-from repro_torch.kernels import (decode_attn, ovp_encode, ovp_matmul,
-                                 prefill_attn)
 from repro_torch.models.model import build_model
+from repro_torch.serve import capture
 from repro_torch.serve.engine import EngineCfg, ServingEngine
 from repro_torch.serve.paging import PagePoolCfg
 
@@ -101,32 +100,10 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def kernel_launches() -> Dict[str, int]:
-    """Launch counts of the port's kernels since they were last reset:
-    the fused OVP matmul per activation mode (`ovp_matmul[static]` is
-    K5), the grouped per-expert matmul K6 per mode (`grouped[fp]` on the
-    MoE serving path), the encoder (K7) and the three attention
-    kernels."""
-    return {**{f"ovp_matmul[{mode}]": n for mode, n in
-               ovp_matmul.fused_ovp_matmul.mode_launches.items()},
-            **{f"grouped[{mode}]": n for mode, n in
-               ovp_matmul.grouped_ovp_matmul.mode_launches.items()},
-            "ovp_encode": ovp_encode.fused_ovp_encode.launches,
-            "decode_attn": decode_attn.fused_decode_attention.launches,
-            "paged_decode_attn":
-                decode_attn.fused_paged_decode_attention.launches,
-            "prefill_attn": prefill_attn.fused_prefill_attention.launches}
-
-
-def reset_kernel_launches() -> None:
-    """Set every counter of `kernel_launches()` to 0."""
-    for fn in (ovp_matmul.fused_ovp_matmul, ovp_matmul.grouped_ovp_matmul):
-        fn.mode_launches = dict.fromkeys(ovp_matmul.A_MODES, 0)
-    for fn in (ovp_encode.fused_ovp_encode,
-               decode_attn.fused_decode_attention,
-               decode_attn.fused_paged_decode_attention,
-               prefill_attn.fused_prefill_attention):
-        fn.launches = 0
+# the kernels' launch counters by name, and their reset (the counter list
+# lives in `serve.capture`, which also keeps them true under replay)
+kernel_launches = capture.launch_counts
+reset_kernel_launches = capture.reset_launch_counts
 
 
 def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:

@@ -185,11 +185,19 @@ def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
             mask = keep.reshape((b,) + (1,) * (old.ndim - 1))
             cache[key][bidx, idx] = torch.where(mask, val[:, 0], old)
         return cache
-    idx = pos[:, None] + torch.arange(t, device=pos.device)
-    bidx = torch.arange(b, device=pos.device)[:, None].expand(b, t)
-    keep = idx < length
+    # several tokens a row (a prefill): cache row j of row b takes token
+    # j - pos[b] where that lies in [0, T) and keeps its value elsewhere.
+    # A gather and a select need no host sync (a boolean-mask index sizes
+    # its result on the host, which a CUDA graph capture refuses).
+    off = torch.arange(length, device=pos.device)[None] - pos[:, None]
+    keep = (off >= 0) & (off < t)                           # (B, L)
+    src = torch.clamp(off, 0, t - 1)
     for key, val in new.items():
-        cache[key][bidx[keep], idx[keep]] = val[keep]
+        tail = (1,) * (val.ndim - 2)
+        got = torch.gather(val, 1, src.reshape(b, length, *tail)
+                           .expand(b, length, *val.shape[2:]))
+        leaf = cache[key][:b]
+        leaf.copy_(torch.where(keep.reshape(b, length, *tail), got, leaf))
     return cache
 
 
@@ -281,7 +289,9 @@ def recording_routes():
     """Collect the routed expert indices (B, T, k) of every `moe_layer`
     call inside the block, in call order: a card-vs-CPU check compares
     routing first, so that a near-tie that picks another expert reads
-    as what it is."""
+    as what it is. The list is appended on the host, so only eager
+    forward calls record: a replay of a captured engine step
+    (`serve/capture.py`) appends nothing."""
     global _ROUTES
     prev, _ROUTES = _ROUTES, []
     try:

@@ -1,0 +1,169 @@
+"""Compiled engine steps: the port's counterpart of the reference engine's
+`jax.jit` / `sanitize.jit_checked` over one step function.
+
+A `StepGraph` holds one step function and the static device buffers it
+reads. `run(**host_inputs)` copies the named host arrays into their
+buffers (through pinned memory, without a host sync) and runs the step.
+On the card the first `run` executes the function eagerly (a real step,
+and the warm-up: each kernel's one-time `cudaFuncSetAttribute` happens
+here, outside any capture), then captures it into a
+`torch.cuda.CUDAGraph`; every later `run` is one replay that returns the
+same static output tensors. On the CPU, or with `capture=False`, every
+`run` calls the function on the same static buffers. Either way the
+first `run` is the entry's one build, which `on_build` reports: the
+engine counts builds as the reference counts traces.
+
+Host counters under replay. The kernel wrappers count launches, and the
+backends count dispatches and activation-scale resolutions, on the host
+(`host_counts()` lists them all). Every counter counts device
+executions: a capture executes nothing, so what it added is rolled back
+(`count_delta`, `add_counts`), and each replay adds the recorded delta
+of one execution.
+
+A graph's outputs live in the memory pool it shares with the engine's
+other graphs: read them before another graph of that pool replays.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import backends
+from repro_torch.backends import base
+from repro_torch.kernels import (decode_attn, ovp_encode, ovp_matmul,
+                                 prefill_attn)
+
+# wrappers whose `.mode_launches` dict counts launches per activation mode
+_MODE_COUNTED = {"ovp_matmul": ovp_matmul.fused_ovp_matmul,
+                 "grouped": ovp_matmul.grouped_ovp_matmul}
+# wrappers whose `.launches` int counts launches
+_COUNTED = {"ovp_encode": ovp_encode.fused_ovp_encode,
+            "decode_attn": decode_attn.fused_decode_attention,
+            "paged_decode_attn": decode_attn.fused_paged_decode_attention,
+            "prefill_attn": prefill_attn.fused_prefill_attention}
+# the backends' module-level Counters, keyed "<prefix>:<counter key>"
+_COUNTERS = {"dispatch": backends._DISPATCH_STATS,
+             "act_scale": base._ACT_SCALE_STATS}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launch counts of the port's kernels since they were last reset:
+    the fused OVP matmul per activation mode ("ovp_matmul[<mode>]";
+    `ovp_matmul[static]` is K5), the grouped per-expert matmul K6 per
+    mode ("grouped[<mode>]"; `grouped[fp]` on the MoE serving path), the
+    encoder K7 ("ovp_encode") and the three attention kernels. A
+    captured engine step counts each replay."""
+    counts = {}
+    for name, fn in _MODE_COUNTED.items():
+        for mode, n in fn.mode_launches.items():
+            counts[f"{name}[{mode}]"] = n
+    for name, fn in _COUNTED.items():
+        counts[name] = fn.launches
+    return counts
+
+
+def reset_launch_counts() -> None:
+    """Set every counter of `launch_counts()` to 0."""
+    for fn in _MODE_COUNTED.values():
+        fn.mode_launches = dict.fromkeys(ovp_matmul.A_MODES, 0)
+    for fn in _COUNTED.values():
+        fn.launches = 0
+
+
+def host_counts() -> Dict[str, int]:
+    """Every host-side counter of device work, flat: `launch_counts()`,
+    and "dispatch:<key>" / "act_scale:<key>" for
+    `backends.dispatch_stats()` and `act_scale_stats()`."""
+    counts = launch_counts()
+    for prefix, counter in _COUNTERS.items():
+        for key, n in counter.items():
+            counts[f"{prefix}:{key}"] = n
+    return counts
+
+
+def count_delta(before: Dict[str, int],
+                after: Dict[str, int]) -> Dict[str, int]:
+    """after - before, over both snapshots' keys, without zero entries."""
+    delta = {key: after.get(key, 0) - before.get(key, 0)
+             for key in set(before) | set(after)}
+    return {key: n for key, n in delta.items() if n}
+
+
+def add_counts(delta: Dict[str, int]) -> None:
+    """Add a `count_delta` to the live counters (a negative delta rolls
+    counts back). A Counter entry that reaches 0 is removed, so the
+    stats read as if the rolled-back work never ran."""
+    for key, n in delta.items():
+        prefix, sep, sub = key.partition(":")
+        if sep:
+            counter = _COUNTERS[prefix]
+            counter[sub] += n
+            if counter[sub] == 0:
+                del counter[sub]
+        elif key.endswith("]"):
+            name, mode = key[:-1].split("[")
+            _MODE_COUNTED[name].mode_launches[mode] += n
+        else:
+            _COUNTED[key].launches += n
+
+
+class StepGraph:
+    """One compiled step: `fn(**inputs)` over static `inputs` (tensors, or
+    lists of them that `fn` reads in place), captured on the card when
+    `capture` is set, eager otherwise and on the CPU. `pool` is the
+    engine's shared graph memory pool (`torch.cuda.graph_pool_handle()`).
+    A capture or replay error raises: there is no eager fallback."""
+
+    def __init__(self, fn: Callable, inputs: Dict[str, object], *,
+                 capture: bool, pool=None,
+                 on_build: Optional[Callable[[], None]] = None):
+        self.fn = fn
+        self.inputs = inputs
+        first = next(t for t in inputs.values()
+                     if isinstance(t, torch.Tensor))
+        self.cuda = first.device.type == "cuda"
+        self.capture = capture and self.cuda
+        self.pool = pool
+        self.on_build = on_build
+        self.built = False
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs = None
+        self.delta: Dict[str, int] = {}
+
+    def run(self, **host_inputs: np.ndarray):
+        """Copy each named host array into its static buffer, then run the
+        step; returns its outputs (on a replay, the graph's static
+        output tensors)."""
+        for name, value in host_inputs.items():
+            src = torch.from_numpy(np.ascontiguousarray(value))
+            if self.cuda:
+                src = src.pin_memory()
+            self.inputs[name].copy_(src, non_blocking=True)
+        if self.graph is not None:
+            self.graph.replay()
+            add_counts(self.delta)
+            return self.outputs
+        out = self.fn(**self.inputs)
+        if not self.built:
+            if self.capture:
+                self._capture()
+            self.built = True
+            if self.on_build is not None:
+                self.on_build()
+        return out
+
+    def _capture(self) -> None:
+        """Record `fn` into a CUDA graph after its eager warm-up; keep the
+        counters' delta of one execution and roll the capture's back."""
+        before = host_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                outputs = self.fn(**self.inputs)
+        finally:
+            after = host_counts()
+            add_counts(count_delta(after, before))
+        self.delta = count_delta(before, after)
+        self.graph, self.outputs = graph, outputs

@@ -28,6 +28,19 @@ calibrated): the artifact is overlaid on the policy at construction, and
 every quantized site that wants a static activation scale must have one
 (`MissingStaticScaleError` lists the misses); the `cuda` backend then
 runs every such linear on the static-scale kernel (K5).
+
+COMPILED STEPS (`serve/capture.py`), as the reference jits its steps:
+the decode step (greedy argmax included) is one `StepGraph`, the slab
+prefill one per prompt bucket, the paged prefill chunk one per stage
+length; the prefill entries sit in an LRU of `EngineCfg.prefill_cache_cap`
+entries. On the card each entry is captured once as a CUDA graph, into
+one memory pool the engine's graphs share, and replayed after;
+`capture=False` runs the same entries eagerly (the CPU always does).
+Every graph reads static buffers: the caches and block table (written in
+place), one (1, max_len) row cache for the slab prefill, each paged
+entry's raw K/V stage, and each entry's inputs, filled from the host
+before a run. `trace_audit()` counts the builds as the reference counts
+its traces.
 """
 from __future__ import annotations
 
@@ -48,6 +61,7 @@ from repro_torch.core.calibration import (CalibrationArtifact,
                                           uses_static_scales)
 from repro_torch.kernels.prefill_attn import STAGE_KEYS
 from repro_torch.models.model import Model
+from repro_torch.serve.capture import StepGraph
 from repro_torch.serve.paging import PagePool, PagePoolCfg, pages_for
 
 
@@ -94,9 +108,10 @@ class StepEvents:
 @dataclasses.dataclass
 class _Prefilling:
     """One request mid-chunked-prefill (paged mode): its pages are
-    reserved, its raw prompt K/V accumulates in per-layer stage tensors,
-    and `step()` feeds one chunk per step until `written` reaches
-    `target`."""
+    reserved, its raw prompt K/V accumulates in per-layer stage tensors
+    (its stage length's compiled entry's static stage, zeroed and handed
+    over at the first chunk), and `step()` feeds one chunk per step
+    until `written` reaches `target`."""
     req: Request
     slot: int
     toks: np.ndarray        # (stage_len,) right-padded prompt
@@ -107,7 +122,7 @@ class _Prefilling:
     gen_pages: int          # pages kept after prefill (decode horizon)
     target: int             # chunked tokens to run: ceil(t/chunk)*chunk
     written: int            # tokens already prefilled
-    stage: list             # per layer {"stage_k", "stage_v"}
+    stage: Optional[list] = None    # per layer {"stage_k", "stage_v"}
 
 
 @dataclasses.dataclass
@@ -129,14 +144,21 @@ class EngineCfg:
     # page multiple). 0 = the whole staged prompt in one chunk. Either
     # way at most ONE chunk runs per engine step, interleaved with decode.
     prefill_chunk: int = 0
+    # LRU cap on the compiled prefill entries (slab: one per prompt
+    # bucket; paged: one per stage length), as the reference caps its
+    # jitted ones; an evicted entry's graph is dropped
+    prefill_cache_cap: int = 8
 
 
 class ServingEngine:
     """Single-device engine on `device` (the tensors' device decides
-    whether the kernels or their plain versions run), slab or paged."""
+    whether the kernels or their plain versions run), slab or paged.
+    On the card its steps are captured as CUDA graphs; `capture=False`
+    runs them eagerly (the counterpart of the reference under
+    `jax.disable_jit()`)."""
 
     def __init__(self, model: Model, params, cfg: EngineCfg,
-                 device="cuda"):
+                 device="cuda", capture: bool = True):
         if cfg.backend is not None and \
                 model.policy.backends() != frozenset((cfg.backend,)):
             model = copy.copy(model)
@@ -165,10 +187,38 @@ class ServingEngine:
         self.decodes_run = 0
         self._token_events: List[TokenEvent] = []
         self._admitted_uids: List[int] = []
+        self.capture = capture
+        # one memory pool for every graph of the engine: a prefill graph
+        # at bucket 256 holds (1, 256, vocab) f32 logits, so a pool per
+        # graph would hold that once per cached entry
+        self._pool = torch.cuda.graph_pool_handle() \
+            if capture and self.device.type == "cuda" else None
+        self.prefill_traces = 0     # prefill entries built
+        self.decode_traces = 0      # the decode entry is built once
+        self._prefill_jits = 0      # prefill entries created
+        self.prefill_cache_evictions = 0
+        # LRU over compiled prefill entries, keyed by bucket (slab) or
+        # ("paged", stage_len)
+        self._prefill_cache: collections.OrderedDict[object, StepGraph] = \
+            collections.OrderedDict()
+        b = cfg.batch_slots
+        self._decode = self._step_graph(
+            self._decode_fn,
+            {"tokens": torch.zeros((b, 1), dtype=torch.int64,
+                                   device=self.device),
+             "pos": torch.zeros((b,), dtype=torch.int32,
+                                device=self.device)},
+            "decode_traces")
         self.paged = cfg.page_pool is not None
         if not self.paged:
-            self.caches = model.init_caches(cfg.batch_slots, cfg.max_len,
+            self.caches = model.init_caches(b, cfg.max_len,
                                             device=self.device)
+            # the slab prefill's static row cache, reset from a fresh
+            # one inside every prefill (spliced rows match a fresh cache)
+            self._row_cache = model.init_caches(1, cfg.max_len,
+                                                device=self.device)
+            self._row_fresh = model.init_caches(1, cfg.max_len,
+                                                device=self.device)
             return
         pp = cfg.page_pool
         # the table covers the BUCKETED stage of the longest prompt, not
@@ -218,19 +268,90 @@ class ServingEngine:
             uid=req.uid, token=tok, index=len(req.out_tokens) - 1,
             first=first, done=req.done, finish_reason=req.finish_reason))
 
+    # ---------------------------------------------------- compiled steps
+    def _step_graph(self, fn, inputs, counter: str) -> StepGraph:
+        """A compiled entry whose build bumps the trace counter
+        `counter`."""
+        def built():
+            setattr(self, counter, getattr(self, counter) + 1)
+        return StepGraph(fn, inputs, capture=self.capture, pool=self._pool,
+                         on_build=built)
+
+    def _prefill_entry(self, key, make) -> StepGraph:
+        """The compiled prefill entry for `key`, from the LRU or made by
+        `make()` (the reference's `_jit_prefill`); past the cap the least
+        recently used entry and its graph are dropped."""
+        cache = self._prefill_cache
+        if key in cache:
+            cache.move_to_end(key)
+            return cache[key]
+        entry = make()
+        self._prefill_jits += 1
+        cache[key] = entry
+        while len(cache) > max(1, self.cfg.prefill_cache_cap):
+            cache.popitem(last=False)
+            self.prefill_cache_evictions += 1
+        return entry
+
+    def trace_audit(self) -> Dict[str, int]:
+        """The reference's trace ledger: entry builds ("traces") against
+        entries created ("jits"). A prefill entry built twice, or a
+        decode entry built more than once, counts as unexpected. An
+        evicted entry is built again when its key returns (the reference
+        keeps jax's trace cache, so its traces can stay below its jits)."""
+        return {
+            "prefill_traces": self.prefill_traces,
+            "prefill_jits": self._prefill_jits,
+            "decode_traces": self.decode_traces,
+            "unexpected_retraces":
+                max(0, self.prefill_traces - self._prefill_jits)
+                + max(0, self.decode_traces - 1),
+        }
+
+    def _decode_fn(self, tokens, pos):
+        """One batched greedy decode over every slot; the caches are
+        written in place. Returns the logits (B, V) and the tokens (B,)."""
+        logits, _ = self.model.forward(
+            self.params, {"tokens": tokens, "pos": pos}, mode="decode",
+            caches=self.caches)
+        logits = logits[:, 0]
+        return logits, torch.argmax(logits, dim=-1)
+
+    def _slab_prefill_fn(self, tokens, last):
+        """Prefill one right-padded prompt (1, bucket) into the reset row
+        cache; the logits (V,) at index `last` (1,) and their argmax."""
+        for fresh, row in zip(self._row_fresh["layers"],
+                              self._row_cache["layers"]):
+            for key, leaf in row["kv"].items():
+                leaf.copy_(fresh["kv"][key])
+        logits, _ = self.model.forward(self.params, {"tokens": tokens},
+                                       mode="prefill",
+                                       caches=self._row_cache)
+        logits = torch.index_select(logits[0], 0, last)[0]
+        return logits, torch.argmax(logits)
+
     def _prefill(self, prompt: np.ndarray):
-        """Logits at the last prompt token and the filled one-row cache."""
+        """Prefill one prompt into the row cache through its bucket's
+        entry; returns the logits at the last prompt token and the
+        greedy token (device tensors)."""
         t = len(prompt)
-        toks = np.zeros((self._bucket(t),), np.int64)
-        toks[:t] = prompt  # right-pad; the causal mask shields the pads
-        row_cache = self.model.init_caches(1, self.cfg.max_len,
-                                           device=self.device)
-        logits, row_cache = self.model.forward(
-            self.params, {"tokens": torch.as_tensor(toks[None],
-                                                    device=self.device)},
-            mode="prefill", caches=row_cache)
+        bucket = self._bucket(t)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :t] = prompt  # right-pad; the causal mask shields the pads
+
+        def make():
+            return self._step_graph(
+                self._slab_prefill_fn,
+                {"tokens": torch.zeros((1, bucket), dtype=torch.int64,
+                                       device=self.device),
+                 "last": torch.zeros((1,), dtype=torch.int64,
+                                     device=self.device)},
+                "prefill_traces")
+
+        entry = self._prefill_entry(bucket, make)
+        out = entry.run(tokens=toks, last=np.array([t - 1], np.int64))
         self.prefills_run += 1
-        return logits[0, t - 1], row_cache
+        return out
 
     def _admit(self):
         if self.paged:
@@ -246,10 +367,10 @@ class ServingEngine:
             while self.slots[s] is None and self.queue:
                 req = self.queue.popleft()
                 self._admitted_uids.append(req.uid)
-                logits, row_cache = self._prefill(req.prompt)
-                _splice_slot(self.caches, row_cache, s)
+                _, nxt = self._prefill(req.prompt)
+                nxt = int(nxt)
+                _splice_slot(self.caches, self._row_cache, s)
                 self.pos[s] = len(req.prompt)
-                nxt = int(torch.argmax(logits))
                 req.out_tokens.append(nxt)
                 req.t_first = time.monotonic()
                 finished = self._finish_at_admit(req, nxt)
@@ -279,11 +400,46 @@ class ServingEngine:
         shares."""
         self._bt_dev.copy_(torch.from_numpy(self._bt))
 
-    def _fresh_stage(self, stage_len: int) -> list:
+    def _chunk_fn(self, stage, tokens, positions, table, len_m1):
+        """One chunked-prefill dispatch of one request: tokens (1, C) at
+        absolute positions (1, C) over its raw stage and its block-table
+        row `table` (1, stage_tiles); the pools are written in place.
+        Returns the logits at the prompt's last index `len_m1` (1,),
+        clipped into the chunk, and their argmax."""
+        view = {"layers": [{"kv": dict(site, block_table=table, **st)}
+                           for site, st in zip(self._sites(), stage)]}
+        logits, _ = self.model.forward(self.params, {"tokens": tokens},
+                                       mode="prefill", caches=view,
+                                       positions=positions)
+        idx = torch.clamp(len_m1 - positions[0, :1], 0,
+                          tokens.shape[1] - 1)
+        logits = torch.index_select(logits[0], 0, idx)[0]
+        return logits, torch.argmax(logits)
+
+    def _chunk_entry(self, pf: _Prefilling) -> StepGraph:
+        """The compiled chunk entry of `pf`'s stage length, with its
+        static stage."""
+        stage_len = len(pf.toks)
         cfg = self.model.cfg
-        shape = (1, stage_len, cfg.n_kv_heads, cfg.head_dim)
-        return [{key: torch.zeros(shape, device=self.device)
-                 for key in STAGE_KEYS} for _ in self._sites()]
+
+        def make():
+            shape = (1, stage_len, cfg.n_kv_heads, cfg.head_dim)
+            stage = [{key: torch.zeros(shape, device=self.device)
+                      for key in STAGE_KEYS} for _ in self._sites()]
+            return self._step_graph(
+                self._chunk_fn,
+                {"stage": stage,
+                 "tokens": torch.zeros((1, pf.chunk), dtype=torch.int64,
+                                       device=self.device),
+                 "positions": torch.zeros((1, pf.chunk), dtype=torch.int64,
+                                          device=self.device),
+                 "table": torch.zeros((1, pf.stage_tiles),
+                                      dtype=torch.int32, device=self.device),
+                 "len_m1": torch.zeros((1,), dtype=torch.int64,
+                                       device=self.device)},
+                "prefill_traces")
+
+        return self._prefill_entry(("paged", stage_len), make)
 
     def _admit_paged(self):
         """Reserve pages + a slot for queued requests and move them into
@@ -322,32 +478,31 @@ class ServingEngine:
                 req=req, slot=s, toks=toks, t=t, chunk=chunk,
                 stage_tiles=stage_tiles, pages=got,
                 gen_pages=gen_pages, target=-(-t // chunk) * chunk,
-                written=0, stage=self._fresh_stage(stage_len)))
+                written=0))
             self._prefill_slots.add(s)
 
     def _run_prefill_chunk(self):
         """Feed ONE chunk of the oldest mid-prefill request through the
         fused cache-write prefill: the per-step prefill budget that keeps
-        long prompts from stalling the decode batch. The cache view
-        carries the request's single-row block table (1, stage_tiles) and
-        its stage; the pools are written in place."""
+        long prompts from stalling the decode batch. Only this head
+        request runs chunks until its prompt is done, so it holds its
+        stage length's static stage from its first chunk on (zeroed
+        then, as a fresh stage)."""
         if not self._prefilling:
             return
         pf = self._prefilling[0]
         off = pf.written
-        bt_row = torch.as_tensor(
-            np.asarray(pf.pages[:pf.stage_tiles], np.int32)[None],
-            device=self.device)
-        view = {"layers": [{"kv": dict(site, block_table=bt_row, **stage)}
-                           for site, stage in zip(self._sites(),
-                                                  pf.stage)]}
-        toks = torch.as_tensor(pf.toks[None, off:off + pf.chunk],
-                               device=self.device)
-        positions = torch.arange(off, off + pf.chunk,
-                                 device=self.device)[None]
-        logits, _ = self.model.forward(self.params, {"tokens": toks},
-                                       mode="prefill", caches=view,
-                                       positions=positions)
+        entry = self._chunk_entry(pf)
+        if off == 0:
+            pf.stage = entry.inputs["stage"]
+            for st in pf.stage:
+                for leaf in st.values():
+                    leaf.zero_()
+        _, nxt = entry.run(
+            tokens=pf.toks[None, off:off + pf.chunk],
+            positions=np.arange(off, off + pf.chunk, dtype=np.int64)[None],
+            table=np.asarray(pf.pages[:pf.stage_tiles], np.int32)[None],
+            len_m1=np.array([pf.t - 1], np.int64))
         self.prefill_chunks_run += 1
         pf.written += pf.chunk
         if pf.written < pf.target:
@@ -362,8 +517,7 @@ class ServingEngine:
         self._bt[s, :] = 0
         self._bt[s, :pf.gen_pages] = pf.pages[:pf.gen_pages]
         self._sync_tables()
-        nxt = int(torch.argmax(logits[0, min(max(pf.t - 1 - off, 0),
-                                             pf.chunk - 1)]))
+        nxt = int(nxt)
         req.out_tokens.append(nxt)
         req.t_first = time.monotonic()
         finished = self._finish_at_admit(req, nxt)
@@ -424,13 +578,9 @@ class ServingEngine:
             tokens = np.zeros((self.cfg.batch_slots, 1), np.int64)
             for i in act:
                 tokens[i, 0] = self.slots[i].out_tokens[-1]
-            logits, self.caches = self.model.forward(
-                self.params,
-                {"tokens": torch.as_tensor(tokens, device=self.device),
-                 "pos": torch.as_tensor(self.pos, device=self.device)},
-                mode="decode", caches=self.caches)
+            _, nxt = self._decode.run(tokens=tokens, pos=self.pos)
             self.decodes_run += 1
-            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+            nxt = nxt.cpu().numpy()     # the step's one host sync
             for i in act:
                 req = self.slots[i]
                 self.pos[i] += 1
@@ -479,15 +629,20 @@ class ServingEngine:
     def stats(self) -> Dict[str, object]:
         """Lifetime counters since construction (slab prefills, prefill
         chunks, batched decode forwards, steps; the model's forward calls
-        are the sum of the first three); in paged mode also the page
-        pool's
-        `PagePool.stats()` under "page_pool", whose used/free/occupancy
-        entries are gauges."""
+        are the sum of the first three; prefill entries built and
+        evicted), the gauge `prefill_cache_size`, and in paged mode the
+        page pool's `PagePool.stats()` under "page_pool", whose
+        used/free/occupancy entries are gauges."""
         st: Dict[str, object] = {"steps_run": self.steps_run,
                                  "prefills_run": self.prefills_run,
                                  "prefill_chunks_run":
                                      self.prefill_chunks_run,
-                                 "decodes_run": self.decodes_run}
+                                 "decodes_run": self.decodes_run,
+                                 "prefill_traces": self.prefill_traces,
+                                 "prefill_cache_size":
+                                     len(self._prefill_cache),
+                                 "prefill_cache_evictions":
+                                     self.prefill_cache_evictions}
         if self.paged:
             st["page_pool"] = self.pool.stats()
         return st
