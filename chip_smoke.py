@@ -33,7 +33,13 @@ CUDA toolkit. It builds the hand-written kernels from
    activations unquantized), 4 slots, max_len 256, 8 requests of 16 new
    tokens; kernel launch counters reset just before and read just after;
    then prefill + decode logits of the same model held against the same
-   model run on the CPU through the plain versions;
+   model run on the CPU through the plain versions; then async A: the
+   same model and params through fresh engines driven by the asyncio
+   front end (`AsyncFrontend` + `MetricsLedger`), slab and paged 16 with
+   chunk 16, the launcher's workload: tokens equal to a drained run, the
+   decode step captured on the front end's step thread, the JSONL trace
+   read back equal, no fallback, TTFT and TPOT p50/p95 printed beside
+   the card;
 3. serve phase B — the same weights with 4-bit activations kept (W4A4 +
    KV4) through the engine API, 4 requests of 8 tokens, which puts K1's
    in-kernel quantize prologue on the path;
@@ -76,7 +82,18 @@ CUDA toolkit. It builds the hand-written kernels from
    step of phase B (dynamic 3-sigma scales) profiled beside one of
    phase D (static scales): wall, device busy and device kernels per
    step;
-8. the MoE slice, after phases A-D's models are freed: K2, K3 and K4 at
+8. mixed A, after phases A-D's models are freed: mixed W4/W8 policy
+   programs at full width through the launcher (`--quant
+   olive_mixed_w48`, `--quant olive_owq_style`, and `olive_mixed_w48
+   --policy-rules` with packed KV caches on the first and last layer
+   only, slab and paged), K1's launches counted by weight dtype (14 or
+   48 of 168 a forward call with int8 weights), one K2/K3 a layer a
+   step over fp32 and packed caches alike, K7 only on packed layers,
+   each program, slab and paged, against its CPU twin, the mixed-KV
+   step profiled,
+   K1 with int8 weights (fp and static) timed at the W8 layer, and one
+   `--calibrate` run (K5 with 8-bit activations on the W8 layers); then
+   the MoE slice: K2, K3 and K4 at
    Qwen3-30B-A3B's attention shapes (Hkv 4, G 8, D 128) with the same
    checks, K4 also timed by halves (attention blocks alone, page-write
    blocks alone) beside SDPA on the attention; the same three at the
@@ -116,7 +133,13 @@ CUDA toolkit. It builds the hand-written kernels from
 10. the MoE card-vs-CPU check on a 2-layer truncation of the served
    slab model (same widths and quantized params, fp32 KV): routed
    expert indices equal first, then greedy tokens equal and max |logit
-   diff| <= 1e-3 * max|ref|.
+   diff| <= 1e-3 * max|ref|;
+11. mixed E: Qwen3-30B-A3B at full width, `MIXED_E_LAYERS` deep (cut
+   from 48 for time), with `--policy-rules "*experts/*/[0-7]=
+   olive_w8a8"`: every expert stack a two-group `MixedExpertQuant`, K6
+   once per group per stack per forward call, the captured step's one
+   host sync the token fetch, K6 on each group against the plain
+   version, and the 2-layer card-vs-CPU check.
 
 Every serve phase runs the engine's captured steps (CUDA graphs, the
 default) and checks them: the trace audit (`audit_check`: the decode step
@@ -1709,17 +1732,18 @@ def check_attn_counts(res, counts, phase: str, paged: bool) -> None:
 
 
 def check_encode_counts(eng, counts, phase: str) -> int:
-    """K7 once for K and once for V per layer per forward call that wrote
-    the packed cache through `cache_write`: every decode step and every
-    whole-prompt prefill (paged prefill chunks write their pages in K4).
-    Returns the count."""
-    layers = eng.model.cfg.n_layers
+    """K7 once for K and once for V per layer with a packed cache per
+    forward call that wrote the cache through `cache_write`: every decode
+    step and every whole-prompt prefill (paged prefill chunks write their
+    pages in K4). Layers over an fp cache launch none. Returns the
+    count."""
+    layers = sum("k_data" in layer["kv"] for layer in eng.caches["layers"])
     st = eng.stats()
     want = 2 * layers * (st["decodes_run"] + st["prefills_run"])
     if counts["ovp_encode"] != want:
         fail(f"{phase}: ovp_encode launches {counts['ovp_encode']}, expected "
-             f"2 x {layers} layers x ({st['decodes_run']} decode steps + "
-             f"{st['prefills_run']} prefills) = {want}")
+             f"2 x {layers} packed layers x ({st['decodes_run']} decode "
+             f"steps + {st['prefills_run']} prefills) = {want}")
     return want
 
 
@@ -1960,10 +1984,7 @@ def capture_ab(res, phase: str, order=("eager", "graph", "graph", "eager"),
     engs = {"graph": eng_g,
             "eager": ServingEngine(eng_g.model, eng_g.params, eng_g.cfg,
                                    device=eng_g.device, capture=False)}
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, eng_g.model.cfg.vocab,
-                            size=int(rng.integers(4, 32))).astype(np.int32)
-               for _ in range(8)]
+    prompts = launcher_prompts(eng_g.model.cfg.vocab)
     got, first = {k: [] for k in engs}, None
     for label in order:
         eng = engs[label]
@@ -2076,12 +2097,17 @@ def _to(tree, device):
     import dataclasses
 
     import torch
+    from repro_torch.core.ovp import MixedExpertQuant
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
+    if isinstance(tree, MixedExpertQuant):      # rebuilds its index tensors
+        return MixedExpertQuant(
+            groups=tuple(_to(g, device) for g in tree.groups),
+            expert_ids=tree.expert_ids, n_experts=tree.n_experts)
     return dataclasses.replace(tree, data=tree.data.to(device),
                                scale=tree.scale.to(device))
 
@@ -2148,25 +2174,34 @@ def _paged_logits_on(model, params, device, prompt, chunk: int = 16):
     return torch.stack(steps).float().cpu()
 
 
-def reference_check(model, params, dev):
+def reference_check(model, params, dev, label: str = "W4",
+                    paged: bool = False):
     """The served model on the card against the same model on the CPU
     through the plain versions: finite logits of the expected shape.
+    Slab: prefill of one prompt + 2 decode steps (`_logits_on`); paged:
+    chunked paged prefill of a 24-token prompt (2 x 16, K4 on the card)
+    + 2 decode steps through the block table (K3; `_paged_logits_on`).
 
-    With W4 weights over an fp32 KV cache only fp32 summation order
-    differs, so max |diff| <= 1e-3 * max|ref| and equal greedy tokens are
-    required. Over the 4-bit KV cache a last-bit difference in K/V can
-    move a value across a quantization boundary, so that difference is
-    reported, not bounded."""
-    import dataclasses
-
+    With quantized weights over an fp32 KV cache only fp32 summation
+    order differs, so max |diff| <= 1e-3 * max|ref| and equal greedy
+    tokens are required. Over a 4-bit KV cache (any layer's) a last-bit
+    difference in K/V can move a value across a quantization boundary, so
+    that difference is reported, not bounded."""
     import torch
     from repro_torch.models.model import build_model
     cpu_params = _to(params, "cpu")
-    fp_cache = build_model(model.cfg, dataclasses.replace(
-        model.policy, kv_bits=0))
-    for name, m in (("W4, fp32 KV", fp_cache), ("W4 + KV4", model)):
-        got, ref = _logits_on(m, params, dev), _logits_on(m, cpu_params,
-                                                          "cpu")
+    fp_cache = build_model(model.cfg, model.policy.replace_all(kv_bits=0))
+    pairs = [(f"{label}, fp32 KV", fp_cache)]
+    if model.policy.kv_bits:
+        pairs.append((f"{label} + KV4", model))
+    if paged:
+        def logits(m, p, device):
+            return _paged_logits_on(m, p, device, PROMPT * 3)
+        what = "chunked paged prefill (2 x 16)"
+    else:
+        logits, what = _logits_on, "full-width prefill"
+    for name, m in pairs:
+        got, ref = logits(m, params, dev), logits(m, cpu_params, "cpu")
         vp, v = m.cfg.padded_vocab, m.cfg.vocab
         if got.shape != (3, vp) or not bool(torch.isfinite(got).all()):
             fail(f"reference check {name}: logits shape "
@@ -2174,7 +2209,7 @@ def reference_check(model, params, dev):
         err = float((got[:, :v] - ref[:, :v]).abs().max())
         tol = 1e-3 * float(ref[:, :v].abs().max())
         same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
-        print(f"[ref] {name}: full-width prefill + 2 decode steps, card vs "
+        print(f"[ref] {name}: {what} + 2 decode steps, card vs "
               f"CPU plain versions: max |diff| {err:.3e} (tol {tol:.3e} "
               f"{'applied' if m is fp_cache else 'not applied'}), greedy "
               f"tokens {'equal' if same else 'differ'}")
@@ -3101,7 +3136,7 @@ def serve_phase_e(dev):
     return runs
 
 
-def moe_reference_check(res, dev):
+def moe_reference_check(res, dev, label: str = "W4 experts"):
     """A 2-layer truncation of the served full-width MoE model (same
     widths, the same quantized params) over an fp32 KV cache, on the
     card against the CPU's plain versions: prefill of one prompt + 2
@@ -3143,7 +3178,7 @@ def moe_reference_check(res, dev):
     err = float((got[:, :v] - ref[:, :v]).abs().max())
     tol = 1e-3 * float(ref[:, :v].abs().max())
     same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
-    print(f"[ref E] {MOE_ARCH} truncated to 2 layers, W4 experts, fp32 KV: "
+    print(f"[ref E] {MOE_ARCH} truncated to 2 layers, {label}, fp32 KV: "
           f"prefill + 2 decode steps, card vs CPU plain versions: routed "
           f"expert indices equal in all {len(r_dev)} MoE calls, max |diff| "
           f"{err:.3e} (tol {tol:.3e} = 1e-3 * max|ref|), greedy tokens "
@@ -3151,6 +3186,526 @@ def moe_reference_check(res, dev):
     if err > tol or not same:
         fail("MoE reference check: card and CPU disagree")
 
+
+
+# --------------------------------------------------------------------------
+# The rest of the serving CLI: the async front end and mixed W4/W8 programs
+# --------------------------------------------------------------------------
+TRACE_DIR = os.path.join(ROOT, "build", "traces")
+MIXED_CALIB = os.path.join(ROOT, "build", "calib", f"{ARCH}-mixed_w48.json")
+W8_EXPERTS = 8          # mixed E: experts 0-7 of every stack at W8
+MIXED_E_LAYERS = 12     # mixed E's depth, cut from the published 48 for time
+SERVE_ARGS = ["--requests", "8", "--max-new", "16", "--slots", "4",
+              "--max-len", "256", "--seed", "0"]
+
+
+def launcher_prompts(vocab: int, n: int = 8, seed: int = 0):
+    """The launcher's synthetic workload: `n` prompts of 4-31 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(rng.integers(4, 32)))
+            .astype(np.int32) for _ in range(n)]
+
+
+def async_phase_a(dev, res_a, smi: str):
+    """Phase A's model and params through fresh engines driven by the
+    asyncio front end (`AsyncFrontend` feeding a `MetricsLedger`), slab,
+    then paged 16 with chunk 16, on the launcher's workload (8 prompts of
+    4-31 tokens, 16 new tokens each). Counters are reset just before and
+    read just after each async run: no fallback, one attention launch a
+    layer a step or chunk, K7 twice a layer a cache write. Checks: greedy
+    tokens equal to a drained run of a fresh engine of the same config;
+    the decode step built (captured) once, on the front end's step
+    thread, not the caller's; the trace audit; graph against eager
+    (`capture_gate`); the JSONL trace written under build/traces and read
+    back by `load_trace` equal to the ledger's records and summary. TTFT
+    and TPOT are printed beside the card. Returns each run's snapshot
+    and counts."""
+    import asyncio
+    import threading
+
+    from repro_torch.launch.serve import _fmt_dist
+    from repro_torch.serve import AsyncFrontend, MetricsLedger, load_trace
+    from repro_torch.serve.engine import EngineCfg, ServingEngine
+    from repro_torch.serve.paging import PagePoolCfg
+    t_phase = time.perf_counter()
+    model, params = res_a["model"], res_a["params"]
+    prompts = launcher_prompts(model.cfg.vocab)
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    caller = threading.get_ident()
+
+    async def serve(eng, ledger):
+        async def consume(stream):
+            return [tok async for tok in stream]
+
+        async with AsyncFrontend(eng, metrics=ledger) as fe:
+            streams = [fe.submit(p, max_new_tokens=16) for p in prompts]
+            toks = await asyncio.gather(*(consume(s) for s in streams))
+        return {s.uid: t for s, t in zip(streams, toks)}
+
+    runs = {}
+    for label, extra, kernels in (
+            ("slab", {}, ("ovp_matmul[fp]", "decode_attn", "ovp_encode")),
+            ("paged", dict(page_pool=PagePoolCfg(16), prefill_chunk=16),
+             ("ovp_matmul[fp]", "paged_decode_attn", "prefill_attn",
+              "ovp_encode"))):
+        phase = f"async A ({label})"
+        cfg = EngineCfg(batch_slots=4, max_len=256, **extra)
+        drained = ServingEngine(model, params, cfg, device=dev)
+        for p in prompts:
+            drained.submit(p, max_new_tokens=16)
+        want = {r.uid: r.out_tokens for r in drained.run_until_drained()}
+        del drained
+        free_device_memory()
+        # the launcher's device, "cuda" without an index: the front end
+        # sets its step thread's device from it
+        eng = ServingEngine(model, params, cfg, device="cuda")
+        builds = []
+
+        def on_build(built=eng._decode.on_build):
+            builds.append(threading.get_ident())
+            built()
+
+        eng._decode.on_build = on_build
+        ledger = MetricsLedger()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = asyncio.run(serve(eng, ledger))
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        res = {"engine": eng, "model": model}
+        check_counts(counts, phase, kernels)
+        check_attn_counts(res, counts, phase, paged=label == "paged")
+        check_encode_counts(eng, counts, phase)
+        if got != want:
+            differ = sum(int(x != y) for uid, t in got.items()
+                         for x, y in zip(t, want.get(uid, [])))
+            fail(f"{phase}: async tokens differ from the drained run "
+                 f"({differ} tokens, uids {sorted(got)} vs {sorted(want)})")
+        if len(builds) != 1 or builds[0] == caller or \
+                eng._decode.graph is None:
+            fail(f"{phase}: the decode step was not captured once on the "
+                 f"front end's step thread (builds on threads {builds}, "
+                 f"caller {caller})")
+        snap = ledger.snapshot()
+        if snap["fallbacks"] or snap["requests"] != 8 or \
+                snap["tokens"] != 128 or snap["steps"] != eng.steps_run:
+            fail(f"{phase}: ledger summary {snap}")
+        path = os.path.join(TRACE_DIR, f"async_a_{label}.jsonl")
+        ledger.write_jsonl(path)
+        trace = load_trace(path)
+        if (trace["meta"], trace["steps"], trace["requests"],
+                trace["summary"]) != (ledger.meta, ledger.step_records,
+                                      ledger.request_records, snap):
+            fail(f"{phase}: the trace read back differs from the ledger")
+        inter = snap["prefill_interleave_ratio"]
+        print(f"[async A] {ARCH} W4 + KV4 {label} through AsyncFrontend: "
+              f"{snap['tokens']} tokens in {snap['steps']} steps, "
+              f"{wall:.3f}s = {snap['tokens'] / wall:.1f} tok/s; greedy "
+              f"tokens equal to the drained run; decode step captured once "
+              f"on the front end's step thread; fallbacks 0; trace "
+              f"{os.path.relpath(path, ROOT)} ({len(trace['steps'])} step "
+              f"and {len(trace['requests'])} request records) read back "
+              f"equal; launches "
+              + " ".join(f"{k}={counts[k]}" for k in kernels)
+              + (f"; interleave {inter:.2f}" if inter is not None else ""))
+        print(f"[async A] {label} SLO ({smi}): TTFT "
+              f"{_fmt_dist(snap['ttft_s'], 3)} | TPOT "
+              f"{_fmt_dist(snap['tpot_s'], 3)} | latency "
+              f"{_fmt_dist(snap['latency_s'], 3)}")
+        audit_check(eng, phase)
+        capture_gate(eng, phase)
+        runs[label] = {"snapshot": snap, "counts": counts}
+        del eng, res
+    print(f"[async A] phase took {time.perf_counter() - t_phase:.1f}s")
+    return runs
+
+
+def check_k1_weight_counts(res, counts, phase: str, mode: str = "fp"):
+    """K1 runs once per quantized linear (7 a layer; the head stays fp)
+    per forward call, all in `mode`, and the launches with int8 weights
+    are the W8 linears' (counted off the tree's leaves) each forward
+    call. Returns the W8 linears' count."""
+    from repro_torch.core.ovp import QuantizedTensor
+    st = res["engine"].stats()
+    forwards = st["prefills_run"] + st["prefill_chunks_run"] \
+        + st["decodes_run"]
+    leaves = [w for layer in res["params"]["layers"]
+              for sub in ("attn", "mlp") for w in layer[sub].values()
+              if isinstance(w, QuantizedTensor)]
+    n_w8 = sum(w.normal_dtype == "int8" for w in leaves)
+    want = {f"ovp_matmul[{mode}]": len(leaves) * forwards,
+            "ovp_matmul<int8>": n_w8 * forwards,
+            "ovp_matmul<int4>": (len(leaves) - n_w8) * forwards}
+    got = {key: counts[key] for key in want}
+    if got != want or len(leaves) != 7 * res["model"].cfg.n_layers:
+        fail(f"{phase}: K1 launches {got}, expected {want} ({len(leaves)} "
+             f"quantized linears, {n_w8} at W8, {forwards} forward calls)")
+    return n_w8
+
+
+def k1_w8_layer(dev, layer):
+    """K1 with int8 weights at a served W8 layer's 7 linears (the
+    quantized leaves of the mixed model's layer 0), rows 4, in fp mode
+    and in static mode with 8-bit activations (K5's W8A8 path), against
+    the plain version, timed beside it, `torch.matmul` on the dequantized
+    weight and the bound. Returns {mode: summed record}."""
+    import torch
+    from repro_torch.core.ovp import ovp_dequantize
+    from repro_torch.core.quantizer import sigma_init_scale
+    from repro_torch.kernels import ovp_matmul as mm
+    gen = torch.Generator(device=dev).manual_seed(11)
+    linears = [layer["attn"][n] for n in ("wq", "wk", "wv", "wo")] \
+        + [layer["mlp"][n] for n in ("wg", "wu", "wd")]
+    out = {}
+    for mode in ("fp", "static"):
+        tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   library_ms=0.0, bound_by="bytes")
+        for qt in linears:
+            if qt.normal_dtype != "int8":
+                fail(f"K1 W8 layer: a {qt.normal_dtype} linear in layer 0")
+            k, n = qt.data.shape
+            a = torch.randn((4, k), generator=gen, device=dev)
+            sw = qt.scale.reshape(-1).contiguous()
+            kw = dict(w_dtype="int8", a_mode=mode, a_dtype="int8")
+            if mode == "static":
+                kw["s_static"] = float(sigma_init_scale(a, "int8"))
+
+            def kern():
+                return mm.run(a, None, qt.data, sw, **kw)
+
+            def plain():
+                return mm.fused_ovp_matmul_plain(a, None, qt.data, sw, **kw)
+
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            if not within(got, ref, 1e-5, 1e-5 * scale):
+                fail(f"K1 W8 {mode} K={k} N={n}: max abs err {err:.3e} "
+                     f"over tolerance (rtol 1e-5, atol 1e-5*{scale:.3e})")
+            wd = ovp_dequantize(qt)
+            b_ms, b_by = bound_ms(4 * k * 4 + k * n + n * 4 + 4 * n * 4,
+                                  2.0 * 4 * k * n)
+            rec = dict(max_abs_err=err, ms=time_ms(kern)[0],
+                       plain_ms=time_ms(plain)[0], bound_ms=b_ms,
+                       library_ms=time_ms(lambda: torch.matmul(a, wd))[0])
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                tot[key] += rec[key]
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["bound_by"] = b_by
+        print(f"[k1 w8] the mixed model's W8 layer 0, 7 launches, rows 4, "
+              f"int8 weights, {mode} mode"
+              + (" (int8 activations at one scale: K5)" if mode == "static"
+                 else "")
+              + f": err {tot['max_abs_err']:.2e} (tol rtol 1e-5, atol "
+              f"1e-5*max|ref|), kernel {tot['ms']:.4f}ms, plain "
+              f"{tot['plain_ms']:.4f}ms, matmul {tot['library_ms']:.4f}ms, "
+              f"bound {tot['bound_ms']:.5f}ms ({tot['bound_by']})")
+        out[mode] = tot
+    return out
+
+
+def mixed_phase_a(dev, smi: str):
+    """Mixed W4/W8 policy programs on full-width Qwen1.5-0.5B through the
+    launcher's entry point, the launcher's workload: `--quant
+    olive_mixed_w48` (layers 0 and 23 W8, the rest W4, fp32 KV: the
+    launcher's rewrite leaves no packed cache), `--quant olive_owq_style`
+    (every layer's wq and wk W8), and `olive_mixed_w48 --policy-rules
+    "layers/0/attn/kv=olive_serve,layers/23/attn/kv=olive_serve"` slab
+    and paged (16, chunk 16): packed caches on the first and last layer,
+    fp32 between, in one captured step. Counters reset just before and
+    read just after each run: no fallback; K1 168 launches a forward
+    call, those with int8 weights exactly the W8 linears' (14 or 48 a
+    call); one K2/K3 a layer a step over the fp and packed caches alike,
+    one K4 a layer a chunk; K7 only on the packed layers. Each engine
+    passes the audit and `capture_gate`; each program, slab and paged, is
+    held to its CPU twin (`reference_check`), and the mixed-KV slab step
+    is profiled. Then one `--calibrate` run of `olive_mixed_w48`: every
+    linear on K5, the W8 layers with 8-bit activations. Returns the
+    runs' counts, the mixed-KV profile and the K1 W8 timings."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    base = ["--arch", ARCH] + SERVE_ARGS
+    last = get_config(ARCH).n_layers - 1
+    mixed_kv = (f"layers/0/attn/kv=olive_serve,"
+                f"layers/{last}/attn/kv=olive_serve")
+    w8_want = {"olive_mixed_w48": 2 * 7, "olive_owq_style": 2 * (last + 1)}
+    runs, prof, k1w8 = {}, None, None
+    for label, extra, paged, packed in (
+            ("w48", ["--quant", "olive_mixed_w48"], False, ()),
+            ("owq", ["--quant", "olive_owq_style"], False, ()),
+            ("w48 kv", ["--quant", "olive_mixed_w48", "--policy-rules",
+                        mixed_kv], False, (0, last)),
+            ("w48 kv paged", ["--quant", "olive_mixed_w48", "--policy-rules",
+                              mixed_kv, "--paged", "16", "--prefill-chunk",
+                              "16"], True, (0, last))):
+        phase = f"mixed A ({label})"
+        free_device_memory()
+        reset_counts()
+        res = serve.run(base + extra, device=dev)
+        counts = read_counts()
+        eng, model = res["engine"], res["model"]
+        attn = "paged_decode_attn" if paged else "decode_attn"
+        check_counts(counts, phase, ("ovp_matmul[fp]", attn))
+        check_attn_counts(res, counts, phase, paged)
+        check_encode_counts(eng, counts, phase)
+        kinds = tuple(i for i, layer in enumerate(eng.caches["layers"])
+                      if "k_data" in layer["kv"])
+        if kinds != packed:
+            fail(f"{phase}: packed KV caches on layers {kinds}, expected "
+                 f"{packed}")
+        n_w8 = check_k1_weight_counts(res, counts, phase)
+        if n_w8 != w8_want[extra[1]]:
+            fail(f"{phase}: {n_w8} W8 linears, expected "
+                 f"{w8_want[extra[1]]}")
+        done = res["completed"]
+        if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+            fail(f"{phase}: {len(done)} requests finished with "
+                 f"{[len(r.out_tokens) for r in done]} tokens, expected "
+                 f"8 x 16")
+        print(f"[mixed A] {ARCH} {' '.join(extra)}: W8 linears {n_w8} of "
+              f"{7 * (last + 1)}, packed KV on layers {list(kinds) or 'none'} (fp32 KV "
+              f"elsewhere); PTQ {res['ptq_s']:.2f}s, {res['tokens']} tokens "
+              f"in {res['seconds']:.3f}s = {res['tok_per_s']:.1f} tok/s, "
+              f"mean TTFT {res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+              f"{res['mean_step_s'] * 1e3:.2f}ms; launches ovp_matmul[fp]="
+              f"{counts['ovp_matmul[fp]']} (<int8> "
+              f"{counts['ovp_matmul<int8>']}, <int4> "
+              f"{counts['ovp_matmul<int4>']}) {attn}={counts[attn]} "
+              f"prefill_attn={counts['prefill_attn']} ovp_encode="
+              f"{counts['ovp_encode']}, dispatch {counts['dispatch']} "
+              f"({smi})")
+        audit_check(eng, phase)
+        capture_gate(eng, phase)
+        reference_check(model, res["params"], dev, label=f"mixed {label}",
+                        paged=paged)
+        if label == "w48":
+            k1w8 = k1_w8_layer(dev, res["params"]["layers"][0])
+        if label == "w48 kv":
+            prof = profile_decode(res, f"mixed W4/W8, KV4 on layers 0 and "
+                                       f"{last}, fp32 KV between")
+        runs[label] = {"counts": counts,
+                       "tokens": {r.uid: r.out_tokens for r in done}}
+        del res, eng, model, done
+    phase = "mixed A (w48 calibrate)"
+    free_device_memory()
+    reset_counts()
+    res = serve.run(base + ["--quant", "olive_mixed_w48", "--calibrate",
+                            "--calibration", MIXED_CALIB], device=dev)
+    counts = read_counts()
+    check_counts(counts, phase, ("ovp_matmul[static]", "decode_attn"))
+    if counts["ovp_matmul[quantize]"] or counts["ovp_matmul[fp]"]:
+        fail(f"{phase}: the dynamic quantize or fp mode ran: {counts}")
+    if counts["act_scale"].get("dynamic", 0) or \
+            not counts["act_scale"].get("static", 0):
+        fail(f"{phase}: act-scale resolutions {counts['act_scale']}")
+    n_w8 = check_k1_weight_counts(res, counts, phase, mode="static")
+    pol = res["model"].policy
+    a_side = {i: (pol.resolve(f"layers/{i}/attn/wq").abits,
+                  pol.resolve(f"layers/{i}/attn/wq").a_normal_dtype)
+              for i in sorted({0, last // 2, last})}
+    if a_side != {i: (8, "int8") if i in (0, last) else (4, "int4")
+                  for i in a_side}:
+        fail(f"{phase}: activation bits and dtypes {a_side}")
+    print(f"[mixed A] calibrate-then-serve olive_mixed_w48: "
+          f"{len(res['artifact'].sites())} scales calibrated in "
+          f"{res['calib_s']:.2f}s; every linear on K5 "
+          f"(ovp_matmul[static]={counts['ovp_matmul[static]']}, <int8> "
+          f"{counts['ovp_matmul<int8>']} = {n_w8} W8A8 linears with 8-bit "
+          f"activations x forward calls), act-scale resolutions "
+          f"{counts['act_scale']}, {res['tokens']} tokens at "
+          f"{res['tok_per_s']:.1f} tok/s ({smi})")
+    audit_check(res["engine"], phase)
+    capture_gate(res["engine"], phase)
+    runs["w48 calibrate"] = {"counts": counts}
+    del res
+    print(f"[mixed A] phase took {time.perf_counter() - t_phase:.1f}s")
+    return runs, prof, k1w8
+
+
+def k6_mixed_layer(dev, experts):
+    """K6 on each group of a served layer's two-group expert stacks (wg,
+    wu, wd of the mixed model's layer 0: experts 0-7 int8, 8-127 int4),
+    fp mode, with each group's share of a seeded top-8 decode routing's
+    fill (B 4 slots, C 4): filled rows against the plain version, timed
+    warm (one stack replayed) beside the plain version, `torch.einsum`
+    on the group's dequantized stack and the bound of the group's
+    touched experts. Returns {w_dtype: summed record over the 3
+    stacks}."""
+    import torch
+    from repro_torch.core.ovp import ovp_dequantize
+    from repro_torch.kernels import ovp_matmul as mm
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n_experts = experts["wg"].n_experts
+    fill = _routed_fill(gen, dev, 4, 1, e=n_experts, top_k=min(8, n_experts))
+    b, c = 4, 4
+    out = {}
+    for leaf in ("wg", "wu", "wd"):
+        w = experts[leaf]
+        for qt, idx in zip(w.groups, w.group_index):
+            eg = qt.data.shape[0]
+            k, n = qt.orig_dim, qt.data.shape[-1]
+            fg = torch.index_select(fill, 1, idx).contiguous()
+            a = torch.randn((b, eg, c, k), generator=gen, device=dev)
+            sw = qt.scale.reshape(eg, n).contiguous()
+            kw = dict(w_dtype=qt.normal_dtype, a_mode="fp")
+
+            def kern():
+                return mm.run_grouped(a, None, qt.data, sw, fill=fg, **kw)
+
+            def plain():
+                return mm.grouped_ovp_matmul_plain(
+                    a, None, qt.data, sw, a_dtype=qt.normal_dtype, fill=fg,
+                    **kw)
+
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            live = torch.arange(c, device=dev) < fg[..., None]
+            g, r = got[live], ref[live]
+            err = float((g - r).abs().max()) if r.numel() else 0.0
+            scale = float(r.abs().max()) if r.numel() else 0.0
+            if not within(g, r, 1e-5, 1e-5 * scale):
+                fail(f"K6 mixed {leaf} {qt.normal_dtype} group (E {eg}): "
+                     f"max abs err {err:.3e} on filled rows")
+            dense = ovp_dequantize(qt)
+            touched = int((fg.sum(0) > 0).sum())
+            filled = int(fg.sum())
+            per_expert = (k if qt.normal_dtype == "int8" else k // 2) * n \
+                + 4 * n
+            b_ms, b_by = bound_ms(touched * per_expert
+                                  + filled * (k * 4 + n * 4) + b * eg * 4,
+                                  2.0 * filled * k * n)
+            tot = out.setdefault(qt.normal_dtype, dict(
+                max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                library_ms=0.0, bound_by=b_by, experts=eg, touched=0,
+                rows=0))
+            tot["ms"] += time_ms(kern)[0]
+            tot["plain_ms"] += time_ms(plain, 10)[0]
+            tot["library_ms"] += time_ms(lambda: torch.einsum(
+                "beck,ekn->becn", a, dense), 10)[0]
+            tot["bound_ms"] += b_ms
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["touched"] += touched
+            tot["rows"] += filled
+            del dense
+    for dt, tot in out.items():
+        print(f"[k6 mixed] layer 0's {dt} group (E {tot['experts']}), 3 "
+              f"launches (wg, wu, wd), fill {tot['touched']} expert stacks "
+              f"touched, {tot['rows']} rows: err {tot['max_abs_err']:.2e} "
+              f"(tol rtol 1e-5, atol 1e-5*max|ref|), kernel "
+              f"{tot['ms']:.4f}ms warm L2, plain {tot['plain_ms']:.4f}ms, "
+              f"einsum {tot['library_ms']:.4f}ms, bound "
+              f"{tot['bound_ms']:.5f}ms ({tot['bound_by']})")
+    return out
+
+
+def mixed_phase_e(dev, smi: str, n_layers: int = MIXED_E_LAYERS):
+    """Qwen3-30B-A3B at full published width, `n_layers` deep (a depth
+    under the published 48 is served as a registered cut of the config),
+    through the launcher's entry point, slab, `--quant olive_serve
+    --policy-rules "*experts/*/[0-7]=olive_w8a8"`: experts 0-7 of every stack W8, so
+    each of the 144 stacks is a two-group `MixedExpertQuant` (int8 then
+    int4), whose index tensors the stack holds on the card. Counters
+    reset just before and read just after: no fallback; K6 once per
+    group per stack per forward call (`grouped[fp]` = 2 x 3 x layers x
+    forwards, half of them `grouped<int8>`), `cuda[stacked]` alike; K2
+    and K7 as in phase E. Then the audit, `capture_gate`, `sync_check`
+    (one host sync a captured step: the token fetch), K6 on each group
+    of layer 0's stacks against the plain version, the decode-step
+    profile, and the 2-layer card-vs-CPU check (routed experts first,
+    then logits). Returns the counts, the K6 group records and the
+    profile."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.core.ovp import MixedExpertQuant
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    phase = "mixed E"
+    rules = f"*experts/*/[0-{W8_EXPERTS - 1}]=olive_w8a8"
+    arch = MOE_ARCH
+    if n_layers != get_config(MOE_ARCH).n_layers:
+        arch = f"{MOE_ARCH}-{n_layers}-layers"
+        ARCHS[arch] = dataclasses.replace(get_config(MOE_ARCH), name=arch,
+                                          n_layers=n_layers)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    try:
+        res = serve.run(["--arch", arch, "--quant", "olive_serve",
+                         "--policy-rules", rules] + SERVE_ARGS, device=dev)
+    finally:
+        if arch != MOE_ARCH:
+            del ARCHS[arch]
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    kernels = ("grouped[fp]", "ovp_matmul[fp]", "decode_attn", "ovp_encode")
+    check_counts(counts, phase, kernels)
+    check_attn_counts(res, counts, phase, paged=False)
+    check_encode_counts(res["engine"], counts, phase)
+    st = res["engine"].stats()
+    forwards = st["prefills_run"] + st["prefill_chunks_run"] \
+        + st["decodes_run"]
+    stacks = [layer["moe"]["experts"][leaf]
+              for layer in res["params"]["layers"]
+              for leaf in ("wg", "wu", "wd")]
+    n_experts = res["model"].cfg.n_experts
+    want_ids = (tuple(range(W8_EXPERTS)),
+                tuple(range(W8_EXPERTS, n_experts)))
+    bad = [i for i, w in enumerate(stacks)
+           if not isinstance(w, MixedExpertQuant)
+           or w.expert_ids != want_ids
+           or [g.normal_dtype for g in w.groups] != ["int8", "int4"]
+           or w.order.device != w.groups[0].data.device]
+    if bad or len(stacks) != 3 * n_layers:
+        fail(f"{phase}: stacks {bad[:4]} are not two-group int8/int4 "
+             f"MixedExpertQuant stacks with their index tensors on the card")
+    per = 3 * n_layers * forwards
+    want = {"grouped[fp]": 2 * per, "grouped<int8>": per,
+            "grouped<int4>": per, "stacked dispatches": 2 * per}
+    got = {key: counts[key] for key in want if key in counts}
+    got["stacked dispatches"] = counts["dispatch"].get("cuda[stacked]", 0)
+    if got != want:
+        fail(f"{phase}: K6 launches {got}, expected {want} (2 groups x 3 "
+             f"stacks x {n_layers} layers x {forwards} forward calls)")
+    mixed_bytes = sum(g.data.numel() * g.data.element_size()
+                      + g.scale.numel() * 4 for w in stacks for g in w.groups)
+    w4_bytes = sum(w.n_experts * (w.groups[1].data.shape[1]
+                                  * w.groups[1].data.shape[2]
+                                  + 4 * w.groups[1].data.shape[2])
+                   for w in stacks)
+    done = res["completed"]
+    if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+        fail(f"{phase}: {len(done)} requests finished with "
+             f"{[len(r.out_tokens) for r in done]} tokens, expected 8 x 16")
+    print(f"[mixed E] {MOE_ARCH} ({n_layers} of 48 layers) olive_serve + "
+          f"--policy-rules \"{rules}\": {len(stacks)} two-group stacks "
+          f"(experts 0-{W8_EXPERTS - 1} int8, {W8_EXPERTS}-{n_experts - 1} "
+          f"int4), expert bytes "
+          f"{mixed_bytes / 1e9:.3f} GB against {w4_bytes / 1e9:.3f} GB all "
+          f"W4 (+{100 * (mixed_bytes / w4_bytes - 1):.1f}%); PTQ "
+          f"{res['ptq_s']:.2f}s, peak device memory {peak_gb:.2f} GB, "
+          f"{res['tokens']} tokens in {res['seconds']:.3f}s = "
+          f"{res['tok_per_s']:.2f} tok/s, mean TTFT "
+          f"{res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+          f"{res['mean_step_s'] * 1e3:.2f}ms, {forwards} forward calls; "
+          f"launches grouped[fp]={counts['grouped[fp]']} (<int8> "
+          f"{counts['grouped<int8>']}, <int4> {counts['grouped<int4>']}) "
+          + " ".join(f"{key}={counts[key]}" for key in kernels[1:])
+          + f", dispatch {counts['dispatch']} ({smi})")
+    audit_check(res["engine"], phase)
+    capture_gate(res["engine"], phase, steps=3)
+    sync_check(res, phase)
+    k6m = k6_mixed_layer(dev, res["params"]["layers"][0]["moe"]["experts"])
+    prof = profile_decode(res, f"{MOE_ARCH}, W8 experts 0-7 + W4, KV4",
+                          steps=3, max_new=10)
+    moe_reference_check(res, dev, label=f"W8 experts 0-{W8_EXPERTS - 1} + W4")
+    del res, stacks, done
+    print(f"[mixed E] phase took {time.perf_counter() - t_phase:.1f}s")
+    return {"counts": counts, "k6": k6m, "profile": prof}
 
 
 def main() -> int:
@@ -3167,7 +3722,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])          # card name, power limit
+    card = smi.splitlines()[0]
+    print(card)                         # card name, power limit
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -3181,7 +3737,7 @@ def main() -> int:
     k1_share_phase(dev)
     wrapper_host_phase(dev)
     one_launch_check(dev)
-    _, k2_err, k2_main = k2_phase(dev)
+    k2_rows, k2_err, k2_main = k2_phase(dev)
     _, k3_err, k3_main = k3_phase(dev)
     k2_err = max(k2_err, k23_split_phase(dev))
     attn_host_phase(dev)
@@ -3197,6 +3753,7 @@ def main() -> int:
     capture_gate(res["engine"], "A")
     lru_check(res)
     sync_check(res, "A")
+    async_phase_a(dev, res, card)
     res_b, counts_b = serve_phase_b(res["model"], res["params"], dev)
     audit_check(res_b["engine"], "serve phase B")
     capture_gate(res_b["engine"], "B")
@@ -3230,6 +3787,8 @@ def main() -> int:
     # the MoE slice: phases A-D's models are freed first
     del res, res_b, res_c, runs_d, res_d, prof_b, prof_d
     free_device_memory()
+    runs_mixed, _, k1w8 = mixed_phase_a(dev, card)
+    free_device_memory()
     _, k2_err_moe, _ = k2_phase(dev, hkv=4, g=8, d=128)
     _, k3_err_moe, _ = k3_phase(dev, hkv=4, g=8, d=128)
     _, k4_err_moe, _ = k4_phase(dev, hkv=4, g=8, d=128)
@@ -3240,6 +3799,7 @@ def main() -> int:
     free_device_memory()
     runs_e = serve_phase_e(dev)
     counts_e = runs_e["slab"]["counts"]
+    mixed_e = mixed_phase_e(dev, card)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -3281,6 +3841,25 @@ def main() -> int:
              "ovp_matmul.cu", counts_k6_api[f"grouped[{mode}]"],
              k6_api[mode]["max_abs_err"], k6_api[mode])
          for mode in ("quantize", "static", "codes4", "codes8")]
+    # the launch counts mixed programs put on served models
+    k2_fp = next(r for r in k2_rows if r["cache"] == "fp float32"
+                 and r["pos"] == POS_CASES["mixed"])
+    counts_w48 = runs_mixed["w48"]["counts"]
+    kernels += [
+        row("ovp_matmul[fp]<int8>", k1_src, "ovp_matmul.cu",
+            counts_w48["ovp_matmul<int8>"], k1w8["fp"]["max_abs_err"],
+            k1w8["fp"]),
+        row("ovp_matmul[static]<int8>", "src/repro/kernels/ovp_matmul.py:263",
+            "ovp_matmul.cu",
+            runs_mixed["w48 calibrate"]["counts"]["ovp_matmul<int8>"],
+            k1w8["static"]["max_abs_err"], k1w8["static"]),
+        row("decode_attn[fp32 cache]", "src/repro/kernels/decode_attn.py:358",
+            "decode_attn.cu", counts_w48["decode_attn"],
+            k2_fp["max_abs_err"], k2_fp),
+    ] + [row(f"grouped[fp]<{dt}>", "src/repro/kernels/ovp_matmul.py:436",
+             "ovp_matmul.cu", mixed_e["counts"][f"grouped<{dt}>"],
+             mixed_e["k6"][dt]["max_abs_err"], mixed_e["k6"][dt])
+         for dt in ("int8", "int4")]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -3312,7 +3891,16 @@ def main() -> int:
           "paged_decode_attn and prefill_attn from phase C, [codes4] and "
           "[codes8] from the API phase, grouped[fp] from "
           "serve phase E's slab run, the other grouped modes from the K6 "
-          "API phase")
+          "API phase. Mixed programs: ovp_matmul[fp]<int8> and "
+          "[static]<int8> are the 7 launches of the olive_mixed_w48 "
+          "model's W8 layer 0 at rows 4 (static: int8 activations at one "
+          "scale, K5), launches from mixed A's w48 run and its calibrate "
+          "run; decode_attn[fp32 cache] is K2's fp32-cache launch at pos "
+          "(0, 17, 255, 17), launches from mixed A's w48 run (fp32 KV on "
+          "every layer); grouped[fp]<int8|int4> are the 3 launches of one "
+          "group of mixed E's layer 0 stacks (E 8 int8 / E 120 int4) with "
+          "that group's share of a top-8 decode fill, warm L2, launches "
+          "from mixed E")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,11 +111,12 @@ def _dispatch_mixed_experts(x: torch.Tensor, w: MixedExpertQuant,
     per expert: the A side, backend and compute dtype come from the
     call-site policy. An unquantized group runs a plain matmul. Per-slot
     scales carrying the expert dim ((…, E, C, 1) or (…, E, C)) and the
-    fill (…, E) are gathered down to each group's experts."""
+    fill (…, E) are gathered down to each group's experts, through the
+    index tensors the stack holds on its device (no host copy, so a
+    captured step can run it)."""
     cdt = torch_dtype(policy.compute_dtype)
     outs = []
-    for qt, ids in zip(w.groups, w.expert_ids):
-        idx = torch.as_tensor(ids, dtype=torch.int64, device=x.device)
+    for qt, idx in zip(w.groups, w.group_index):
         xg = torch.index_select(x, x.ndim - 3, idx)
         scale = act_scale
         if isinstance(scale, torch.Tensor) and scale.ndim:
@@ -131,11 +132,7 @@ def _dispatch_mixed_experts(x: torch.Tensor, w: MixedExpertQuant,
         else:
             outs.append(torch.matmul(xg.to(cdt), qt.to(cdt)))
     cat = torch.cat([o.to(cdt) for o in outs], dim=-3)
-    flat_ids = [e for ids in w.expert_ids for e in ids]
-    order = torch.as_tensor(sorted(range(len(flat_ids)),
-                                   key=flat_ids.__getitem__),
-                            dtype=torch.int64, device=x.device)
-    return torch.index_select(cat, cat.ndim - 3, order)
+    return torch.index_select(cat, cat.ndim - 3, w.order)
 
 
 def decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,

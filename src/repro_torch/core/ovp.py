@@ -139,10 +139,31 @@ class MixedExpertQuant:
     expert_ids: expert_ids[g][i] is the original expert index of
                 groups[g]'s i-th slice
     n_experts:  E, the stack the groups partition
+
+    Built once per stack, on the weights' device: `group_index[g]`, the
+    int64 tensor of `expert_ids[g]`, and `order`, the inverse permutation
+    that puts the concatenated group outputs back in expert order. A
+    dispatch reads them and copies nothing from the host, which a
+    captured step could not do.
     """
     groups: tuple
     expert_ids: tuple
     n_experts: int
+    group_index: tuple = dataclasses.field(init=False, repr=False,
+                                           compare=False)
+    order: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                            compare=False)
+
+    def __post_init__(self):
+        g0 = self.groups[0]
+        device = (g0.data if isinstance(g0, QuantizedTensor) else g0).device
+        self.group_index = tuple(
+            torch.as_tensor(ids, dtype=torch.int64, device=device)
+            for ids in self.expert_ids)
+        flat = [e for ids in self.expert_ids for e in ids]
+        self.order = torch.as_tensor(
+            sorted(range(len(flat)), key=flat.__getitem__),
+            dtype=torch.int64, device=device)
 
     @property
     def shape(self):

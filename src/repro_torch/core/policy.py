@@ -1,14 +1,21 @@
 """Quantization policy: which tensors get quantized, how, and on what
-backend. Port of `repro/core/policy.py` (flat policies, rules, the
-legacy-flag program and the program protocol that calibration overlays;
-the mixed-precision program presets are not ported).
+backend. Port of `repro/core/policy.py`: flat policies, rules, the
+legacy-flag program, the program protocol that calibration overlays, and
+the mixed-precision program presets (`olive_mixed_w48`,
+`olive_owq_style`) with `get_program` and the CLI's `parse_rules`. The
+baseline presets (`int8`, `int4`, `ant4`) wait for `core/baselines.py`;
+QAT's `qat` field and the layer probes (`varies_across_layers`,
+`addresses_layers`) wait for the code that reads them.
 
 `QuantPolicy` is the per-site decision record. `PolicyProgram` holds
 ordered (glob pattern -> QuantPolicy) rules matched case-insensitively
 against "/"-joined site addresses (`layers/<i>/attn/wq`,
 `layers/<i>/attn/kv`, `lm_head/w_out`, ...); the first match wins.
 `QuantPolicy.resolve(site)` goes through the program its legacy flags
-compile to (`PolicyProgram.from_policy`).
+compile to (`PolicyProgram.from_policy`). Mixed precision (first/last
+layers W8, the rest W4, per-layer kv_bits, per-expert sub-sites
+`.../experts/wg/<e>`) is a program: docs/policies.md describes the
+grammar, which the port shares.
 
 The port's default backend is `cuda` (hand-written kernels; CPU tensors
 take their plain versions), where the reference defaults to `xla`.
@@ -18,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import fnmatch
 import functools
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +118,17 @@ class PolicyProgram:
     def compute_dtype(self) -> str:
         return self.default.compute_dtype
 
+    @property
+    def backend(self) -> str:
+        return self.default.backend
+
+    @property
+    def kv_bits(self) -> int:
+        """Largest kv_bits any rule can resolve to: nonzero when some
+        cache site may be packed (caches resolve kv_bits per layer site)."""
+        return max([self.default.kv_bits]
+                   + [r.policy.kv_bits for r in self.rules])
+
     def backends(self) -> frozenset:
         return frozenset([self.default.backend]
                          + [r.policy.backend for r in self.rules])
@@ -128,6 +146,14 @@ class PolicyProgram:
             rules=tuple(Rule(r.pattern, dataclasses.replace(r.policy, **kw),
                              origin=r.origin) for r in self.rules),
             default=dataclasses.replace(self.default, **kw), name=self.name)
+
+    def with_rules(self, rules: Sequence, front: bool = True
+                   ) -> "PolicyProgram":
+        """A new program with `rules` prepended (they take precedence) or
+        appended."""
+        extra = tuple(_as_rule(r) for r in rules)
+        new = extra + self.rules if front else self.rules + extra
+        return PolicyProgram(rules=new, default=self.default, name=self.name)
 
     @classmethod
     def from_policy(cls, policy: QuantPolicy,
@@ -191,6 +217,32 @@ PRESETS = {"fp": FP, "olive_w4a4": OLIVE_W4A4, "olive_w4": OLIVE_W4,
            "olive_w8a8": OLIVE_W8A8, "olive_serve": OLIVE_SERVE}
 
 
+def olive_mixed_w48(n_layers: int) -> PolicyProgram:
+    """The first and last layers W8A8, every layer between W4A4: the
+    paper's "keep sensitive layers at high precision" per layer."""
+    base = PolicyProgram.from_policy(OLIVE_W4A4, name="olive_mixed_w48")
+    return base.with_rules([
+        ("layers/0/*", OLIVE_W8A8),
+        (f"layers/{max(n_layers - 1, 0)}/*", OLIVE_W8A8),
+    ])
+
+
+def olive_owq_style(n_layers: int = 0) -> PolicyProgram:
+    """OWQ-style: the attention q/k projections, which feed RoPE and the
+    scores, stay W8; the rest runs W4."""
+    base = PolicyProgram.from_policy(OLIVE_W4A4, name="olive_owq_style")
+    return base.with_rules([
+        ("*attn/wq*", OLIVE_W8A8),
+        ("*attn/wk*", OLIVE_W8A8),
+    ])
+
+
+PROGRAM_PRESETS = {
+    "olive_mixed_w48": olive_mixed_w48,
+    "olive_owq_style": olive_owq_style,
+}
+
+
 def get_policy(name: Optional[str]) -> QuantPolicy:
     if name is None:
         return FP
@@ -198,3 +250,27 @@ def get_policy(name: Optional[str]) -> QuantPolicy:
         raise KeyError(f"unknown quant policy {name!r}; "
                        f"options: {sorted(PRESETS)}")
     return PRESETS[name]
+
+
+def get_program(name: Optional[str], n_layers: int = 0) -> PolicyProgram:
+    """The program of any preset name: flat presets compile through
+    `from_policy`, program presets take the model's layer count."""
+    if name in PROGRAM_PRESETS:
+        return PROGRAM_PRESETS[name](n_layers)
+    return PolicyProgram.from_policy(get_policy(name), name=name or "fp")
+
+
+def parse_rules(spec: str) -> List[Rule]:
+    """A CLI rule list ``pattern=preset[,pattern=preset...]`` -> rules;
+    presets name `PRESETS` entries (``fp`` leaves a site unquantized),
+    e.g. ``--policy-rules "layers/0/*=olive_w8a8,*mlp*=olive_w4a4"``."""
+    rules = []
+    for tok in spec.split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        if "=" not in tok:
+            raise ValueError(f"bad rule {tok!r}: expected pattern=preset")
+        pattern, preset = tok.split("=", 1)
+        rules.append(Rule(pattern.strip(), get_policy(preset.strip())))
+    return rules

@@ -31,7 +31,9 @@ body (row tile = rows up to 8, K split over a thread-block cluster of
 1-8 blocks to fill the SMs, the block's weight slice streamed in with
 cp.async) wherever its K slice fits shared memory, else the FMA body.
 `fused_ovp_matmul.mode_launches[mode]` counts each mode's kernel
-launches.
+launches, and `fused_ovp_matmul.weight_launches[w_dtype]` the same
+launches by weight dtype (`W_DTYPES`: mixed W4/W8 programs put int8
+weights on some layers).
 
 K6 replaces `repro/kernels/ovp_matmul.py:436` (`grouped_ovp_matmul_kernel`,
 bodies `_grouped_mm_kernel` :300 and `_grouped_mm_kernel_static` :333)
@@ -44,9 +46,10 @@ over a stacked (E, K/2 | K, N) weight with per-expert scales, in every
 mode above (the MoE expert einsums run `fp`). `grouped_ovp_matmul`
 folds the dims left of (E, C, K) into B, broadcasts the scales to
 (B, E, C) and (E, N), and launches one kernel (`ovp_grouped_mm_launch`
-in the same source); `grouped_ovp_matmul.mode_launches[mode]` counts
-its launches apart from K1's. Given the MoE dispatch's `fill` (B, E),
-the kernel computes only rows c < fill[b, e] and reads only the
+in the same source); `grouped_ovp_matmul.mode_launches[mode]` and
+`.weight_launches[w_dtype]` count its launches apart from K1's. Given
+the MoE dispatch's `fill` (B, E), the kernel computes only rows
+c < fill[b, e] and reads only the
 weights of experts with a filled row (a persistent grid on the decode
 body; `grouped_launch_plan` works out its geometry, `GroupedPlan.items`
 its work for a fill); the rows past the fill are left unwritten. A call
@@ -69,6 +72,7 @@ from repro_torch.core.ovp import QuantizedTensor, decode_pair_planes
 from . import _build
 
 _DTYPE_CODE = {"int4": 0, "flint4": 1, "int8": 2}
+W_DTYPES = tuple(_DTYPE_CODE)
 _BN = 16            # both bodies' output-column tile
 
 
@@ -489,6 +493,7 @@ def _launch(a: torch.Tensor, sa: Optional[torch.Tensor],
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "ovp_matmul")
     fused_ovp_matmul.mode_launches[a_mode] += 1
+    fused_ovp_matmul.weight_launches[w_dtype] += 1
     return out[:, :n]
 
 
@@ -598,6 +603,7 @@ def fused_ovp_matmul(x: Union[torch.Tensor, QuantizedTensor],
 
 
 fused_ovp_matmul.mode_launches = dict.fromkeys(A_MODES, 0)
+fused_ovp_matmul.weight_launches = dict.fromkeys(W_DTYPES, 0)
 
 
 # --------------------------------------------------------------------------
@@ -664,6 +670,7 @@ def _launch_grouped(a: torch.Tensor, sa: Optional[torch.Tensor],
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "grouped ovp_matmul")
     grouped_ovp_matmul.mode_launches[a_mode] += 1
+    grouped_ovp_matmul.weight_launches[w_dtype] += 1
     return out[..., :n]
 
 
@@ -776,3 +783,4 @@ def grouped_ovp_matmul(x: Union[torch.Tensor, QuantizedTensor],
 
 
 grouped_ovp_matmul.mode_launches = dict.fromkeys(A_MODES, 0)
+grouped_ovp_matmul.weight_launches = dict.fromkeys(W_DTYPES, 0)

@@ -35,7 +35,27 @@ Without `--calibrate`, `--calibration PATH` loads the artifact and
 serves on it. `--calibrate` needs the whole fp32 tree on the device for
 the calibration forward, so it is the one path that does not stream.
 
-As in the reference launcher, the preset is rewritten to fp32 compute
+Mixed precision is a policy program (docs/policies.md): a program preset
+in `--quant` (`olive_mixed_w48`: the first and last layers W8, the rest
+W4; `olive_owq_style`: the attention q/k projections W8), and/or site
+rules in front of it with `--policy-rules`, here packed 4-bit KV caches
+on the first and last layer only:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen1.5-0.5b --quant olive_mixed_w48 --policy-rules \
+      "layers/0/attn/kv=olive_serve,layers/23/attn/kv=olive_serve"
+
+Async streaming serve (docs/serving.md): the asyncio front end drives
+the same engine step, with a token stream per request (`--stream` prints
+each token in the step that sampled it), TTFT/TPOT records per step, and
+the JSONL metrics trace (`--metrics-out`, also in the drained loop):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen1.5-0.5b --quant olive_serve --paged 16 \
+      --prefill-chunk 16 --async --stream --metrics-out build/trace.jsonl
+
+As in the reference launcher, the preset (every rule of a program) is
+rewritten to fp32 compute
 (`compute_dtype="float32"`). Without `--calibration` activations are
 left unquantized (`abits=0`), so `olive_serve` serves W4 OVP weights
 over a 4-bit OVP KV cache; with it the preset keeps its `abits` and
@@ -46,6 +66,7 @@ function (the tests call it with device="cpu").
 from __future__ import annotations
 
 import argparse
+import asyncio
 import os
 import time
 from typing import Dict, List, Optional
@@ -57,19 +78,28 @@ from repro_torch import backends
 from repro_torch.configs import get_config
 from repro_torch.core.calibration import (CalibrationArtifact,
                                           apply_calibration, calibrate_model)
-from repro_torch.core.policy import PRESETS, get_policy
+from repro_torch.core.policy import (PRESETS, PROGRAM_PRESETS, get_policy,
+                                     get_program, parse_rules)
 from repro_torch.core.qlinear import quantize_params
 from repro_torch.models.model import build_model
 from repro_torch.serve import capture
 from repro_torch.serve.engine import EngineCfg, ServingEngine
+from repro_torch.serve.frontend import AsyncFrontend
+from repro_torch.serve.metrics import MetricsLedger
 from repro_torch.serve.paging import PagePoolCfg
 
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--quant", default="olive_w4", choices=sorted(PRESETS),
-                    help="PTQ policy preset for the weights/KV")
+    ap.add_argument("--quant", default="olive_w4",
+                    choices=sorted(PRESETS) + sorted(PROGRAM_PRESETS),
+                    help="PTQ policy or policy-program preset for the "
+                         "weights/KV")
+    ap.add_argument("--policy-rules", default=None,
+                    help="extra site rules prepended to the program, "
+                         "e.g. 'layers/0/*=olive_w8a8,*mlp*=olive_w4a4' "
+                         "(see docs/policies.md)")
     ap.add_argument("--backend", default=None,
                     choices=backends.available(),
                     help="execution backend (default: the policy's, cuda)")
@@ -96,8 +126,42 @@ def parser() -> argparse.ArgumentParser:
                     help="paged mode: split long prompts into chunks of "
                          "this many tokens, interleaved with decode steps "
                          "(at most one chunk per step)")
+    ap.add_argument("--async", dest="use_async", action="store_true",
+                    help="serve through the asyncio streaming front end "
+                         "(serve/frontend.py): continuous intake, "
+                         "per-request token streams, step-level TTFT/"
+                         "TPOT SLO metrics (see docs/serving.md)")
+    ap.add_argument("--stream", action="store_true",
+                    help="async mode: print every token the step it is "
+                         "sampled (one line per request completion too)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the step/request JSONL metrics trace "
+                         "(serve/metrics.py vocabulary) to PATH; works "
+                         "in both the drained loop and --async mode")
     ap.add_argument("--seed", type=int, default=0)
     return ap
+
+
+async def _serve_async(eng, prompts, max_new, metrics, stream_tokens):
+    """Drive the engine through the asyncio front end: submit every
+    prompt, read each token stream as its tokens arrive (printing each
+    token under --stream), and return the completed requests."""
+
+    async def consume(stream):
+        seen = 0
+        async for tok in stream:
+            if stream_tokens:
+                tag = "first" if seen == 0 else f"+{seen}"
+                print(f"[stream] uid={stream.uid} {tag} token={tok}")
+            seen += 1
+        if stream_tokens:
+            print(f"[stream] uid={stream.uid} done "
+                  f"({len(stream.tokens)} tokens, {stream.finish_reason})")
+
+    async with AsyncFrontend(eng, metrics=metrics) as fe:
+        streams = [fe.submit(p, max_new_tokens=max_new) for p in prompts]
+        await asyncio.gather(*(consume(s) for s in streams))
+    return list(eng.completed)
 
 
 # the kernels' launch counters by name, and their reset (the counter list
@@ -108,8 +172,9 @@ reset_kernel_launches = capture.reset_launch_counts
 
 def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     """Build, (calibrate,) quantize and serve; returns the engine, model,
-    params, artifact and the run's numbers (tokens, seconds, tok/s, TTFT,
-    step time, calibration and PTQ seconds)."""
+    params, artifact, the run's numbers (tokens, seconds, tok/s, TTFT,
+    step time, calibration and PTQ seconds) and, under --async or
+    --metrics-out, the metrics ledger's snapshot ("metrics")."""
     ap = parser()
     args = ap.parse_args(argv)
     if args.calibrate and not args.calibration:
@@ -117,11 +182,21 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     if args.prefill_chunk and not args.paged:
         ap.error("--prefill-chunk requires --paged (chunked prefill is a "
                  "paged-cache feature)")
+    if args.stream and not args.use_async:
+        ap.error("--stream requires --async (the drained loop has no "
+                 "token streams)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("repro_torch.launch.serve needs a CUDA device")
     cfg = get_config(args.arch)
-    policy = get_policy(None if args.quant == "fp" else args.quant)
+    if args.quant in PROGRAM_PRESETS or args.policy_rules:
+        policy = get_program(None if args.quant == "fp" else args.quant,
+                             n_layers=cfg.n_layers)
+        if args.policy_rules:
+            policy = policy.with_rules(parse_rules(args.policy_rules))
+    else:
+        policy = get_policy(None if args.quant == "fp" else args.quant)
+    # every rule of a program is rewritten, or the one flat policy;
     # a calibration artifact keeps the preset's abits: static scales
     # exist to serve quantized activations without per-step scale work
     if args.calibration:
@@ -181,25 +256,48 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 32)))
                .astype(np.int32) for _ in range(args.requests)]
-    for p in prompts:
-        eng.submit(p, max_new_tokens=args.max_new)
-    t0 = time.perf_counter()
-    done = eng.run_until_drained()
+    metrics = MetricsLedger() if (args.metrics_out or args.use_async) \
+        else None
+    if args.use_async:
+        t0 = time.perf_counter()
+        done = asyncio.run(_serve_async(eng, prompts, args.max_new,
+                                        metrics, args.stream))
+    else:
+        for p in prompts:
+            eng.submit(p, max_new_tokens=args.max_new)
+        t0 = time.perf_counter()
+        done = eng.run_until_drained(metrics=metrics)
     dt = time.perf_counter() - t0
     toks = sum(len(r.out_tokens) for r in done)
+    if args.metrics_out:
+        metrics.write_jsonl(args.metrics_out)
     return {"engine": eng, "model": model, "params": params,
-            "artifact": artifact, "calib_s": calib_s,
+            "policy": policy, "artifact": artifact, "calib_s": calib_s,
             "completed": done, "tokens": toks, "seconds": dt,
             "ptq_s": ptq_s, "tok_per_s": toks / dt,
             "mean_ttft_s": float(np.mean([r.t_first - r.t_submit
                                           for r in done])),
-            "mean_step_s": dt / max(eng.steps_run, 1)}
+            "mean_latency_s": float(np.mean([r.t_done - r.t_submit
+                                             for r in done])),
+            "mean_step_s": dt / max(eng.steps_run, 1),
+            "metrics": None if metrics is None else metrics.snapshot(),
+            "metrics_out": args.metrics_out}
+
+
+def _fmt_dist(d, digits: int = 1) -> str:
+    if not d.get("n"):
+        return "n=0"
+    return (f"n={d['n']} mean={d['mean'] * 1e3:.{digits}f}ms "
+            f"p50={d['p50'] * 1e3:.{digits}f}ms "
+            f"p95={d['p95'] * 1e3:.{digits}f}ms")
 
 
 def main():
     res = run()
     eng = res["engine"]
     art = res["artifact"]
+    print(f"[serve] quantized-matmul backend(s): "
+          f"{', '.join(sorted(res['policy'].backends()))}")
     if art is not None:
         how = (f"calibrated in {res['calib_s']:.1f}s" if res["calib_s"]
                else "loaded")
@@ -207,9 +305,15 @@ def main():
     print(f"[serve] PTQ in {res['ptq_s']:.1f}s")
     print(f"[serve] {len(res['completed'])} requests, {res['tokens']} "
           f"tokens in {res['seconds']:.2f}s ({res['tok_per_s']:.1f} tok/s)")
+    print(f"[serve] mean latency {res['mean_latency_s'] * 1e3:.0f} ms")
     print(f"[serve] mean TTFT {res['mean_ttft_s'] * 1e3:.0f} ms, mean step "
           f"{res['mean_step_s'] * 1e3:.1f} ms")
     print(f"[serve] dispatch: {backends.dispatch_stats()}")
+    attn = {k: v for k, v in backends.dispatch_stats().items()
+            if "[decode_attn]" in k or "[prefill_attn]" in k}
+    if attn:
+        # a packed KV cache must show no fallback on the cuda backend
+        print(f"[serve] attention dispatch: {attn}")
     if eng.paged:
         st = eng.stats()
         print(f"[serve] page pool: {st['page_pool']} "
@@ -219,6 +323,15 @@ def main():
         print(f"[serve] act-scale resolutions: {backends.act_scale_stats()}")
     print("[serve] kernel launches: " + " ".join(
         f"{name}={n}" for name, n in kernel_launches().items()))
+    snap = res["metrics"]
+    if snap is not None:
+        print(f"[serve] SLO: TTFT {_fmt_dist(snap['ttft_s'])} | "
+              f"TPOT {_fmt_dist(snap['tpot_s'])}")
+        print(f"[serve] {snap['steps']} steps, fallbacks={snap['fallbacks']}"
+              + (f", interleave={snap['prefill_interleave_ratio']:.2f}"
+                 if snap["prefill_interleave_ratio"] is not None else ""))
+        if res["metrics_out"]:
+            print(f"[serve] metrics trace -> {res['metrics_out']}")
 
 
 if __name__ == "__main__":

@@ -36,6 +36,8 @@ from repro_torch.kernels import (decode_attn, ovp_encode, ovp_matmul,
                                  prefill_attn)
 
 # wrappers whose `.mode_launches` dict counts launches per activation mode
+# and whose `.weight_launches` dict counts the same launches per weight
+# dtype
 _MODE_COUNTED = {"ovp_matmul": ovp_matmul.fused_ovp_matmul,
                  "grouped": ovp_matmul.grouped_ovp_matmul}
 # wrappers whose `.launches` int counts launches
@@ -53,12 +55,15 @@ def launch_counts() -> Dict[str, int]:
     the fused OVP matmul per activation mode ("ovp_matmul[<mode>]";
     `ovp_matmul[static]` is K5), the grouped per-expert matmul K6 per
     mode ("grouped[<mode>]"; `grouped[fp]` on the MoE serving path), the
-    encoder K7 ("ovp_encode") and the three attention kernels. A
-    captured engine step counts each replay."""
+    same launches of both by weight dtype ("ovp_matmul<int8>",
+    "grouped<int4>", ...), the encoder K7 ("ovp_encode") and the three
+    attention kernels. A captured engine step counts each replay."""
     counts = {}
     for name, fn in _MODE_COUNTED.items():
         for mode, n in fn.mode_launches.items():
             counts[f"{name}[{mode}]"] = n
+        for w_dtype, n in fn.weight_launches.items():
+            counts[f"{name}<{w_dtype}>"] = n
     for name, fn in _COUNTED.items():
         counts[name] = fn.launches
     return counts
@@ -68,6 +73,7 @@ def reset_launch_counts() -> None:
     """Set every counter of `launch_counts()` to 0."""
     for fn in _MODE_COUNTED.values():
         fn.mode_launches = dict.fromkeys(ovp_matmul.A_MODES, 0)
+        fn.weight_launches = dict.fromkeys(ovp_matmul.W_DTYPES, 0)
     for fn in _COUNTED.values():
         fn.launches = 0
 
@@ -105,6 +111,9 @@ def add_counts(delta: Dict[str, int]) -> None:
         elif key.endswith("]"):
             name, mode = key[:-1].split("[")
             _MODE_COUNTED[name].mode_launches[mode] += n
+        elif key.endswith(">"):
+            name, w_dtype = key[:-1].split("<")
+            _MODE_COUNTED[name].weight_launches[w_dtype] += n
         else:
             _COUNTED[key].launches += n
 

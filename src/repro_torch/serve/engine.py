@@ -619,10 +619,17 @@ class ServingEngine:
         return bool(self.queue or self._active()
                     or (self.paged and self._prefilling))
 
-    def run_until_drained(self, max_steps: int = 10000) -> List[Request]:
+    def run_until_drained(self, max_steps: int = 10000,
+                          metrics=None) -> List[Request]:
+        """Step until no request is queued, prefilling or decoding.
+        `metrics` (a `serve.metrics.MetricsLedger`) records every step's
+        events, as the async front end feeds it, so the two loops give
+        comparable traces."""
         steps = 0
         while self.has_work() and steps < max_steps:
-            self.step()
+            ev = self.step()
+            if metrics is not None:
+                metrics.on_step(ev, self)
             steps += 1
         return self.completed
 
@@ -646,6 +653,21 @@ class ServingEngine:
         if self.paged:
             st["page_pool"] = self.pool.stats()
         return st
+
+    def device_pool_stats(self) -> Dict[str, object]:
+        """The KV pool's footprint per device (paged mode), in the
+        reference's single-device view: one device holds every pool
+        byte, and its occupancy is the pool's. Slab mode reports no
+        pool."""
+        if not self.paged:
+            return {"n_devices": 1, "pool_bytes_total": 0,
+                    "pool_bytes_per_device": 0, "occupancy_per_device": []}
+        total = sum(leaf.numel() * leaf.element_size()
+                    for site in self._sites()
+                    for key, leaf in site.items() if key != "block_table")
+        return {"n_devices": 1, "pool_bytes_total": int(total),
+                "pool_bytes_per_device": int(total),
+                "occupancy_per_device": [float(self.pool.occupancy())]}
 
 
 def _splice_slot(full_caches, row_caches, slot: int) -> None:

@@ -47,9 +47,9 @@ def test_port_has_no_broad_except(path):
 
 def test_port_serves_on_cpu_without_jax_or_kernels():
     """A fresh interpreter imports the launcher, serves the smoke model on
-    the CPU in slab and in paged mode, and ends with no JAX module loaded
-    and every kernel counter at 0: CPU tensors only ever take the plain
-    versions."""
+    the CPU in slab mode and in paged mode through the async front end,
+    and ends with no JAX module loaded and every kernel counter at 0:
+    CPU tensors only ever take the plain versions."""
     code = (
         "import json, sys\n"
         "from repro_torch.launch import serve\n"
@@ -58,7 +58,7 @@ def test_port_serves_on_cpu_without_jax_or_kernels():
         "        '--max-len', '32']\n"
         "slab = serve.run(args, device='cpu')\n"
         "paged = serve.run(args + ['--paged', '16', '--prefill-chunk',\n"
-        "                          '16'], device='cpu')\n"
+        "                          '16', '--async'], device='cpu')\n"
         "print(json.dumps({'jax': sorted(m for m in sys.modules\n"
         "                   if m.split('.')[0] in ('jax', 'jaxlib')),\n"
         "                  'tokens': [slab['tokens'], paged['tokens']],\n"
@@ -74,19 +74,27 @@ def test_port_serves_on_cpu_without_jax_or_kernels():
                                 "ovp_matmul[static]": 0,
                                 "ovp_matmul[codes4]": 0,
                                 "ovp_matmul[codes8]": 0,
+                                "ovp_matmul<int4>": 0,
+                                "ovp_matmul<flint4>": 0,
+                                "ovp_matmul<int8>": 0,
                                 "grouped[fp]": 0, "grouped[quantize]": 0,
                                 "grouped[static]": 0, "grouped[codes4]": 0,
-                                "grouped[codes8]": 0, "ovp_encode": 0,
+                                "grouped[codes8]": 0, "grouped<int4>": 0,
+                                "grouped<flint4>": 0, "grouped<int8>": 0,
+                                "ovp_encode": 0,
                                 "decode_attn": 0, "paged_decode_attn": 0,
                                 "prefill_attn": 0}}
 
 
 def test_launcher_has_no_cpu_switch():
-    """The CLI's flags are the reference launcher's (those ported so
-    far); there is no device flag (without a card it raises)."""
+    """The CLI's flags are the reference launcher's but `--mesh` (the
+    multi-device path is not ported); there is no device flag (without a
+    card it raises)."""
     from repro_torch.launch import serve
     flags = {a.option_strings[0] for a in serve.parser()._actions
              if a.option_strings and a.option_strings[0] != "-h"}
-    assert flags == {"--arch", "--quant", "--backend", "--calibration",
-                     "--calibrate", "--requests", "--max-new", "--slots",
-                     "--max-len", "--paged", "--prefill-chunk", "--seed"}
+    assert flags == {"--arch", "--quant", "--policy-rules", "--backend",
+                     "--calibration", "--calibrate", "--requests",
+                     "--max-new", "--slots", "--max-len", "--paged",
+                     "--prefill-chunk", "--async", "--stream",
+                     "--metrics-out", "--seed"}
