@@ -139,7 +139,26 @@ CUDA toolkit. It builds the hand-written kernels from
    olive_w8a8"`: every expert stack a two-group `MixedExpertQuant`, K6
    once per group per stack per forward call, the captured step's one
    host sync the token fetch, K6 on each group against the plain
-   version, and the 2-layer card-vs-CPU check.
+   version, and the 2-layer card-vs-CPU check;
+12. the dense 7-8B configs: K1 at one layer of Qwen2-7B, Yi-6B and
+   Minitron-8B (7 decode launches at rows 4, each plan's split and
+   slice printed) and Qwen2-7B's down projection (K 18944) at a
+   32-row prefill, against the plain version, timed beside it,
+   `torch.matmul` on the dequantized weight and the byte bound; then
+   serve phase F: the three at full published width through the
+   launcher's entry point (`--quant olive_serve`, the launcher's
+   workload), slab, and Qwen2-7B also paged, the card freed between
+   runs: no fallback, K1 once per quantized linear per forward call
+   (none for the unquantized fp32 head), K2 (K3 and K4 paged) and K7 as
+   in phase A, every page returned, the audit, graph against eager,
+   each run's decode-step profile beside the step's byte bound
+   (W4 blocks + fp32 head, from `param_count`), and a 2-layer
+   card-vs-CPU check of each run (`truncated_reference_check`; paged
+   over fp32 pools);
+13. serve phase G: the baseline presets (`--quant int8 | int4 | ant4`)
+   on full-width Qwen1.5-0.5B through the launcher: no OVP kernel (K1,
+   K6, K7) launched, K2 once a layer a step over fp32 caches, the
+   audit, graph against eager, and the card-vs-CPU logits check.
 
 Every serve phase runs the engine's captured steps (CUDA graphs, the
 default) and checks them: the trace audit (`audit_check`: the decode step
@@ -173,6 +192,7 @@ outside a checkout of the repo) it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -941,13 +961,15 @@ def attn_ab_phase(old_root: str, order=("old", "new", "new", "old"),
 
 
 # the layouts K2-K4 were widened to: recurrentgemma-9b's (Hkv 1, G 16,
-# D 256), qwen2-7b's (Hkv 4, G 7, D 128), and bf16 / fp16 fp caches
-WIDE_LAYOUTS = ((1, 16, 256), (4, 7, 128))
+# D 256), qwen2-7b's (Hkv 4, G 7, D 128), minitron-8b's (Hkv 8, G 4,
+# D 128), and bf16 / fp16 fp caches
+WIDE_LAYOUTS = ((1, 16, 256), (4, 7, 128), (8, 4, 128))
 
 
 def layouts_phase(dev):
     """K2, K3 and K4 at the widened layouts against their plain versions
-    (K3 also bit for bit against K2): G 16 / D 256 and G 7 / D 128,
+    (K3 also bit for bit against K2): G 16 / D 256, G 7 / D 128 and
+    Hkv 8 / G 4 / D 128,
     packed and over bf16 fp caches and pools, and the served shapes (G 8
     / D 128, G 1 / D 64) over bf16 and fp16 ones. Returns the worst
     error of each kernel."""
@@ -2254,8 +2276,9 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
     n_fills = sum(e.count for e in kernels
                   if "FillFunctor" in e.key) / steps
     # K1/K5's decode-body kernels: each is one whole call
-    n_dense = sum(e.count for e in kernels
-                  if "ovp_dec_kernel" in e.key) / steps
+    dense = [e for e in kernels if "ovp_dec_kernel" in e.key]
+    n_dense = sum(e.count for e in dense) / steps
+    k1_ms = sum(e.self_device_time_total for e in dense) / 1e3 / steps
     # K6's persistent kernel (the MoE expert einsums)
     grouped = [e for e in kernels if "ovp_grouped_dec_kernel" in e.key]
     k6_ms = sum(e.self_device_time_total for e in grouped) / 1e3 / steps
@@ -2269,7 +2292,7 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
           f"wall; under the profiler {prof_ms:.2f}ms wall, device busy "
           + (f"{busy_ms:.3f}ms ({100 * busy_ms / prof_ms:.1f}% of wall), "
              f"{n_kernels:.1f} device kernels per step, {n_fills:.1f} of "
-             f"them zero-fills, {n_dense:.1f} K1/K5 calls"
+             f"them zero-fills, {n_dense:.1f} K1/K5 calls ({k1_ms:.3f}ms)"
              + (f", K6 {k6_ms:.3f}ms over {k6_n:.1f} launches" if grouped
                 else "")
              + f", K2/K3 {attn_ms:.3f}ms over {attn_n:.1f} launches"
@@ -2282,6 +2305,7 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
     return {"step_ms": step_ms, "prof_ms": prof_ms, "busy_ms": busy_ms,
             "kernels_per_step": n_kernels if kernels else None,
             "k6_ms": k6_ms if kernels else None,
+            "k1_ms": k1_ms if kernels else None,
             "attn_ms": attn_ms if kernels else None}
 
 
@@ -3047,7 +3071,8 @@ def serve_phase_e(dev):
     fallback, every expert matmul on K6 (`grouped[fp]` = `cuda[stacked]`
     = 3 x layers x forward calls), K2 in the slab run, K3 and K4 in the
     paged run, every page returned. The slab model is profiled over
-    decode steps and held against the CPU (`moe_reference_check`), and
+    decode steps and held against the CPU
+    (`truncated_reference_check`), and
     freed before the paged one loads, so each run's peak memory counts
     one model. Returns each run's tokens and counts, and the profile."""
     import torch
@@ -3108,7 +3133,7 @@ def serve_phase_e(dev):
         capture_gate(res["engine"], f"E ({label})", steps=3)
         if label == "slab":
             prof = capture_ab(res, "E", steps=3, max_new=10)["graph"]
-            moe_reference_check(res, dev)
+            truncated_reference_check(res, dev)
         else:
             prof_paged = profile_decode(
                 res, f"{MOE_ARCH}, W4 experts + KV4, paged 16", steps=3,
@@ -3136,36 +3161,48 @@ def serve_phase_e(dev):
     return runs
 
 
-def moe_reference_check(res, dev, label: str = "W4 experts"):
-    """A 2-layer truncation of the served full-width MoE model (same
-    widths, the same quantized params) over an fp32 KV cache, on the
-    card against the CPU's plain versions: prefill of one prompt + 2
-    greedy decode steps. First the routed expert indices of every MoE
-    call must be equal (a router near-tie summed in another order can
-    pick another expert, which moves the logits far more than rounding:
-    the failure says so); then the greedy tokens must be equal and max
-    |logit diff| <= 1e-3 * max|ref|, the bound of the other logit
-    checks."""
+def truncated_reference_check(res, dev, label: str = "W4 experts",
+                              paged: bool = False, tag: str = "E"):
+    """A 2-layer truncation of the served full-width model (same widths,
+    the same quantized params) over an fp32 KV cache, on the card against
+    the CPU's plain versions: prefill of one prompt + 2 greedy decode
+    steps (`_logits_on`), or with `paged` a 24-token prompt prefilled in
+    16-token chunks onto shuffled pages + 2 decode steps through the
+    block table (`_paged_logits_on`: K4 and K3 over fp32 pools). On a
+    MoE model the routed expert indices of every MoE call must be equal
+    first (a router near-tie summed in another order can pick another
+    expert, which moves the logits far more than rounding: the failure
+    says so); then the greedy tokens must be equal and max |logit diff|
+    <= 1e-3 * max|ref|, the bound of the other logit checks."""
     import dataclasses
 
     import torch
     from repro_torch.models.layers import recording_routes
     from repro_torch.models.model import build_model
     model, params = res["model"], res["params"]
+    name = model.cfg.name
     small = build_model(dataclasses.replace(model.cfg, n_layers=2),
                         model.policy.replace_all(kv_bits=0))
     p2 = dict(params, layers=params["layers"][:2])
+    if paged:
+        def logits(device, tree):
+            return _paged_logits_on(small, tree, device, PROMPT * 3)
+        what = "chunked paged prefill (2 x 16)"
+    else:
+        def logits(device, tree):
+            return _logits_on(small, tree, device)
+        what = "prefill"
     with recording_routes() as r_dev:
-        got = _logits_on(small, p2, dev)
+        got = logits(dev, p2)
     with recording_routes() as r_cpu:
-        ref = _logits_on(small, _to(p2, "cpu"), "cpu")
+        ref = logits("cpu", _to(p2, "cpu"))
     if len(r_dev) != len(r_cpu):
-        fail(f"MoE reference check: {len(r_dev)} MoE calls on the card, "
+        fail(f"{name} reference check: {len(r_dev)} MoE calls on the card, "
              f"{len(r_cpu)} on the CPU")
     for i, (x, y) in enumerate(zip(r_dev, r_cpu)):
         if not torch.equal(x.cpu(), y):
             n_diff = int((x.cpu() != y).sum())
-            fail(f"MoE reference check: ROUTING differs at MoE call {i} "
+            fail(f"{name} reference check: ROUTING differs at MoE call {i} "
                  f"(layer {i % 2}): {n_diff} of {y.numel()} routed expert "
                  f"indices differ between card and CPU (router logits "
                  f"summed in another order picked another expert at a "
@@ -3173,18 +3210,19 @@ def moe_reference_check(res, dev, label: str = "W4 experts"):
     v = small.cfg.vocab
     if got.shape != (3, small.cfg.padded_vocab) or \
             not bool(torch.isfinite(got).all()):
-        fail(f"MoE reference check: logits shape {tuple(got.shape)} or "
+        fail(f"{name} reference check: logits shape {tuple(got.shape)} or "
              f"non-finite values")
     err = float((got[:, :v] - ref[:, :v]).abs().max())
     tol = 1e-3 * float(ref[:, :v].abs().max())
     same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
-    print(f"[ref E] {MOE_ARCH} truncated to 2 layers, {label}, fp32 KV: "
-          f"prefill + 2 decode steps, card vs CPU plain versions: routed "
-          f"expert indices equal in all {len(r_dev)} MoE calls, max |diff| "
-          f"{err:.3e} (tol {tol:.3e} = 1e-3 * max|ref|), greedy tokens "
-          f"{'equal' if same else 'differ'}")
+    routes = (f"routed expert indices equal in all {len(r_dev)} MoE calls, "
+              if r_dev else "")
+    print(f"[ref {tag}] {name} truncated to 2 layers, {label}, fp32 KV: "
+          f"{what} + 2 decode steps, card vs CPU plain versions: {routes}"
+          f"max |diff| {err:.3e} (tol {tol:.3e} = 1e-3 * max|ref|), greedy "
+          f"tokens {'equal' if same else 'differ'}")
     if err > tol or not same:
-        fail("MoE reference check: card and CPU disagree")
+        fail(f"{name} reference check: card and CPU disagree")
 
 
 
@@ -3344,56 +3382,82 @@ def check_k1_weight_counts(res, counts, phase: str, mode: str = "fp"):
     return n_w8
 
 
-def k1_w8_layer(dev, layer):
-    """K1 with int8 weights at a served W8 layer's 7 linears (the
-    quantized leaves of the mixed model's layer 0), rows 4, in fp mode
-    and in static mode with 8-bit activations (K5's W8A8 path), against
-    the plain version, timed beside it, `torch.matmul` on the dequantized
-    weight and the bound. Returns {mode: summed record}."""
+def k1_layer_record(dev, gen, linears, rows: int, w_dtype: str,
+                    mode: str = "fp", label: str = "k1"):
+    """K1 at `linears` (one QuantizedTensor a launch) on `rows` rows of
+    random activations, in `mode` (fp, or static: activations at one
+    scale in `w_dtype`'s width, K5), against the plain version (rtol
+    1e-5, atol 1e-5 * max|ref|, K1's tolerance), timed beside it,
+    `torch.matmul` on the dequantized fp32 weight and the byte bound;
+    prints each launch's plan (body, split, slice) and record. Returns
+    the records summed over the launches (the worst error)."""
     import torch
     from repro_torch.core.ovp import ovp_dequantize
     from repro_torch.core.quantizer import sigma_init_scale
     from repro_torch.kernels import ovp_matmul as mm
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    tot = dict(dict.fromkeys(keys, 0.0), max_abs_err=0.0, bound_by="bytes")
+    w_bytes = {"int4": 0.5, "int8": 1.0}[w_dtype]
+    for qt in linears:
+        if qt.normal_dtype != w_dtype:
+            fail(f"{label}: a {qt.normal_dtype} linear, expected {w_dtype}")
+        k, n = qt.orig_dim, qt.data.shape[-1]
+        a = torch.randn((rows, k), generator=gen, device=dev)
+        sw = qt.scale.reshape(-1).contiguous()
+        kw = dict(w_dtype=w_dtype, a_mode=mode, a_dtype=w_dtype)
+        if mode == "static":
+            kw["s_static"] = float(sigma_init_scale(a, w_dtype))
+
+        def kern():
+            return mm.run(a, None, qt.data, sw, **kw)
+
+        def plain():
+            return mm.fused_ovp_matmul_plain(a, None, qt.data, sw, **kw)
+
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        plan = mm.launch_plan(rows, k, n, w_dtype)
+        if not within(got, ref, 1e-5, 1e-5 * scale):
+            fail(f"{label} {mode} rows={rows} K={k} N={n} ({plan.body} "
+                 f"body, split {plan.split}, slice {plan.slice}): max abs "
+                 f"err {err:.3e} over tolerance (rtol 1e-5, atol "
+                 f"1e-5*{scale:.3e})")
+        wd = ovp_dequantize(qt)
+        b_ms, b_by = bound_ms(
+            rows * k * 4 + k * n * w_bytes + n * 4 + rows * n * 4,
+            2.0 * rows * k * n)
+        rec = dict(ms=time_ms(kern)[0], plain_ms=time_ms(plain)[0],
+                   bound_ms=b_ms,
+                   library_ms=time_ms(lambda: torch.matmul(a, wd))[0])
+        del wd
+        print(f"[{label}] {mode} rows={rows} K={k:5d} N={n:5d}: "
+              f"{plan.body} body, split {plan.split}, slice {plan.slice} "
+              f"pairs, {plan.blocks} blocks, {plan.smem} shared bytes; "
+              f"err={err:.2e} (tol rtol 1e-5, atol 1e-5*max|ref|) kernel="
+              f"{rec['ms']:.4f}ms plain={rec['plain_ms']:.4f}ms matmul="
+              f"{rec['library_ms']:.4f}ms bound={b_ms:.5f}ms ({b_by})")
+        for key in keys:
+            tot[key] += rec[key]
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot["bound_by"] = b_by
+    return tot
+
+
+def k1_w8_layer(dev, layer):
+    """K1 with int8 weights at a served W8 layer's 7 linears (the
+    quantized leaves of the mixed model's layer 0), rows 4, in fp mode
+    and in static mode with 8-bit activations (K5's W8A8 path)
+    (`k1_layer_record`). Returns {mode: summed record}."""
+    import torch
     gen = torch.Generator(device=dev).manual_seed(11)
     linears = [layer["attn"][n] for n in ("wq", "wk", "wv", "wo")] \
         + [layer["mlp"][n] for n in ("wg", "wu", "wd")]
     out = {}
     for mode in ("fp", "static"):
-        tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                   library_ms=0.0, bound_by="bytes")
-        for qt in linears:
-            if qt.normal_dtype != "int8":
-                fail(f"K1 W8 layer: a {qt.normal_dtype} linear in layer 0")
-            k, n = qt.data.shape
-            a = torch.randn((4, k), generator=gen, device=dev)
-            sw = qt.scale.reshape(-1).contiguous()
-            kw = dict(w_dtype="int8", a_mode=mode, a_dtype="int8")
-            if mode == "static":
-                kw["s_static"] = float(sigma_init_scale(a, "int8"))
-
-            def kern():
-                return mm.run(a, None, qt.data, sw, **kw)
-
-            def plain():
-                return mm.fused_ovp_matmul_plain(a, None, qt.data, sw, **kw)
-
-            got, ref = kern(), plain()
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            scale = float(ref.abs().max())
-            if not within(got, ref, 1e-5, 1e-5 * scale):
-                fail(f"K1 W8 {mode} K={k} N={n}: max abs err {err:.3e} "
-                     f"over tolerance (rtol 1e-5, atol 1e-5*{scale:.3e})")
-            wd = ovp_dequantize(qt)
-            b_ms, b_by = bound_ms(4 * k * 4 + k * n + n * 4 + 4 * n * 4,
-                                  2.0 * 4 * k * n)
-            rec = dict(max_abs_err=err, ms=time_ms(kern)[0],
-                       plain_ms=time_ms(plain)[0], bound_ms=b_ms,
-                       library_ms=time_ms(lambda: torch.matmul(a, wd))[0])
-            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-                tot[key] += rec[key]
-            tot["max_abs_err"] = max(tot["max_abs_err"], err)
-            tot["bound_by"] = b_by
+        tot = k1_layer_record(dev, gen, linears, 4, "int8", mode,
+                              label="k1 w8")
         print(f"[k1 w8] the mixed model's W8 layer 0, 7 launches, rows 4, "
               f"int8 weights, {mode} mode"
               + (" (int8 activations at one scale: K5)" if mode == "static"
@@ -3702,10 +3766,291 @@ def mixed_phase_e(dev, smi: str, n_layers: int = MIXED_E_LAYERS):
     k6m = k6_mixed_layer(dev, res["params"]["layers"][0]["moe"]["experts"])
     prof = profile_decode(res, f"{MOE_ARCH}, W8 experts 0-7 + W4, KV4",
                           steps=3, max_new=10)
-    moe_reference_check(res, dev, label=f"W8 experts 0-{W8_EXPERTS - 1} + W4")
+    truncated_reference_check(res, dev,
+                              label=f"W8 experts 0-{W8_EXPERTS - 1} + W4")
     del res, stacks, done
     print(f"[mixed E] phase took {time.perf_counter() - t_phase:.1f}s")
     return {"counts": counts, "k6": k6m, "profile": prof}
+
+
+# --------------------------------------------------------------------------
+# The dense 7-8B configs and the baseline presets
+# --------------------------------------------------------------------------
+DENSE_ARCHS = ("qwen2-7b", "yi-6b", "minitron-8b")
+PREFILL_BUCKETS = (16, 32)  # the slab prefill buckets of 4-31-token prompts
+LONG_PROMPT = 1000      # tokens: the 1024 bucket, two slab attention blocks
+BASELINES = ("int8", "int4", "ant4")
+
+
+def dense_layer_shapes(cfg):
+    """(K, N) of one dense layer's 7 linears: q, k, v, o, gate, up, down."""
+    d, q = cfg.d_model, cfg.n_heads * cfg.head_dim
+    kv = cfg.n_kv_heads * cfg.head_dim
+    return [(d, q), (d, kv), (d, kv), (q, d), (d, cfg.d_ff), (d, cfg.d_ff),
+            (cfg.d_ff, d)]
+
+
+def step_bytes(cfg):
+    """Bytes a decode step must read, from `param_count`: the blocks'
+    weights at 4 bits and the unquantized fp32 head (the embedding rows
+    a step reads, the scales and the KV cache are left out)."""
+    head = cfg.vocab * cfg.d_model
+    return (cfg.param_count() - 2 * head) / 2, 4 * head
+
+
+def k1_dense_phase(dev):
+    """K1 at the widths of Qwen2-7B, Yi-6B and Minitron-8B: one layer's 7
+    decode launches at rows 4 in fp mode, int4 OVP weights, and one
+    prefill launch of Qwen2-7B's down projection (K 18944) at each slab
+    prefill bucket of the launcher's prompts (`PREFILL_BUCKETS` rows),
+    each through `k1_layer_record`. Returns {arch: the layer's summed
+    record, "qwen2-7b wd prefill<rows>": each bucket's record}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import policy
+    from repro_torch.core.qlinear import quantize_weight
+    gen = torch.Generator(device=dev).manual_seed(12)
+    w4 = policy.OLIVE_W4.replace_all(compute_dtype="float32")
+    out = {}
+    for arch in DENSE_ARCHS:
+        linears = [quantize_weight(torch.randn((k, n), generator=gen,
+                                               device=dev) / k ** 0.5, w4)
+                   for k, n in dense_layer_shapes(get_config(arch))]
+        tot = k1_layer_record(dev, gen, linears, 4, "int4",
+                              label=f"k1 {arch}")
+        print(f"[k1 {arch}] one layer's 7 decode launches, rows 4, fp: "
+              f"kernel {tot['ms']:.4f}ms, matmul {tot['library_ms']:.4f}ms, "
+              f"bound {tot['bound_ms']:.5f}ms, plain {tot['plain_ms']:.4f}ms")
+        out[arch] = tot
+        if arch == DENSE_ARCHS[0]:
+            for rows in PREFILL_BUCKETS:
+                out[f"{arch} wd prefill{rows}"] = k1_layer_record(
+                    dev, gen, linears[-1:], rows, "int4",
+                    label=f"k1 {arch} wd prefill")
+        del linears
+    return out
+
+
+def serve_phase_f(dev, smi: str):
+    """The dense 7-8B models at full published width through the
+    launcher's entry point (`--arch A --quant olive_serve`, the
+    launcher's workload): Qwen2-7B, Yi-6B and Minitron-8B slab, and
+    Qwen2-7B paged (`--paged 16 --prefill-chunk 16`), the card freed
+    between runs. Counters reset just before and read just after each
+    run: no fallback; K1 `fp` once per quantized linear (7 a layer, int4
+    weights) per forward call and none for the unquantized head; K2 (K3
+    and K4 paged) once a layer a step or chunk; K7 twice a layer a cache
+    write; 8 requests x 16 tokens; every page returned. Then the audit,
+    `capture_gate(steps=3)`, the decode-step profile, and the 2-layer
+    card-vs-CPU check (slab, or paged over fp32 pools). Prints
+    PTQ seconds, peak device memory, tok/s, mean TTFT, mean step, the
+    profile and the step's byte bound beside the card. Returns each
+    run's counts, engine stats and profile."""
+    import torch
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    runs = {}
+    for arch, paged in [(a, False) for a in DENSE_ARCHS] \
+            + [(DENSE_ARCHS[0], True)]:
+        label = "paged 16, chunk 16" if paged else "slab"
+        phase = f"serve phase F ({arch}, {label})"
+        attn = "paged_decode_attn" if paged else "decode_attn"
+        kernels = ("ovp_matmul[fp]", attn, "ovp_encode") \
+            + (("prefill_attn",) if paged else ())
+        extra = ["--paged", "16", "--prefill-chunk", "16"] if paged else []
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = serve.run(["--arch", arch, "--quant", "olive_serve"]
+                        + SERVE_ARGS + extra, device=dev)
+        load_s = time.perf_counter() - t0 - res["seconds"]
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        eng, cfg = res["engine"], res["model"].cfg
+        # the slab prefills of this run by bucket (one request each)
+        buckets = {} if paged else dict(collections.Counter(
+            eng._bucket(len(r.prompt)) for r in res["completed"]))
+        check_counts(counts, phase, kernels)
+        check_attn_counts(res, counts, phase, paged)
+        check_encode_counts(eng, counts, phase)
+        if check_k1_weight_counts(res, counts, phase):
+            fail(f"{phase}: W8 linears under olive_serve")
+        done = res["completed"]
+        if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+            fail(f"{phase}: {len(done)} requests finished with "
+                 f"{[len(r.out_tokens) for r in done]} tokens, expected "
+                 f"8 x 16")
+        st = eng.stats()
+        if paged:
+            pool = st["page_pool"]
+            if pool["used_pages"] != 0 or pool["allocs"] != pool["frees"]:
+                fail(f"{phase}: pages not all returned: {pool}")
+        w_bytes, head_bytes = step_bytes(cfg)
+        step_bound = bound_ms(w_bytes + head_bytes, 0.0)[0]
+        print(f"[serve F] {arch} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, Hkv {cfg.n_kv_heads} G "
+              f"{cfg.n_heads // cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab}) W4 + KV4, {label}: PTQ {res['ptq_s']:.2f}s "
+              f"(layer by layer; build and PTQ {load_s:.2f}s), peak device "
+              f"memory {peak_gb:.2f} GB, {res['tokens']} tokens in "
+              f"{res['seconds']:.3f}s = {res['tok_per_s']:.2f} tok/s, mean "
+              f"TTFT {res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+              f"{res['mean_step_s'] * 1e3:.2f}ms; launches "
+              + " ".join(f"{key}={counts[key]}" for key in kernels)
+              + f" ({st['prefills_run']} prefills, "
+              f"{st['prefill_chunks_run']} chunks, {st['decodes_run']} "
+              f"decode steps), dispatch {counts['dispatch']}; a decode "
+              f"step's byte bound {step_bound:.3f}ms (W4 blocks "
+              f"{w_bytes / 1e9:.2f} GB + fp32 head {head_bytes / 1e9:.2f} "
+              f"GB at 3.35 TB/s) ({smi})")
+        audit_check(eng, phase)
+        capture_gate(eng, phase, steps=3)
+        prof = profile_decode(res, f"{arch}, W4 + KV4, {label}", steps=3,
+                              max_new=10)
+        if prof["k1_ms"] is not None:
+            print(f"[serve F] {arch} {label} decode step (4 slots): "
+                  f"{prof['kernels_per_step']:.1f} device kernels, busy "
+                  f"{prof['busy_ms']:.3f}ms of {prof['prof_ms']:.2f}ms "
+                  f"profiled wall ({prof['step_ms']:.2f}ms plain), K1 "
+                  f"{prof['k1_ms']:.3f}ms, {'K3' if paged else 'K2'} "
+                  f"{prof['attn_ms']:.3f}ms; byte bound {step_bound:.3f}ms "
+                  f"({smi})")
+        truncated_reference_check(res, dev, label="W4", paged=paged,
+                                  tag="F")
+        if arch == DENSE_ARCHS[0] and not paged:
+            long_prefill_check(res, dev)
+        if sum(buckets.values()) != st["prefills_run"]:
+            fail(f"{phase}: prefills by bucket {buckets}, "
+                 f"{st['prefills_run']} prefills run")
+        runs[(arch, paged)] = {"counts": counts, "stats": st,
+                               "profile": prof, "buckets": buckets}
+        del res, eng, done
+    print(f"[serve F] phase took {time.perf_counter() - t_phase:.1f}s")
+    return runs
+
+
+def long_prefill_check(res, dev, t: int = LONG_PROMPT):
+    """Slab prefill past one attention block (`layers.ATTN_CHUNK`, 512)
+    at full width: a 2-layer truncation of the served model (same widths,
+    the same quantized params, fp32 KV) in an engine of its own, whose
+    prefill entry for the bucket of a `t`-token prompt (1024: two query
+    blocks, three key blocks) runs twice: the first run warms up and
+    captures, the second replays the graph. The two must agree bit for
+    bit, and the replay with the same padded prompt's prefill on the
+    CPU's plain versions: equal greedy token, max |logit diff| <= 1e-3 *
+    max|ref|. Prints the device memory the engine and the two runs
+    added at their peak."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import ATTN_CHUNK
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import EngineCfg, ServingEngine
+    model, params = res["model"], res["params"]
+    cfg = dataclasses.replace(model.cfg, n_layers=2)
+    small = build_model(cfg, model.policy.replace_all(kv_bits=0))
+    p2 = dict(params, layers=params["layers"][:2])
+    bucket = ServingEngine._bucket(t)
+    if bucket <= ATTN_CHUNK:
+        fail(f"long prefill: a {t}-token prompt's bucket {bucket} is one "
+             f"attention block")
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab, size=t)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(small, p2, EngineCfg(batch_slots=1, max_len=bucket),
+                        device=dev)
+    first, replay = [[x.clone() for x in eng._prefill(prompt)]
+                     for _ in range(2)]
+    torch.cuda.synchronize(dev)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    entry = eng._prefill_cache[bucket]
+    audit = eng.trace_audit()
+    if entry.graph is None or audit["prefill_traces"] != 1:
+        fail(f"long prefill: the {bucket} entry was not captured once: "
+             f"{audit}")
+    if not torch.equal(first[0], replay[0]):
+        fail(f"long prefill: warm-up and replay differ by "
+             f"{float((first[0] - replay[0]).abs().max()):.3e}")
+    toks = torch.zeros((1, bucket), dtype=torch.int64)
+    toks[0, :t] = torch.from_numpy(prompt)
+    t0 = time.perf_counter()
+    ref, _ = small.forward(_to(p2, "cpu"), {"tokens": toks}, mode="prefill",
+                           caches=small.init_caches(1, bucket, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    v = cfg.vocab
+    got, ref = replay[0].float().cpu()[:v], ref[0, t - 1, :v]
+    err = float((got - ref).abs().max())
+    tol = 1e-3 * float(ref.abs().max())
+    same = int(replay[1]) == int(torch.argmax(ref))
+    print(f"[long prefill] {cfg.name} truncated to 2 layers, W4, fp32 KV: "
+          f"a {t}-token prompt through the captured {bucket} slab prefill "
+          f"entry ({-(-bucket // ATTN_CHUNK)} query blocks of "
+          f"{ATTN_CHUNK}), warm-up and replay bit-identical; card vs CPU "
+          f"plain versions ({cpu_s:.1f}s): max |diff| {err:.3e} (tol "
+          f"{tol:.3e} = 1e-3 * max|ref|), greedy token "
+          f"{'equal' if same else 'differs'}; peak device memory added "
+          f"{peak_gb:.3f} GB")
+    if not np.isfinite(err) or err > tol or not same:
+        fail("long prefill: card and CPU disagree")
+    del eng, entry, first, replay
+
+
+def serve_phase_g(dev, smi: str):
+    """The baseline presets on full-width Qwen1.5-0.5B through the
+    launcher's entry point (`--quant int8 | int4 | ant4`, slab, the
+    launcher's workload): fake-quantized fp32 weights through
+    `torch.matmul` over fp32 KV caches. Counters reset just before and
+    read just after: no fallback, no K1 or K6 launch, no K7, K2 once a
+    layer a decode step over the fp32 caches, 8 requests x 16 tokens;
+    then the audit, `capture_gate(steps=3)` and the card-vs-CPU logits
+    check (`reference_check`, fp32 KV: tolerance applied). Prints PTQ
+    seconds (the per-tensor MSE searches) and tok/s. Returns each
+    preset's counts."""
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    runs = {}
+    for quant in BASELINES:
+        phase = f"serve phase G ({quant})"
+        free_device_memory()
+        reset_counts()
+        res = serve.run(["--arch", ARCH, "--quant", quant] + SERVE_ARGS,
+                        device=dev)
+        counts = read_counts()
+        eng = res["engine"]
+        check_counts(counts, phase, ("decode_attn",))
+        check_attn_counts(res, counts, phase, paged=False)
+        matmuls = {k: n for k, n in counts.items()
+                   if k.startswith(("ovp_matmul", "grouped")) and n}
+        if matmuls or check_encode_counts(eng, counts, phase):
+            fail(f"{phase}: OVP kernels ran on a baseline: {matmuls}, "
+                 f"ovp_encode={counts['ovp_encode']}")
+        caches = {str(layer["kv"]["k"].dtype) if "k" in layer["kv"]
+                  else "packed" for layer in eng.caches["layers"]}
+        if caches != {"torch.float32"}:
+            fail(f"{phase}: KV caches {caches}, expected fp32")
+        done = res["completed"]
+        if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+            fail(f"{phase}: {len(done)} requests finished with "
+                 f"{[len(r.out_tokens) for r in done]} tokens, expected "
+                 f"8 x 16")
+        print(f"[serve G] {ARCH} --quant {quant} (fake-quant fp32 weights, "
+              f"fp32 KV): PTQ {res['ptq_s']:.2f}s, {res['tokens']} tokens "
+              f"in {res['seconds']:.3f}s = {res['tok_per_s']:.1f} tok/s, "
+              f"mean TTFT {res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+              f"{res['mean_step_s'] * 1e3:.2f}ms; launches decode_attn="
+              f"{counts['decode_attn']} ({eng.stats()['decodes_run']} "
+              f"decode steps), no K1/K6/K7, dispatch {counts['dispatch']} "
+              f"({smi})")
+        audit_check(eng, phase)
+        capture_gate(eng, f"G ({quant})", steps=3)
+        reference_check(res["model"], res["params"], dev, label=quant)
+        runs[quant] = {"counts": counts}
+        del res, eng, done
+    print(f"[serve G] phase took {time.perf_counter() - t_phase:.1f}s")
+    return runs
 
 
 def main() -> int:
@@ -3800,6 +4145,12 @@ def main() -> int:
     runs_e = serve_phase_e(dev)
     counts_e = runs_e["slab"]["counts"]
     mixed_e = mixed_phase_e(dev, card)
+    # the dense 7-8B configs and the baseline presets
+    free_device_memory()
+    k1_dense = k1_dense_phase(dev)
+    free_device_memory()
+    runs_f = serve_phase_f(dev, card)
+    serve_phase_g(dev, card)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -3860,6 +4211,24 @@ def main() -> int:
              "ovp_matmul.cu", mixed_e["counts"][f"grouped<{dt}>"],
              mixed_e["k6"][dt]["max_abs_err"], mixed_e["k6"][dt])
          for dt in ("int8", "int4")]
+    # K1 at the dense 7-8B widths: launches from phase F's slab runs (the
+    # down projection's prefill launches: one a layer a prefill)
+    kernels += [row(f"ovp_matmul[fp]@{arch}", k1_src, "ovp_matmul.cu",
+                    runs_f[(arch, False)]["counts"]["ovp_matmul[fp]"],
+                    k1_dense[arch]["max_abs_err"], k1_dense[arch])
+                for arch in DENSE_ARCHS]
+    from repro_torch.configs import get_config
+    seen = runs_f[("qwen2-7b", False)]["buckets"]
+    if not set(seen) <= set(PREFILL_BUCKETS):
+        fail(f"phase F's Qwen2-7B prefill buckets {sorted(seen)} are not "
+             f"all timed ({PREFILL_BUCKETS})")
+    for rows in PREFILL_BUCKETS:
+        wd = k1_dense[f"qwen2-7b wd prefill{rows}"]
+        kernels.append(row(
+            f"ovp_matmul[fp]@qwen2-7b wd prefill{rows}", k1_src,
+            "ovp_matmul.cu",
+            seen.get(rows, 0) * get_config("qwen2-7b").n_layers,
+            wd["max_abs_err"], wd))
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -3900,7 +4269,14 @@ def main() -> int:
           "every layer); grouped[fp]<int8|int4> are the 3 launches of one "
           "group of mixed E's layer 0 stacks (E 8 int8 / E 120 int4) with "
           "that group's share of a top-8 decode fill, warm L2, launches "
-          "from mixed E")
+          "from mixed E. Dense 7-8B widths: ovp_matmul[fp]@<arch> is the "
+          "7 launches of one layer's decode step at rows 4 (int4 weights), "
+          "launches from phase F's slab run of that arch; ovp_matmul[fp]"
+          "@qwen2-7b wd prefill<rows> one launch of the down projection "
+          "(K 18944 -> N 3584) at <rows> rows, each slab prefill bucket "
+          "of the launcher's prompts, launches: one a layer for each "
+          "prefill of that bucket in phase F's Qwen2-7B slab run (the "
+          "engine's completed requests by bucket)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

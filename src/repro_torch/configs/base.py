@@ -1,6 +1,6 @@
 """Architecture configuration schema. Port of `repro/configs/base.py`
-(the fields the dense and MoE decoders read; other families come with
-their layers)."""
+(the fields the dense and MoE decoders read, and the parameter count of
+those two families; other families come with their layers)."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,6 +41,21 @@ class ArchConfig:
         """Vocab rounded up to a multiple of 256; pad columns are masked
         in the logits."""
         return -(-self.vocab // 256) * 256
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks): the
+        reference's per-block table, its rows for the ported blocks."""
+        d, hd = self.d_model, self.head_dim
+        n_attn_p = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
+        per = {"attn": n_attn_p + mlp,
+               "moe": n_attn_p + self.n_experts * 3 * d * self.d_ff
+               + d * self.n_experts}
+        pattern = self.block_pattern
+        return sum(per[pattern[i % len(pattern)]]
+                   for i in range(self.n_layers)) \
+            + 2 * self.vocab * d                        # embed + head
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family/pattern, tiny dimensions (the

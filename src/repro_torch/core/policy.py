@@ -2,10 +2,11 @@
 backend. Port of `repro/core/policy.py`: flat policies, rules, the
 legacy-flag program, the program protocol that calibration overlays, and
 the mixed-precision program presets (`olive_mixed_w48`,
-`olive_owq_style`) with `get_program` and the CLI's `parse_rules`. The
-baseline presets (`int8`, `int4`, `ant4`) wait for `core/baselines.py`;
-QAT's `qat` field and the layer probes (`varies_across_layers`,
-`addresses_layers`) wait for the code that reads them.
+`olive_owq_style`) with `get_program` and the CLI's `parse_rules`, and
+the baseline presets (`int8`, `int4`, `ant4`: fake-quant through
+`core/baselines.py`), and the layer probes (`addresses_layers`) that
+tell PTQ whether the reference would keep a program's layer stack
+scanned. QAT's `qat` field waits for the code that reads it.
 
 `QuantPolicy` is the per-site decision record. `PolicyProgram` holds
 ordered (glob pattern -> QuantPolicy) rules matched case-insensitively
@@ -30,7 +31,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
-    # "none" -> full precision; "olive" -> OVP (the paper)
+    # "none" -> full precision; "olive" -> OVP (the paper);
+    # "int" -> uniform int baseline; "ant" -> ANT adaptive-type baseline
     method: str = "none"
     wbits: int = 4                      # 4 or 8
     w_normal_dtype: str = "int4"        # int4 | flint4 | int8
@@ -91,6 +93,13 @@ def _as_rule(r) -> Rule:
         return r
     pattern, policy = r
     return Rule(pattern, policy)
+
+
+# the sites whose resolution across layers decides the reference's layout
+_LAYER_PROBES = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "attn/kv",
+                 "mlp/wg", "mlp/wu", "mlp/wd", "mlp/wi",
+                 "moe/experts/wg", "moe/experts/wd", "moe/router/w_gate",
+                 "mlstm/wq", "mlstm/w_up", "rec/wx", "slstm/wz")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +164,27 @@ class PolicyProgram:
         new = extra + self.rules if front else self.rules + extra
         return PolicyProgram(rules=new, default=self.default, name=self.name)
 
+    # ------------------------------------------------------------- layout
+    def varies_across_layers(self, n_layers: int) -> bool:
+        """True when any two layers resolve differently at a probe site."""
+        if n_layers <= 1:
+            return False
+        sig0 = tuple(self.resolve(f"layers/0/{s}") for s in _LAYER_PROBES)
+        return any(tuple(self.resolve(f"layers/{i}/{s}")
+                         for s in _LAYER_PROBES) != sig0
+                   for i in range(1, n_layers))
+
+    def addresses_layers(self, n_layers: int) -> bool:
+        """Would the reference unroll its layer stack for this program
+        (`Model.unrolled`)? True when the program resolves differently
+        across layers at a probe site, or when any rule pattern names the
+        `layers/` grammar. The port always runs its layers unrolled; PTQ
+        asks this to quantize a baseline as the reference's layout does
+        (`qlinear.stacks_layers`)."""
+        if any("layers/" in r.pattern.lower() for r in self.rules):
+            return True
+        return self.varies_across_layers(n_layers)
+
     @classmethod
     def from_policy(cls, policy: QuantPolicy,
                     name: str = "") -> "PolicyProgram":
@@ -211,10 +241,14 @@ OLIVE_W4A4 = QuantPolicy(method="olive", wbits=4, abits=4)
 OLIVE_W4 = QuantPolicy(method="olive", wbits=4, abits=0)
 OLIVE_W8A8 = QuantPolicy(method="olive", wbits=8, abits=8,
                          w_normal_dtype="int8", a_normal_dtype="int8")
+INT8 = QuantPolicy(method="int", wbits=8, abits=8, w_normal_dtype="int8")
+INT4 = QuantPolicy(method="int", wbits=4, abits=4)
+ANT4 = QuantPolicy(method="ant", wbits=4, abits=4)
 OLIVE_SERVE = dataclasses.replace(OLIVE_W4A4, kv_bits=4)
 
 PRESETS = {"fp": FP, "olive_w4a4": OLIVE_W4A4, "olive_w4": OLIVE_W4,
-           "olive_w8a8": OLIVE_W8A8, "olive_serve": OLIVE_SERVE}
+           "olive_w8a8": OLIVE_W8A8, "int8": INT8, "int4": INT4,
+           "ant4": ANT4, "olive_serve": OLIVE_SERVE}
 
 
 def olive_mixed_w48(n_layers: int) -> PolicyProgram:

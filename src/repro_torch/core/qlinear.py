@@ -1,10 +1,22 @@
 """Quantized linear ops — the integration point between OliVe and the
-models. Port of `repro/core/qlinear.py` (PTQ serving and the
-calibration tape: no QAT, no baselines).
+models. Port of `repro/core/qlinear.py` (PTQ serving, the baselines and
+the calibration tape: no QAT).
 
-  raw weight                 -> plain matmul in the compute dtype
+  raw weight                 -> plain matmul in the compute dtype (a
+                                baseline with `abits` set fake-quantizes
+                                the activation first)
   QuantizedTensor,           -> `repro_torch.backends.dispatch` on the
   MixedExpertQuant              backend `policy.backend` names
+
+The baselines (`method` "int" and "ant") are fake-quant, as in the
+reference: PTQ leaves a dense fp32 weight holding the quantized values,
+which runs through `torch.matmul` (the reference's `jnp.matmul`, outside
+any kernel). Their one scale a tensor spans what the reference's layout
+hands them: in its scanned layout (a flat policy, or a program that does
+not address layers) the stack of one site over every layer, so
+`quantize_params` on a whole tree fake-quantizes that stack
+(`stacks_layers`); a program that addresses layers quantizes each layer
+alone, as the reference's unrolled layout does.
 
 Weights pair along the reduction dim K with per-output-channel scales, so
 a scale never splits a pair. Stacked per-expert weights (E, K, N) get one
@@ -22,13 +34,15 @@ import torch
 
 from repro_torch import backends
 
-from . import calibration
+from . import baselines, calibration
 from .ovp import MixedExpertQuant, QuantizedTensor, ovp_quantize
-from .policy import PolicyLike, QuantPolicy, resolve
+from .policy import PolicyLike, PolicyProgram, QuantPolicy, resolve
 from .quantizer import (QuantSpec, ovp_search_scale,
                         ovp_search_scale_per_channel, quantize)
 
 Weight = Union[torch.Tensor, QuantizedTensor, MixedExpertQuant]
+
+BASELINE_METHODS = ("int", "ant")
 
 # weights per chunk of a stacked PTQ: bounds the search's temporaries
 # (a few fp32 copies of one chunk) at full width
@@ -37,9 +51,14 @@ STACK_CHUNK = 1 << 25
 
 def quantize_weight(w: torch.Tensor, policy: QuantPolicy) -> Weight:
     """PTQ one weight matrix (K, N) or expert stack (E, K, N): pair along
-    K, scale per output channel (per expert and channel for a stack)."""
+    K, scale per output channel (per expert and channel for a stack).
+    The baselines fake-quantize the whole tensor at one scale."""
     if not policy.enabled:
         return w
+    if policy.method == "int":
+        return baselines.uniform_int_fake_quant(w, policy.wbits)
+    if policy.method == "ant":
+        return baselines.ant_fake_quant(w)
     if policy.method != "olive" or w.ndim not in (2, 3):
         raise ValueError(f"the port quantizes 2-D weights and 3-D expert "
                          f"stacks with 'olive'; got {policy.method!r} on "
@@ -95,6 +114,13 @@ def qmatmul(x: torch.Tensor, w: Weight, policy: QuantPolicy, site: str = "",
             raise calibration.MissingStaticScaleError([site or "<unknown>"])
         return backends.dispatch(x, w, policy, act_scale=act_scale)
     cdt = backends.base.torch_dtype(policy.compute_dtype)
+    if policy.enabled and policy.abits and \
+            policy.method in BASELINE_METHODS:
+        # baseline PTQ serving: the weight was fake-quantized offline; the
+        # activation runs dynamic max-scaled int fake-quant (the int8 /
+        # int4 runtime path the paper compares against)
+        x = baselines.uniform_int_dynamic_act(x.to(torch.float32),
+                                              policy.abits)
     return torch.matmul(x.to(cdt), w.to(cdt))
 
 
@@ -176,29 +202,93 @@ def _quantize_mixed_experts(w: torch.Tensor, pols) -> MixedExpertQuant:
                             n_experts=len(pols))
 
 
+def stacks_layers(policy: PolicyLike, n_layers: int) -> bool:
+    """Does PTQ of a whole tree fake-quantize a baseline site over its
+    stack of layers? True when the reference keeps this policy's layer
+    stack scanned (a flat policy, or a program that does not address
+    layers) and some rule or the default is a baseline. The port's
+    families repeat one block, so the reference's stack of a site holds
+    every layer's weight there."""
+    if isinstance(policy, PolicyProgram):
+        if policy.addresses_layers(n_layers):
+            return False
+        pols = [r.policy for r in policy.rules] + [policy.default]
+    else:
+        pols = [policy]
+    return any(p.enabled and p.method in BASELINE_METHODS for p in pols)
+
+
+def _quantize_leaf(path: str, w, policy: PolicyLike, min_size: int):
+    if not (is_linear_weight(path, w) and w.ndim in (2, 3)
+            and w.numel() >= min_size and w.shape[-2] % 2 == 0):
+        return w
+    if w.ndim == 3:
+        pols = _expert_site_policies(path, w.shape[0], policy)
+        if pols is not None:
+            return _quantize_mixed_experts(w, pols)
+    site_policy = resolve(policy, path)
+    if not site_policy.enabled:
+        return w
+    return quantize_weight(w.to(torch.float32), site_policy)
+
+
+def _leaf(tree, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def _quantize_layer_stacks(layers, policy: PolicyLike, min_size: int):
+    """The layers of a scanned-layout PTQ: each site that resolves to a
+    baseline fake-quantizes the stack of its weight over all layers at
+    one scale (the stack's size passes `min_size`, as the reference's
+    does), and every layer takes its slice; the other leaves quantize
+    one layer at a time. The fp32 layers and the fake-quantized stacks
+    exist together until the caller drops the fp32 tree."""
+    done = {}
+    for rel, w in tree_paths(layers[0]):
+        site = f"layers/0/{rel}"
+        pol = resolve(policy, site)
+        if not (pol.enabled and pol.method in BASELINE_METHODS
+                and is_linear_weight(rel, w)
+                and w.numel() * len(layers) >= min_size
+                and w.shape[-2] % 2 == 0):
+            continue
+        stack = torch.stack([_leaf(layer, rel).to(torch.float32)
+                             for layer in layers])
+        done[rel] = quantize_weight(stack, pol).unbind(0)
+        del stack
+
+    def one(path, w):
+        i, rel = path.split("/", 2)[1:]
+        if rel in done:
+            return done[rel][int(i)]
+        return _quantize_leaf(path, w, policy, min_size)
+
+    return _map_tree(layers, one, "layers")
+
+
 def quantize_params(params, policy: PolicyLike, min_size: int = 4096,
                     prefix: str = ""):
     """Map PTQ over a parameter tree: every linear weight whose site
     resolves to an enabled policy quantizes; norms, biases and small
     tensors stay fp. Sizes are per layer (the port keeps layers
-    unrolled). Stacked (E, K, N) expert weights also resolve their
-    per-expert sub-sites and quantize group-wise when those differ.
-    `prefix` is the site address of `params` itself (`layers/<i>` when
-    a model quantizes one layer at a time)."""
+    unrolled), but a whole tree under `stacks_layers` fake-quantizes each
+    baseline site over its stack of layers. Stacked (E, K, N) expert
+    weights also resolve their per-expert sub-sites and quantize
+    group-wise when those differ. `prefix` is the site address of
+    `params` itself (`layers/<i>` when a model quantizes one layer at a
+    time)."""
     if not policy.enabled:
         return params
+    if not prefix and params.get("layers") and \
+            stacks_layers(policy, len(params["layers"])):
+        rest = {key: val for key, val in params.items() if key != "layers"}
+        return dict(quantize_params(rest, policy, min_size),
+                    layers=_quantize_layer_stacks(params["layers"], policy,
+                                                  min_size))
 
     def one(path, w):
-        if not (is_linear_weight(path, w) and w.ndim in (2, 3)
-                and w.numel() >= min_size and w.shape[-2] % 2 == 0):
-            return w
-        if w.ndim == 3:
-            pols = _expert_site_policies(path, w.shape[0], policy)
-            if pols is not None:
-                return _quantize_mixed_experts(w, pols)
-        site_policy = resolve(policy, path)
-        if not site_policy.enabled:
-            return w
-        return quantize_weight(w.to(torch.float32), site_policy)
+        return _quantize_leaf(path, w, policy, min_size)
 
     return _map_tree(params, one, prefix)

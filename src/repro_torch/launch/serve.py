@@ -10,10 +10,24 @@ synthetic request stream, on the CUDA device:
 Any arch of `repro_torch.configs` (dense or MoE) is served the same way;
 the weights are drawn and quantized one layer at a time, so the fp32
 tree is never whole on the card (Qwen3-30B-A3B's is 122 GB, its W4 tree
-about 17 GB):
+about 17 GB; Qwen2-7B, Yi-6B and Minitron-8B serve at W4 with their
+untied fp32 embedding and head):
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3-moe-30b-a3b --quant olive_serve
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen2-7b --quant olive_serve
+
+The baselines the paper compares against are presets too (`int8`,
+`int4`: uniform int at an MSE-searched per-tensor scale; `ant4`: the
+better of int4 and flint4 per tensor). They are fake-quant, as in the
+reference: the weights stay dense fp32 holding the quantized values and
+run through `torch.matmul`, over an fp32 KV cache. As in the reference's
+scanned layout, each linear is fake-quantized over the stack of all its
+layers at one scale, so a baseline builds the whole fp32 tree first:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen1.5-0.5b --quant int4
 
 `--paged PAGE_SIZE` serves on the paged KV cache (a shared page pool and
 block tables instead of the slab), and `--prefill-chunk N` splits each
@@ -33,7 +47,7 @@ static-scale kernel (K5):
 
 Without `--calibrate`, `--calibration PATH` loads the artifact and
 serves on it. `--calibrate` needs the whole fp32 tree on the device for
-the calibration forward, so it is the one path that does not stream.
+the calibration forward, so it does not stream either.
 
 Mixed precision is a policy program (docs/policies.md): a program preset
 in `--quant` (`olive_mixed_w48`: the first and last layers W8, the rest
@@ -80,7 +94,7 @@ from repro_torch.core.calibration import (CalibrationArtifact,
                                           apply_calibration, calibrate_model)
 from repro_torch.core.policy import (PRESETS, PROGRAM_PRESETS, get_policy,
                                      get_program, parse_rules)
-from repro_torch.core.qlinear import quantize_params
+from repro_torch.core.qlinear import quantize_params, stacks_layers
 from repro_torch.models.model import build_model
 from repro_torch.serve import capture
 from repro_torch.serve.engine import EngineCfg, ServingEngine
@@ -221,17 +235,20 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
             torch.cuda.synchronize(device)
 
     ptq_s = 0.0
-    if args.calibrate:
+    if args.calibrate or stacks_layers(policy, cfg.n_layers):
+        # the whole fp32 tree first: calibration runs it, and a baseline
+        # fake-quantizes each site over its stack of layers
         params = model.init(gen, device=device)
-        rng = np.random.default_rng(args.seed)
-        batch = {"tokens": torch.as_tensor(
-            rng.integers(0, cfg.vocab, size=(2, 64)), device=device)}
-        t0 = time.perf_counter()
-        artifact = calibrate_model(model, params, [batch])
-        calib_s = time.perf_counter() - t0
-        artifact.save(args.calibration)
-        policy = apply_calibration(policy, artifact)
-        model = build_model(cfg, policy)
+        if args.calibrate:
+            rng = np.random.default_rng(args.seed)
+            batch = {"tokens": torch.as_tensor(
+                rng.integers(0, cfg.vocab, size=(2, 64)), device=device)}
+            t0 = time.perf_counter()
+            artifact = calibrate_model(model, params, [batch])
+            calib_s = time.perf_counter() - t0
+            artifact.save(args.calibration)
+            policy = apply_calibration(policy, artifact)
+            model = build_model(cfg, policy)
         sync()
         t0 = time.perf_counter()
         params = quantize_params(params, policy)

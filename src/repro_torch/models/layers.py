@@ -60,26 +60,53 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+ATTN_CHUNK = 512        # the reference's q_chunk = kv_chunk
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
-    """q (B, T, H, D), k/v (B, T, Hkv, D) -> (B, T, H, D): one block of
-    the reference's online-softmax attention (`_flash_fwd_impl` at prompt
-    lengths under its 512-token chunk): scores scaled after the dot,
-    -1e30 mask, exp(s - max), acc / max(l, 1e-30)."""
+    """q (B, T, H, D), k/v (B, T, Hkv, D) -> (B, T, H, D): the reference's
+    online-softmax attention (`_flash_fwd_impl`) in blocks of
+    `ATTN_CHUNK` queries x `ATTN_CHUNK` keys: scores scaled after the
+    dot, -1e30 mask, each key block folded in by m' = max(m, max s),
+    l' = l·exp(m - m') + Σ exp(s - m'), acc' = acc·exp(m - m') + p·v,
+    and acc / max(l, 1e-30). A query block's first key block starts the
+    running state (the reference's update from m = -1e30, l = acc = 0
+    gives the same values), so a prompt of at most `ATTN_CHUNK` tokens is
+    one block. Key blocks past a query block's diagonal hold no valid key
+    and are skipped (the reference's update leaves its state unchanged
+    there). Scores stay (B, Hkv, G, chunk, chunk) at any prompt length."""
     b, t, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv
     f32 = torch.float32
     qg = q.reshape(b, t, hkv, g, d).to(f32).permute(0, 2, 3, 1, 4)
     kt = k.to(f32).permute(0, 2, 3, 1)[:, :, None]          # (B,Hkv,1,D,T)
-    s = torch.matmul(qg, kt) * (1.0 / math.sqrt(d))        # (B,Hkv,G,T,T)
+    vt = v.to(f32).permute(0, 2, 1, 3)[:, :, None]          # (B,Hkv,1,T,D)
     pos = torch.arange(t, device=q.device)
-    s = torch.where(pos[:, None] >= pos[None, :], s, NEG_INF)
-    m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF)
-    p = torch.exp(s - m)
-    l_sum = p.sum(dim=-1, keepdim=True)
-    acc = torch.matmul(p, v.to(f32).permute(0, 2, 1, 3)[:, :, None])
-    out = acc / torch.clamp(l_sum, min=1e-30)               # (B,Hkv,G,T,D)
+    chunk = ATTN_CHUNK
+    outs = []
+    for q0 in range(0, t, chunk):
+        qpos = pos[q0:q0 + chunk]
+        for k0 in range(0, q0 + len(qpos), chunk):
+            kpos = pos[k0:k0 + chunk]
+            s = torch.matmul(qg[..., q0:q0 + chunk, :],
+                             kt[..., k0:k0 + chunk]) * (1.0 / math.sqrt(d))
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+            if k0 == 0:
+                m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF)
+                p = torch.exp(s - m)
+                l_sum = p.sum(dim=-1, keepdim=True)
+                acc = torch.matmul(p, vt[..., k0:k0 + chunk, :])
+                continue
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l_sum = l_sum * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.matmul(p, vt[..., k0:k0 + chunk, :])
+            m = m_new
+        outs.append(acc / torch.clamp(l_sum, min=1e-30))    # (B,Hkv,G,qc,D)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).to(q.dtype)
 
 

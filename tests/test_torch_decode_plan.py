@@ -1,8 +1,9 @@
 """K2/K3's launch plan and the arithmetic of their cluster split.
 
 - `decode_plan`'s geometry at the served shapes (Qwen1.5-0.5B: Hkv 16,
-  G 1, D 64; Qwen3-30B-A3B: Hkv 4, G 8, D 128; B 4, S 256) and the
-  widened ones (G 16 / D 256, G 7 / D 128): the key split (the cluster
+  G 1, D 64; Qwen3-30B-A3B and Yi-6B: Hkv 4, G 8, D 128; Qwen2-7B: Hkv
+  4, G 7, D 128; Minitron-8B: Hkv 8, G 4, D 128; B 4, S 256; packed and
+  fp32 caches) and G 16 / D 256: the key split (the cluster
   size), the tiles a rank walks, the tile buffers and the shared bytes,
   which must match `csrc/decode_attn.cu`'s `smem_bytes` formula; the
   refusal past 227 KB; K3's plan depends on the logical length only.
@@ -54,6 +55,9 @@ SERVED = [((4, 256, 16, 16, 64, None), (4, 2, 2)),
           ((4, 256, 16, 1, 256, None), (8, 1, 1)),
           ((4, 256, 16, 1, 256, torch.bfloat16), (8, 1, 1)),
           ((4, 256, 28, 4, 128, None), (8, 1, 1)),
+          ((4, 256, 28, 4, 128, torch.float32), (8, 1, 1)),
+          ((4, 256, 32, 8, 128, None), (8, 1, 1)),
+          ((4, 256, 32, 8, 128, torch.float32), (8, 1, 1)),
           ((4, 2048, 16, 1, 256, torch.float32), (8, 8, 2)),
           ((64, 256, 16, 16, 64, None), (1, 8, 2)),
           ((4, 48, 16, 16, 64, None), (2, 1, 1)),

@@ -121,6 +121,47 @@ def test_ragged_shapes_plan_validly(k, n, rows):
                         rows, k, n, 2 if w_dtype == "int8" else 1)
 
 
+# (K, N) of one layer of each dense 7-8B config: q and o, k and v,
+# gate and up, down
+DENSE_7B = {"qwen2-7b": [(3584, 3584), (3584, 512), (3584, 18944),
+                         (18944, 3584)],
+            "yi-6b": [(4096, 4096), (4096, 512), (4096, 11008),
+                      (11008, 4096)],
+            "minitron-8b": [(4096, 4096), (4096, 1024), (4096, 16384),
+                            (16384, 4096)]}
+DENSE_7B_SHAPES = sorted({kn for shapes in DENSE_7B.values()
+                          for kn in shapes})
+
+
+@pytest.mark.parametrize("w_dtype", ["int4", "int8"])
+@pytest.mark.parametrize("k,n", DENSE_7B_SHAPES)
+def test_dense_7b_linears_take_the_decode_body(k, n, w_dtype):
+    """Every linear of Qwen2-7B, Yi-6B and Minitron-8B, at every row count
+    a decode step (1-8 slots), a ragged prompt (31) and a prefill bucket
+    (128) give it: the decode body, within shared memory, and a valid
+    tiling."""
+    for rows in (1, 2, 3, 4, 5, 6, 7, 8, 31, 128):
+        plan = tmm.launch_plan(rows, k, n, w_dtype)
+        assert plan.body == "decode" and plan.smem <= tmm.SMEM_MAX
+        if rows in (1, 4, 31, 128):
+            _check_plan(plan, rows, k, n, 2 if w_dtype == "int8" else 1)
+
+
+# the down projections' K slices at rows 4: split 8, past _DEC_SLICE
+DENSE_7B_WD = {(18944, 3584): 1184, (11008, 4096): 688, (16384, 4096): 1024}
+
+
+@pytest.mark.parametrize("k,n", sorted(DENSE_7B_WD))
+def test_dense_7b_down_projection_slices_exceed_the_usual_cap(k, n):
+    """At K 11008-18944 even the largest split leaves a block more than
+    `_DEC_SLICE` pairs; the decode body still fits (int8 weights too)."""
+    for w_dtype in ("int4", "int8"):
+        plan = tmm.launch_plan(4, k, n, w_dtype)
+        assert (plan.body, plan.split, plan.slice) == \
+            ("decode", 8, DENSE_7B_WD[(k, n)])
+        assert plan.slice > tmm._DEC_SLICE and plan.blocks >= 132
+
+
 def test_slice_too_large_for_shared_memory_falls_back_to_fma():
     plan = tmm.launch_plan(8, 65536, 1024, "int8")
     assert plan.body == "fma"

@@ -147,6 +147,9 @@ def test_program_protocol_matches_reference(case):
     rename = {"xla": "cuda"}
     assert got.backends() == {rename.get(b, b) for b in ref.backends()}
     assert got.backend == rename.get(ref.backend, ref.backend)
+    for n in (1, 4, 6):
+        assert got.varies_across_layers(n) == ref.varies_across_layers(n)
+        assert got.addresses_layers(n) == ref.addresses_layers(n)
     for site in ("layers/0/attn/wq", "LAYERS/0/mlp/wg", "layers/2/attn/wq",
                  "layers/3/attn/wk", "layers/1/attn/kv", "embed/table",
                  "layers/5/mlp/wd", "layers/2/mlstm/w_down"):
@@ -180,8 +183,11 @@ def test_reference_program_cases():
     assert not rules[1].policy.enabled
     with pytest.raises(ValueError):
         tpol.parse_rules("no-equals-sign")
+    (int8,) = tpol.parse_rules("layers/0/*=int8")  # a baseline preset
+    assert (int8.policy.method, int8.policy.wbits) == ("int", 8)
+    assert int8.pattern == "layers/0/*" and int8.policy == tpol.INT8
     with pytest.raises(KeyError):
-        tpol.parse_rules("layers/0/*=int8")     # baselines not ported
+        tpol.parse_rules("layers/0/*=int3")     # in no preset
     prog = c["mixed_w48"]
     assert prog.resolve("layers/0/attn/wq").wbits == 8
     assert prog.resolve("layers/5/attn/wq").wbits == 8
