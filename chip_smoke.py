@@ -83,11 +83,12 @@ CUDA toolkit. It builds the hand-written kernels from
    phase D (static scales): wall, device busy and device kernels per
    step;
 8. mixed A, after phases A-D's models are freed: mixed W4/W8 policy
-   programs at full width through the launcher (`--quant
-   olive_mixed_w48`, `--quant olive_owq_style`, and `olive_mixed_w48
-   --policy-rules` with packed KV caches on the first and last layer
-   only, slab and paged), K1's launches counted by weight dtype (14 or
-   48 of 168 a forward call with int8 weights), one K2/K3 a layer a
+   programs at full width, `MIXED_A_LAYERS` deep (cut for time), through
+   the launcher (`--quant olive_mixed_w48`, `--quant olive_owq_style`,
+   and `olive_mixed_w48 --policy-rules` with packed KV caches on the
+   first and last layer only, slab and paged), K1's launches counted by
+   weight dtype (14 or 2 x layers of 7 x layers a forward call with
+   int8 weights), one K2/K3 a layer a
    step over fp32 and packed caches alike, K7 only on packed layers,
    each program, slab and paged, against its CPU twin, the mixed-KV
    step profiled,
@@ -116,8 +117,9 @@ CUDA toolkit. It builds the hand-written kernels from
 9. serve phase E: Qwen3-30B-A3B at full published width, 48 layers,
    through the launcher's entry point (`--arch qwen3-moe-30b-a3b
    --quant olive_serve`, phase A's prompts and seed, layer-by-layer
-   init + PTQ), slab and then paged (`--paged 16 --prefill-chunk 16`),
-   the slab model freed before the paged one loads:
+   init + PTQ), slab and then paged (`--paged 16 --prefill-chunk 16`,
+   at `PAGED_E_LAYERS` of the 48 layers, cut for time), the slab model
+   freed before the paged one loads:
    no fallback, `grouped[fp]` = 3 x layers x forward calls, K2 (slab),
    K3 and K4 (paged), every page returned; PTQ seconds, peak device
    memory, tok/s, TTFT, step time and decode-step profiles, slab and
@@ -158,7 +160,22 @@ CUDA toolkit. It builds the hand-written kernels from
 13. serve phase G: the baseline presets (`--quant int8 | int4 | ant4`)
    on full-width Qwen1.5-0.5B through the launcher: no OVP kernel (K1,
    K6, K7) launched, K2 once a layer a step over fp32 caches, the
-   audit, graph against eager, and the card-vs-CPU logits check.
+   audit, graph against eager, and the card-vs-CPU logits check;
+14. calibration at full width: K5 at one Qwen2-7B layer's 7 decode
+   launches (rows 4, int4 and int8 weights) and one Qwen3-30B-A3B
+   attention block (`k5_wide_phase`, against the plain version, timed
+   beside `torch.matmul` and the byte bound); then serve phase H at
+   full published width and depth, the calibration streamed layer by
+   layer: H1, Qwen2-7B's weight sensitivity pass without the fp32 tree
+   (`record_weights` one layer at a time, `site_sensitivity` on the
+   card, `auto_mixed(budget_bits=4.5)`), then `--calibrate` with a
+   `--policy-rules` W8A8 rule for each promoted site; H2, Qwen3-30B-A3B
+   `--calibrate`: K5 launches by weight dtype per forward call, no K1
+   `fp` or `quantize` launch, no dynamic scale, K6 on the experts, the
+   audit, graph against eager, the calibrated decode-step profile, the
+   2-layer card-vs-CPU check, peak device memory (H2 held to phase E's
+   + 2 layers of fp32 weights + 1 GB), and on a 2-layer cut of
+   Qwen2-7B the streamed artifact byte for byte the whole tree's.
 
 Every serve phase runs the engine's captured steps (CUDA graphs, the
 default) and checks them: the trace audit (`audit_check`: the decode step
@@ -193,6 +210,7 @@ outside a checkout of the repo) it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -3052,6 +3070,29 @@ def k6_api_phase(dev):
     return rows, counts
 
 
+PAGED_E_LAYERS = 12     # phase E's paged run, cut from the published 48
+
+
+@contextlib.contextmanager
+def cut_arch(arch: str, n_layers: int):
+    """The launcher's `--arch` for `arch` at full width and `n_layers`
+    deep: the published config, or a cut of its depth registered for the
+    block."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, get_config
+    full = get_config(arch)
+    if n_layers == full.n_layers:
+        yield arch
+        return
+    name = f"{arch}-{n_layers}-layers"
+    ARCHS[name] = dataclasses.replace(full, name=name, n_layers=n_layers)
+    try:
+        yield name
+    finally:
+        del ARCHS[name]
+
+
 def free_device_memory() -> None:
     import gc
 
@@ -3077,20 +3118,21 @@ def serve_phase_e(dev):
     one model. Returns each run's tokens and counts, and the profile."""
     import torch
     from repro_torch.launch import serve
-    base = ["--arch", MOE_ARCH, "--quant", "olive_serve", "--requests", "8",
-            "--max-new", "16", "--slots", "4", "--max-len", "256",
-            "--seed", "0"]
+    base = ["--quant", "olive_serve", "--requests", "8", "--max-new", "16",
+            "--slots", "4", "--max-len", "256", "--seed", "0"]
     runs, prof, prof_paged = {}, None, None
-    for label, extra, kernels in (
-            ("slab", [], ("grouped[fp]", "ovp_matmul[fp]", "decode_attn",
-                          "ovp_encode")),
-            ("paged", ["--paged", "16", "--prefill-chunk", "16"],
+    for label, depth, extra, kernels in (
+            ("slab", 48, [], ("grouped[fp]", "ovp_matmul[fp]",
+                              "decode_attn", "ovp_encode")),
+            ("paged", PAGED_E_LAYERS, ["--paged", "16", "--prefill-chunk",
+                                       "16"],
              ("grouped[fp]", "ovp_matmul[fp]", "paged_decode_attn",
               "prefill_attn", "ovp_encode"))):
         free_device_memory()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
-        res = serve.run(base + extra, device=dev)
+        with cut_arch(MOE_ARCH, depth) as arch:
+            res = serve.run(["--arch", arch] + base + extra, device=dev)
         counts = read_counts()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         phase = f"serve phase E ({label})"
@@ -3118,10 +3160,10 @@ def serve_phase_e(dev):
             pool = st["page_pool"]
             if pool["used_pages"] != 0 or pool["allocs"] != pool["frees"]:
                 fail(f"{phase}: pages not all returned: {pool}")
-        print(f"[serve E] {MOE_ARCH} ({n_layers} layers, the published "
-              f"depth) W4 "
-              f"experts + KV4, {label}: PTQ {res['ptq_s']:.2f}s (layer by "
-              f"layer), peak device memory {peak_gb:.2f} GB, "
+        print(f"[serve E] {MOE_ARCH} ({n_layers} of the published 48 "
+              f"layers) W4 experts + KV4, {label}: PTQ "
+              f"{res['ptq_s']:.2f}s (layer by layer), peak device memory "
+              f"{peak_gb:.2f} GB, "
               f"{res['tokens']} tokens in {res['seconds']:.3f}s = "
               f"{res['tok_per_s']:.2f} tok/s, mean TTFT "
               f"{res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
@@ -3142,14 +3184,9 @@ def serve_phase_e(dev):
                        "counts": counts, "tok_per_s": res["tok_per_s"],
                        "peak_gb": peak_gb}
         del res, done
-    differ = sum(int(x != y) for uid, t in runs["paged"]["tokens"].items()
-                 for x, y in zip(t, runs["slab"]["tokens"][uid]))
-    print(f"[serve E] paged vs slab: {differ} of 128 tokens differ "
-          f"(reported, not bounded: a 16-token chunk and a whole-prompt "
-          f"prefill have other capacities, so they drop other tokens, as "
-          f"in the reference); peak device memory slab "
-          f"{runs['slab']['peak_gb']:.2f} GB, paged "
-          f"{runs['paged']['peak_gb']:.2f} GB (one model each)")
+    print(f"[serve E] peak device memory slab {runs['slab']['peak_gb']:.2f} "
+          f"GB (48 layers), paged {runs['paged']['peak_gb']:.2f} GB "
+          f"({PAGED_E_LAYERS} layers; one model each)")
     if prof is not None and prof["k6_ms"] is not None:
         print(f"[serve E] decode step (slab, 4 slots): K6 "
               f"{prof['k6_ms']:.3f} device ms per step, K2 "
@@ -3157,7 +3194,8 @@ def serve_phase_e(dev):
               f"device busy {prof['busy_ms']:.3f}ms = "
               f"{100 * prof['busy_ms'] / prof['prof_ms']:.1f}% of the "
               f"profiled wall; tok/s slab {runs['slab']['tok_per_s']:.2f}, "
-              f"paged {runs['paged']['tok_per_s']:.2f}")
+              f"paged {runs['paged']['tok_per_s']:.2f} ({PAGED_E_LAYERS} "
+              f"layers)")
     return runs
 
 
@@ -3233,6 +3271,7 @@ TRACE_DIR = os.path.join(ROOT, "build", "traces")
 MIXED_CALIB = os.path.join(ROOT, "build", "calib", f"{ARCH}-mixed_w48.json")
 W8_EXPERTS = 8          # mixed E: experts 0-7 of every stack at W8
 MIXED_E_LAYERS = 12     # mixed E's depth, cut from the published 48 for time
+MIXED_A_LAYERS = 12     # mixed A's depth, cut from the published 24 for time
 SERVE_ARGS = ["--requests", "8", "--max-new", "16", "--slots", "4",
               "--max-len", "256", "--seed", "0"]
 
@@ -3418,7 +3457,7 @@ def k1_layer_record(dev, gen, linears, rows: int, w_dtype: str,
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
-        plan = mm.launch_plan(rows, k, n, w_dtype)
+        plan = mm.launch_plan(rows, k, n, w_dtype, a_mode=mode)
         if not within(got, ref, 1e-5, 1e-5 * scale):
             fail(f"{label} {mode} rows={rows} K={k} N={n} ({plan.body} "
                  f"body, split {plan.split}, slice {plan.slice}): max abs "
@@ -3434,7 +3473,8 @@ def k1_layer_record(dev, gen, linears, rows: int, w_dtype: str,
         del wd
         print(f"[{label}] {mode} rows={rows} K={k:5d} N={n:5d}: "
               f"{plan.body} body, split {plan.split}, slice {plan.slice} "
-              f"pairs, {plan.blocks} blocks, {plan.smem} shared bytes; "
+              f"pairs, share {plan.share}, {plan.blocks} blocks, "
+              f"{plan.smem} shared bytes; "
               f"err={err:.2e} (tol rtol 1e-5, atol 1e-5*max|ref|) kernel="
               f"{rec['ms']:.4f}ms plain={rec['plain_ms']:.4f}ms matmul="
               f"{rec['library_ms']:.4f}ms bound={b_ms:.5f}ms ({b_by})")
@@ -3471,28 +3511,29 @@ def k1_w8_layer(dev, layer):
 
 
 def mixed_phase_a(dev, smi: str):
-    """Mixed W4/W8 policy programs on full-width Qwen1.5-0.5B through the
-    launcher's entry point, the launcher's workload: `--quant
-    olive_mixed_w48` (layers 0 and 23 W8, the rest W4, fp32 KV: the
-    launcher's rewrite leaves no packed cache), `--quant olive_owq_style`
-    (every layer's wq and wk W8), and `olive_mixed_w48 --policy-rules
-    "layers/0/attn/kv=olive_serve,layers/23/attn/kv=olive_serve"` slab
+    """Mixed W4/W8 policy programs on full-width Qwen1.5-0.5B,
+    `MIXED_A_LAYERS` deep (cut from the published 24 for time), through
+    the launcher's entry point, the launcher's workload: `--quant
+    olive_mixed_w48` (the first and last layer W8, the rest W4, fp32 KV:
+    the launcher's rewrite leaves no packed cache), `--quant
+    olive_owq_style` (every layer's wq and wk W8), and `olive_mixed_w48
+    --policy-rules "layers/0/attn/kv=olive_serve,layers/<last>/attn/kv=
+    olive_serve"` slab
     and paged (16, chunk 16): packed caches on the first and last layer,
     fp32 between, in one captured step. Counters reset just before and
-    read just after each run: no fallback; K1 168 launches a forward
-    call, those with int8 weights exactly the W8 linears' (14 or 48 a
-    call); one K2/K3 a layer a step over the fp and packed caches alike,
-    one K4 a layer a chunk; K7 only on the packed layers. Each engine
-    passes the audit and `capture_gate`; each program, slab and paged, is
-    held to its CPU twin (`reference_check`), and the mixed-KV slab step
-    is profiled. Then one `--calibrate` run of `olive_mixed_w48`: every
-    linear on K5, the W8 layers with 8-bit activations. Returns the
-    runs' counts, the mixed-KV profile and the K1 W8 timings."""
-    from repro_torch.configs import get_config
+    read just after each run: no fallback; K1 7 x layers launches a
+    forward call, those with int8 weights exactly the W8 linears' (14 or
+    2 x layers a call); one K2/K3 a layer a step over the fp and packed
+    caches alike, one K4 a layer a chunk; K7 only on the packed layers.
+    Each engine passes the audit and `capture_gate`; each program, slab
+    and paged, is held to its CPU twin (`reference_check`), and the
+    mixed-KV slab step is profiled. Then one `--calibrate` run of
+    `olive_mixed_w48`: every linear on K5, the W8 layers with 8-bit
+    activations. Returns the runs' counts, the mixed-KV profile and the
+    K1 W8 timings."""
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
-    base = ["--arch", ARCH] + SERVE_ARGS
-    last = get_config(ARCH).n_layers - 1
+    last = MIXED_A_LAYERS - 1
     mixed_kv = (f"layers/0/attn/kv=olive_serve,"
                 f"layers/{last}/attn/kv=olive_serve")
     w8_want = {"olive_mixed_w48": 2 * 7, "olive_owq_style": 2 * (last + 1)}
@@ -3508,7 +3549,9 @@ def mixed_phase_a(dev, smi: str):
         phase = f"mixed A ({label})"
         free_device_memory()
         reset_counts()
-        res = serve.run(base + extra, device=dev)
+        with cut_arch(ARCH, MIXED_A_LAYERS) as arch:
+            res = serve.run(["--arch", arch] + SERVE_ARGS + extra,
+                            device=dev)
         counts = read_counts()
         eng, model = res["engine"], res["model"]
         attn = "paged_decode_attn" if paged else "decode_attn"
@@ -3529,7 +3572,7 @@ def mixed_phase_a(dev, smi: str):
             fail(f"{phase}: {len(done)} requests finished with "
                  f"{[len(r.out_tokens) for r in done]} tokens, expected "
                  f"8 x 16")
-        print(f"[mixed A] {ARCH} {' '.join(extra)}: W8 linears {n_w8} of "
+        print(f"[mixed A] {arch} {' '.join(extra)}: W8 linears {n_w8} of "
               f"{7 * (last + 1)}, packed KV on layers {list(kinds) or 'none'} (fp32 KV "
               f"elsewhere); PTQ {res['ptq_s']:.2f}s, {res['tokens']} tokens "
               f"in {res['seconds']:.3f}s = {res['tok_per_s']:.1f} tok/s, "
@@ -3556,8 +3599,10 @@ def mixed_phase_a(dev, smi: str):
     phase = "mixed A (w48 calibrate)"
     free_device_memory()
     reset_counts()
-    res = serve.run(base + ["--quant", "olive_mixed_w48", "--calibrate",
-                            "--calibration", MIXED_CALIB], device=dev)
+    with cut_arch(ARCH, MIXED_A_LAYERS) as arch:
+        res = serve.run(["--arch", arch] + SERVE_ARGS + [
+            "--quant", "olive_mixed_w48", "--calibrate", "--calibration",
+            MIXED_CALIB], device=dev)
     counts = read_counts()
     check_counts(counts, phase, ("ovp_matmul[static]", "decode_attn"))
     if counts["ovp_matmul[quantize]"] or counts["ovp_matmul[fp]"]:
@@ -3681,29 +3726,18 @@ def mixed_phase_e(dev, smi: str, n_layers: int = MIXED_E_LAYERS):
     profile, and the 2-layer card-vs-CPU check (routed experts first,
     then logits). Returns the counts, the K6 group records and the
     profile."""
-    import dataclasses
-
     import torch
-    from repro_torch.configs import ARCHS, get_config
     from repro_torch.core.ovp import MixedExpertQuant
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
     phase = "mixed E"
     rules = f"*experts/*/[0-{W8_EXPERTS - 1}]=olive_w8a8"
-    arch = MOE_ARCH
-    if n_layers != get_config(MOE_ARCH).n_layers:
-        arch = f"{MOE_ARCH}-{n_layers}-layers"
-        ARCHS[arch] = dataclasses.replace(get_config(MOE_ARCH), name=arch,
-                                          n_layers=n_layers)
     free_device_memory()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    try:
+    with cut_arch(MOE_ARCH, n_layers) as arch:
         res = serve.run(["--arch", arch, "--quant", "olive_serve",
                          "--policy-rules", rules] + SERVE_ARGS, device=dev)
-    finally:
-        if arch != MOE_ARCH:
-            del ARCHS[arch]
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     kernels = ("grouped[fp]", "ovp_matmul[fp]", "decode_attn", "ovp_encode")
@@ -3831,6 +3865,44 @@ def k1_dense_phase(dev):
     return out
 
 
+def k5_wide_phase(dev):
+    """K5 (K1's static mode, activations at one calibrated scale) at the
+    widths phase H serves it: one Qwen2-7B layer's 7 decode launches at
+    rows 4 with int4 weights and with int8 weights (W8A8, the sites
+    `auto_mixed` promotes), and one Qwen3-30B-A3B attention block's 4
+    launches with int4 weights, each through `k1_layer_record` (held to
+    the plain version at rtol 1e-5, atol 1e-5 * max|ref|; timed beside
+    `torch.matmul` on the dequantized weight and the byte bound).
+    Returns {"qwen2-7b <dtype>" | "moe attn": the summed record}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import policy
+    from repro_torch.core.qlinear import quantize_weight
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for key, shapes, pol in (
+            ("qwen2-7b int4", dense_layer_shapes(get_config("qwen2-7b")),
+             policy.OLIVE_W4A4),
+            ("qwen2-7b int8", dense_layer_shapes(get_config("qwen2-7b")),
+             policy.OLIVE_W8A8),
+            ("moe attn", QWEN3_ATTN, policy.OLIVE_W4A4)):
+        w_dtype = "int8" if pol.wbits == 8 else "int4"
+        linears = [quantize_weight(torch.randn((k, n), generator=gen,
+                                               device=dev) / k ** 0.5, pol)
+                   for k, n in shapes]
+        tot = k1_layer_record(dev, gen, linears, 4, w_dtype, "static",
+                              label=f"k5 {key}")
+        print(f"[k5 {key}] {len(linears)} decode launches, rows 4, static "
+              f"(one activation scale), {w_dtype} weights: err "
+              f"{tot['max_abs_err']:.2e} (tol rtol 1e-5, atol "
+              f"1e-5*max|ref|), kernel {tot['ms']:.4f}ms, matmul "
+              f"{tot['library_ms']:.4f}ms, bound {tot['bound_ms']:.5f}ms "
+              f"({tot['bound_by']}), plain {tot['plain_ms']:.4f}ms")
+        out[key] = tot
+        del linears
+    return out
+
+
 def serve_phase_f(dev, smi: str):
     """The dense 7-8B models at full published width through the
     launcher's entry point (`--arch A --quant olive_serve`, the
@@ -3924,7 +3996,8 @@ def serve_phase_f(dev, smi: str):
             fail(f"{phase}: prefills by bucket {buckets}, "
                  f"{st['prefills_run']} prefills run")
         runs[(arch, paged)] = {"counts": counts, "stats": st,
-                               "profile": prof, "buckets": buckets}
+                               "profile": prof, "buckets": buckets,
+                               "peak_gb": peak_gb}
         del res, eng, done
     print(f"[serve F] phase took {time.perf_counter() - t_phase:.1f}s")
     return runs
@@ -4053,6 +4126,238 @@ def serve_phase_g(dev, smi: str):
     return runs
 
 
+# --------------------------------------------------------------------------
+# Phase H: calibration at full width, streamed, and the sensitivity pass
+# --------------------------------------------------------------------------
+H_DENSE = "qwen2-7b"
+H_CALIB = {H_DENSE: os.path.join(ROOT, "build", "calib",
+                                 "qwen2-7b-auto_mixed.json"),
+           MOE_ARCH: os.path.join(ROOT, "build", "calib",
+                                  f"{MOE_ARCH}.json")}
+AUTO_MIXED_BUDGET = 4.5     # mean weight bits: 1/8 of the linears at W8
+
+
+def sensitivity_pass(dev, arch: str, seed: int = 0):
+    """The weight sensitivity pass at full width without the fp32 tree:
+    the tape planned over the tree's shapes (`record_weights` on
+    `device="meta"` weights into a `SizeTape`), then each piece of
+    `Model.init_stream` (the weights `--seed` draws, embedding and head
+    first, then each layer) taped and dropped, `site_sensitivity` on the
+    card and `auto_mixed(budget_bits=AUTO_MIXED_BUDGET)`. Returns the
+    promoted sites (most sensitive first), the SQNR map and seconds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import calibration as cal
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    model = build_model(get_config(arch))
+    tape = cal.ActTape().plan(cal.record_weights(
+        model.init(None, device="meta"), cal.SizeTape()).records)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for prefix, tree in model.init_stream(gen, dev):
+        cal.record_weights(tree, tape, prefix=prefix)
+        del tree
+    sens = cal.site_sensitivity(tape, device=dev)
+    prog = cal.auto_mixed(sens, budget_bits=AUTO_MIXED_BUDGET)
+    promoted = [r.pattern for r in prog.rules if r.origin != "compat"]
+    return promoted, sens, time.perf_counter() - t0
+
+
+def layer_fp32_bytes(arch: str) -> int:
+    """One layer's fp32 weight bytes, from its shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import tree_paths
+    from repro_torch.models.model import build_model
+    pieces = build_model(get_config(arch)).init_stream(None, "meta")
+    next(pieces)
+    _, block = next(pieces)
+    return sum(w.numel() * 4 for _, w in tree_paths(block))
+
+
+def streamed_artifact_check(res, dev, base_policy) -> None:
+    """On a 2-layer cut of the served config (full width) on the card,
+    two seeded (2, 64) batches: `calibrate_streamed`'s artifact must be
+    byte for byte `calibrate_model`'s on the whole fp32 tree drawn from
+    the same seed, and its params equal `quantize_params` of that tree
+    under the calibrated program."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import calibration as cal
+    from repro_torch.core.qlinear import quantize_params, tree_paths
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(res["model"].cfg, n_layers=2)
+    model = build_model(cfg, base_policy)
+    rng = np.random.default_rng(9)
+    batches = [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                       (2, 64)), device=dev)}
+               for _ in range(2)]
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    whole = cal.calibrate_model(model, params, batches)
+    want = quantize_params(params, cal.apply_calibration(base_policy, whole))
+    del params
+    got, streamed = cal.calibrate_streamed(
+        model, torch.Generator(device=dev).manual_seed(0), batches, dev,
+        lambda tree, prefix: quantize_params(tree, base_policy,
+                                             prefix=prefix))
+    blobs = []
+    for name, art in (("whole", whole), ("streamed", streamed)):
+        path = os.path.join(ROOT, "build", "calib",
+                            f"{cfg.name}-2-layers-{name}.json")
+        with open(art.save(path), "rb") as f:
+            blobs.append(f.read())
+    differ = [p for (p, a), (_, b) in zip(tree_paths(got), tree_paths(want))
+              if not all(torch.equal(x, y) for x, y in zip(
+                  _tensors(a), _tensors(b)))]
+    print(f"[calib H] {cfg.name} cut to 2 layers, 2 batches of (2, 64), on "
+          f"the card: streamed artifact {len(streamed.sites())} sites, "
+          f"JSON {'byte-equal' if blobs[0] == blobs[1] else 'DIFFERS'} to "
+          f"the whole tree's; quantized params "
+          f"{'equal' if not differ else f'differ at {differ[:4]}'}")
+    if blobs[0] != blobs[1] or differ:
+        fail(f"phase H: the streamed calibration of {cfg.name} differs "
+             f"from the whole tree's")
+
+
+def _tensors(leaf):
+    """A params leaf's tensors: a quantized one's codes and scales."""
+    return (leaf.data, leaf.scale) if hasattr(leaf, "scale") else (leaf,)
+
+
+def serve_phase_h(dev, smi: str, peak_f_gb: float, peak_e_gb: float):
+    """Calibrate-then-serve at full published width and depth, the
+    calibration streamed layer by layer (`calibrate_streamed`).
+
+    H1, Qwen2-7B: the weight sensitivity pass (`sensitivity_pass`), then
+    `--quant olive_serve --calibrate --policy-rules <each promoted
+    site>=olive_w8a8` through the launcher, slab: the `auto_mixed`
+    program, W4A4 with 1/8 of the linears W8A8, every linear on K5.
+    H2, Qwen3-30B-A3B: `--quant olive_serve --calibrate`, slab: the
+    attention linears W4A4 on K5, the experts weight-only on K6.
+
+    Counters reset just before and read just after each run: no
+    fallback; K5 once per quantized linear per forward call (by weight
+    dtype, int8 exactly the promoted sites), no K1 `fp` or `quantize`
+    launch and no dynamic act-scale resolution; K6 `grouped[fp]` = 3 x
+    layers x forward calls on the MoE; K2 and K7 as in phase A. Then
+    the audit, `capture_gate(steps=3)`, the decode-step profile and the
+    2-layer card-vs-CPU check of the calibrated program (routing first
+    on the MoE); on H1 also `streamed_artifact_check`. Prints peak
+    device memory (H1 beside phase F's Qwen2-7B run, H2 held to phase
+    E's peak + 2 layers of fp32 weights + 1 GB) and the calibration and
+    PTQ seconds. Returns each run's counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PolicyProgram
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    promoted, sens, sens_s = sensitivity_pass(dev, H_DENSE)
+    n_cand = 7 * get_config(H_DENSE).n_layers
+    if len(promoted) != int((AUTO_MIXED_BUDGET - 4) / 4 * n_cand):
+        fail(f"phase H: auto_mixed promoted {len(promoted)} of {n_cand} "
+             f"linears at a {AUTO_MIXED_BUDGET}-bit budget")
+    print(f"[sens H] {H_DENSE}: {len(sens)} weight sites taped one layer "
+          f"at a time and ranked in {sens_s:.2f}s; auto_mixed("
+          f"budget_bits={AUTO_MIXED_BUDGET}) promotes {len(promoted)} of "
+          f"{n_cand} linears to W8A8, SQNR {sens[promoted[0]]:.2f}-"
+          f"{sens[promoted[-1]]:.2f} dB (the rest up to "
+          f"{max(sens.values()):.2f} dB): {promoted}")
+    rules = ",".join(f"{site}=olive_w8a8" for site in promoted)
+    runs = {}
+    for arch, extra in ((H_DENSE, ["--policy-rules", rules]),
+                        (MOE_ARCH, [])):
+        phase = f"serve phase H ({arch})"
+        moe = arch == MOE_ARCH
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        res = serve.run(["--arch", arch, "--quant", "olive_serve",
+                         "--calibrate", "--calibration", H_CALIB[arch]]
+                        + extra + SERVE_ARGS, device=dev)
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        eng, cfg = res["engine"], res["model"].cfg
+        st = eng.stats()
+        forwards = st["prefills_run"] + st["prefill_chunks_run"] \
+            + st["decodes_run"]
+        kernels = ("ovp_matmul[static]", "decode_attn", "ovp_encode") \
+            + (("grouped[fp]",) if moe else ())
+        check_counts(counts, phase, kernels)
+        check_attn_counts(res, counts, phase, paged=False)
+        check_encode_counts(eng, counts, phase)
+        linears = 4 if moe else 7
+        n_w8 = len(promoted) if not moe else 0
+        want = {"ovp_matmul[static]": linears * cfg.n_layers * forwards,
+                "ovp_matmul[fp]": 0, "ovp_matmul[quantize]": 0,
+                "ovp_matmul<int8>": n_w8 * forwards,
+                "ovp_matmul<int4>": (linears * cfg.n_layers - n_w8)
+                * forwards,
+                "grouped[fp]": 3 * cfg.n_layers * forwards if moe else 0}
+        got = {key: counts[key] for key in want}
+        if got != want:
+            fail(f"{phase}: launches {got}, expected {want} ({forwards} "
+                 f"forward calls)")
+        if counts["act_scale"] != {"static": want["ovp_matmul[static]"]}:
+            fail(f"{phase}: act-scale resolutions {counts['act_scale']}")
+        sites = res["artifact"].sites()
+        if len(sites) != linears * cfg.n_layers + 1:
+            fail(f"{phase}: the artifact has {len(sites)} sites")
+        done = res["completed"]
+        if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+            fail(f"{phase}: {len(done)} requests finished with "
+                 f"{[len(r.out_tokens) for r in done]} tokens, expected "
+                 f"8 x 16")
+        # the MoE's fp32 tree cannot be on the card: held to a bound
+        bound = peak_e_gb + 2 * layer_fp32_bytes(arch) / 1e9 + 1.0
+        beside = (f"bound {bound:.2f} GB = phase E's {peak_e_gb:.2f} + 2 "
+                  f"layers of fp32 weights + 1" if moe
+                  else f"phase F's W4 run {peak_f_gb:.2f} GB")
+        print(f"[serve H] {arch} ({cfg.n_layers} layers, the published "
+              f"depth) " + ("W4A4 attention + W4 experts" if moe else
+                            f"auto_mixed W4A4 + {n_w8} W8A8 linears")
+              + f" + KV4 on static scales, slab: {len(sites)} scales "
+              f"calibrated in {res['calib_s']:.2f}s (streamed), PTQ "
+              f"{res['ptq_s']:.2f}s, peak device memory {peak_gb:.2f} GB "
+              f"({beside}), {res['tokens']} tokens in {res['seconds']:.3f}s "
+              f"= {res['tok_per_s']:.2f} tok/s, mean TTFT "
+              f"{res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+              f"{res['mean_step_s'] * 1e3:.2f}ms; launches "
+              + " ".join(f"{k}={v}" for k, v in got.items())
+              + f" ({forwards} forward calls), act-scale resolutions "
+              f"{counts['act_scale']}, dispatch {counts['dispatch']} "
+              f"({smi})")
+        if moe and peak_gb > bound:
+            fail(f"{phase}: peak device memory {peak_gb:.2f} GB over the "
+                 f"{beside}")
+        audit_check(eng, phase)
+        capture_gate(eng, f"H ({arch})", steps=3)
+        prof = profile_decode(res, f"{arch}, calibrated, static scales",
+                              steps=3, max_new=10)
+        if prof["k1_ms"] is not None:
+            print(f"[serve H] {arch} calibrated decode step (4 slots): "
+                  f"{prof['kernels_per_step']:.1f} device kernels, busy "
+                  f"{prof['busy_ms']:.3f}ms of {prof['prof_ms']:.2f}ms "
+                  f"profiled wall ({prof['step_ms']:.2f}ms plain), K5 "
+                  f"{prof['k1_ms']:.3f}ms"
+                  + (f", K6 {prof['k6_ms']:.3f}ms" if moe else "")
+                  + f", K2 {prof['attn_ms']:.3f}ms ({smi})")
+        truncated_reference_check(
+            res, dev, label="static scales, " + (
+                "W4A4 attention, W4 experts" if moe else "auto_mixed"),
+            tag="H")
+        if not moe:
+            base = PolicyProgram(rules=res["policy"].rules,
+                                 default=res["policy"].default,
+                                 name=res["policy"].name)
+            streamed_artifact_check(res, dev, base)
+        runs[arch] = {"counts": counts, "peak_gb": peak_gb,
+                      "profile": prof}
+        del res, eng, done
+    print(f"[serve H] phase took {time.perf_counter() - t_phase:.1f}s")
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4148,9 +4453,13 @@ def main() -> int:
     # the dense 7-8B configs and the baseline presets
     free_device_memory()
     k1_dense = k1_dense_phase(dev)
+    k5_wide = k5_wide_phase(dev)
     free_device_memory()
     runs_f = serve_phase_f(dev, card)
     serve_phase_g(dev, card)
+    # calibration at full width, streamed
+    runs_h = serve_phase_h(dev, card, runs_f[(H_DENSE, False)]["peak_gb"],
+                           runs_e["slab"]["peak_gb"])
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -4229,6 +4538,18 @@ def main() -> int:
             "ovp_matmul.cu",
             seen.get(rows, 0) * get_config("qwen2-7b").n_layers,
             wd["max_abs_err"], wd))
+    # K5 at the widths phase H serves: launches from its runs, by weight
+    k5_src = "src/repro/kernels/ovp_matmul.py:263"
+    counts_h = {arch: run["counts"] for arch, run in runs_h.items()}
+    kernels += [row(name, k5_src, "ovp_matmul.cu", launches,
+                    k5_wide[key]["max_abs_err"], k5_wide[key])
+                for name, key, launches in (
+                    (f"ovp_matmul[static]@{H_DENSE}", "qwen2-7b int4",
+                     counts_h[H_DENSE]["ovp_matmul<int4>"]),
+                    (f"ovp_matmul[static]<int8>@{H_DENSE}", "qwen2-7b int8",
+                     counts_h[H_DENSE]["ovp_matmul<int8>"]),
+                    (f"ovp_matmul[static]@{MOE_ARCH} attn", "moe attn",
+                     counts_h[MOE_ARCH]["ovp_matmul[static]"]))]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -4276,7 +4597,14 @@ def main() -> int:
           "(K 18944 -> N 3584) at <rows> rows, each slab prefill bucket "
           "of the launcher's prompts, launches: one a layer for each "
           "prefill of that bucket in phase F's Qwen2-7B slab run (the "
-          "engine's completed requests by bucket)")
+          "engine's completed requests by bucket). Calibrated at full "
+          "width: ovp_matmul[static]@qwen2-7b and [static]<int8>@qwen2-7b "
+          "are the 7 launches of one Qwen2-7B layer's decode step at rows "
+          "4 (K5: activations at one scale) with int4 / int8 weights, "
+          "launches: phase H's auto_mixed run by weight dtype; "
+          "ovp_matmul[static]@qwen3-moe-30b-a3b attn the 4 launches of "
+          "one attention block, launches from phase H's Qwen3-30B-A3B "
+          "run")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

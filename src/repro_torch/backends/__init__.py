@@ -9,6 +9,9 @@ names:
   cuda   — the hand-written kernels (default; plain versions on CPU)
   eager  — dequantize-then-torch.matmul and the dense attention paths
            (the fallback)
+  reference — the fp32 oracle (`backends/reference.py`): dequantize,
+           fake-quantize the activation, one fp32 `torch.matmul`; never
+           declines, and runs only where a policy names it
 Stacked per-expert weights (3-D data) run the grouped path; a
 `MixedExpertQuant` dispatches each homogeneous group and puts the
 outputs back in expert order. A backend that declines an operand layout
@@ -35,6 +38,7 @@ from .base import (ACT_SCALE_KEYS, ALL_DECLINE_CODES, DECLINE_CODES,
                    reset_act_scale_stats, resolve_act_scale, torch_dtype)
 from .cuda import CudaBackend
 from .eager import EagerBackend
+from .reference import ReferenceBackend
 
 _REGISTRY: Dict[str, QuantizedMatmulBackend] = {}
 
@@ -57,6 +61,7 @@ def available() -> list:
 
 register(EagerBackend())
 register(CudaBackend())
+register(ReferenceBackend())
 
 _DISPATCH_STATS: collections.Counter = collections.Counter()
 
@@ -181,4 +186,5 @@ __all__ = ["QuantizedMatmulBackend", "register", "get_backend", "available",
            "reset_dispatch_stats",
            "quantize_activation", "resolve_act_scale", "act_normal_dtype",
            "ACT_SCALE_KEYS", "act_scale_stats", "record_act_scale",
-           "reset_act_scale_stats", "CudaBackend", "EagerBackend"]
+           "reset_act_scale_stats", "CudaBackend", "EagerBackend",
+           "ReferenceBackend"]

@@ -1,6 +1,6 @@
-"""PTQ calibration (paper §3.4): static activation scales from one batch.
-Port of `repro/core/calibration.py` (the artifact path; the sensitivity
-pass and `auto_mixed` are not ported).
+"""PTQ calibration (paper §3.4): static activation scales from one batch,
+and the per-site sensitivity pass that emits a mixed-precision program.
+Port of `repro/core/calibration.py`.
 
 The flow, as in the reference (docs/calibration.md):
 
@@ -20,25 +20,45 @@ The flow, as in the reference (docs/calibration.md):
      a scale (`static_scale_misses`; misses raise
      `MissingStaticScaleError`).
 
+`calibrate_model` runs steps 1-2 on a whole fp32 tree;
+`calibrate_streamed` draws the model one layer at a time, feeds every
+batch through each layer as soon as it is drawn, quantizes it and drops
+its fp32 weights, so a model whose fp32 tree does not fit the card
+calibrates there, with the same artifact.
+
+The sensitivity pass: `record_weights` tapes every linear weight (whole,
+or one layer at a time), `site_sensitivity` measures each site's SQNR
+at its best low-precision scale, and `auto_mixed` promotes the least
+faithful sites to W8 within a bit budget.
+
 The tape subsamples with one `np.random.default_rng(seed)` shared by all
 sites, in the order sites are recorded, exactly as the reference does:
-the same inputs recorded in the same order give the same samples.
+the same inputs recorded in the same order give the same samples. The
+draws depend on the record sizes alone, so `ActTape.plan` can make them
+up front in a whole pass's order (its sizes come from a `SizeTape`, fed
+by a pass over `device="meta"` weights) and the records may then come in
+any order. A record draws its indices on the host and gathers them on
+the tensor's device: only the sample is copied to the host.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import fnmatch
 import functools
 import json
+import math
 import os
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
-from .ovp import MixedExpertQuant, QuantizedTensor
-from .policy import PolicyLike, PolicyProgram, QuantPolicy, as_program
+from .ovp import MixedExpertQuant, QuantizedTensor, ovp_fake_quant
+from .policy import (OLIVE_W4A4, OLIVE_W8A8, PolicyLike, PolicyProgram,
+                     QuantPolicy, Rule, as_program)
 from .quantizer import ovp_search_scale
 
 
@@ -51,24 +71,71 @@ class ActTape:
         self.max_per_site = max_per_site
         self.rng = np.random.default_rng(seed)
         self.samples: Dict[str, np.ndarray] = {}
+        self._planned: Dict[str, collections.deque] = {}
+
+    def _draw(self, n: int, n_prev: Optional[int]):
+        """The index draws of one record of `n` values onto a site that
+        holds `n_prev` samples (None: a new site): a subsample of the
+        record, then of the concatenation, each when over the cap."""
+        k = self.max_per_site
+        first = self.rng.choice(n, k, replace=False) if n > k else None
+        both = None if n_prev is None else n_prev + min(n, k)
+        merge = self.rng.choice(both, k, replace=False) \
+            if both is not None and both > k else None
+        return first, merge
+
+    def plan(self, records: Iterable[Tuple[str, int]]) -> "ActTape":
+        """Make now the draws of a whole pass whose records are `records`
+        ((site, size) in that pass's order); each later `record` of a
+        site takes that site's next draws, so the samples are the
+        pass's whatever order the sites come in. A record the plan does
+        not hold, or of another size, raises."""
+        held: Dict[str, int] = {}
+        for name, n in records:
+            prev = held.get(name)
+            self._planned.setdefault(name, collections.deque()).append(
+                (n,) + self._draw(n, prev))
+            m = min(n, self.max_per_site)
+            held[name] = m if prev is None \
+                else min(prev + m, self.max_per_site)
+        return self
 
     def record(self, name: str, x) -> None:
-        if isinstance(x, torch.Tensor):
-            x = x.detach().to("cpu", torch.float32).numpy()
-        flat = np.asarray(x, dtype=np.float32).reshape(-1)
-        if flat.size > self.max_per_site:
-            idx = self.rng.choice(flat.size, self.max_per_site, replace=False)
-            flat = flat[idx]
+        on_device = isinstance(x, torch.Tensor)
+        flat = x.detach().reshape(-1) if on_device \
+            else np.asarray(x, dtype=np.float32).reshape(-1)
+        n = flat.numel() if on_device else flat.size
         prev = self.samples.get(name)
+        if self._planned:
+            queue = self._planned.get(name)
+            if not queue or queue[0][0] != n:
+                raise ValueError(f"tape record {name!r} of {n} values is "
+                                 f"not the plan's next record of that site")
+            _, first, merge = queue.popleft()
+        else:
+            first, merge = self._draw(n, None if prev is None else prev.size)
+        if first is not None:
+            flat = flat[torch.as_tensor(first, device=flat.device)] \
+                if on_device else flat[first]
+        if on_device:
+            flat = flat.to("cpu", torch.float32).numpy()
         if prev is not None:
             both = np.concatenate([prev, flat])
-            if both.size > self.max_per_site:
-                idx = self.rng.choice(both.size, self.max_per_site,
-                                      replace=False)
-                both = both[idx]
-            self.samples[name] = both
+            self.samples[name] = both if merge is None else both[merge]
         else:
             self.samples[name] = flat
+
+
+class SizeTape:
+    """A tape that keeps only the (site, size) of each record, in order:
+    the input of `ActTape.plan`. Fed by a pass over weights on
+    `device="meta"`, it costs no memory and no arithmetic."""
+
+    def __init__(self):
+        self.records: List[Tuple[str, int]] = []
+
+    def record(self, name: str, x) -> None:
+        self.records.append((name, x.numel()))
 
 
 _ACTIVE_TAPE: Optional[ActTape] = None
@@ -95,6 +162,38 @@ def tap(site: str, x) -> None:
     if tape is None or not site:
         return
     tape.record(site, x)
+
+
+def _sorted_paths(tree, prefix: str = ""):
+    """(path, leaf) pairs in the reference's flatten order: dict keys
+    sorted (`jax.tree_util` sorts them), lists in index order."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [pair for k, v in items
+            for pair in _sorted_paths(v, f"{prefix}/{k}" if prefix
+                                      else str(k))]
+
+
+def record_weights(params, tape=None, min_size: int = 4096,
+                   prefix: str = ""):
+    """Tape every linear-weight leaf (2-D, or a 3-D expert stack, of at
+    least `min_size` values) under its site address, in the reference's
+    order: the weight-side twin of the activation tape, on the addresses
+    `quantize_params` resolves. `prefix` is the site address of
+    `params` (`layers/<i>` when fed one layer at a time, with the tape
+    planned over the whole tree: `record_weights(meta_tree,
+    SizeTape()).records`). Samples are gathered on the weights'
+    device."""
+    from .qlinear import is_linear_weight
+    tape = tape if tape is not None else ActTape()
+    for path, w in _sorted_paths(params, prefix):
+        if is_linear_weight(path, w) and w.numel() >= min_size:
+            tape.record(path, w)
+    return tape
 
 
 def calibrate_activation_scales(tape: ActTape, normal_dtype="int4",
@@ -256,6 +355,34 @@ def apply_calibration(policy: PolicyLike,
                              name=prog.name, artifact=artifact)
 
 
+def _site_act_dtypes(policy: PolicyLike) -> Callable[[str], str]:
+    """site -> the A-side dtype its activations quantize to under
+    `policy` (8-bit activations int8, 4-bit the `a_normal_dtype`)."""
+    from repro_torch.backends.base import act_normal_dtype
+    prog = as_program(policy)
+
+    def normal_dtype(site):
+        pol = prog.resolve(site)
+        return act_normal_dtype(pol) if pol.abits else pol.a_normal_dtype
+    return normal_dtype
+
+
+def _artifact(model, tape: ActTape, normal_dtype, n_grid: int, device,
+              n_batches: int, max_per_site: int) -> CalibrationArtifact:
+    """MSE-search a static scale per taped site on `device`, as an
+    artifact with the model's provenance."""
+    if normal_dtype is None:
+        normal_dtype = _site_act_dtypes(model.policy)
+    scales = calibrate_activation_scales(tape, normal_dtype, n_grid=n_grid,
+                                         device=device)
+    prog = getattr(model.policy, "name", "") or type(model.policy).__name__
+    dtypes = {normal_dtype(s) for s in scales} if callable(normal_dtype) \
+        else {normal_dtype}
+    return CalibrationArtifact.from_scales(
+        scales, normal_dtype=dtypes.pop() if len(dtypes) == 1 else "mixed",
+        program=prog, n_batches=n_batches, max_per_site=max_per_site)
+
+
 def calibrate_model(model, params, batches: Iterable,
                     normal_dtype: Optional[str] = None, n_grid: int = 24,
                     max_per_site: int = 65536) -> CalibrationArtifact:
@@ -270,16 +397,7 @@ def calibrate_model(model, params, batches: Iterable,
     addresses the quantized tree has. The port's layers are unrolled, so
     the sites are `layers/<i>/...` as the reference's unrolled twin
     tapes them."""
-    from repro_torch.backends.base import act_normal_dtype
-
     from .qlinear import tree_paths
-    if normal_dtype is None:
-        policy_prog = as_program(model.policy)
-
-        def normal_dtype(site):
-            pol = policy_prog.resolve(site)
-            return act_normal_dtype(pol) if pol.abits \
-                else pol.a_normal_dtype
     device = next(w.device for _, w in tree_paths(params)
                   if isinstance(w, torch.Tensor))
     tape = ActTape(max_per_site=max_per_site)
@@ -288,14 +406,54 @@ def calibrate_model(model, params, batches: Iterable,
         for batch in batches:
             model.forward(params, batch, mode="prefill")
             n_batches += 1
-    scales = calibrate_activation_scales(tape, normal_dtype, n_grid=n_grid,
-                                         device=device)
-    prog = getattr(model.policy, "name", "") or type(model.policy).__name__
-    dtypes = {normal_dtype(s) for s in scales} if callable(normal_dtype) \
-        else {normal_dtype}
-    return CalibrationArtifact.from_scales(
-        scales, normal_dtype=dtypes.pop() if len(dtypes) == 1 else "mixed",
-        program=prog, n_batches=n_batches, max_per_site=max_per_site)
+    return _artifact(model, tape, normal_dtype, n_grid, device, n_batches,
+                     max_per_site)
+
+
+def calibrate_streamed(model, generator: torch.Generator,
+                       batches: Sequence, device,
+                       quantize: Callable[[dict, str], dict],
+                       normal_dtype: Optional[str] = None, n_grid: int = 24,
+                       max_per_site: int = 65536):
+    """`calibrate_model` on the tree `model.init(generator, device)`
+    draws, without that tree: the weights are drawn in `Model.init`'s
+    order (embedding and head, then the layers); each layer, as soon as
+    it is drawn, takes every batch's hidden states forward under the
+    tape, is quantized by `quantize(tree, "layers/<i>")` and its fp32
+    weights are dropped; the head is taped last, then the embedding and
+    head are quantized (`quantize(tree, "")`). The tape is planned over
+    a forward of the same model on `device="meta"`, so its samples, and
+    the artifact's JSON, are byte for byte `calibrate_model`'s on the
+    whole tree, at any number of batches. Returns (params, artifact):
+    the params equal `quantize` of the whole tree."""
+    from repro_torch.models.model import block_forward
+    batches = list(batches)
+    sizes = SizeTape()
+    meta = model.init(None, device="meta")
+    with collecting_activations(sizes):
+        for batch in batches:
+            model.forward(meta, {"tokens": batch["tokens"].to("meta")},
+                          mode="prefill")
+    del meta
+    tape = ActTape(max_per_site=max_per_site).plan(sizes.records)
+    pieces = model.init_stream(generator, device)
+    _, rest = next(pieces)
+    hidden = [model.embed(rest, batch["tokens"]) for batch in batches]
+    positions = [torch.arange(x.shape[1], device=x.device)[None]
+                 .expand(x.shape[0], x.shape[1]) for x in hidden]
+    layers = []
+    with collecting_activations(tape):
+        for prefix, block in pieces:
+            hidden = [block_forward(block, x, pos, model.cfg, model.policy,
+                                    site=prefix)[0]
+                      for x, pos in zip(hidden, positions)]
+            layers.append(quantize(block, prefix))
+            del block       # before the next layer is drawn
+        for x in hidden:
+            model.head(rest, x)
+    artifact = _artifact(model, tape, normal_dtype, n_grid, device,
+                         len(batches), max_per_site)
+    return dict(quantize(rest, ""), layers=layers), artifact
 
 
 def static_scale_misses(params, policy: PolicyLike) -> List[str]:
@@ -337,3 +495,46 @@ def uses_static_scales(policy: PolicyLike) -> bool:
         return True
     return bool(quantizing) and isinstance(prog, CalibratedProgram) \
         and bool(prog.artifact.scales)
+
+
+def site_sensitivity(tape: ActTape, normal_dtype: str = "int4",
+                     n_grid: int = 16, device="cpu") -> Dict[str, float]:
+    """Per-site SQNR (dB) of the best `normal_dtype` OVP round trip of
+    the site's samples, searched on `device`, keyed in sorted order. The
+    lowest SQNR loses the most signal at low precision: the first
+    candidate for more bits."""
+    out = {}
+    for name, sample in sorted(tape.samples.items()):
+        s = sample[:-1] if sample.size % 2 else sample
+        x = torch.as_tensor(s, device=device)
+        scale = ovp_search_scale(x, normal_dtype, n_grid=n_grid)
+        mse = float(((ovp_fake_quant(x, scale, normal_dtype) - x) ** 2)
+                    .mean())
+        power = float((x * x).mean())
+        out[name] = 10.0 * math.log10(max(power, 1e-30) / max(mse, 1e-30))
+    return out
+
+
+def auto_mixed(sensitivity: Dict[str, float], budget_bits: float = 4.5,
+               low: Optional[QuantPolicy] = None,
+               high: Optional[QuantPolicy] = None) -> PolicyProgram:
+    """A mixed-precision program from a sensitivity map: sites rank by
+    ascending SQNR and the most sensitive get `high` (default W8A8 OVP)
+    while the mean weight width over the quantized sites stays within
+    `budget_bits`; the rest resolve through the compiled `low` program
+    (default W4A4 OVP with its embed/router exclusions, which outrank
+    sensitivity: a site `low` keeps at full precision is never
+    promoted). Rules are the literal site addresses."""
+    low = OLIVE_W4A4 if low is None else low
+    high = OLIVE_W8A8 if high is None else high
+    base = PolicyProgram.from_policy(low, name="auto_mixed")
+    candidates = {k: v for k, v in sensitivity.items()
+                  if base.resolve(k).enabled}
+    if not candidates:
+        return base
+    span = high.wbits - low.wbits
+    frac_high = 0.0 if span <= 0 else \
+        min(max((budget_bits - low.wbits) / span, 0.0), 1.0)
+    n_high = int(frac_high * len(candidates))
+    ranked = sorted(candidates, key=lambda k: candidates[k])
+    return base.with_rules([Rule(site, high) for site in ranked[:n_high]])

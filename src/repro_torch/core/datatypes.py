@@ -39,6 +39,10 @@ class AbfloatSpec:
     bias: int
 
     @property
+    def bits(self) -> int:
+        return 1 + self.ebits + self.mb
+
+    @property
     def min_mag(self) -> int:
         # code bits e=0, m=1 (e=0, m=0 is disabled)
         return ((1 << self.mb) + 1) << self.bias
@@ -50,6 +54,13 @@ class AbfloatSpec:
         # §4.5: outliers clip at 2^15 so int32 accumulators cannot overflow
         return min(mag, 1 << 15)
 
+    def magnitudes(self) -> np.ndarray:
+        """Every representable magnitude, sorted (e=0, m=0 excluded)."""
+        out = [min(((1 << self.mb) + m) << (e + self.bias), 1 << 15)
+               for e in range(1 << self.ebits) for m in range(1 << self.mb)
+               if e or m]
+        return np.unique(np.array(out, dtype=np.float32))
+
 
 def default_bias(normal_dtype: str, mb: int) -> int:
     """Adaptive bias (§3.3): smallest b with min outlier mag > normal max."""
@@ -60,11 +71,24 @@ def default_bias(normal_dtype: str, mb: int) -> int:
     return b
 
 
-ABFLOAT_FOR_NORMAL = {
-    "int4": AbfloatSpec(ebits=2, mb=1, bias=default_bias("int4", 1)),
-    "flint4": AbfloatSpec(ebits=2, mb=1, bias=default_bias("flint4", 1)),
-    "int8": AbfloatSpec(ebits=4, mb=3, bias=default_bias("int8", 3)),
-}
+# the paper's configurations (§3.3): E2M1 for the 4-bit types, E4M3 for int8
+E2M1_INT4 = AbfloatSpec(ebits=2, mb=1, bias=default_bias("int4", 1))
+E2M1_FLINT4 = AbfloatSpec(ebits=2, mb=1, bias=default_bias("flint4", 1))
+E4M3_INT8 = AbfloatSpec(ebits=4, mb=3, bias=default_bias("int8", 3))
+
+ABFLOAT_FOR_NORMAL = {"int4": E2M1_INT4, "flint4": E2M1_FLINT4,
+                      "int8": E4M3_INT8}
+
+
+def abfloat_spec_for(normal_dtype: str, ebits: int | None = None,
+                     mb: int | None = None) -> AbfloatSpec:
+    """Spec for a normal dtype; `ebits` / `mb` override it (the Fig. 5
+    sweep), with the adaptive bias of the mantissa width."""
+    if ebits is None and mb is None:
+        return ABFLOAT_FOR_NORMAL[normal_dtype]
+    ebits = 2 if ebits is None else ebits
+    mb = 1 if mb is None else mb
+    return AbfloatSpec(ebits=ebits, mb=mb, bias=default_bias(normal_dtype, mb))
 
 
 def _u8(x: torch.Tensor) -> torch.Tensor:
@@ -167,3 +191,14 @@ def abfloat_decode(code: torch.Tensor, spec: AbfloatSpec) -> torch.Tensor:
     mag = torch.clamp(mag, max=float(1 << 15))
     v = torch.where(sign_bit == 1, -mag, mag)
     return torch.where(bits == 0, 0.0, v).to(torch.float32)
+
+
+def abfloat_nearest(u: torch.Tensor, spec: AbfloatSpec) -> torch.Tensor:
+    """Round to the nearest representable abfloat value (the reference
+    mode the tests hold `abfloat_encode` to); ties take the smaller
+    magnitude."""
+    mags = torch.as_tensor(spec.magnitudes(), device=u.device)
+    a = torch.clamp(torch.abs(u.to(torch.float32)), spec.min_mag,
+                    spec.max_mag)
+    val = mags[torch.argmin(torch.abs(a[..., None] - mags), dim=-1)]
+    return torch.where(u < 0, -val, val)

@@ -127,6 +127,10 @@ class QuantizedTensor:
         s[self.pair_axis % len(s)] = self.orig_dim
         return tuple(s)
 
+    def nbytes(self) -> int:
+        """Stored bytes: the codes plus the fp32 scales."""
+        return self.data.numel() + self.scale.numel() * 4
+
 
 @dataclasses.dataclass
 class MixedExpertQuant:
@@ -169,6 +173,11 @@ class MixedExpertQuant:
     def shape(self):
         return (self.n_experts,) + tuple(self.groups[0].shape[1:])
 
+    def nbytes(self) -> int:
+        """Stored bytes of every group (a raw group at its dtype)."""
+        return sum(g.nbytes() if isinstance(g, QuantizedTensor)
+                   else g.numel() * g.element_size() for g in self.groups)
+
 
 def ovp_quantize(x: torch.Tensor, scale, normal_dtype: str = "int4",
                  spec: Optional[AbfloatSpec] = None,
@@ -202,3 +211,22 @@ def ovp_fake_quant(x: torch.Tensor, scale, normal_dtype: str = "int4",
     u = x.to(torch.float32) / scale
     codes = ovp_encode_codes(u, normal_dtype, spec, pair_axis)
     return ovp_decode_codes(codes, normal_dtype, spec, pair_axis) * scale
+
+
+def pair_statistics(x: torch.Tensor, k_sigma: float = 3.0,
+                    pair_axis: int = -1) -> dict:
+    """Fractions of normal-normal / outlier-normal / outlier-outlier pairs
+    (paper §2.3, Table 2): an outlier lies beyond k_sigma population σ of
+    the mean."""
+    v = torch.movedim(x.to(torch.float32), pair_axis, -1)
+    mu = v.mean()
+    sigma = torch.sqrt(((v - mu) ** 2).mean())
+    out = torch.abs(v - mu) > k_sigma * sigma
+    o0, o1 = out[..., 0::2], out[..., 1::2]
+    nn = ((~o0) & (~o1)).to(torch.float32).mean()
+    oo = (o0 & o1).to(torch.float32).mean()
+    return {"normal_normal": float(nn),
+            "outlier_normal": float(1.0 - nn - oo),
+            "outlier_outlier": float(oo),
+            "outlier_ratio": float(out.to(torch.float32).mean()),
+            "sigma": float(sigma)}

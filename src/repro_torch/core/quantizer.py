@@ -15,16 +15,22 @@ import numpy as np
 import torch
 
 from .datatypes import NORMAL_MAX, AbfloatSpec
-from .ovp import QuantizedTensor, ovp_fake_quant, ovp_quantize
+from .ovp import (QuantizedTensor, ovp_dequantize, ovp_fake_quant,
+                  ovp_quantize)
 
-# The reference's `jnp.geomspace(0.35, 2.2, n)` grids (float32) for the two
-# grid sizes PTQ uses. XLA's float32 pow differs from numpy's in the last
-# bit, and a last-bit difference in a candidate scale changes codes, so
-# these are kept bit for bit; other sizes use numpy's geomspace.
+# The reference's `jnp.geomspace(0.35, 2.2, n)` grids (float32) for the
+# grid sizes PTQ (11, 23) and the sensitivity pass (15) use. XLA's
+# float32 pow differs from numpy's in the last bit, and a last-bit
+# difference in a candidate scale changes codes, so these are kept bit
+# for bit; other sizes use numpy's geomspace.
 _REFERENCE_GRIDS = {
     11: ("0x1.666666p-2", "0x1.aeba76p-2", "0x1.02d39cp-1", "0x1.370f68p-1",
          "0x1.75d5bcp-1", "0x1.c14736p-1", "0x1.0df92ap+0", "0x1.4474d2p+0",
          "0x1.85ef40p+0", "0x1.d4a07cp+0", "0x1.19999ap+1"),
+    15: ("0x1.666666p-2", "0x1.98b07ap-2", "0x1.d208fep-2", "0x1.09b6b8p-1",
+         "0x1.2eff6ap-1", "0x1.598364p-1", "0x1.89fe90p-1", "0x1.c14738p-1",
+         "0x1.0028dep+0", "0x1.241a5ep+0", "0x1.4d16fep+0", "0x1.7bd3e8p+0",
+         "0x1.b11fb2p+0", "0x1.ede5ecp+0", "0x1.19999ap+1"),
     23: ("0x1.666666p-2", "0x1.85a24ep-2", "0x1.a7970ap-2", "0x1.cc8154p-2",
          "0x1.f4a332p-2", "0x1.102238p-1", "0x1.27d984p-1", "0x1.41a1eep-1",
          "0x1.5da98cp-1", "0x1.7c2282p-1", "0x1.9d4352p-1", "0x1.c14738p-1",
@@ -111,6 +117,10 @@ class QuantSpec:
     n_grid: int = 24
     abfloat: Optional[AbfloatSpec] = None
 
+    @property
+    def bits(self) -> int:
+        return 8 if self.normal_dtype == "int8" else 4
+
 
 def quantize(x: torch.Tensor, spec: QuantSpec = QuantSpec()
              ) -> QuantizedTensor:
@@ -129,3 +139,20 @@ def quantize(x: torch.Tensor, spec: QuantSpec = QuantSpec()
     shape[ca] = x.shape[ca]
     return ovp_quantize(x, s.reshape(shape), spec.normal_dtype, spec.abfloat,
                         spec.pair_axis)
+
+
+def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
+    return ovp_dequantize(qt, dtype=dtype)
+
+
+def quantization_error(x: torch.Tensor, spec: QuantSpec = QuantSpec()
+                       ) -> dict:
+    """MSE / SQNR diagnostics of one tensor under full OliVe PTQ."""
+    qt = quantize(x, spec)
+    xf = x.to(torch.float32)
+    mse = ((dequantize(qt) - xf) ** 2).mean()
+    power = (xf ** 2).mean()
+    sqnr = 10.0 * torch.log10(torch.clamp(power, min=1e-30)
+                              / torch.clamp(mse, min=1e-30))
+    return {"mse": float(mse), "sqnr_db": float(sqnr), "scale": qt.scale,
+            "bytes": qt.nbytes(), "fp32_bytes": x.numel() * 4}

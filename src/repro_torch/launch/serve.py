@@ -39,15 +39,23 @@ prompt's prefill into chunks of N tokens interleaved with decode:
 Static calibrated activation scales (paper §3.4): one command
 calibrates on a synthetic (2, 64) batch drawn from `--seed`, saves the
 artifact, and serves W4A4 on it, every quantized linear running the
-static-scale kernel (K5):
+static-scale kernel (K5). The calibration streams too: each layer, as
+soon as it is drawn, takes the batch's hidden states forward, is
+quantized and drops its fp32 weights
+(`core.calibration.calibrate_streamed`), so the 7-8B configs and
+Qwen3-30B-A3B calibrate on one card; the artifact is byte for byte the
+one a whole fp32 tree gives:
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen1.5-0.5b --quant olive_serve \
       --calibrate --calibration build/calib/qwen1.5-0.5b.json
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-30b-a3b --quant olive_serve \
+      --calibrate --calibration build/calib/qwen3-moe-30b-a3b.json
 
 Without `--calibrate`, `--calibration PATH` loads the artifact and
-serves on it. `--calibrate` needs the whole fp32 tree on the device for
-the calibration forward, so it does not stream either.
+serves on it. A baseline preset builds the whole fp32 tree first
+(below), and calibrates on it there.
 
 Mixed precision is a policy program (docs/policies.md): a program preset
 in `--quant` (`olive_mixed_w48`: the first and last layers W8, the rest
@@ -91,7 +99,8 @@ import torch
 from repro_torch import backends
 from repro_torch.configs import get_config
 from repro_torch.core.calibration import (CalibrationArtifact,
-                                          apply_calibration, calibrate_model)
+                                          apply_calibration, calibrate_model,
+                                          calibrate_streamed)
 from repro_torch.core.policy import (PRESETS, PROGRAM_PRESETS, get_policy,
                                      get_program, parse_rules)
 from repro_torch.core.qlinear import quantize_params, stacks_layers
@@ -124,7 +133,8 @@ def parser() -> argparse.ArgumentParser:
                          "site; see docs/calibration.md)")
     ap.add_argument("--calibrate", action="store_true",
                     help="calibrate-then-serve: run the §3.4 calibration "
-                         "pass on a synthetic batch first, save the "
+                         "pass on a synthetic batch first, one layer at a "
+                         "time as the weights are drawn, save the "
                          "artifact to --calibration PATH, then serve on "
                          "it (one command end to end)")
     ap.add_argument("--requests", type=int, default=8)
@@ -235,36 +245,44 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
             torch.cuda.synchronize(device)
 
     ptq_s = 0.0
-    if args.calibrate or stacks_layers(policy, cfg.n_layers):
-        # the whole fp32 tree first: calibration runs it, and a baseline
-        # fake-quantizes each site over its stack of layers
-        params = model.init(gen, device=device)
-        if args.calibrate:
-            rng = np.random.default_rng(args.seed)
-            batch = {"tokens": torch.as_tensor(
-                rng.integers(0, cfg.vocab, size=(2, 64)), device=device)}
-            t0 = time.perf_counter()
-            artifact = calibrate_model(model, params, [batch])
-            calib_s = time.perf_counter() - t0
-            artifact.save(args.calibration)
-            policy = apply_calibration(policy, artifact)
-            model = build_model(cfg, policy)
+
+    def quantize(tree, prefix):
+        nonlocal ptq_s
         sync()
         t0 = time.perf_counter()
-        params = quantize_params(params, policy)
+        tree = quantize_params(tree, policy, prefix=prefix)
         sync()
-        ptq_s = time.perf_counter() - t0
-    else:
-        def quantize(tree, prefix):
-            nonlocal ptq_s
-            sync()
-            t0 = time.perf_counter()
-            tree = quantize_params(tree, policy, prefix=prefix)
-            sync()
-            ptq_s += time.perf_counter() - t0
-            return tree
+        ptq_s += time.perf_counter() - t0
+        return tree
 
+    def calibration_batch():
+        rng = np.random.default_rng(args.seed)
+        return {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, size=(2, 64)), device=device)}
+
+    if stacks_layers(policy, cfg.n_layers):
+        # a baseline fake-quantizes each site over its stack of layers:
+        # the whole fp32 tree first, calibrated on there
+        params = model.init(gen, device=device)
+        if args.calibrate:
+            t0 = time.perf_counter()
+            artifact = calibrate_model(model, params, [calibration_batch()])
+            calib_s = time.perf_counter() - t0
+            policy = apply_calibration(policy, artifact)
+        params = quantize(params, "")
+    elif args.calibrate:
+        # each layer quantizes under the uncalibrated policy, before the
+        # artifact exists: it changes only the activation side
+        t0 = time.perf_counter()
+        params, artifact = calibrate_streamed(
+            model, gen, [calibration_batch()], device, quantize)
+        calib_s = time.perf_counter() - t0 - ptq_s
+        policy = apply_calibration(policy, artifact)
+    else:
         params = model.init(gen, device=device, quantize=quantize)
+    if args.calibrate:
+        artifact.save(args.calibration)
+        model = build_model(cfg, policy)
 
     page_pool = PagePoolCfg(page_size=args.paged) if args.paged else None
     eng = ServingEngine(model, params, EngineCfg(

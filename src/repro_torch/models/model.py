@@ -11,7 +11,7 @@ fit on the card can still be built there.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -85,27 +85,19 @@ class Model:
         self.cfg = cfg
         self.policy = policy
 
-    def init(self, generator: torch.Generator, device="cuda",
-             quantize: Optional[Callable[[Params, str], Params]] = None
-             ) -> Params:
-        """Random weights from `generator`, with the reference's
-        distributions (embed N(0, 0.02²), head N(0, 1/d), blocks above).
-        torch and JAX draw different numbers from one seed: tests carry
-        the reference's weights over with `convert.params_from_numpy`.
-
-        `quantize(tree, prefix)` (e.g. `qlinear.quantize_params` under a
-        policy, with `prefix` the tree's site address) is applied to each
-        layer as soon as it is drawn, and to the embedding and head last.
-        The draws keep their order, so the result equals init-then-
-        quantize, but only one layer's fp32 weights exist at a time."""
+    def init_stream(self, generator: Optional[torch.Generator],
+                    device="cuda") -> Iterator[Tuple[str, Params]]:
+        """The random weights in their draw order, one piece at a time:
+        ("", {embed, final_norm, lm_head}) first, then ("layers/<i>",
+        block i) for each layer, each piece drawn when it is asked for
+        (the reference's distributions: embed N(0, 0.02²), head N(0,
+        1/d), blocks as `block_params`). torch and JAX draw different
+        numbers from one seed: tests carry the reference's weights over
+        with `convert.params_from_numpy`. `device="meta"` (and no
+        generator) gives the shapes alone."""
         cfg = self.cfg
         vp = cfg.padded_vocab
-
-        def layer(i):
-            p = block_params(generator, cfg, device)
-            return p if quantize is None else quantize(p, f"layers/{i}")
-
-        params = {
+        yield "", {
             "embed": {"table": _normal(generator, (vp, cfg.d_model), 0.02,
                                        device)},
             "final_norm": {"gamma_scale": torch.ones(cfg.d_model,
@@ -113,8 +105,27 @@ class Model:
             "lm_head": {"w_out": _normal(generator, (cfg.d_model, vp),
                                          1.0 / math.sqrt(cfg.d_model),
                                          device)},
-            "layers": [layer(i) for i in range(cfg.n_layers)],
         }
+        for i in range(cfg.n_layers):
+            yield f"layers/{i}", block_params(generator, cfg, device)
+
+    def init(self, generator: Optional[torch.Generator], device="cuda",
+             quantize: Optional[Callable[[Params, str], Params]] = None
+             ) -> Params:
+        """The whole tree `init_stream` draws. `quantize(tree, prefix)`
+        (e.g. `qlinear.quantize_params` under a policy, with `prefix` the
+        tree's site address) is applied to each layer as soon as it is
+        drawn, and to the embedding and head last. The draws keep their
+        order, so the result equals init-then-quantize, but only one
+        layer's fp32 weights exist at a time."""
+        pieces = self.init_stream(generator, device)
+        _, params = next(pieces)
+        layers = []
+        for prefix, block in pieces:
+            layers.append(block if quantize is None
+                          else quantize(block, prefix))
+            del block       # before the next layer is drawn
+        params["layers"] = layers
         if quantize is not None:
             params.update(quantize({key: val for key, val in params.items()
                                     if key != "layers"}, ""))
@@ -158,9 +169,8 @@ class Model:
         decode:  batch["tokens"] (B, 1), batch["pos"] (B,)
         """
         cfg = self.cfg
-        cdt = getattr(torch, self.policy.compute_dtype)
         tok = batch["tokens"]
-        x = params["embed"]["table"][tok].to(cdt) * math.sqrt(cfg.d_model)
+        x = self.embed(params, tok)
         b, t = tok.shape
         if positions is None and mode == "decode":
             positions = batch["pos"][:, None]
@@ -173,10 +183,18 @@ class Model:
                                   else caches["layers"][i], mode=mode,
                                   site=f"layers/{i}")
             new.append(nc)
-        return self._head(params, x), (None if caches is None
-                                       else {"layers": new})
+        return self.head(params, x), (None if caches is None
+                                      else {"layers": new})
 
-    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Token ids (B, T) -> the first hidden states (B, T, d)."""
+        cdt = getattr(torch, self.policy.compute_dtype)
+        return params["embed"]["table"][tokens].to(cdt) \
+            * math.sqrt(self.cfg.d_model)
+
+    def head(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and LM head: hidden states -> f32 logits, the
+        padded vocab columns masked."""
         cfg = self.cfg
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"]["table"].T if cfg.tie_embeddings \

@@ -147,6 +147,27 @@ def test_dense_7b_linears_take_the_decode_body(k, n, w_dtype):
             _check_plan(plan, rows, k, n, 2 if w_dtype == "int8" else 1)
 
 
+@pytest.mark.parametrize("w_dtype", ["int4", "int8"])
+@pytest.mark.parametrize("k,n", DENSE_7B_SHAPES)
+def test_dense_7b_linears_plan_the_static_mode(k, n, w_dtype):
+    """The calibrated W4A4 and W8A8 programs run every 7-8B linear in the
+    static mode (K5): the decode body within shared memory, a valid
+    tiling, and the quantize modes' column share (the most tiles that
+    divide the tiles and keep the cluster at 8 blocks), at the same
+    split and slice as the fp mode."""
+    tiles = -(-n // 16)
+    for rows in (1, 2, 3, 4, 5, 6, 7, 8, 31, 128):
+        plan = tmm.launch_plan(rows, k, n, w_dtype, a_mode="static")
+        fp = tmm.launch_plan(rows, k, n, w_dtype)
+        assert plan.body == "decode" and plan.smem <= tmm.SMEM_MAX
+        assert (plan.split, plan.slice, plan.smem) == \
+            (fp.split, fp.slice, fp.smem)
+        assert plan.share == max(g for g in (1, 2, 4, 8)
+                                 if g * plan.split <= 8 and tiles % g == 0)
+        if rows in (1, 4, 31, 128):
+            _check_plan(plan, rows, k, n, 2 if w_dtype == "int8" else 1)
+
+
 # the down projections' K slices at rows 4: split 8, past _DEC_SLICE
 DENSE_7B_WD = {(18944, 3584): 1184, (11008, 4096): 688, (16384, 4096): 1024}
 
