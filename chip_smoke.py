@@ -175,7 +175,25 @@ CUDA toolkit. It builds the hand-written kernels from
    audit, graph against eager, the calibrated decode-step profile, the
    2-layer card-vs-CPU check, peak device memory (H2 held to phase E's
    + 2 layers of fp32 weights + 1 GB), and on a 2-layer cut of
-   Qwen2-7B the streamed artifact byte for byte the whole tree's.
+   Qwen2-7B the streamed artifact byte for byte the whole tree's;
+15. the hybrid family, with the earlier models freed: serve phase I,
+   RecurrentGemma-9B at full published width and depth (38 layers: 12
+   periods of rglru, rglru, local_attn and 2 rglru; MQA 16 x 256,
+   window 2048, d_rnn 4096) through the launcher (`--arch
+   recurrentgemma-9b --quant olive_serve`, the launcher's workload,
+   slab: each prompt prefilled at its exact length): no fallback, a
+   decode step's launches exactly K1 292, K2 12 and K7 24 (the launch
+   counters), the audit (one prefill entry per distinct length), graph
+   against eager (recurrent states among the cache bytes), the sync check (and the ring's KV write under
+   "error"), the decode-step profile beside its byte bound, a 3-layer
+   (one period) card-vs-CPU check, and the ring check: the 3-layer cut
+   at max_len 2560 (a 2048-slot ring) serves a 2100-token prompt and 64
+   greedy decode steps on the captured decode step, K2 at window 2048
+   and ring 2048, held over an fp32 cache to one CPU window prefill of
+   the same tokens (1e-3 * max|ref|, greedy tokens equal), and over the
+   served KV4 ring K2 held to its plain version and timed beside SDPA;
+   K1 at one rglru layer's 8 and one local layer's 7 decode launches
+   (the served weights), and K2 at the served shape.
 
 Every serve phase runs the engine's captured steps (CUDA graphs, the
 default) and checks them: the trace audit (`audit_check`: the decode step
@@ -1489,6 +1507,7 @@ def api_phase(dev):
 # 4 kv heads, D 128), each row at its 3-sigma scale, and a prefill-size
 # `kernels.ops.ovp_encode` call at one scalar scale
 K7_SHAPES = (("KV write A", 64, 64, "row"), ("KV write E", 16, 128, "row"),
+             ("KV write I", 4, 256, "row"),
              ("API prefill", 2048, 4096, "scalar"))
 K7_DTYPES = ("float32", "bfloat16")
 
@@ -1755,11 +1774,17 @@ def check_counts(counts, phase: str,
             fail(f"{phase}: kernel {name} was never launched")
 
 
+def attn_layers(model) -> int:
+    """The model's layers with an attention KV cache (all but rglru)."""
+    return sum(model.block_type(i) != "rglru"
+               for i in range(model.cfg.n_layers))
+
+
 def check_attn_counts(res, counts, phase: str, paged: bool) -> None:
-    """One attention launch per layer per forward call: K2 (slab) or K3
-    (paged) once per layer per decode step, K4 once per layer per paged
-    prefill chunk, and no other attention kernel."""
-    layers = res["model"].cfg.n_layers
+    """One attention launch per attention layer per forward call: K2
+    (slab) or K3 (paged) once per layer per decode step, K4 once per
+    layer per paged prefill chunk, and no other attention kernel."""
+    layers = attn_layers(res["model"])
     st = res["engine"].stats()
     want = {"decode_attn": 0 if paged else layers * st["decodes_run"],
             "paged_decode_attn": layers * st["decodes_run"] if paged else 0,
@@ -1777,7 +1802,8 @@ def check_encode_counts(eng, counts, phase: str) -> int:
     step and every whole-prompt prefill (paged prefill chunks write their
     pages in K4). Layers over an fp cache launch none. Returns the
     count."""
-    layers = sum("k_data" in layer["kv"] for layer in eng.caches["layers"])
+    layers = sum("k_data" in layer.get("kv", {})
+                 for layer in eng.caches["layers"])
     st = eng.stats()
     want = 2 * layers * (st["decodes_run"] + st["prefills_run"])
     if counts["ovp_encode"] != want:
@@ -1868,8 +1894,10 @@ def sync_check(res, label: str) -> None:
                   == os.path.abspath(ovp_encode.__file__))
     eng.run_until_drained()
     # the KV write alone, at this step's shapes, under "error": a sync
-    # raises
-    cfg, served = eng.model.cfg, eng.caches["layers"][0]["kv"]
+    # raises; a windowed model's ring write too, one token and a prefill
+    cfg = eng.model.cfg
+    served = next(layer["kv"] for layer in eng.caches["layers"]
+                  if "kv" in layer)
     paged, dev = "block_table" in served, served["k_data"].device
     cache = (layers.make_paged_kv_cache(16, 16, 4, 16, cfg.n_kv_heads,
                                         cfg.head_dim, kv_bits=4, device=dev)
@@ -1879,11 +1907,22 @@ def sync_check(res, label: str) -> None:
     kv = torch.randn((2, 4, 1, cfg.n_kv_heads, cfg.head_dim), device=dev)
     pos = torch.tensor([0, 17, 255, 3], dtype=torch.int32, device=dev)
     policy = layers.rp(eng.model.policy, "attn", "kv")
-    layers.cache_write(cache, kv[0], kv[1], pos, policy)
+    writes = [(cache, kv[0], kv[1], pos, 0)]
+    if cfg.window:
+        ring = layers.make_kv_cache(4, cfg.window, cfg.n_kv_heads,
+                                    cfg.head_dim, kv_bits=4, device=dev)
+        many = torch.randn((2, 4, 40, cfg.n_kv_heads, cfg.head_dim),
+                           device=dev)
+        writes += [(ring, kv[0], kv[1], pos + 3 * cfg.window, cfg.window),
+                   (ring, many[0], many[1], pos + cfg.window - 20,
+                    cfg.window)]
+    for c, k, v, p, r in writes:
+        layers.cache_write(c, k, v, p, policy, ring=r)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        layers.cache_write(cache, kv[0], kv[1], pos, policy)
+        for c, k, v, p, r in writes:
+            layers.cache_write(c, k, v, p, policy, ring=r)
     except RuntimeError as err:
         fail(f"sync check {label}: the KV write synchronized the host: "
              f"{err}")
@@ -1896,7 +1935,9 @@ def sync_check(res, label: str) -> None:
           f"place: "
           + (", ".join(f"{f}:{n} x{c}" for (f, n), c in sorted(where.items()))
              or "none") + f"; the {'paged' if paged else 'slab'} KV write "
-          f"alone under \"error\": no sync")
+          + (f"and the {cfg.window}-slot ring's (one token, 40 tokens) "
+             if cfg.window else "")
+          + "alone under \"error\": no sync")
     if from_kv:
         fail(f"sync check {label}: the KV write synchronized the host "
              f"{from_kv} times")
@@ -1907,11 +1948,13 @@ def sync_check(res, label: str) -> None:
 
 def _prefill_keys(eng) -> set:
     """The compiled prefill entries the engine's completed requests
-    needed: one per prompt bucket (slab) or ("paged", stage length), by
-    the engine's own rounding."""
+    needed: one per prompt bucket (slab; the exact length where the
+    model cannot bucket) or ("paged", stage length), by the engine's own
+    rounding."""
     keys = set()
     for req in eng.completed:
-        bucket = eng._bucket(len(req.prompt))
+        bucket = eng._bucket(len(req.prompt)) if eng._bucket_ok \
+            else len(req.prompt)
         if not eng.paged:
             keys.add(bucket)
             continue
@@ -1960,6 +2003,7 @@ def capture_gate(eng, phase: str, steps: int = 6) -> None:
     import numpy as np
     import torch
     from repro_torch.serve.capture import StepGraph
+    from repro_torch.serve.engine import _leaves
     g = eng._decode
     rng = np.random.default_rng(6)
     for _ in range(4):
@@ -1970,8 +2014,7 @@ def capture_gate(eng, phase: str, steps: int = 6) -> None:
     if g.graph is None:
         fail(f"capture gate {phase}: the decode step is not captured")
     eager = StepGraph(g.fn, g.inputs, capture=False)
-    leaves = [leaf for layer in eng.caches["layers"]
-              for leaf in layer["kv"].values()]
+    leaves = _leaves(eng.caches)        # KV caches and recurrent states
     start = [leaf.clone() for leaf in leaves]
     tok0 = np.array([[r.out_tokens[-1]] for r in eng.slots], np.int64)
     runs = {}
@@ -2324,7 +2367,9 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
             "kernels_per_step": n_kernels if kernels else None,
             "k6_ms": k6_ms if kernels else None,
             "k1_ms": k1_ms if kernels else None,
-            "attn_ms": attn_ms if kernels else None}
+            "attn_ms": attn_ms if kernels else None,
+            "k1_calls": n_dense if kernels else None,
+            "attn_calls": attn_n if kernels else None}
 
 
 def serve_phase_c(dev, res_a, arch: str = ARCH):
@@ -3200,8 +3245,10 @@ def serve_phase_e(dev):
 
 
 def truncated_reference_check(res, dev, label: str = "W4 experts",
-                              paged: bool = False, tag: str = "E"):
-    """A 2-layer truncation of the served full-width model (same widths,
+                              paged: bool = False, tag: str = "E",
+                              n_layers: int = 2):
+    """A 2-layer (`n_layers`) truncation of the served full-width model
+    (same widths,
     the same quantized params) over an fp32 KV cache, on the card against
     the CPU's plain versions: prefill of one prompt + 2 greedy decode
     steps (`_logits_on`), or with `paged` a 24-token prompt prefilled in
@@ -3219,9 +3266,9 @@ def truncated_reference_check(res, dev, label: str = "W4 experts",
     from repro_torch.models.model import build_model
     model, params = res["model"], res["params"]
     name = model.cfg.name
-    small = build_model(dataclasses.replace(model.cfg, n_layers=2),
+    small = build_model(dataclasses.replace(model.cfg, n_layers=n_layers),
                         model.policy.replace_all(kv_bits=0))
-    p2 = dict(params, layers=params["layers"][:2])
+    p2 = dict(params, layers=params["layers"][:n_layers])
     if paged:
         def logits(device, tree):
             return _paged_logits_on(small, tree, device, PROMPT * 3)
@@ -3241,7 +3288,8 @@ def truncated_reference_check(res, dev, label: str = "W4 experts",
         if not torch.equal(x.cpu(), y):
             n_diff = int((x.cpu() != y).sum())
             fail(f"{name} reference check: ROUTING differs at MoE call {i} "
-                 f"(layer {i % 2}): {n_diff} of {y.numel()} routed expert "
+                 f"(layer {i % n_layers}): {n_diff} of {y.numel()} routed "
+                 f"expert "
                  f"indices differ between card and CPU (router logits "
                  f"summed in another order picked another expert at a "
                  f"near-tie); the logits were not compared")
@@ -3255,7 +3303,8 @@ def truncated_reference_check(res, dev, label: str = "W4 experts",
     same = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
     routes = (f"routed expert indices equal in all {len(r_dev)} MoE calls, "
               if r_dev else "")
-    print(f"[ref {tag}] {name} truncated to 2 layers, {label}, fp32 KV: "
+    print(f"[ref {tag}] {name} truncated to {n_layers} layers, {label}, "
+          f"fp32 KV: "
           f"{what} + 2 decode steps, card vs CPU plain versions: {routes}"
           f"max |diff| {err:.3e} (tol {tol:.3e} = 1e-3 * max|ref|), greedy "
           f"tokens {'equal' if same else 'differ'}")
@@ -3399,23 +3448,28 @@ def async_phase_a(dev, res_a, smi: str):
 
 
 def check_k1_weight_counts(res, counts, phase: str, mode: str = "fp"):
-    """K1 runs once per quantized linear (7 a layer; the head stays fp)
-    per forward call, all in `mode`, and the launches with int8 weights
-    are the W8 linears' (counted off the tree's leaves) each forward
-    call. Returns the W8 linears' count."""
+    """K1 runs once per quantized linear (7 an attention layer, 8 an
+    RG-LRU layer; the head stays fp) per forward call, all in `mode`,
+    and the launches with int8 weights are the W8 linears' (counted off
+    the tree's leaves) each forward call. Returns the W8 linears'
+    count."""
     from repro_torch.core.ovp import QuantizedTensor
     st = res["engine"].stats()
     forwards = st["prefills_run"] + st["prefill_chunks_run"] \
         + st["decodes_run"]
+    model = res["model"]
     leaves = [w for layer in res["params"]["layers"]
-              for sub in ("attn", "mlp") for w in layer[sub].values()
+              for sub in ("attn", "rec", "mlp")
+              for w in layer.get(sub, {}).values()
               if isinstance(w, QuantizedTensor)]
+    per_layer = sum(8 if model.block_type(i) == "rglru" else 7
+                    for i in range(model.cfg.n_layers))
     n_w8 = sum(w.normal_dtype == "int8" for w in leaves)
     want = {f"ovp_matmul[{mode}]": len(leaves) * forwards,
             "ovp_matmul<int8>": n_w8 * forwards,
             "ovp_matmul<int4>": (len(leaves) - n_w8) * forwards}
     got = {key: counts[key] for key in want}
-    if got != want or len(leaves) != 7 * res["model"].cfg.n_layers:
+    if got != want or len(leaves) != per_layer:
         fail(f"{phase}: K1 launches {got}, expected {want} ({len(leaves)} "
              f"quantized linears, {n_w8} at W8, {forwards} forward calls)")
     return n_w8
@@ -4358,6 +4412,362 @@ def serve_phase_h(dev, smi: str, peak_f_gb: float, peak_e_gb: float):
     return runs
 
 
+# --------------------------------------------------------------------------
+# The hybrid family: RecurrentGemma-9B (RG-LRU blocks + local attention)
+# --------------------------------------------------------------------------
+HYBRID_ARCH = "recurrentgemma-9b"
+# one decode step of the served model: K1 8 a rglru layer x 26 + 7 a
+# local-attention layer x 12, K2 one a local layer, K7 two a local layer
+HYBRID_STEP_LAUNCHES = {"ovp_matmul[fp]": 292, "decode_attn": 12,
+                        "ovp_encode": 24}
+HYBRID_CUT = 3          # the card-vs-CPU checks' depth: one whole period
+RING_PROMPT = 2100      # tokens: past the 2048-token window
+RING_STEPS = 64         # greedy decode steps over the ring
+RING_MAX_LEN = 2560     # the local cache is min(window, max_len) slots
+
+
+def _masked_library(q, kdense, vdense, valid, g: int):
+    """SDPA on the dense f32 K/V under a (B, S) validity mask: one
+    PyTorch call computing K2's function with a window or a ring."""
+    import torch.nn.functional as F
+    qh, kh, vh = (q.transpose(1, 2), kdense.transpose(1, 2),
+                  vdense.transpose(1, 2))
+    mask = valid[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                  attn_mask=mask,
+                                                  enable_gqa=g > 1)
+
+
+def k2_record(q, cache, pos, window: int, ring: int, label: str):
+    """K2 at one call against its plain version (atol 1e-5), timed beside
+    it, SDPA under the same mask and the bound (the bytes of the slots
+    the mask keeps and the operations over them). Returns the record."""
+    import torch
+    from repro_torch.kernels import decode_attn as da
+    b, _, h, d = q.shape
+    kdense, vdense = da.read_cache_dense(cache, dtype=torch.float32)
+    s_len, hkv = kdense.shape[1], kdense.shape[2]
+
+    def kern():
+        return da.fused_decode_attention(q, cache, pos, window=window,
+                                         ring=ring)
+
+    def plain():
+        return da.decode_attention_plain(q, cache, pos, window=window,
+                                         ring=ring)
+
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not within(got, ref, 0.0, 1e-5):
+        fail(f"K2 {label}: max abs err {err:.3e} over atol 1e-5")
+    _, valid = da.slot_validity(pos.long(), torch.arange(s_len,
+                                                         device=q.device),
+                                window=window, ring=ring)
+    n_valid = int(valid.sum())
+    per_tok = hkv * (d + 8) if "k_data" in cache \
+        else hkv * d * cache["k"].element_size() * 2
+    b_ms, b_by = bound_ms(2 * b * h * d * 4 + b * 4 + n_valid * per_tok,
+                          4.0 * n_valid * (h // hkv) * hkv * d)
+    rec = dict(max_abs_err=err, ms=time_ms(kern)[0],
+               plain_ms=time_ms(plain)[0],
+               library_ms=time_ms(_masked_library(q, kdense, vdense, valid,
+                                                  h // hkv))[0],
+               bound_ms=b_ms, bound_by=b_by)
+    print(f"[k2 {label}] B={b} S={s_len} Hkv={hkv} G={h // hkv} D={d} "
+          f"window {window} ring {ring}, {n_valid} valid slots: err "
+          f"{err:.2e} (tol atol 1e-5) kernel={rec['ms']:.4f}ms plain="
+          f"{rec['plain_ms']:.4f}ms sdpa={rec['library_ms']:.4f}ms bound="
+          f"{b_ms:.5f}ms ({b_by})")
+    return rec
+
+
+def ring_check(res, dev, smi: str, t: int = RING_PROMPT,
+               steps: int = RING_STEPS, max_len: int = RING_MAX_LEN):
+    """The local-attention ring on the card: a `HYBRID_CUT`-layer
+    truncation of the served full-width model (rglru, rglru,
+    local_attn; the same quantized params) in an engine of one slot at
+    `max_len`, so the local cache is a 2048-slot ring. One `t`-token
+    prompt (past the window: the prefill keeps tokens t-2048..t-1 in
+    ring order) through its exact-length prefill entry twice (warm-up
+    and capture, then a replay: bit for bit), then `steps` greedy decode
+    steps through the captured decode step, each K2 at window 2048,
+    ring 2048 (the wrapper's arguments are recorded while the step is
+    built; the launches counted).
+
+    Over an fp32 KV cache, the logits of the last prompt position and
+    of every decode step are held against the same model's plain path
+    on the CPU over the same tokens (the card's greedy tokens fed, as
+    `_torch_parity.port_forced` does): one sliding-window prefill of
+    the prompt and the fed tokens, its logits read at those positions
+    (a CPU decode step would dequantize every full-width weight again;
+    the prefill's window attention and RG-LRU scan compute the same
+    function by another path). Max |diff| <= 1e-3 * max|ref|, greedy
+    tokens equal. Then the served KV4 cache: the same steps must give
+    finite logits; their distance to the fp32 run (a 4-bit KV cache is
+    another function: first decode step, and where the greedy tokens
+    part) and to the CPU's plain path with the same KV4 ring (the
+    prompt's prefill into the ring, then one decode step fed the
+    card's token) are printed, not bounded (a last-bit difference can
+    move a value across a 4-bit boundary, as `reference_check` says),
+    and K2 is timed on the final ring state (`k2_record`). Returns the
+    K2 record and the launches of the KV4 run's decode steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.models.layers import cache_len
+    from repro_torch.models.model import block_forward, build_model
+    from repro_torch.serve.engine import EngineCfg, ServingEngine, \
+        _splice_slot
+    model, params = res["model"], res["params"]
+    cfg = dataclasses.replace(model.cfg, n_layers=HYBRID_CUT)
+    p3 = dict(params, layers=params["layers"][:HYBRID_CUT])
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab, size=t)
+    seen, real_run = set(), da._run
+
+    def recording(q, cache, pos, window, ring):
+        seen.add((window, ring, cache_len(cache)))
+        return real_run(q, cache, pos, window, ring)
+
+    runs = {}
+    for kv in ("fp32", "KV4"):
+        small = build_model(cfg, model.policy if kv == "KV4"
+                            else model.policy.replace_all(kv_bits=0))
+        eng = ServingEngine(small, p3, EngineCfg(batch_slots=1,
+                                                 max_len=max_len),
+                            device=dev)
+        site = eng.caches["layers"][2]["kv"]
+        if cache_len(site) != cfg.window:
+            fail(f"ring check: the local cache has {cache_len(site)} slots,"
+                 f" not a {cfg.window}-slot ring")
+        first, replay = [[x.clone() for x in eng._prefill(prompt)]
+                         for _ in range(2)]
+        if not torch.equal(first[0], replay[0]):
+            fail(f"ring check {kv}: the {t}-token prefill's warm-up and "
+                 f"replay differ")
+        _splice_slot(eng.caches, eng._row_cache, 0)
+        logits, tok = [replay[0]], int(replay[1])
+        fed = []
+        reset_counts()
+        da._run = recording
+        try:
+            for i in range(steps):
+                fed.append(tok)
+                row, nxt = eng._decode.run(
+                    tokens=np.array([[tok]], np.int64),
+                    pos=np.array([t + i], np.int32))
+                logits.append(row[0].clone())
+                tok = int(nxt[0])
+        finally:
+            da._run = real_run
+        counts = read_counts()
+        check_counts(counts, f"ring check {kv}",
+                     ("ovp_matmul[fp]", "decode_attn"))
+        if counts["decode_attn"] != steps or eng._decode.graph is None:
+            fail(f"ring check {kv}: {counts['decode_attn']} K2 launches "
+                 f"over {steps} decode steps, captured "
+                 f"{eng._decode.graph is not None}")
+        runs[kv] = (torch.stack(logits).float().cpu(), fed, counts, eng)
+    if seen != {(cfg.window, cfg.window, cfg.window)}:
+        fail(f"ring check: K2 was called with (window, ring, slots) "
+             f"{sorted(seen)}, expected the {cfg.window}-slot ring")
+    got, fed, _, _ = runs["fp32"]
+    # the CPU: one window prefill over the prompt and the fed tokens
+    small = build_model(cfg, model.policy.replace_all(kv_bits=0))
+    cpu_p = _to(p3, "cpu")
+    toks = torch.as_tensor(np.concatenate([prompt, fed]))[None]
+    t0 = time.perf_counter()
+    x = small.embed(cpu_p, toks)
+    positions = torch.arange(toks.shape[1])[None]
+    for i, layer in enumerate(cpu_p["layers"]):
+        x, _ = block_forward(layer, x, positions, cfg, small.policy,
+                             site=f"layers/{i}")
+    ref = small.head(cpu_p, x[:, t - 1:])[0].float()
+    cpu_s = time.perf_counter() - t0
+    v = cfg.vocab
+    err = float((got[:, :v] - ref[:, :v]).abs().max())
+    tol = 1e-3 * float(ref[:, :v].abs().max())
+    same = bool(torch.equal(got[:, :v].argmax(-1), ref[:, :v].argmax(-1)))
+    kv4, fed4 = runs["KV4"][0], runs["KV4"][1]
+    first_diff = float((kv4[1, :v] - got[1, :v]).abs().max())
+    part = next((i for i, (a, b) in enumerate(zip(fed4, fed)) if a != b),
+                None)
+    finite = bool(torch.isfinite(kv4).all())
+    # the CPU over the same KV4 ring: the prompt's prefill, one decode step
+    small4 = build_model(cfg, model.policy)
+    caches = small4.init_caches(1, max_len, device="cpu")
+    x = small4.embed(cpu_p, toks[:, :t])
+    for i, layer in enumerate(cpu_p["layers"]):
+        x, caches["layers"][i] = block_forward(
+            layer, x, positions[:, :t], cfg, small4.policy,
+            cache=caches["layers"][i], site=f"layers/{i}")
+    ref4 = [small4.head(cpu_p, x[:, -1:])[0, 0]]
+    lg, _ = small4.forward(cpu_p, {"tokens": torch.tensor([[fed4[0]]]),
+                                   "pos": torch.tensor([t])},
+                           mode="decode", caches=caches)
+    ref4 = torch.stack(ref4 + [lg[0, 0]]).float()
+    cpu4_diff = float((kv4[:2, :v] - ref4[:, :v]).abs().max())
+    print(f"[ring I] {cfg.name} cut to {HYBRID_CUT} layers "
+          f"({', '.join(small.block_type(i) for i in range(HYBRID_CUT))}), "
+          f"max_len {max_len}: a {t}-token prompt through its captured "
+          f"exact-length prefill entry (warm-up and replay bit-identical),"
+          f" then {steps} greedy decode steps on the captured decode step, "
+          f"K2 called with window {cfg.window}, ring {cfg.window} over a "
+          f"{cfg.window}-slot ring ({runs['fp32'][2]['decode_attn']} K2 "
+          f"launches); fp32 KV, card vs the CPU's plain path (one window "
+          f"prefill of the {t + steps} tokens, {cpu_s:.1f}s): max |diff| "
+          f"{err:.3e} over {steps + 1} positions (tol {tol:.3e} = 1e-3 * "
+          f"max|ref|), greedy tokens {'equal' if same else 'differ'}; "
+          f"the served KV4 ring: logits {'finite' if finite else 'NOT '}"
+          f"{'' if finite else 'finite'}; at the first decode step "
+          f"max |diff| {first_diff:.3e} to the fp32 run, greedy tokens "
+          + (f"part from it at decode step {part + 1}" if part is not None
+             else "equal to it") + f" (not bounded); against the CPU's "
+          f"plain path over the same KV4 ring (prefill + 1 decode step) "
+          f"max |diff| {cpu4_diff:.3e} (not bounded) ({smi})")
+    if not np.isfinite(err) or err > tol or not same or not finite:
+        fail("ring check: card and CPU disagree")
+    eng = runs["KV4"][3]
+    ring = eng.caches["layers"][2]["kv"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q = torch.randn((1, 1, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=dev)
+    pos = torch.tensor([t + steps - 1], dtype=torch.int32, device=dev)
+    rec = k2_record(q, ring, pos, cfg.window, cfg.window,
+                    f"ring {cfg.window}, packed")
+    return rec, runs["KV4"][2]["decode_attn"]
+
+
+def serve_phase_i(dev, smi: str):
+    """The hybrid family at full published width and depth through the
+    launcher's entry point: RecurrentGemma-9B (`--arch
+    recurrentgemma-9b --quant olive_serve`: 38 layers, 12 x (rglru,
+    rglru, local_attn) + 2 rglru, d_model 4096, MQA 16 heads of 256,
+    window 2048, d_ff 12288, d_rnn 4096, untied 256000 vocab), slab, the
+    launcher's workload. Counters reset just before and read just after:
+    no fallback; K1 `fp` once per quantized linear (8 a rglru layer, 7
+    a local one) per forward call, none for the fp32 head; K2 once per
+    local layer per decode step; K7 twice per local layer per cache
+    write; a decode step's launches exactly `HYBRID_STEP_LAUNCHES`
+    (292, 12, 24; the profiler's kernel counts are printed beside them,
+    not gated: a trace can drop events); 8 requests x 16 tokens. Then
+    the audit (one prefill entry per distinct prompt length: the model
+    cannot bucket), `capture_gate` (the recurrent
+    states among the cache bytes), `sync_check`, the decode-step profile
+    beside the step's byte bound (W4 blocks + fp32 head from
+    `param_count`), the `HYBRID_CUT`-layer card-vs-CPU check and
+    `ring_check`. Then K1 at one rglru layer's 8 and one local layer's 7
+    decode launches (the served weights, rows 4, `k1_layer_record`) and
+    K2 at the served shape (B 4, S 256, window 2048 over 256 slots: no
+    ring at max_len 256). Prints PTQ seconds, peak device memory, tok/s,
+    mean TTFT and mean step beside the card. Returns the counts and the
+    kernel records."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import _quant_kv_token
+    t_phase = time.perf_counter()
+    phase = f"serve phase I ({HYBRID_ARCH}, slab)"
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = serve.run(["--arch", HYBRID_ARCH, "--quant", "olive_serve"]
+                    + SERVE_ARGS, device=dev)
+    load_s = time.perf_counter() - t0 - res["seconds"]
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    eng, model = res["engine"], res["model"]
+    cfg = model.cfg
+    kernels = tuple(HYBRID_STEP_LAUNCHES)
+    check_counts(counts, phase, kernels)
+    check_attn_counts(res, counts, phase, paged=False)
+    check_encode_counts(eng, counts, phase)
+    if check_k1_weight_counts(res, counts, phase):
+        fail(f"{phase}: W8 linears under olive_serve")
+    st = eng.stats()
+    forwards = st["prefills_run"] + st["decodes_run"]
+    step = {"ovp_matmul[fp]": counts["ovp_matmul[fp]"] / forwards,
+            "decode_attn": counts["decode_attn"] / st["decodes_run"],
+            "ovp_encode": counts["ovp_encode"] / forwards}
+    others = {key: counts[key] for key in ("grouped[fp]",
+                                           "paged_decode_attn",
+                                           "prefill_attn")}
+    if step != HYBRID_STEP_LAUNCHES or any(others.values()):
+        fail(f"{phase}: a decode step's launches {step}, expected "
+             f"{HYBRID_STEP_LAUNCHES}; other kernels {others}")
+    done = res["completed"]
+    if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+        fail(f"{phase}: {len(done)} requests finished with "
+             f"{[len(r.out_tokens) for r in done]} tokens, expected 8 x 16")
+    w_bytes, head_bytes = step_bytes(cfg)
+    step_bound = bound_ms(w_bytes + head_bytes, 0.0)[0]
+    print(f"[serve I] {HYBRID_ARCH} ({cfg.n_layers} layers: "
+          f"{attn_layers(model)} local_attn, "
+          f"{cfg.n_layers - attn_layers(model)} rglru; d_model "
+          f"{cfg.d_model}, Hkv {cfg.n_kv_heads} G "
+          f"{cfg.n_heads // cfg.n_kv_heads} D {cfg.head_dim}, window "
+          f"{cfg.window}, d_rnn {cfg.d_rnn}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}) W4 + KV4, slab: PTQ {res['ptq_s']:.2f}s (layer by "
+          f"layer; build and PTQ {load_s:.2f}s), peak device memory "
+          f"{peak_gb:.2f} GB, {res['tokens']} tokens in "
+          f"{res['seconds']:.3f}s = {res['tok_per_s']:.2f} tok/s, mean "
+          f"TTFT {res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+          f"{res['mean_step_s'] * 1e3:.2f}ms; launches "
+          + " ".join(f"{key}={counts[key]}" for key in kernels)
+          + f" ({st['prefills_run']} exact-length prefills, "
+          f"{st['decodes_run']} decode steps; a decode step: "
+          + ", ".join(f"{k} {v:g}" for k, v in step.items())
+          + f"), dispatch {counts['dispatch']}; a decode step's byte bound "
+          f"{step_bound:.3f}ms (W4 blocks {w_bytes / 1e9:.2f} GB + fp32 "
+          f"head {head_bytes / 1e9:.2f} GB at 3.35 TB/s) ({smi})")
+    audit_check(eng, phase)
+    capture_gate(eng, "I", steps=3)
+    sync_check(res, "I")
+    prof = profile_decode(res, f"{HYBRID_ARCH}, W4 + KV4, slab", steps=3,
+                          max_new=10)
+    if prof["k1_ms"] is not None:
+        print(f"[serve I] {HYBRID_ARCH} decode step (4 slots): "
+              f"{prof['kernels_per_step']:.1f} device kernels, busy "
+              f"{prof['busy_ms']:.3f}ms of {prof['prof_ms']:.2f}ms profiled "
+              f"wall ({prof['step_ms']:.2f}ms plain), K1 "
+              f"{prof['k1_ms']:.3f}ms over {prof['k1_calls']:g} calls, K2 "
+              f"{prof['attn_ms']:.3f}ms over {prof['attn_calls']:g}; byte "
+              f"bound {step_bound:.3f}ms ({smi})")
+    truncated_reference_check(res, dev, label="W4", tag="I",
+                              n_layers=HYBRID_CUT)
+    k2_ring, ring_launches = ring_check(res, dev, smi)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    recs = {}
+    for i, what in ((0, "rglru"), (2, "local_attn")):
+        layer = res["params"]["layers"][i]
+        linears = [w for sub in ("rec", "attn", "mlp")
+                   for w in layer.get(sub, {}).values()
+                   if hasattr(w, "normal_dtype")]
+        recs[what] = k1_layer_record(dev, gen, linears, 4, "int4",
+                                     label=f"k1 {HYBRID_ARCH} {what}")
+        print(f"[k1 {HYBRID_ARCH}] one {what} layer's {len(linears)} decode "
+              f"launches, rows 4, fp: kernel {recs[what]['ms']:.4f}ms, "
+              f"matmul {recs[what]['library_ms']:.4f}ms, bound "
+              f"{recs[what]['bound_ms']:.5f}ms, plain "
+              f"{recs[what]['plain_ms']:.4f}ms ({smi})")
+    kv = [torch.randn((4, 256, cfg.n_kv_heads, cfg.head_dim),
+                      generator=gen, device=dev) for _ in range(2)]
+    (kd, ks), (vd, vs) = _quant_kv_token(kv[0]), _quant_kv_token(kv[1])
+    q = torch.randn((4, 1, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=dev)
+    k2_served = k2_record(
+        q, {"k_data": kd, "k_scl": ks, "v_data": vd, "v_scl": vs},
+        torch.tensor(POS_CASES["mixed"], dtype=torch.int32, device=dev),
+        cfg.window, 0, "served, packed")
+    print(f"[serve I] phase took {time.perf_counter() - t_phase:.1f}s")
+    del res, eng, done
+    return {"counts": counts, "peak_gb": peak_gb, "profile": prof,
+            "k1": recs, "k2": k2_served, "k2_ring": k2_ring,
+            "ring_launches": ring_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4393,7 +4803,7 @@ def main() -> int:
     attn_host_phase(dev)
     _, k4_err, k4_main = k4_phase(dev)
     _, k5_err, k5_main, k5_decode = k5_codes_phase(dev)
-    _, k7_main = k7_phase(dev)
+    k7_recs, k7_main = k7_phase(dev)
     k7_exhaustive(dev)
     counts_api = api_phase(dev)
     res, counts_a = serve_phase_a(dev)
@@ -4460,6 +4870,9 @@ def main() -> int:
     # calibration at full width, streamed
     runs_h = serve_phase_h(dev, card, runs_f[(H_DENSE, False)]["peak_gb"],
                            runs_e["slab"]["peak_gb"])
+    # the hybrid family, the earlier models freed
+    free_device_memory()
+    run_i = serve_phase_i(dev, card)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -4550,6 +4963,35 @@ def main() -> int:
                      counts_h[H_DENSE]["ovp_matmul<int8>"]),
                     (f"ovp_matmul[static]@{MOE_ARCH} attn", "moe attn",
                      counts_h[MOE_ARCH]["ovp_matmul[static]"]))]
+    # the hybrid family: launches from phase I's run (K1 split by layer
+    # type: 8 a rglru layer, 7 a local one, per forward call)
+    counts_i = run_i["counts"]
+    cfg_i = get_config(HYBRID_ARCH)
+    n_local = sum(b == "local_attn" for b in
+                  (cfg_i.block_pattern[i % len(cfg_i.block_pattern)]
+                   for i in range(cfg_i.n_layers)))
+    forwards_i = counts_i["ovp_matmul[fp]"] \
+        // HYBRID_STEP_LAUNCHES["ovp_matmul[fp]"]
+    k7_i = next(r for r in k7_recs if r["label"] == "KV write I"
+                and r["dtype"] == "float32")
+    kernels += [
+        row(f"ovp_matmul[fp]@{HYBRID_ARCH} rglru", k1_src, "ovp_matmul.cu",
+            8 * (cfg_i.n_layers - n_local) * forwards_i,
+            run_i["k1"]["rglru"]["max_abs_err"], run_i["k1"]["rglru"]),
+        row(f"ovp_matmul[fp]@{HYBRID_ARCH} local_attn", k1_src,
+            "ovp_matmul.cu", 7 * n_local * forwards_i,
+            run_i["k1"]["local_attn"]["max_abs_err"],
+            run_i["k1"]["local_attn"]),
+        row(f"decode_attn@{HYBRID_ARCH}",
+            "src/repro/kernels/decode_attn.py:358", "decode_attn.cu",
+            counts_i["decode_attn"], run_i["k2"]["max_abs_err"],
+            run_i["k2"]),
+        row(f"decode_attn@{HYBRID_ARCH} ring",
+            "src/repro/kernels/decode_attn.py:358", "decode_attn.cu",
+            run_i["ring_launches"], run_i["k2_ring"]["max_abs_err"],
+            run_i["k2_ring"]),
+        row(f"ovp_encode@{HYBRID_ARCH}", "src/repro/kernels/ovp_encode.py:59",
+            "ovp_encode.cu", counts_i["ovp_encode"], 0.0, k7_i)]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -4604,7 +5046,18 @@ def main() -> int:
           "launches: phase H's auto_mixed run by weight dtype; "
           "ovp_matmul[static]@qwen3-moe-30b-a3b attn the 4 launches of "
           "one attention block, launches from phase H's Qwen3-30B-A3B "
-          "run")
+          "run. The hybrid family (phase I, RecurrentGemma-9B): "
+          "ovp_matmul[fp]@recurrentgemma-9b rglru / local_attn are the 8 "
+          "/ 7 launches of one served layer's decode step at rows 4, "
+          "launches: that layer type's share of phase I's K1 launches; "
+          "decode_attn@recurrentgemma-9b one launch at the served shape "
+          "(B 4, S 256, Hkv 1, G 16, D 256, packed, window 2048, pos 0, "
+          "17, 255, 17), launches from phase I; decode_attn@"
+          "recurrentgemma-9b ring one launch on the ring check's final "
+          "2048-slot packed ring (B 1, window 2048, ring 2048; library: "
+          "SDPA under the same mask), launches: that check's KV4 decode "
+          "steps; ovp_encode@recurrentgemma-9b one launch of the KV write "
+          "(R 4 x K 256, f32, a scale a row), launches from phase I")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

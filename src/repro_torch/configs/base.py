@@ -1,6 +1,6 @@
 """Architecture configuration schema. Port of `repro/configs/base.py`
-(the fields the dense and MoE decoders read, and the parameter count of
-those two families; other families come with their layers)."""
+(the fields the dense, MoE and hybrid decoders read, and the parameter
+count of their blocks; other families come with their layers)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +10,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe (the families ported)
+    family: str                      # dense | moe | hybrid (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,7 +25,10 @@ class ArchConfig:
     top_k: int = 0
     norm_topk: bool = False
     capacity_factor: float = 1.25
+    # block pattern (repeating period); tail = n_layers % len(pattern)
     block_pattern: Tuple[str, ...] = ("attn",)
+    window: int = 0                  # sliding window for local_attn blocks
+    d_rnn: int = 0                   # RG-LRU width (0 -> d_model)
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -44,14 +47,19 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks): the
-        reference's per-block table, its rows for the ported blocks."""
+        reference's per-block table, its rows for the ported blocks (an
+        RG-LRU block's count leaves out its conv kernel and gate decay,
+        as the reference's does)."""
         d, hd = self.d_model, self.head_dim
+        dr = self.d_rnn or d
         n_attn_p = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
             + self.n_heads * hd * d
         mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
         per = {"attn": n_attn_p + mlp,
+               "local_attn": n_attn_p + mlp,
                "moe": n_attn_p + self.n_experts * 3 * d * self.d_ff
-               + d * self.n_experts}
+               + d * self.n_experts,
+               "rglru": dr * (2 * d + d) + 2 * dr ** 2 + mlp}
         pattern = self.block_pattern
         return sum(per[pattern[i % len(pattern)]]
                    for i in range(self.n_layers)) \
@@ -59,8 +67,8 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family/pattern, tiny dimensions (the
-        reference's `reduced()` for the dense and MoE families: at most 8
-        experts, top-k at most 2)."""
+        reference's `reduced()` for the ported families: at most 8
+        experts, top-k at most 2, a window of at most 8, d_rnn 64)."""
         period = len(self.block_pattern)
         return dataclasses.replace(
             self,
@@ -75,4 +83,6 @@ class ArchConfig:
             vocab=512,
             n_experts=min(self.n_experts, 8) if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0,
+            window=min(self.window, 8) if self.window else 0,
+            d_rnn=64 if self.d_rnn else 0,
         )

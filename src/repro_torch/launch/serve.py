@@ -7,16 +7,21 @@ synthetic request stream, on the CUDA device:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen1.5-0.5b --quant olive_serve
 
-Any arch of `repro_torch.configs` (dense or MoE) is served the same way;
-the weights are drawn and quantized one layer at a time, so the fp32
-tree is never whole on the card (Qwen3-30B-A3B's is 122 GB, its W4 tree
-about 17 GB; Qwen2-7B, Yi-6B and Minitron-8B serve at W4 with their
-untied fp32 embedding and head):
+Any arch of `repro_torch.configs` (dense, MoE or hybrid) is served the
+same way; the weights are drawn and quantized one layer at a time, so
+the fp32 tree is never whole on the card (Qwen3-30B-A3B's is 122 GB,
+its W4 tree about 17 GB; Qwen2-7B, Yi-6B, Minitron-8B and
+RecurrentGemma-9B serve at W4 with their untied fp32 embedding and
+head; RecurrentGemma-9B, whose local-attention caches are 2048-slot
+rings and whose RG-LRU blocks carry a recurrent state, serves slab
+only, each prompt prefilled at its exact length):
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3-moe-30b-a3b --quant olive_serve
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen2-7b --quant olive_serve
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b --quant olive_serve
 
 The baselines the paper compares against are presets too (`int8`,
 `int4`: uniform int at an MSE-searched per-tensor scale; `ant4`: the
@@ -106,7 +111,8 @@ from repro_torch.core.policy import (PRESETS, PROGRAM_PRESETS, get_policy,
 from repro_torch.core.qlinear import quantize_params, stacks_layers
 from repro_torch.models.model import build_model
 from repro_torch.serve import capture
-from repro_torch.serve.engine import EngineCfg, ServingEngine
+from repro_torch.serve.engine import (EngineCfg, ServingEngine,
+                                     check_pageable)
 from repro_torch.serve.frontend import AsyncFrontend
 from repro_torch.serve.metrics import MetricsLedger
 from repro_torch.serve.paging import PagePoolCfg
@@ -213,6 +219,8 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("repro_torch.launch.serve needs a CUDA device")
     cfg = get_config(args.arch)
+    if args.paged:
+        check_pageable(cfg)     # before any weight is drawn
     if args.quant in PROGRAM_PRESETS or args.policy_rules:
         policy = get_program(None if args.quant == "fp" else args.quant,
                              n_layers=cfg.n_layers)
@@ -237,6 +245,13 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
                      f"pass --calibrate to create it")
         artifact = CalibrationArtifact.load(args.calibration)
         policy = apply_calibration(policy, artifact)
+    if stacks_layers(policy, cfg.n_layers) and \
+            len(set(cfg.block_pattern)) > 1:
+        raise ValueError(
+            f"a baseline preset fake-quantizes each linear over its stack "
+            f"of layers, and {cfg.name} mixes block types "
+            f"{cfg.block_pattern}: the reference's per-period stacks are "
+            f"not ported (ROADMAP queue 1, item 3)")
     model = build_model(cfg, policy)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 

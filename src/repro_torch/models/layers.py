@@ -1,13 +1,17 @@
-"""Decoder building blocks. Port of the dense and MoE subset of
-`repro/models/layers.py`: RMSNorm, RoPE, causal prefill attention, slab
-and paged KV caches (fp32 and OVP-packed), decode attention and paged
-cache-write prefill through the backend registry, the attention layer,
-SwiGLU, and the top-k token-choice MoE layer with capacity-based
-dispatch, whose expert einsums go through the registry (K6 on the card).
+"""Decoder building blocks. Port of the dense, MoE and hybrid subset of
+`repro/models/layers.py`: RMSNorm, RoPE, causal and sliding-window
+prefill attention, slab and paged KV caches (fp32 and OVP-packed; a
+local-attention cache of `window` slots is a ring), decode attention and
+paged cache-write prefill through the backend registry, the attention
+layer, SwiGLU, the top-k token-choice MoE layer with capacity-based
+dispatch, whose expert einsums go through the registry (K6 on the card),
+and the Griffin recurrent block: the width-4 causal conv and the RG-LRU.
 
 Params are plain dicts of tensors. Unlike the reference, cache writes
-update the cache tensors in place (the engine's caches are large and
-written every step); `attention_forward` returns the same cache dict.
+and recurrent-state updates write the cache tensors in place (the
+engine's caches are large, written every step and read by captured
+steps); `attention_forward` and `rglru_forward` return the same cache
+dict.
 """
 from __future__ import annotations
 
@@ -63,8 +67,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 ATTN_CHUNK = 512        # the reference's q_chunk = kv_chunk
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
     """q (B, T, H, D), k/v (B, T, Hkv, D) -> (B, T, H, D): the reference's
     online-softmax attention (`_flash_fwd_impl`) in blocks of
     `ATTN_CHUNK` queries x `ATTN_CHUNK` keys: scores scaled after the
@@ -75,7 +79,14 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
     gives the same values), so a prompt of at most `ATTN_CHUNK` tokens is
     one block. Key blocks past a query block's diagonal hold no valid key
     and are skipped (the reference's update leaves its state unchanged
-    there). Scores stay (B, Hkv, G, chunk, chunk) at any prompt length."""
+    there). Scores stay (B, Hkv, G, chunk, chunk) at any prompt length.
+
+    `window` > 0 is sliding-window attention (the reference's
+    `local_blockwise_attention`): query p sees keys (p - window, p].
+    Key blocks wholly below every window of a query block are skipped
+    too; a query row with no key in its block's first key block starts
+    from garbage that the first block holding one of its keys scales to
+    0 (exp(-1e30 - m) = 0), as the reference's online update does."""
     b, t, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -88,12 +99,16 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor,
     outs = []
     for q0 in range(0, t, chunk):
         qpos = pos[q0:q0 + chunk]
-        for k0 in range(0, q0 + len(qpos), chunk):
+        lo = max(0, q0 - window + 1) // chunk * chunk if window else 0
+        for k0 in range(lo, q0 + len(qpos), chunk):
             kpos = pos[k0:k0 + chunk]
             s = torch.matmul(qg[..., q0:q0 + chunk, :],
                              kt[..., k0:k0 + chunk]) * (1.0 / math.sqrt(d))
-            s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
-            if k0 == 0:
+            valid = qpos[:, None] >= kpos[None, :]
+            if window:
+                valid = valid & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(valid, s, NEG_INF)
+            if k0 == lo:
                 m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF)
                 p = torch.exp(s - m)
                 l_sum = p.sum(dim=-1, keepdim=True)
@@ -181,13 +196,31 @@ def _quant_kv(x: torch.Tensor, policy: Optional[QuantPolicy]):
     return backends.encode_kv(x, s, policy=policy), s
 
 
+def cache_len(cache) -> int:
+    """Slots a cache row holds (a paged cache: its table's logical
+    capacity)."""
+    if cache is None:
+        return 0
+    leaf = cache["k"] if "k" in cache else cache["k_data"]
+    if "block_table" in cache:
+        return cache["block_table"].shape[1] * leaf.shape[1]
+    return leaf.shape[1]
+
+
 def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
-                pos: torch.Tensor, policy: Optional[QuantPolicy] = None):
+                pos: torch.Tensor, policy: Optional[QuantPolicy] = None,
+                ring: int = 0):
     """Write T tokens per row at positions pos[b] + t, in place; rows past
     the cache length drop (the reference's mode="drop"; a paged cache
-    routes them to its sink page). `policy`, the cache site's resolved
-    policy, picks the backend that packs a quantized cache's K and V
-    (None: the torch ops)."""
+    routes them to its sink page). `ring` > 0 wraps the slots modulo the
+    ring size (a slab cache of `ring` slots, local attention): token t
+    lands in slot (pos[b] + t) % ring, and of a write longer than the
+    ring only its last `ring` tokens stay (a scatter's later writes
+    win). `policy`, the cache site's resolved policy, picks the backend
+    that packs a quantized cache's K and V (None: the torch ops)."""
+    if ring and k_new.shape[1] > ring:
+        drop = k_new.shape[1] - ring
+        k_new, v_new, pos = k_new[:, drop:], v_new[:, drop:], pos + drop
     if "k" in cache:
         new = {"k": k_new.to(cache["k"].dtype),
                "v": v_new.to(cache["v"].dtype)}
@@ -204,6 +237,8 @@ def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     if t == 1:
         # one token per row: every target is distinct, so a dropped row
         # rewrites its clamped slot with the old value — no host sync
+        if ring:
+            pos = torch.remainder(pos, ring)
         idx = torch.clamp(pos, max=length - 1)
         bidx = torch.arange(b, device=pos.device)
         keep = pos < length
@@ -213,10 +248,13 @@ def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
             cache[key][bidx, idx] = torch.where(mask, val[:, 0], old)
         return cache
     # several tokens a row (a prefill): cache row j of row b takes token
-    # j - pos[b] where that lies in [0, T) and keeps its value elsewhere.
-    # A gather and a select need no host sync (a boolean-mask index sizes
-    # its result on the host, which a CUDA graph capture refuses).
+    # j - pos[b] (mod the ring) where that lies in [0, T) and keeps its
+    # value elsewhere. A gather and a select need no host sync (a
+    # boolean-mask index sizes its result on the host, which a CUDA
+    # graph capture refuses).
     off = torch.arange(length, device=pos.device)[None] - pos[:, None]
+    if ring:
+        off = torch.remainder(off, ring)
     keep = (off >= 0) & (off < t)                           # (B, L)
     src = torch.clamp(off, 0, t - 1)
     for key, val in new.items():
@@ -248,20 +286,27 @@ def _paged_cache_write(cache, new, pos: torch.Tensor) -> None:
 
 
 def decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
+                     window: int = 0, ring: int = 0,
                      policy: Optional[QuantPolicy] = None) -> torch.Tensor:
     """Single-token attention over a slab or paged cache through the
     registry; `policy` is the resolved policy of the cache site
     (`<block>/attn/kv`) and its backend picks the kernel or the dense
-    path."""
-    return backends.decode_attention(q, cache, pos, policy=policy)
+    path. `window` masks keys at or below pos - window; `ring` is the
+    slot count of a ring cache, whose slots' absolute positions are
+    reconstructed from pos."""
+    return backends.decode_attention(q, cache, pos, policy=policy,
+                                     window=window, ring=ring)
 
 
 def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
-                      policy: QuantPolicy, *, cache=None,
+                      policy: QuantPolicy, *, window: int = 0, cache=None,
                       mode: str = "prefill", site: str = "attn"):
     """Self-attention in "prefill" (causal over the prompt at `positions`,
     cache written from positions[:, 0]) or "decode" (one token at
-    positions[:, 0]) mode. A paged cache that carries a request's raw
+    positions[:, 0]) mode. `window` > 0 is local attention: each query
+    sees the last `window` positions, and a cache of exactly `window`
+    slots is a ring (a prefill writes only its last min(window, T)
+    tokens). A paged cache that carries a request's raw
     "stage_k"/"stage_v" takes the paged prefill path: the chunk's K/V is
     appended to the stage at its positions, then one registry dispatch
     attends the chunk over the stage and writes every stage tile onto its
@@ -275,9 +320,12 @@ def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
     k = rope(k.reshape(b, t, nkv, hd), positions, cfg.rope_theta)
     v = v.reshape(b, t, nkv, hd)
     kv_policy = rp(policy, site, "kv")
+    ring = window if window and cache_len(cache) == window else 0
     if mode == "decode":
-        cache = cache_write(cache, k, v, positions[:, 0], kv_policy)
-        out = decode_attention(q, cache, positions[:, 0], policy=kv_policy)
+        cache = cache_write(cache, k, v, positions[:, 0], kv_policy,
+                            ring=ring)
+        out = decode_attention(q, cache, positions[:, 0], window=window,
+                               ring=ring, policy=kv_policy)
     elif mode == "prefill" and prefill_attn.is_paged_prefill(cache):
         rows = positions[0].to(torch.int64)
         cache["stage_k"][0].index_copy_(0, rows,
@@ -287,8 +335,12 @@ def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
         out, cache = backends.prefill_attention(q, cache, positions,
                                                 policy=kv_policy)
     elif mode == "prefill":
-        out = causal_attention(q, k, v)
-        if cache is not None:
+        out = causal_attention(q, k, v, window=window)
+        if ring:
+            keep = min(window, t)
+            cache = cache_write(cache, k[:, -keep:], v[:, -keep:],
+                                positions[:, -keep], kv_policy, ring=ring)
+        elif cache is not None:
             cache = cache_write(cache, k, v, positions[:, 0], kv_policy)
     else:
         raise ValueError(f"mode {mode!r}: the port runs prefill and decode")
@@ -443,3 +495,134 @@ def _expert_ein(xg: torch.Tensor, w, policy: QuantPolicy,
                                  fill=fill)
     cdt = backends.base.torch_dtype(policy.compute_dtype)
     return torch.matmul(xg.to(cdt), w.to(cdt))
+
+
+# --------------------------------------------------------------------------
+# Causal depthwise conv and the RG-LRU (Griffin / RecurrentGemma)
+# --------------------------------------------------------------------------
+CONV_WIDTH = 4          # the Griffin block's causal conv
+
+
+def conv1d_params(gen: torch.Generator, d: int, device) -> dict:
+    """Depthwise causal conv: kernel (CONV_WIDTH, d) ~ N(0, 1/width),
+    zero bias."""
+    return {"conv_kernel": torch.randn((CONV_WIDTH, d), generator=gen,
+                                       device=device)
+            / math.sqrt(CONV_WIDTH),
+            "conv_bias": torch.zeros(d, device=device)}
+
+
+def conv1d_causal(p, x: torch.Tensor, state: Optional[torch.Tensor] = None):
+    """x (B, T, D); state (B, W-1, D), the trailing inputs of the calls
+    before (None: zeros). y_t = sum_i k_i * x_{t-W+1+i} + bias, summed in
+    the reference's order. Returns (y, the new state: the last W-1
+    inputs, old state included)."""
+    w = p["conv_kernel"].shape[0]
+    t = x.shape[1]
+    if state is None:
+        xp = torch.nn.functional.pad(x, (0, 0, w - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = xp[:, 0:t] * p["conv_kernel"][0]
+    for i in range(1, w):
+        y = y + xp[:, i:i + t] * p["conv_kernel"][i]
+    return y + p["conv_bias"], (xp[:, -(w - 1):] if w > 1 else None)
+
+
+def rglru_params(gen: torch.Generator, d_model: int, d_rnn: int,
+                 device) -> dict:
+    """The recurrent block's weights in the reference's order and scales
+    (normal / sqrt(fan_in); the gate decay a_param = 2, so
+    sigmoid(2)^8 is about 0.31)."""
+    def w(k, n):
+        return torch.randn((k, n), generator=gen, device=device) \
+            / math.sqrt(k)
+
+    return {"wx": w(d_model, d_rnn), "wgate": w(d_model, d_rnn),
+            "wo": w(d_rnn, d_model),
+            "conv": conv1d_params(gen, d_rnn, device),
+            "w_inp_gate": w(d_rnn, d_rnn), "w_rec_gate": w(d_rnn, d_rnn),
+            "a_param": torch.full((d_rnn,), 2.0, device=device)}
+
+
+def rglru_init_state(batch: int, d_rnn: int, device="cuda") -> dict:
+    """The recurrent cache of one site: h (B, d_rnn) and the conv's
+    trailing inputs (B, CONV_WIDTH - 1, d_rnn), f32 zeros."""
+    return {"h": torch.zeros((batch, d_rnn), device=device),
+            "conv": torch.zeros((batch, CONV_WIDTH - 1, d_rnn),
+                                device=device)}
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of h_t = a_t * h_{t-1} + b_t (from h = 0) along
+    dim 1, by `jax.lax.associative_scan`'s recursion: combine adjacent
+    pairs, scan those, then fix up the even positions; about log2(T)
+    levels of elementwise ops, in the reference's order of operations.
+    Returns (the products of a, the scanned b)."""
+    t = a.shape[1]
+    if t < 2:
+        return a, b
+    a1, b1, a2, b2 = a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]
+    odd_a, odd_b = _linear_scan(a1 * a2, a2 * b1 + b2)
+    if t % 2 == 0:
+        pa, pb = odd_a[:, :-1], odd_b[:, :-1]
+    else:
+        pa, pb = odd_a, odd_b
+    a3, b3 = a[:, 2::2], b[:, 2::2]
+    even_a = torch.cat([a[:, :1], pa * a3], dim=1)
+    even_b = torch.cat([b[:, :1], a3 * pb + b3], dim=1)
+    out_a, out_b = a.new_empty(a.shape), b.new_empty(b.shape)
+    out_a[:, 0::2], out_a[:, 1::2] = even_a, odd_a
+    out_b[:, 0::2], out_b[:, 1::2] = even_b, odd_b
+    return out_a, out_b
+
+
+def _rglru_core(p, u: torch.Tensor, h0: torch.Tensor, policy: QuantPolicy,
+                site: str = "rec") -> torch.Tensor:
+    """u (B, T, Dr) inputs, h0 (B, Dr) -> h (B, T, Dr) f32: the gated
+    diagonal recurrence h_t = a_t * h_{t-1} + b_t with
+    a_t = exp(-8 softplus(a_param) r_t) and
+    b_t = sqrt(max(1 - a_t^2, 1e-12)) * i_t * u_t."""
+    f32 = torch.float32
+    rt = torch.sigmoid(qlinear.linear(u, p["w_rec_gate"], None,
+                                      *rps(policy, site, "w_rec_gate"))
+                       .to(f32))
+    it = torch.sigmoid(qlinear.linear(u, p["w_inp_gate"], None,
+                                      *rps(policy, site, "w_inp_gate"))
+                       .to(f32))
+    a_param = p["a_param"].to(f32)
+    softplus = torch.logaddexp(a_param, torch.zeros_like(a_param))
+    log_a = -8.0 * softplus * rt                            # log a_t <= 0
+    a = torch.exp(log_a)
+    gated = it * u.to(f32)
+    b_t = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                 min=1e-12)) * gated
+    a_scan, b_scan = _linear_scan(a, b_t)
+    return a_scan * h0[:, None, :] + b_scan
+
+
+def rglru_forward(p, x: torch.Tensor, policy: QuantPolicy, *,
+                  state=None, site: str = "rec"):
+    """The Griffin recurrent block: y = wo(h * gelu(wgate x)) with h the
+    RG-LRU over conv(wx x). `state` = {"h": (B, Dr), "conv": (B, 3, Dr)}
+    carries a prefill into decode steps (a decode step is T = 1: h =
+    a h0 + b); the new h and conv inputs are copied into its tensors in
+    place (a captured step reads and writes the same buffers). The gelu
+    is the tanh approximation, `jax.nn.gelu`'s default. Returns (y,
+    state)."""
+    b = x.shape[0]
+    gate = torch.nn.functional.gelu(
+        qlinear.linear(x, p["wgate"], None, *rps(policy, site, "wgate")),
+        approximate="tanh")
+    u = qlinear.linear(x, p["wx"], None, *rps(policy, site, "wx"))
+    u, new_conv = conv1d_causal(p["conv"], u,
+                                None if state is None else state["conv"])
+    h0 = state["h"] if state is not None else torch.zeros(
+        (b, u.shape[-1]), dtype=torch.float32, device=x.device)
+    h = _rglru_core(p, u, h0, policy, site=site)
+    y = qlinear.linear(h.to(x.dtype) * gate, p["wo"], None,
+                       *rps(policy, site, "wo"))
+    if state is not None:
+        state["h"].copy_(h[:, -1])
+        state["conv"].copy_(new_conv)
+    return y, state

@@ -1,5 +1,8 @@
-"""Model assembly for the dense and MoE decoder families (block patterns
-("attn",) and ("moe",)). Port of those paths of `repro/models/model.py`.
+"""Model assembly for the dense, MoE and hybrid decoder families: block
+builders, caches and forwards by block type over the ported types
+`attn`, `moe`, `local_attn` and `rglru` (layer i has type
+`block_pattern[i % period]`). Port of those paths of
+`repro/models/model.py`.
 
 The reference scans a stacked layer group; the port keeps layers
 unrolled (`params["layers"][i]`, site addresses `layers/<i>/...`) and
@@ -23,67 +26,123 @@ from . import layers as L
 
 Params = Dict[str, Any]
 
+BLOCK_TYPES = ("attn", "moe", "local_attn", "rglru")   # ported
+QUEUED_BLOCK_TYPES = ("mlstm", "slstm", "encdec_attn")  # ROADMAP queue 1
+
+
+def check_block_types(cfg: ArchConfig) -> None:
+    """Raise a ValueError on a block type the port does not run."""
+    for btype in cfg.block_pattern:
+        if btype in QUEUED_BLOCK_TYPES:
+            raise ValueError(
+                f"{cfg.name}: block type {btype!r} is not ported yet "
+                f"(ROADMAP queue 1, item 4: other architectures); the port "
+                f"runs {BLOCK_TYPES}")
+        if btype not in BLOCK_TYPES:
+            raise ValueError(f"{cfg.name}: unknown block type {btype!r}")
+
 
 def _normal(gen: torch.Generator, shape, scale: float, device):
     return torch.randn(shape, generator=gen, device=device) * scale
 
 
-def block_params(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
-    """One attn + SwiGLU block (or attn + MoE block for the moe family),
-    drawn as the reference draws it: normal weights scaled by
-    1/sqrt(fan_in), zero biases, unit norms."""
+def block_params(gen: torch.Generator, cfg: ArchConfig, btype: str,
+                 device) -> Params:
+    """One block of type `btype`, drawn as the reference draws it:
+    normal weights scaled by 1/sqrt(fan_in), zero biases, unit norms.
+    attn / local_attn: attention + SwiGLU; moe: attention + MoE; rglru:
+    the recurrent block + SwiGLU."""
     d, hd = cfg.d_model, cfg.head_dim
 
     def w(k, n):
         return _normal(gen, (k, n), 1.0 / math.sqrt(k), device)
 
+    def norm():
+        return {"gamma_scale": torch.ones(d, device=device)}
+
+    def mlp():
+        return {"wg": w(d, cfg.d_ff), "wu": w(d, cfg.d_ff),
+                "wd": w(cfg.d_ff, d)}
+
+    if btype == "rglru":
+        return {"ln1": norm(),
+                "rec": L.rglru_params(gen, d, cfg.d_rnn or d, device),
+                "ln2": norm(), "mlp": mlp()}
     attn = {"wq": w(d, cfg.n_heads * hd), "wk": w(d, cfg.n_kv_heads * hd),
             "wv": w(d, cfg.n_kv_heads * hd), "wo": w(cfg.n_heads * hd, d)}
     if cfg.qkv_bias:
         attn["bq"] = torch.zeros(cfg.n_heads * hd, device=device)
         attn["bk"] = torch.zeros(cfg.n_kv_heads * hd, device=device)
         attn["bv"] = torch.zeros(cfg.n_kv_heads * hd, device=device)
-    block = {"ln1": {"gamma_scale": torch.ones(d, device=device)},
-             "attn": attn,
-             "ln2": {"gamma_scale": torch.ones(d, device=device)}}
-    if cfg.family == "moe":
+    block = {"ln1": norm(), "attn": attn, "ln2": norm()}
+    if btype == "moe":
         block["moe"] = L.moe_params(gen, d, cfg.d_ff, cfg.n_experts, device)
     else:
-        block["mlp"] = {"wg": w(d, cfg.d_ff), "wu": w(d, cfg.d_ff),
-                        "wd": w(cfg.d_ff, d)}
+        block["mlp"] = mlp()
     return block
 
 
+def block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
+                kv_bits: int, device, dtype=torch.float32):
+    """A slab cache site: a KV cache of `max_len` slots (attn, moe) or of
+    min(window, max_len) slots (local_attn: a ring once max_len reaches
+    the window), or the recurrent state (rglru)."""
+    if btype == "rglru":
+        return {"rec": L.rglru_init_state(batch, cfg.d_rnn or cfg.d_model,
+                                          device=device)}
+    length = min(cfg.window, max_len) if btype == "local_attn" else max_len
+    return {"kv": L.make_kv_cache(batch, length, cfg.n_kv_heads,
+                                  cfg.head_dim, kv_bits=kv_bits, dtype=dtype,
+                                  device=device)}
+
+
 def block_forward(p, x, positions, cfg: ArchConfig, policy: QuantPolicy,
-                  cache=None, mode: str = "prefill", site: str = ""):
-    """Pre-norm attention + SwiGLU (or MoE) with residuals. Returns (x,
-    cache); the MoE aux loss is dropped until training is ported."""
+                  cache=None, mode: str = "prefill", site: str = "",
+                  btype: Optional[str] = None):
+    """Pre-norm block of type `btype` with residuals: attention (local
+    attention over the config's window) + SwiGLU or MoE, or the
+    recurrent block + SwiGLU. Without `btype` the type is layer i's,
+    read from the site address `layers/<i>`. Returns (x, cache); the MoE
+    aux loss is dropped until training is ported."""
+    if btype is None:
+        head, _, layer = site.partition("/")
+        if head != "layers" or not layer.isdigit():
+            raise ValueError(f"block_forward: no btype and site {site!r} "
+                             f"is not a layer address layers/<i>")
+        btype = cfg.block_pattern[int(layer) % len(cfg.block_pattern)]
+    eps = cfg.norm_eps
+    if btype == "rglru":
+        h, st = L.rglru_forward(p["rec"], L.rms_norm(x, p["ln1"], eps),
+                                policy, state=None if cache is None
+                                else cache["rec"], site=f"{site}/rec")
+        x = x + h
+        x = x + L.swiglu(p["mlp"], L.rms_norm(x, p["ln2"], eps), policy,
+                         site=f"{site}/mlp")
+        return x, (None if cache is None else {"rec": st})
     h, kv = L.attention_forward(
-        p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), positions, cfg,
-        policy, cache=None if cache is None else cache["kv"], mode=mode,
+        p["attn"], L.rms_norm(x, p["ln1"], eps), positions, cfg, policy,
+        window=cfg.window if btype == "local_attn" else 0,
+        cache=None if cache is None else cache["kv"], mode=mode,
         site=f"{site}/attn")
     x = x + h
-    xm = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    if "moe" in p:
+    xm = L.rms_norm(x, p["ln2"], eps)
+    if btype == "moe":
         h2, _ = L.moe_layer(p["moe"], xm, cfg, policy, site=f"{site}/moe")
     else:
         h2 = L.swiglu(p["mlp"], xm, policy, site=f"{site}/mlp")
     return x + h2, (None if cache is None else {"kv": kv})
 
 
-FAMILIES = {"dense": ("attn",), "moe": ("moe",)}
-
-
 class Model:
-    """Dense or MoE LM for one ArchConfig under a QuantPolicy."""
+    """Dense, MoE or hybrid LM for one ArchConfig under a QuantPolicy."""
 
     def __init__(self, cfg: ArchConfig, policy: QuantPolicy = QuantPolicy()):
-        if FAMILIES.get(cfg.family) != tuple(cfg.block_pattern):
-            raise ValueError(f"the port runs the families {FAMILIES}; "
-                             f"{cfg.name} is {cfg.family} "
-                             f"{cfg.block_pattern}")
+        check_block_types(cfg)
         self.cfg = cfg
         self.policy = policy
+
+    def block_type(self, layer: int) -> str:
+        return self.cfg.block_pattern[layer % len(self.cfg.block_pattern)]
 
     def init_stream(self, generator: Optional[torch.Generator],
                     device="cuda") -> Iterator[Tuple[str, Params]]:
@@ -91,10 +150,10 @@ class Model:
         ("", {embed, final_norm, lm_head}) first, then ("layers/<i>",
         block i) for each layer, each piece drawn when it is asked for
         (the reference's distributions: embed N(0, 0.02²), head N(0,
-        1/d), blocks as `block_params`). torch and JAX draw different
-        numbers from one seed: tests carry the reference's weights over
-        with `convert.params_from_numpy`. `device="meta"` (and no
-        generator) gives the shapes alone."""
+        1/d), blocks by type as `block_params`). torch and JAX draw
+        different numbers from one seed: tests carry the reference's
+        weights over with `convert.params_from_numpy`. `device="meta"`
+        (and no generator) gives the shapes alone."""
         cfg = self.cfg
         vp = cfg.padded_vocab
         yield "", {
@@ -107,7 +166,8 @@ class Model:
                                          device)},
         }
         for i in range(cfg.n_layers):
-            yield f"layers/{i}", block_params(generator, cfg, device)
+            yield f"layers/{i}", block_params(generator, cfg,
+                                              self.block_type(i), device)
 
     def init(self, generator: Optional[torch.Generator], device="cuda",
              quantize: Optional[Callable[[Params, str], Params]] = None
@@ -133,15 +193,14 @@ class Model:
 
     def init_caches(self, batch: int, max_len: int, device="cuda",
                     dtype=torch.float32):
-        """Slab KV caches; kv_bits resolves per cache site
-        (`layers/<i>/attn/kv`)."""
-        cfg = self.cfg
+        """Slab caches by block type (`block_cache`); kv_bits resolves
+        per KV cache site (`layers/<i>/attn/kv`)."""
         return {"layers": [
-            {"kv": L.make_kv_cache(
-                batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                kv_bits=self.policy.resolve(f"layers/{i}/attn/kv").kv_bits,
-                dtype=dtype, device=device)}
-            for i in range(cfg.n_layers)]}
+            block_cache(self.cfg, self.block_type(i), batch, max_len,
+                        0 if self.block_type(i) == "rglru" else
+                        self.policy.resolve(f"layers/{i}/attn/kv").kv_bits,
+                        device, dtype)
+            for i in range(self.cfg.n_layers)]}
 
     def init_paged_caches(self, n_pages: int, page_size: int,
                           batch_slots: int, pages_per_row: int,
@@ -150,8 +209,16 @@ class Model:
         pages (plus its sink page) and a `(batch_slots, pages_per_row)`
         block table (`layers.make_paged_kv_cache`). Page ids are shared
         across sites: one allocator row backs the same token rows in
-        every layer. kv_bits resolves per site (`layers/<i>/attn/kv`)."""
+        every layer. kv_bits resolves per site (`layers/<i>/attn/kv`).
+        Only pure attn/moe patterns page (a ring or a recurrent state
+        keeps the slab layout), as in the reference."""
         cfg = self.cfg
+        bad = sorted({bt for bt in cfg.block_pattern
+                      if bt not in ("attn", "moe")})
+        if bad:
+            raise ValueError(
+                f"paged KV caches support pure attn/moe block patterns; "
+                f"pattern {cfg.block_pattern} has {bad}")
         return {"layers": [
             {"kv": L.make_paged_kv_cache(
                 n_pages, page_size, batch_slots, pages_per_row,
@@ -181,7 +248,8 @@ class Model:
             x, nc = block_forward(p, x, positions, cfg, self.policy,
                                   cache=None if caches is None
                                   else caches["layers"][i], mode=mode,
-                                  site=f"layers/{i}")
+                                  site=f"layers/{i}",
+                                  btype=self.block_type(i))
             new.append(nc)
         return self.head(params, x), (None if caches is None
                                       else {"layers": new})

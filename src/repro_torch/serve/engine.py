@@ -4,9 +4,12 @@ Port of the slab and paged modes of `repro/serve/engine.py`.
 Requests queue up; a free slot takes the next request, whose prompt is
 prefilled into a fresh one-row cache (right-padded to a power-of-two
 bucket of at least 16 tokens, exactly as the reference pads, so dynamic
-activation scales see the same rows) and spliced into the slot. Every
-step then runs one batched greedy decode over all slots; slots free on
-EOS, max-new-tokens or the length cap. `step()` returns `StepEvents`.
+activation scales see the same rows; a model with recurrent or ring
+caches, which would absorb the pads, prefills at the prompt's exact
+length) and spliced into the slot: every leaf of every cache site, KV
+and recurrent state alike. Every step then runs one batched greedy
+decode over all slots; slots free on EOS, max-new-tokens or the length
+cap. `step()` returns `StepEvents`.
 Caches are fp32 (or OVP-packed when the policy's kv_bits = 4) and are
 updated in place.
 
@@ -31,11 +34,12 @@ runs every such linear on the static-scale kernel (K5).
 
 COMPILED STEPS (`serve/capture.py`), as the reference jits its steps:
 the decode step (greedy argmax included) is one `StepGraph`, the slab
-prefill one per prompt bucket, the paged prefill chunk one per stage
-length; the prefill entries sit in an LRU of `EngineCfg.prefill_cache_cap`
-entries. On the card each entry is captured once as a CUDA graph, into
-one memory pool the engine's graphs share, and replayed after;
-`capture=False` runs the same entries eagerly (the CPU always does).
+prefill one per prompt bucket (or exact length), the paged prefill
+chunk one per stage length; the prefill entries sit in an LRU of
+`EngineCfg.prefill_cache_cap` entries. On the card each entry is
+captured once as a CUDA graph, into one memory pool the engine's graphs
+share, and replayed after; `capture=False` runs the same entries
+eagerly (the CPU always does).
 Every graph reads static buffers: the caches and block table (written in
 place), one (1, max_len) row cache for the slab prefill, each paged
 entry's raw K/V stage, and each entry's inputs, filled from the host
@@ -63,6 +67,25 @@ from repro_torch.kernels.prefill_attn import STAGE_KEYS
 from repro_torch.models.model import Model
 from repro_torch.serve.capture import StepGraph
 from repro_torch.serve.paging import PagePool, PagePoolCfg, pages_for
+
+
+def bucketable(cfg) -> bool:
+    """Whether slab prefills may right-pad prompts to a bucket: under a
+    causal mask real tokens never see the trailing pads, and the pad
+    rows sit past `pos`, where decode overwrites them first; a recurrent
+    state or a ring (sliding-window) cache absorbs them, so those block
+    types keep the exact-length prefill (the reference's `_bucket_ok`)."""
+    return all(bt in ("attn", "moe") for bt in cfg.block_pattern)
+
+
+def check_pageable(cfg) -> None:
+    """The reference engine's refusal of a page pool for a pattern that
+    is not pure attn/moe."""
+    if not bucketable(cfg):
+        raise ValueError(
+            f"page_pool needs a pure attn/moe block pattern "
+            f"(ring/recurrent state does not page); got "
+            f"{cfg.block_pattern}")
 
 
 @dataclasses.dataclass
@@ -172,6 +195,9 @@ class ServingEngine:
             misses = static_scale_misses(params, model.policy)
             if misses:
                 raise MissingStaticScaleError(misses)
+        self._bucket_ok = bucketable(model.cfg)
+        if cfg.page_pool is not None:
+            check_pageable(model.cfg)
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -197,8 +223,8 @@ class ServingEngine:
         self.decode_traces = 0      # the decode entry is built once
         self._prefill_jits = 0      # prefill entries created
         self.prefill_cache_evictions = 0
-        # LRU over compiled prefill entries, keyed by bucket (slab) or
-        # ("paged", stage_len)
+        # LRU over compiled prefill entries, keyed by bucket or exact
+        # prompt length (slab) or ("paged", stage_len)
         self._prefill_cache: collections.OrderedDict[object, StepGraph] = \
             collections.OrderedDict()
         b = cfg.batch_slots
@@ -318,12 +344,11 @@ class ServingEngine:
         return logits, torch.argmax(logits, dim=-1)
 
     def _slab_prefill_fn(self, tokens, last):
-        """Prefill one right-padded prompt (1, bucket) into the reset row
+        """Prefill one prompt (1, bucket or length) into the reset row
         cache; the logits (V,) at index `last` (1,) and their argmax."""
-        for fresh, row in zip(self._row_fresh["layers"],
-                              self._row_cache["layers"]):
-            for key, leaf in row["kv"].items():
-                leaf.copy_(fresh["kv"][key])
+        for fresh, row in zip(_leaves(self._row_fresh),
+                              _leaves(self._row_cache)):
+            row.copy_(fresh)
         logits, _ = self.model.forward(self.params, {"tokens": tokens},
                                        mode="prefill",
                                        caches=self._row_cache)
@@ -332,10 +357,11 @@ class ServingEngine:
 
     def _prefill(self, prompt: np.ndarray):
         """Prefill one prompt into the row cache through its bucket's
-        entry; returns the logits at the last prompt token and the
-        greedy token (device tensors)."""
+        entry (its length's, where the model cannot bucket); returns the
+        logits at the last prompt token and the greedy token (device
+        tensors)."""
         t = len(prompt)
-        bucket = self._bucket(t)
+        bucket = self._bucket(t) if self._bucket_ok else t
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :t] = prompt  # right-pad; the causal mask shields the pads
 
@@ -670,9 +696,15 @@ class ServingEngine:
                 "occupancy_per_device": [float(self.pool.occupancy())]}
 
 
+def _leaves(caches) -> List[torch.Tensor]:
+    """Every tensor of a slab cache tree (KV caches and recurrent states),
+    in a fixed order."""
+    return [leaf for layer in caches["layers"] for site in layer.values()
+            for leaf in site.values()]
+
+
 def _splice_slot(full_caches, row_caches, slot: int) -> None:
     """Copy a one-row cache tree into row `slot` of the batched caches,
     in place."""
-    for full, row in zip(full_caches["layers"], row_caches["layers"]):
-        for key, leaf in full["kv"].items():
-            leaf[slot:slot + 1].copy_(row["kv"][key])
+    for full, row in zip(_leaves(full_caches), _leaves(row_caches)):
+        full[slot:slot + 1].copy_(row)
