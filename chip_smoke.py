@@ -170,11 +170,13 @@ CUDA toolkit. It builds the hand-written kernels from
    (`record_weights` one layer at a time, `site_sensitivity` on the
    card, `auto_mixed(budget_bits=4.5)`), then `--calibrate` with a
    `--policy-rules` W8A8 rule for each promoted site; H2, Qwen3-30B-A3B
-   `--calibrate`: K5 launches by weight dtype per forward call, no K1
+   at `H2_LAYERS` = 12 of its 48 layers (cut for time) `--calibrate`:
+   K5 launches by weight dtype per forward call, no K1
    `fp` or `quantize` launch, no dynamic scale, K6 on the experts, the
    audit, graph against eager, the calibrated decode-step profile, the
    2-layer card-vs-CPU check, peak device memory (H2 held to phase E's
-   + 2 layers of fp32 weights + 1 GB), and on a 2-layer cut of
+   48-layer peak less the served weights and caches of the 36 layers
+   cut, + 2 layers of fp32 weights + 1 GB), and on a 2-layer cut of
    Qwen2-7B the streamed artifact byte for byte the whole tree's;
 15. the hybrid family, with the earlier models freed: serve phase I,
    RecurrentGemma-9B at full published width and depth (38 layers: 12
@@ -193,7 +195,23 @@ CUDA toolkit. It builds the hand-written kernels from
    the same tokens (1e-3 * max|ref|, greedy tokens equal), and over the
    served KV4 ring K2 held to its plain version and timed beside SDPA;
    K1 at one rglru layer's 8 and one local layer's 7 decode launches
-   (the served weights), and K2 at the served shape.
+   (the served weights), and K2 at the served shape;
+16. the xLSTM family, with the earlier models freed: serve phase J,
+   xLSTM-350M at full published width and depth (24 layers: 12 periods
+   of mlstm, slstm; d_model 1024, 4 heads: mLSTM heads of 512, sLSTM
+   heads of 256; no KV cache) through the launcher (`--arch xlstm-350m
+   --quant olive_serve`, the launcher's workload, slab, each prompt
+   prefilled at its exact length): no fallback, a decode step's
+   launches exactly K1 132 and no K2, K3, K4, K6 or K7 launch, the
+   audit, graph against eager (every mLSTM and sLSTM state leaf among
+   the cache bytes), the sync check, the decode-step profile beside a
+   byte bound from the served tree's and caches' own bytes (weights,
+   fp32 head, the state read and written), a 2-layer (one period)
+   card-vs-CPU check (a 300-token prompt through its captured prefill,
+   then 32 greedy decode steps on the captured step, held to one CPU
+   prefill of the same tokens at 1e-3 * max|ref|, greedy tokens equal),
+   and K1 at one mLSTM layer's 5 and one sLSTM layer's 6 decode
+   launches (the served weights, ragged N 1364 included).
 
 Every serve phase runs the engine's captured steps (CUDA graphs, the
 default) and checks them: the trace audit (`audit_check`: the decode step
@@ -1775,8 +1793,10 @@ def check_counts(counts, phase: str,
 
 
 def attn_layers(model) -> int:
-    """The model's layers with an attention KV cache (all but rglru)."""
-    return sum(model.block_type(i) != "rglru"
+    """The model's layers with an attention KV cache (all but the
+    recurrent ones: rglru, mlstm, slstm)."""
+    from repro_torch.models.model import RECURRENT_TYPES
+    return sum(model.block_type(i) not in RECURRENT_TYPES
                for i in range(model.cfg.n_layers))
 
 
@@ -1893,11 +1913,32 @@ def sync_check(res, label: str) -> None:
                   or os.path.abspath(w.filename)
                   == os.path.abspath(ovp_encode.__file__))
     eng.run_until_drained()
-    # the KV write alone, at this step's shapes, under "error": a sync
-    # raises; a windowed model's ring write too, one token and a prefill
+    served = next((layer["kv"] for layer in eng.caches["layers"]
+                   if "kv" in layer), None)
+    alone = "no KV cache" if served is None \
+        else _kv_write_alone(eng, served, label)
+    print(f"[sync {label}] one captured decode step under sync debug mode: "
+          f"{len(syncs)} host syncs warned, {other} other than the token "
+          f"fetch (limit 0), {in_layers} inside the layers (models, core, "
+          f"backends, kernels), {from_kv} from the KV write (limit 0); by "
+          f"place: "
+          + (", ".join(f"{f}:{n} x{c}" for (f, n), c in sorted(where.items()))
+             or "none") + f"; {alone}")
+    if from_kv:
+        fail(f"sync check {label}: the KV write synchronized the host "
+             f"{from_kv} times")
+    if other:
+        fail(f"sync check {label}: {other} host syncs besides the token "
+             f"fetch in one decode step")
+
+
+def _kv_write_alone(eng, served, label: str) -> str:
+    """The KV write alone, at the served step's shapes, under "error": a
+    sync raises; a windowed model's ring write too, one token and a
+    prefill. Returns what it checked."""
+    import torch
+    from repro_torch.models import layers
     cfg = eng.model.cfg
-    served = next(layer["kv"] for layer in eng.caches["layers"]
-                  if "kv" in layer)
     paged, dev = "block_table" in served, served["k_data"].device
     cache = (layers.make_paged_kv_cache(16, 16, 4, 16, cfg.n_kv_heads,
                                         cfg.head_dim, kv_bits=4, device=dev)
@@ -1928,22 +1969,9 @@ def sync_check(res, label: str) -> None:
              f"{err}")
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    print(f"[sync {label}] one captured decode step under sync debug mode: "
-          f"{len(syncs)} host syncs warned, {other} other than the token "
-          f"fetch (limit 0), {in_layers} inside the layers (models, core, "
-          f"backends, kernels), {from_kv} from the KV write (limit 0); by "
-          f"place: "
-          + (", ".join(f"{f}:{n} x{c}" for (f, n), c in sorted(where.items()))
-             or "none") + f"; the {'paged' if paged else 'slab'} KV write "
-          + (f"and the {cfg.window}-slot ring's (one token, 40 tokens) "
-             if cfg.window else "")
-          + "alone under \"error\": no sync")
-    if from_kv:
-        fail(f"sync check {label}: the KV write synchronized the host "
-             f"{from_kv} times")
-    if other:
-        fail(f"sync check {label}: {other} host syncs besides the token "
-             f"fetch in one decode step")
+    return (f"the {'paged' if paged else 'slab'} KV write "
+            + (f"and the {cfg.window}-slot ring's (one token, 40 tokens) "
+               if cfg.window else "") + "alone under \"error\": no sync")
 
 
 def _prefill_keys(eng) -> set:
@@ -3447,22 +3475,33 @@ def async_phase_a(dev, res_a, smi: str):
     return runs
 
 
+K1_PER_LAYER = {"rglru": 8, "mlstm": 5, "slstm": 6}  # other layers: 7
+
+
+def layer_linears(layer):
+    """A served layer's quantized linears (K1's, not the experts' K6
+    stacks), in the tree's order."""
+    from repro_torch.core.ovp import QuantizedTensor
+    from repro_torch.core.qlinear import tree_paths
+    return [w for sub in ("attn", "rec", "mlp", "mlstm", "slstm")
+            for _, w in tree_paths(layer.get(sub, {}))
+            if isinstance(w, QuantizedTensor)]
+
+
 def check_k1_weight_counts(res, counts, phase: str, mode: str = "fp"):
     """K1 runs once per quantized linear (7 an attention layer, 8 an
-    RG-LRU layer; the head stays fp) per forward call, all in `mode`,
+    RG-LRU layer, 5 an mLSTM layer, 6 an sLSTM layer; the head stays fp)
+    per forward call, all in `mode`,
     and the launches with int8 weights are the W8 linears' (counted off
     the tree's leaves) each forward call. Returns the W8 linears'
     count."""
-    from repro_torch.core.ovp import QuantizedTensor
     st = res["engine"].stats()
     forwards = st["prefills_run"] + st["prefill_chunks_run"] \
         + st["decodes_run"]
     model = res["model"]
     leaves = [w for layer in res["params"]["layers"]
-              for sub in ("attn", "rec", "mlp")
-              for w in layer.get(sub, {}).values()
-              if isinstance(w, QuantizedTensor)]
-    per_layer = sum(8 if model.block_type(i) == "rglru" else 7
+              for w in layer_linears(layer)]
+    per_layer = sum(K1_PER_LAYER.get(model.block_type(i), 7)
                     for i in range(model.cfg.n_layers))
     n_w8 = sum(w.normal_dtype == "int8" for w in leaves)
     want = {f"ovp_matmul[{mode}]": len(leaves) * forwards,
@@ -4189,6 +4228,7 @@ H_CALIB = {H_DENSE: os.path.join(ROOT, "build", "calib",
            MOE_ARCH: os.path.join(ROOT, "build", "calib",
                                   f"{MOE_ARCH}.json")}
 AUTO_MIXED_BUDGET = 4.5     # mean weight bits: 1/8 of the linears at W8
+H2_LAYERS = 12              # H2's depth, cut from the published 48 for time
 
 
 def sensitivity_pass(dev, arch: str, seed: int = 0):
@@ -4287,8 +4327,9 @@ def serve_phase_h(dev, smi: str, peak_f_gb: float, peak_e_gb: float):
     `--quant olive_serve --calibrate --policy-rules <each promoted
     site>=olive_w8a8` through the launcher, slab: the `auto_mixed`
     program, W4A4 with 1/8 of the linears W8A8, every linear on K5.
-    H2, Qwen3-30B-A3B: `--quant olive_serve --calibrate`, slab: the
-    attention linears W4A4 on K5, the experts weight-only on K6.
+    H2, Qwen3-30B-A3B cut to `H2_LAYERS` of its 48 layers (for time):
+    `--quant olive_serve --calibrate`, slab: the attention linears W4A4
+    on K5, the experts weight-only on K6.
 
     Counters reset just before and read just after each run: no
     fallback; K5 once per quantized linear per forward call (by weight
@@ -4298,9 +4339,10 @@ def serve_phase_h(dev, smi: str, peak_f_gb: float, peak_e_gb: float):
     the audit, `capture_gate(steps=3)`, the decode-step profile and the
     2-layer card-vs-CPU check of the calibrated program (routing first
     on the MoE); on H1 also `streamed_artifact_check`. Prints peak
-    device memory (H1 beside phase F's Qwen2-7B run, H2 held to phase
-    E's peak + 2 layers of fp32 weights + 1 GB) and the calibration and
-    PTQ seconds. Returns each run's counts."""
+    device memory (H1 beside phase F's Qwen2-7B run; H2 held to phase
+    E's 48-layer peak less the served weight and cache bytes of the
+    layers cut, + 2 layers of fp32 weights + 1 GB) and the calibration
+    and PTQ seconds. Returns each run's counts."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.policy import PolicyProgram
@@ -4325,10 +4367,12 @@ def serve_phase_h(dev, smi: str, peak_f_gb: float, peak_e_gb: float):
         moe = arch == MOE_ARCH
         free_device_memory()
         torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts()
-        res = serve.run(["--arch", arch, "--quant", "olive_serve",
-                         "--calibrate", "--calibration", H_CALIB[arch]]
-                        + extra + SERVE_ARGS, device=dev)
+        depth = H2_LAYERS if moe else get_config(arch).n_layers
+        with cut_arch(arch, depth) as name:
+            reset_counts()
+            res = serve.run(["--arch", name, "--quant", "olive_serve",
+                             "--calibrate", "--calibration", H_CALIB[arch]]
+                            + extra + SERVE_ARGS, device=dev)
         counts = read_counts()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         eng, cfg = res["engine"], res["model"].cfg
@@ -4362,14 +4406,27 @@ def serve_phase_h(dev, smi: str, peak_f_gb: float, peak_e_gb: float):
             fail(f"{phase}: {len(done)} requests finished with "
                  f"{[len(r.out_tokens) for r in done]} tokens, expected "
                  f"8 x 16")
-        # the MoE's fp32 tree cannot be on the card: held to a bound
-        bound = peak_e_gb + 2 * layer_fp32_bytes(arch) / 1e9 + 1.0
-        beside = (f"bound {bound:.2f} GB = phase E's {peak_e_gb:.2f} + 2 "
-                  f"layers of fp32 weights + 1" if moe
-                  else f"phase F's W4 run {peak_f_gb:.2f} GB")
-        print(f"[serve H] {arch} ({cfg.n_layers} layers, the published "
-              f"depth) " + ("W4A4 attention + W4 experts" if moe else
-                            f"auto_mixed W4A4 + {n_w8} W8A8 linears")
+        # the MoE's fp32 tree cannot be on the card: held to a bound at
+        # this run's depth, phase E's 48-layer peak less the served bytes
+        # (weights and caches, per layer from this run) of the layers cut
+        if moe:
+            full_layers = get_config(arch).n_layers
+            per_layer = (_tree_bytes(res["params"]["layers"])
+                         + _tree_bytes(eng.caches["layers"])) / cfg.n_layers
+            cut = full_layers - cfg.n_layers
+            peak_e_cut = peak_e_gb - cut * per_layer / 1e9
+            bound = peak_e_cut + 2 * layer_fp32_bytes(arch) / 1e9 + 1.0
+            beside = (f"bound {bound:.2f} GB = phase E's {peak_e_gb:.2f} "
+                      f"at {full_layers} layers less {cut} x "
+                      f"{per_layer / 1e9:.3f} GB of served weights and "
+                      f"caches a layer ({peak_e_cut:.2f}) + 2 layers of fp32 "
+                      f"weights + 1")
+        else:
+            beside = f"phase F's W4 run {peak_f_gb:.2f} GB"
+        print(f"[serve H] {arch} ({cfg.n_layers} of "
+              f"{get_config(arch).n_layers} layers) "
+              + ("W4A4 attention + W4 experts" if moe else
+                 f"auto_mixed W4A4 + {n_w8} W8A8 linears")
               + f" + KV4 on static scales, slab: {len(sites)} scales "
               f"calibrated in {res['calib_s']:.2f}s (streamed), PTQ "
               f"{res['ptq_s']:.2f}s, peak device memory {peak_gb:.2f} GB "
@@ -4741,10 +4798,7 @@ def serve_phase_i(dev, smi: str):
     gen = torch.Generator(device=dev).manual_seed(22)
     recs = {}
     for i, what in ((0, "rglru"), (2, "local_attn")):
-        layer = res["params"]["layers"][i]
-        linears = [w for sub in ("rec", "attn", "mlp")
-                   for w in layer.get(sub, {}).values()
-                   if hasattr(w, "normal_dtype")]
+        linears = layer_linears(res["params"]["layers"][i])
         recs[what] = k1_layer_record(dev, gen, linears, 4, "int4",
                                      label=f"k1 {HYBRID_ARCH} {what}")
         print(f"[k1 {HYBRID_ARCH}] one {what} layer's {len(linears)} decode "
@@ -4766,6 +4820,240 @@ def serve_phase_i(dev, smi: str):
     return {"counts": counts, "peak_gb": peak_gb, "profile": prof,
             "k1": recs, "k2": k2_served, "k2_ring": k2_ring,
             "ring_launches": ring_launches}
+
+
+# --------------------------------------------------------------------------
+# The xLSTM family: xLSTM-350M (mLSTM + sLSTM blocks, recurrent state only)
+# --------------------------------------------------------------------------
+XLSTM_ARCH = "xlstm-350m"
+# one decode step of the served model: K1 5 an mLSTM layer (w_up, wq, wk,
+# wv, w_down) x 12 + 6 an sLSTM layer (wz, three gates, wu2, wd2) x 12;
+# no KV cache, so no K2, K3, K4 or K7
+XLSTM_STEP_LAUNCHES = {"ovp_matmul[fp]": 132}
+XLSTM_CUT = 2           # the card-vs-CPU check's depth: one whole period
+XLSTM_PROMPT = 300      # tokens: 4 whole 64-token chunks and one of 44
+XLSTM_STEPS = 32        # greedy decode steps on the captured step
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor of a params or cache tree (a quantized
+    leaf's codes and scales)."""
+    from repro_torch.core.qlinear import tree_paths
+    return sum(t.numel() * t.element_size()
+               for _, leaf in tree_paths(tree) for t in _tensors(leaf))
+
+
+def xlstm_step_bytes(res):
+    """The bytes one decode step of the served xLSTM model must move,
+    from the served tree's and caches' own tensors: every layer's
+    weights (W4 codes and scales; fp32 r_*, gate projections, conv,
+    biases, norms), the fp32 head and final norm, the embedding rows
+    the step reads, and every recurrent state leaf read and written.
+    Returns (block weights, head, state) bytes."""
+    params, eng = res["params"], res["engine"]
+    slots = eng.cfg.batch_slots
+    blocks = _tree_bytes(params["layers"])
+    head = _tree_bytes(params["lm_head"]) \
+        + _tree_bytes(params["final_norm"]) \
+        + slots * params["embed"]["table"].shape[1] * 4
+    state = 2 * _tree_bytes(eng.caches)
+    return blocks, head, state
+
+
+def xlstm_reference_check(res, dev, smi: str, t: int = XLSTM_PROMPT,
+                          steps: int = XLSTM_STEPS):
+    """The prefill-to-decode handoff on the card: an `XLSTM_CUT`-layer
+    truncation of the served full-width model (mlstm, slstm; the same
+    W4 params) in an engine of one slot. One `t`-token prompt through
+    its exact-length prefill entry twice (warm-up and capture, then a
+    replay: bit for bit; the mLSTM prefill is chunkwise, 4 whole
+    64-token chunks and one of 44), spliced into the slot, then `steps`
+    greedy decode steps through the captured decode step (the per-token
+    recurrences continue the state the prefill left). The logits of the
+    last prompt position and of every decode step are held against the
+    same model's plain path on the CPU over the same tokens (the card's
+    greedy tokens fed, as `_torch_parity.port_forced` does): one
+    stateless prefill of the prompt and the fed tokens, read at those
+    positions (its chunks fall elsewhere: 5 whole and one of 12).
+    Max |diff| <= 1e-3 * max|ref|, greedy tokens equal."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.model import block_forward, build_model
+    from repro_torch.serve.engine import EngineCfg, ServingEngine, \
+        _splice_slot
+    model, params = res["model"], res["params"]
+    cfg = dataclasses.replace(model.cfg, n_layers=XLSTM_CUT)
+    p2 = dict(params, layers=params["layers"][:XLSTM_CUT])
+    small = build_model(cfg, model.policy)
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab, size=t)
+    eng = ServingEngine(small, p2, EngineCfg(batch_slots=1,
+                                             max_len=t + steps + 8),
+                        device=dev)
+    first, replay = [[x.clone() for x in eng._prefill(prompt)]
+                     for _ in range(2)]
+    if not torch.equal(first[0], replay[0]) or \
+            eng._prefill_cache[t].graph is None:
+        fail(f"xLSTM check: the {t}-token prefill's warm-up and replay "
+             f"differ, or it was not captured")
+    _splice_slot(eng.caches, eng._row_cache, 0)
+    logits, tok, fed = [replay[0]], int(replay[1]), []
+    reset_counts()
+    for i in range(steps):
+        fed.append(tok)
+        row, nxt = eng._decode.run(tokens=np.array([[tok]], np.int64),
+                                   pos=np.array([t + i], np.int32))
+        logits.append(row[0].clone())
+        tok = int(nxt[0])
+    counts = read_counts()
+    want = (5 + 6) * steps
+    if eng._decode.graph is None or counts["ovp_matmul[fp]"] != want:
+        fail(f"xLSTM check: {counts['ovp_matmul[fp]']} K1 launches over "
+             f"{steps} decode steps (expected {want}), captured "
+             f"{eng._decode.graph is not None}")
+    got = torch.stack(logits).float().cpu()
+    cpu_p = _to(p2, "cpu")
+    toks = torch.as_tensor(np.concatenate([prompt, fed]))[None]
+    t0 = time.perf_counter()
+    x = small.embed(cpu_p, toks)
+    positions = torch.arange(toks.shape[1])[None]
+    for i, layer in enumerate(cpu_p["layers"]):
+        x, _ = block_forward(layer, x, positions, cfg, small.policy,
+                             site=f"layers/{i}")
+    ref = small.head(cpu_p, x[:, t - 1:])[0].float()
+    cpu_s = time.perf_counter() - t0
+    v = cfg.vocab
+    finite = bool(torch.isfinite(got).all())
+    err = float((got[:, :v] - ref[:, :v]).abs().max())
+    tol = 1e-3 * float(ref[:, :v].abs().max())
+    same = bool(torch.equal(got[:, :v].argmax(-1), ref[:, :v].argmax(-1)))
+    print(f"[ref J] {cfg.name} cut to {XLSTM_CUT} layers (mlstm, slstm), "
+          f"W4: a {t}-token prompt through its captured exact-length "
+          f"prefill entry (warm-up and replay bit-identical), then {steps} "
+          f"greedy decode steps on the captured decode step "
+          f"({counts['ovp_matmul[fp]']} K1 launches); card vs the CPU's "
+          f"plain path (one prefill of the {t + steps} tokens, "
+          f"{cpu_s:.1f}s): logits {'finite' if finite else 'NOT finite'}, "
+          f"shape {tuple(got.shape)}, max |diff| {err:.3e} over "
+          f"{steps + 1} positions (tol {tol:.3e} = 1e-3 * max|ref|), "
+          f"greedy tokens {'equal' if same else 'differ'} ({smi})")
+    if not finite or got.shape != (steps + 1, cfg.padded_vocab) or \
+            not np.isfinite(err) or err > tol or not same:
+        fail("xLSTM check: card and CPU disagree")
+    del eng
+
+
+def serve_phase_j(dev, smi: str):
+    """The xLSTM family at full published width and depth through the
+    launcher's entry point: xLSTM-350M (`--arch xlstm-350m --quant
+    olive_serve`: 24 layers, 12 x (mlstm, slstm), d_model 1024, 4
+    heads (mLSTM heads of 512, sLSTM heads of 256), sLSTM MLP 1364,
+    untied 50304 vocab), slab, the launcher's workload, recurrent state
+    only. Counters reset just before and read just after: no fallback;
+    K1 `fp` once per quantized linear (5 an mLSTM layer, 6 an sLSTM
+    layer) per forward call, none for the fp32 head; a decode step's
+    launches exactly `XLSTM_STEP_LAUNCHES` and no K2, K3, K4, K6 or K7
+    launch; 8 requests x 16 tokens. Then the audit (one prefill entry
+    per distinct prompt length), `capture_gate` (every mLSTM and sLSTM
+    state leaf among the cache bytes), `sync_check`, the decode-step
+    profile beside the step's byte bound (`xlstm_step_bytes`: the
+    served tree's and caches' own bytes), `xlstm_reference_check`, and
+    K1 at one mLSTM layer's 5 and one sLSTM layer's 6 decode launches
+    (the served weights, rows 4, the sLSTM MLP's ragged N 1364 and K
+    1364 included). Prints PTQ seconds, peak device memory, tok/s, mean
+    TTFT and mean step beside the card. Returns the counts, the peak,
+    the profile and the K1 records."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import _leaves
+    t_phase = time.perf_counter()
+    phase = f"serve phase J ({XLSTM_ARCH}, slab)"
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = serve.run(["--arch", XLSTM_ARCH, "--quant", "olive_serve"]
+                    + SERVE_ARGS, device=dev)
+    load_s = time.perf_counter() - t0 - res["seconds"]
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    eng, model = res["engine"], res["model"]
+    cfg = model.cfg
+    check_counts(counts, phase, tuple(XLSTM_STEP_LAUNCHES))
+    check_attn_counts(res, counts, phase, paged=False)
+    check_encode_counts(eng, counts, phase)
+    if check_k1_weight_counts(res, counts, phase):
+        fail(f"{phase}: W8 linears under olive_serve")
+    st = eng.stats()
+    forwards = st["prefills_run"] + st["decodes_run"]
+    step = {"ovp_matmul[fp]": counts["ovp_matmul[fp]"] / forwards}
+    others = {key: counts[key] for key in (
+        "ovp_matmul[quantize]", "ovp_matmul[static]", "grouped[fp]",
+        "decode_attn", "paged_decode_attn", "prefill_attn", "ovp_encode")}
+    if step != XLSTM_STEP_LAUNCHES or any(others.values()):
+        fail(f"{phase}: a decode step's launches {step}, expected "
+             f"{XLSTM_STEP_LAUNCHES}; other kernels {others}")
+    done = res["completed"]
+    if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+        fail(f"{phase}: {len(done)} requests finished with "
+             f"{[len(r.out_tokens) for r in done]} tokens, expected 8 x 16")
+    # every cache leaf is a recurrent state: mLSTM c, n, m, conv and
+    # sLSTM c, n, m, h, a layer each
+    leaves = _leaves(eng.caches)
+    sites = [site for layer in eng.caches["layers"] for site in layer]
+    if len(leaves) != 4 * cfg.n_layers or \
+            sorted(set(sites)) != ["mlstm", "slstm"]:
+        fail(f"{phase}: {len(leaves)} cache leaves over sites "
+             f"{sorted(set(sites))}, expected 4 a layer, mlstm and slstm")
+    w_bytes, head_bytes, state_bytes = xlstm_step_bytes(res)
+    step_bound = bound_ms(w_bytes + head_bytes + state_bytes, 0.0)[0]
+    print(f"[serve J] {XLSTM_ARCH} ({cfg.n_layers} layers: "
+          f"{cfg.n_layers // 2} mlstm, {cfg.n_layers // 2} slstm; d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab}) W4, "
+          f"recurrent state only, slab: PTQ {res['ptq_s']:.2f}s (layer by "
+          f"layer; build and PTQ {load_s:.2f}s), peak device memory "
+          f"{peak_gb:.2f} GB, {res['tokens']} tokens in "
+          f"{res['seconds']:.3f}s = {res['tok_per_s']:.2f} tok/s, mean "
+          f"TTFT {res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+          f"{res['mean_step_s'] * 1e3:.2f}ms; launches ovp_matmul[fp]="
+          f"{counts['ovp_matmul[fp]']} ({st['prefills_run']} exact-length "
+          f"prefills, {st['decodes_run']} decode steps; a decode step: "
+          f"{step['ovp_matmul[fp]']:g}), other kernels {others}, dispatch "
+          f"{counts['dispatch']}; {len(leaves)} state leaves, "
+          f"{state_bytes / 2 / 1e6:.1f} MB for {eng.cfg.batch_slots} slots;"
+          f" a decode step's byte bound {step_bound:.3f}ms (blocks "
+          f"{w_bytes / 1e6:.1f} MB + fp32 head {head_bytes / 1e6:.1f} MB + "
+          f"state read and written {state_bytes / 1e6:.1f} MB at 3.35 "
+          f"TB/s) ({smi})")
+    audit_check(eng, phase)
+    capture_gate(eng, "J", steps=3)
+    sync_check(res, "J")
+    prof = profile_decode(res, f"{XLSTM_ARCH}, W4, slab", steps=3,
+                          max_new=10)
+    if prof["k1_ms"] is not None:
+        print(f"[serve J] {XLSTM_ARCH} decode step (4 slots): "
+              f"{prof['kernels_per_step']:.1f} device kernels, busy "
+              f"{prof['busy_ms']:.3f}ms of {prof['prof_ms']:.2f}ms profiled "
+              f"wall ({prof['step_ms']:.2f}ms plain), K1 "
+              f"{prof['k1_ms']:.3f}ms over {prof['k1_calls']:g} calls; "
+              f"byte bound {step_bound:.3f}ms ({smi})")
+    xlstm_reference_check(res, dev, smi)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    recs = {}
+    for i, what in ((0, "mlstm"), (1, "slstm")):
+        linears = layer_linears(res["params"]["layers"][i])
+        recs[what] = k1_layer_record(dev, gen, linears, 4, "int4",
+                                     label=f"k1 {XLSTM_ARCH} {what}")
+        print(f"[k1 {XLSTM_ARCH}] one {what} layer's {len(linears)} decode "
+              f"launches, rows 4, fp: kernel {recs[what]['ms']:.4f}ms, "
+              f"matmul {recs[what]['library_ms']:.4f}ms, bound "
+              f"{recs[what]['bound_ms']:.5f}ms, plain "
+              f"{recs[what]['plain_ms']:.4f}ms ({smi})")
+    print(f"[serve J] phase took {time.perf_counter() - t_phase:.1f}s")
+    del res, eng, done
+    return {"counts": counts, "peak_gb": peak_gb, "profile": prof,
+            "k1": recs, "step_bound_ms": step_bound}
 
 
 def main() -> int:
@@ -4873,6 +5161,9 @@ def main() -> int:
     # the hybrid family, the earlier models freed
     free_device_memory()
     run_i = serve_phase_i(dev, card)
+    # the xLSTM family, the earlier models freed
+    free_device_memory()
+    run_j = serve_phase_j(dev, card)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -4992,6 +5283,17 @@ def main() -> int:
             run_i["k2_ring"]),
         row(f"ovp_encode@{HYBRID_ARCH}", "src/repro/kernels/ovp_encode.py:59",
             "ovp_encode.cu", counts_i["ovp_encode"], 0.0, k7_i)]
+    # the xLSTM family: launches from phase J's run (K1 split by layer
+    # type: 5 an mLSTM layer, 6 an sLSTM one, per forward call)
+    counts_j = run_j["counts"]
+    forwards_j = counts_j["ovp_matmul[fp]"] \
+        // XLSTM_STEP_LAUNCHES["ovp_matmul[fp]"]
+    n_periods = get_config(XLSTM_ARCH).n_layers // 2
+    kernels += [
+        row(f"ovp_matmul[fp]@{XLSTM_ARCH} {what}", k1_src, "ovp_matmul.cu",
+            K1_PER_LAYER[what] * n_periods * forwards_j,
+            run_j["k1"][what]["max_abs_err"], run_j["k1"][what])
+        for what in ("mlstm", "slstm")]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -5057,7 +5359,12 @@ def main() -> int:
           "2048-slot packed ring (B 1, window 2048, ring 2048; library: "
           "SDPA under the same mask), launches: that check's KV4 decode "
           "steps; ovp_encode@recurrentgemma-9b one launch of the KV write "
-          "(R 4 x K 256, f32, a scale a row), launches from phase I")
+          "(R 4 x K 256, f32, a scale a row), launches from phase I. The "
+          "xLSTM family (phase J, xLSTM-350M): ovp_matmul[fp]@xlstm-350m "
+          "mlstm / slstm are the 5 / 6 launches of one served layer's "
+          "decode step at rows 4 (the sLSTM MLP's N 1364 padded to 1376 "
+          "and K 1364), launches: that layer type's share of phase J's "
+          "K1 launches")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
-"""Architecture registry (the dense, MoE and hybrid configs ported so
-far)."""
+"""Architecture registry (the dense, MoE, hybrid and xLSTM configs
+ported so far)."""
 from .base import ArchConfig
 
 from . import (grok_1_314b, minitron_8b, qwen1_5_0_5b, qwen2_7b,
-               qwen3_moe_30b_a3b, recurrentgemma_9b, yi_6b)
+               qwen3_moe_30b_a3b, recurrentgemma_9b, xlstm_350m, yi_6b)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
          for m in (minitron_8b, qwen2_7b, qwen1_5_0_5b, yi_6b,
-                   recurrentgemma_9b, qwen3_moe_30b_a3b, grok_1_314b)}
+                   recurrentgemma_9b, xlstm_350m, qwen3_moe_30b_a3b,
+                   grok_1_314b)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,6 +1,7 @@
 """Architecture configuration schema. Port of `repro/configs/base.py`
-(the fields the dense, MoE and hybrid decoders read, and the parameter
-count of their blocks; other families come with their layers)."""
+(the fields the dense, MoE, hybrid and xLSTM decoders read, and the
+parameter count of their blocks; other families come with their
+layers)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | hybrid (ported)
+    family: str                      # dense | moe | hybrid | ssm (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,6 +33,9 @@ class ArchConfig:
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # mLSTM prefill: chunkwise-parallel chunk length (0 or 1: the
+    # per-token recurrence)
+    mlstm_chunk: int = 64
     source: str = ""
 
     def __post_init__(self):
@@ -49,7 +53,8 @@ class ArchConfig:
         """Approximate parameter count (embeddings + blocks): the
         reference's per-block table, its rows for the ported blocks (an
         RG-LRU block's count leaves out its conv kernel and gate decay,
-        as the reference's does)."""
+        as the reference's does; its mLSTM row counts `w_up` at 8d², the
+        reference's formula, though the weight is d x 4d)."""
         d, hd = self.d_model, self.head_dim
         dr = self.d_rnn or d
         n_attn_p = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
@@ -59,7 +64,10 @@ class ArchConfig:
                "local_attn": n_attn_p + mlp,
                "moe": n_attn_p + self.n_experts * 3 * d * self.d_ff
                + d * self.n_experts,
-               "rglru": dr * (2 * d + d) + 2 * dr ** 2 + mlp}
+               "rglru": dr * (2 * d + d) + 2 * dr ** 2 + mlp,
+               "mlstm": 2 * d * (4 * d) + 3 * (2 * d) ** 2 + 2 * d * d,
+               "slstm": 4 * d * d + 3 * d * (d // max(self.n_heads, 1))
+               + 2 * d * int(4 * d / 3)}
         pattern = self.block_pattern
         return sum(per[pattern[i % len(pattern)]]
                    for i in range(self.n_layers)) \

@@ -5,13 +5,16 @@ local-attention cache of `window` slots is a ring), decode attention and
 paged cache-write prefill through the backend registry, the attention
 layer, SwiGLU, the top-k token-choice MoE layer with capacity-based
 dispatch, whose expert einsums go through the registry (K6 on the card),
-and the Griffin recurrent block: the width-4 causal conv and the RG-LRU.
+the Griffin recurrent block (the width-4 causal conv and the RG-LRU),
+and the xLSTM blocks: the mLSTM (matrix memory; chunkwise-parallel
+prefill, per-token decode) and the sLSTM (scalar memory with
+block-diagonal recurrent weights).
 
 Params are plain dicts of tensors. Unlike the reference, cache writes
 and recurrent-state updates write the cache tensors in place (the
 engine's caches are large, written every step and read by captured
-steps); `attention_forward` and `rglru_forward` return the same cache
-dict.
+steps); `attention_forward` and the recurrent forwards return the same
+cache dict.
 """
 from __future__ import annotations
 
@@ -529,14 +532,21 @@ def conv1d_causal(p, x: torch.Tensor, state: Optional[torch.Tensor] = None):
     return y + p["conv_bias"], (xp[:, -(w - 1):] if w > 1 else None)
 
 
+def _weight(gen: torch.Generator, k: int, n: int, device,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """A (k, n) weight ~ N(0, scale²), scale 1/sqrt(k) unless given (the
+    reference's `_init`)."""
+    x = torch.randn((k, n), generator=gen, device=device)
+    return x / math.sqrt(k) if scale is None else x * scale
+
+
 def rglru_params(gen: torch.Generator, d_model: int, d_rnn: int,
                  device) -> dict:
     """The recurrent block's weights in the reference's order and scales
     (normal / sqrt(fan_in); the gate decay a_param = 2, so
     sigmoid(2)^8 is about 0.31)."""
     def w(k, n):
-        return torch.randn((k, n), generator=gen, device=device) \
-            / math.sqrt(k)
+        return _weight(gen, k, n, device)
 
     return {"wx": w(d_model, d_rnn), "wgate": w(d_model, d_rnn),
             "wo": w(d_rnn, d_model),
@@ -625,4 +635,273 @@ def rglru_forward(p, x: torch.Tensor, policy: QuantPolicy, *,
     if state is not None:
         state["h"].copy_(h[:, -1])
         state["conv"].copy_(new_conv)
+    return y, state
+
+
+# --------------------------------------------------------------------------
+# xLSTM: the mLSTM (matrix memory) and sLSTM (scalar memory) blocks
+# --------------------------------------------------------------------------
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.log_sigmoid`: -softplus(-x), softplus = logaddexp(x, 0)."""
+    return -torch.logaddexp(-x, torch.zeros_like(x))
+
+
+def mlstm_params(gen: torch.Generator, d_model: int, n_heads: int,
+                 device) -> dict:
+    """The mLSTM block's weights in the reference's order and scales
+    (inner width 2 d_model; normal / sqrt(fan_in), the gate projections
+    normal * 0.01; forget-gate bias 3, input-gate bias 0)."""
+    d_inner = 2 * d_model
+
+    def w(k, n, scale=None):
+        return _weight(gen, k, n, device, scale)
+
+    return {"w_up": w(d_model, 2 * d_inner),
+            "conv": conv1d_params(gen, d_inner, device),
+            "wq": w(d_inner, d_inner), "wk": w(d_inner, d_inner),
+            "wv": w(d_inner, d_inner),
+            "w_igate": w(d_inner, n_heads, 0.01),
+            "w_fgate": w(d_inner, n_heads, 0.01),
+            "fgate_bias": torch.full((n_heads,), 3.0, device=device),
+            "igate_bias": torch.zeros(n_heads, device=device),
+            "w_down": w(d_inner, d_model),
+            "outnorm": {"gamma_scale": torch.ones(d_inner, device=device)}}
+
+
+def mlstm_init_state(batch: int, d_model: int, n_heads: int,
+                     device="cuda") -> dict:
+    """One mLSTM site's state, f32 zeros: the matrix memory c (B, H, Dh,
+    Dh), indexed (value, key), its normalizer n (B, H, Dh) and
+    stabilizer m (B, H), Dh = 2 d_model / H; and the conv's trailing
+    inputs (B, CONV_WIDTH - 1, 2 d_model)."""
+    d_inner = 2 * d_model
+    dh = d_inner // n_heads
+
+    def z(*shape):
+        return torch.zeros(shape, device=device)
+
+    return {"mem": {"c": z(batch, n_heads, dh, dh), "n": z(batch, n_heads, dh),
+                    "m": z(batch, n_heads)},
+            "conv": z(batch, CONV_WIDTH - 1, d_inner)}
+
+
+def _mlstm_core(q, k, v, i_pre, f_pre, state):
+    """The per-token mLSTM recurrence. q, k, v (B, T, H, Dh); gate
+    pre-activations (B, T, H), f_pre already a log-sigmoid; state {c,
+    n, m}. Returns (h (B, T, H, Dh) f32, the new state)."""
+    f32 = torch.float32
+    kscale = 1.0 / math.sqrt(q.shape[-1])
+    c, n, m = state["c"], state["n"], state["m"]
+    hs = []
+    for s in range(q.shape[1]):
+        qt, vt = q[:, s].to(f32), v[:, s].to(f32)
+        kt = k[:, s].to(f32) * kscale
+        it, ft = i_pre[:, s], f_pre[:, s]
+        m_new = torch.maximum(ft + m, it)
+        i_ = torch.exp(it - m_new)
+        f_ = torch.exp(ft + m - m_new)
+        c = f_[..., None, None] * c \
+            + i_[..., None, None] * (vt[..., :, None] * kt[..., None, :])
+        n = f_[..., None] * n + i_[..., None] * kt
+        num = torch.matmul(c, qt[..., None])[..., 0]
+        den = torch.abs((n * qt).sum(dim=-1))
+        hs.append(num / torch.maximum(den, torch.exp(-m_new))[..., None])
+        m = m_new
+    h = hs[0][:, None] if len(hs) == 1 else torch.stack(hs, dim=1)
+    return h, {"c": c, "n": n, "m": m}
+
+
+def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, chunk: int = 64):
+    """The chunkwise-parallel mLSTM (the xLSTM paper's formulation), the
+    same function as `_mlstm_core` with the state updated once a chunk
+    of L = min(chunk, T) tokens: intra-chunk terms are (L x L) products.
+    With a = cumsum(log f) and w = i - a over a chunk, u = cummax(w) and
+    M = max(m_prev, u), every exponent is <= 0: intra weights exp(w_s -
+    M_t), the carried state's exp(m_prev - M_t); position t's
+    stabilizer is a_t + M_t. A ragged last chunk is padded with f = 0
+    (decay 1) and i = NEG_INF (no contribution)."""
+    f32 = torch.float32
+    b, t, h, dh = q.shape
+    kscale = 1.0 / math.sqrt(dh)
+    L = min(chunk, t)
+    nc = -(-t // L)
+    pad = nc * L - t
+
+    def pad_t(x, value=0.0):
+        if not pad:
+            return x
+        return torch.cat([x, x.new_full((b, pad) + x.shape[2:], value)],
+                         dim=1)
+
+    qg, kg, vg = (pad_t(x).reshape(b, nc, L, h, dh) for x in (q, k, v))
+    ig = pad_t(i_pre, NEG_INF).reshape(b, nc, L, h)
+    fg = pad_t(f_pre).reshape(b, nc, L, h)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=q.device))[None, :, :, None]
+    c, n, m = state["c"], state["n"], state["m"]
+    hs = []
+    for j in range(nc):
+        qc, vc = qg[:, j].to(f32), vg[:, j].to(f32)
+        kc = kg[:, j].to(f32) * kscale
+        a = torch.cumsum(fg[:, j], dim=1)                   # (B, L, H)
+        w = ig[:, j] - a
+        M = torch.maximum(m[:, None], torch.cummax(w, dim=1).values)
+        inter = torch.exp(m[:, None] - M)
+        # D[t, s] = exp(w_s - M_t), s <= t
+        D = torch.where(causal, torch.exp(w[:, None] - M[:, :, None]), 0.0)
+        S = torch.einsum("bthd,bshd->btsh", qc, kc) * D
+        num = torch.einsum("btsh,bshd->bthd", S, vc) \
+            + inter[..., None] * torch.einsum("bhde,bthe->bthd", c, qc)
+        den = S.sum(dim=2) + inter * torch.einsum("bthd,bhd->bth", qc, n)
+        hs.append(num / torch.maximum(torch.abs(den),
+                                      torch.exp(-(a + M)))[..., None])
+        # the end-of-chunk state
+        a_l, m_l = a[:, -1], M[:, -1]                       # (B, H)
+        coef = torch.exp(w - m_l[:, None])                  # (B, L, H)
+        decay = torch.exp(m - m_l)
+        c = decay[..., None, None] * c \
+            + torch.einsum("blhd,blhe->bhde", coef[..., None] * vc, kc)
+        n = decay[..., None] * n + torch.einsum("blh,blhd->bhd", coef, kc)
+        m = a_l + m_l
+    hout = hs[0] if nc == 1 else torch.cat(hs, dim=1)
+    return hout[:, :t], {"c": c, "n": n, "m": m}
+
+
+def mlstm_forward(p, x: torch.Tensor, cfg, policy: QuantPolicy, *,
+                  state=None, site: str = "mlstm"):
+    """The mLSTM block: up-projection to (xm, z); q, k and the gates from
+    conv(silu(xm)), v from xm; the matrix-memory recurrence over 2
+    d_model / H wide heads (chunkwise for a prompt of T > 1 tokens when
+    `cfg.mlstm_chunk` > 1, per token otherwise), RMSNorm, the z gate
+    and the down-projection. `state` = {"mem": {c, n, m}, "conv"}
+    carries a prefill into decode steps; the new state is copied into
+    its tensors in place. Returns (y, state)."""
+    b, t, _ = x.shape
+    nh = cfg.n_heads
+    f32 = torch.float32
+    silu = torch.nn.functional.silu
+    up = qlinear.linear(x, p["w_up"], None, *rps(policy, site, "w_up"))
+    xm, z = torch.chunk(up, 2, dim=-1)
+    xc, new_conv = conv1d_causal(p["conv"], silu(xm),
+                                 None if state is None else state["conv"])
+    d_inner = xm.shape[-1]
+    dh = d_inner // nh
+    q = qlinear.linear(xc, p["wq"], None, *rps(policy, site, "wq"))
+    k = qlinear.linear(xc, p["wk"], None, *rps(policy, site, "wk"))
+    v = qlinear.linear(xm, p["wv"], None, *rps(policy, site, "wv"))
+    q, k, v = (y.reshape(b, t, nh, dh) for y in (q, k, v))
+    xf = xc.to(f32)
+    i_pre = xf @ p["w_igate"].to(f32) + p["igate_bias"]
+    f_pre = _log_sigmoid(xf @ p["w_fgate"].to(f32) + p["fgate_bias"])
+    st = state["mem"] if state is not None else \
+        mlstm_init_state(b, d_inner // 2, nh, device=x.device)["mem"]
+    if t > 1 and cfg.mlstm_chunk > 1:
+        hout, new_mem = _mlstm_chunkwise(q, k, v, i_pre, f_pre, st,
+                                         chunk=cfg.mlstm_chunk)
+    else:
+        hout, new_mem = _mlstm_core(q, k, v, i_pre, f_pre, st)
+    hout = rms_norm(hout.reshape(b, t, d_inner).to(x.dtype), p["outnorm"])
+    y = qlinear.linear(hout * silu(z), p["w_down"], None,
+                       *rps(policy, site, "w_down"))
+    if state is not None:
+        for key, val in new_mem.items():
+            state["mem"][key].copy_(val)
+        state["conv"].copy_(new_conv)
+    return y, state
+
+
+def slstm_params(gen: torch.Generator, d_model: int, n_heads: int,
+                 device) -> dict:
+    """The sLSTM block's weights in the reference's order and scales:
+    input projections (the gates' normal * 0.01), block-diagonal
+    recurrent weights (H, Dh, Dh), forget-gate bias 3, and the
+    post-projection MLP of width int(4 d / 3) rounded down to even."""
+    dh = d_model // n_heads
+    ff = int(4 * d_model / 3) // 2 * 2
+
+    def w(k, n, scale=None):
+        return _weight(gen, k, n, device, scale)
+
+    def r(scale):
+        return torch.randn((n_heads, dh, dh), generator=gen,
+                           device=device) * scale
+
+    return {"wz": w(d_model, d_model), "wi_gate": w(d_model, d_model, 0.01),
+            "wf_gate": w(d_model, d_model, 0.01),
+            "wo_gate": w(d_model, d_model, 0.01),
+            "r_z": r(1.0 / math.sqrt(dh)), "r_i": r(0.01), "r_f": r(0.01),
+            "fgate_bias": torch.full((d_model,), 3.0, device=device),
+            "mlp": {"wu2": w(d_model, ff), "wd2": w(ff, d_model)}}
+
+
+def slstm_init_state(batch: int, d_model: int, device="cuda") -> dict:
+    """One sLSTM site's state (B, d) each, f32: c, m and h zeros, the
+    normalizer n ones."""
+    def z():
+        return torch.zeros((batch, d_model), device=device)
+
+    return {"mem": {"c": z(), "n": torch.ones((batch, d_model),
+                                              device=device),
+                    "m": z(), "h": z()}}
+
+
+def _slstm_core(p, zi, ii, fi, oi, n_heads: int, state):
+    """The sLSTM recurrence, a loop over T: h feeds back through the
+    block-diagonal r_z, r_i, r_f (one batched product a step, the three
+    concatenated). zi, ii, fi, oi (B, T, d) input-side pre-activations
+    (fi with its bias). Returns (h (B, T, d) f32, the new state)."""
+    f32 = torch.float32
+    b, t, d = zi.shape
+    dh = d // n_heads
+    rcat = torch.cat([p[key].to(f32) for key in ("r_z", "r_i", "r_f")],
+                     dim=-1)                                # (H, Dh, 3Dh)
+    # (B, T, H, 3, Dh): the z, i and f inputs of each head side by side
+    pre = torch.stack([zi, ii, fi], dim=2).to(f32) \
+        .reshape(b, t, 3, n_heads, dh).transpose(2, 3)
+    og = torch.sigmoid(oi.to(f32)).reshape(b, t, n_heads, dh)
+    c, n, m, h = (state[key].reshape(b, n_heads, dh)
+                  for key in ("c", "n", "m", "h"))
+    hs = []
+    for s in range(t):
+        rec = torch.matmul(h.transpose(0, 1), rcat).transpose(0, 1)
+        g = pre[:, s] + rec.reshape(b, n_heads, 3, dh)
+        ipre = g[:, :, 1]
+        lf = _log_sigmoid(g[:, :, 2])
+        m_new = torch.maximum(lf + m, ipre)
+        i_ = torch.exp(ipre - m_new)
+        f_ = torch.exp(lf + m - m_new)
+        c = f_ * c + i_ * torch.tanh(g[:, :, 0])
+        n = f_ * n + i_
+        h = og[:, s] * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    hout = hs[0][:, None] if t == 1 else torch.stack(hs, dim=1)
+    return hout.reshape(b, t, d), {key: val.reshape(b, d) for key, val in
+                                   (("c", c), ("n", n), ("m", m), ("h", h))}
+
+
+def slstm_forward(p, x: torch.Tensor, cfg, policy: QuantPolicy, *,
+                  state=None, site: str = "slstm"):
+    """The sLSTM block: four input projections, the scalar-memory
+    recurrence (`_slstm_core`), then the post-projection MLP wd2(gelu(wu2
+    h)), gelu in its tanh form (`jax.nn.gelu`'s default). `state` =
+    {"mem": {c, n, m, h}} carries a prefill into decode steps; the new
+    state is copied into its tensors in place. Returns (y, state)."""
+    b, _, d = x.shape
+    zi = qlinear.linear(x, p["wz"], None, *rps(policy, site, "wz"))
+    ii = qlinear.linear(x, p["wi_gate"], None, *rps(policy, site, "wi_gate"))
+    fi = qlinear.linear(x, p["wf_gate"], None,
+                        *rps(policy, site, "wf_gate")) + p["fgate_bias"]
+    oi = qlinear.linear(x, p["wo_gate"], None, *rps(policy, site, "wo_gate"))
+    st = state["mem"] if state is not None else \
+        slstm_init_state(b, d, device=x.device)["mem"]
+    hs, new_mem = _slstm_core(p, zi, ii, fi, oi, cfg.n_heads, st)
+    u = torch.nn.functional.gelu(
+        qlinear.linear(hs.to(x.dtype), p["mlp"]["wu2"], None,
+                       *rps(policy, site, "mlp/wu2")), approximate="tanh")
+    y = qlinear.linear(u, p["mlp"]["wd2"], None,
+                       *rps(policy, site, "mlp/wd2"))
+    if state is not None:
+        for key, val in new_mem.items():
+            state["mem"][key].copy_(val)
     return y, state

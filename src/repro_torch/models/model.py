@@ -1,7 +1,7 @@
-"""Model assembly for the dense, MoE and hybrid decoder families: block
-builders, caches and forwards by block type over the ported types
-`attn`, `moe`, `local_attn` and `rglru` (layer i has type
-`block_pattern[i % period]`). Port of those paths of
+"""Model assembly for the dense, MoE, hybrid and xLSTM decoder families:
+block builders, caches and forwards by block type over the ported types
+`attn`, `moe`, `local_attn`, `rglru`, `mlstm` and `slstm` (layer i has
+type `block_pattern[i % period]`). Port of those paths of
 `repro/models/model.py`.
 
 The reference scans a stacked layer group; the port keeps layers
@@ -26,8 +26,10 @@ from . import layers as L
 
 Params = Dict[str, Any]
 
-BLOCK_TYPES = ("attn", "moe", "local_attn", "rglru")   # ported
-QUEUED_BLOCK_TYPES = ("mlstm", "slstm", "encdec_attn")  # ROADMAP queue 1
+BLOCK_TYPES = ("attn", "moe", "local_attn", "rglru", "mlstm",
+               "slstm")                                 # ported
+RECURRENT_TYPES = ("rglru", "mlstm", "slstm")           # no KV cache
+QUEUED_BLOCK_TYPES = ("encdec_attn",)                   # ROADMAP queue 1
 
 
 def check_block_types(cfg: ArchConfig) -> None:
@@ -51,7 +53,8 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, btype: str,
     """One block of type `btype`, drawn as the reference draws it:
     normal weights scaled by 1/sqrt(fan_in), zero biases, unit norms.
     attn / local_attn: attention + SwiGLU; moe: attention + MoE; rglru:
-    the recurrent block + SwiGLU."""
+    the recurrent block + SwiGLU; mlstm / slstm: the xLSTM block alone
+    (it carries its own projections)."""
     d, hd = cfg.d_model, cfg.head_dim
 
     def w(k, n):
@@ -68,6 +71,12 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, btype: str,
         return {"ln1": norm(),
                 "rec": L.rglru_params(gen, d, cfg.d_rnn or d, device),
                 "ln2": norm(), "mlp": mlp()}
+    if btype == "mlstm":
+        return {"ln1": norm(),
+                "mlstm": L.mlstm_params(gen, d, cfg.n_heads, device)}
+    if btype == "slstm":
+        return {"ln1": norm(),
+                "slstm": L.slstm_params(gen, d, cfg.n_heads, device)}
     attn = {"wq": w(d, cfg.n_heads * hd), "wk": w(d, cfg.n_kv_heads * hd),
             "wv": w(d, cfg.n_kv_heads * hd), "wo": w(cfg.n_heads * hd, d)}
     if cfg.qkv_bias:
@@ -86,10 +95,17 @@ def block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
                 kv_bits: int, device, dtype=torch.float32):
     """A slab cache site: a KV cache of `max_len` slots (attn, moe) or of
     min(window, max_len) slots (local_attn: a ring once max_len reaches
-    the window), or the recurrent state (rglru)."""
+    the window), or the recurrent state (rglru, mlstm, slstm; `kv_bits`
+    unread)."""
     if btype == "rglru":
         return {"rec": L.rglru_init_state(batch, cfg.d_rnn or cfg.d_model,
                                           device=device)}
+    if btype == "mlstm":
+        return {"mlstm": L.mlstm_init_state(batch, cfg.d_model, cfg.n_heads,
+                                            device=device)}
+    if btype == "slstm":
+        return {"slstm": L.slstm_init_state(batch, cfg.d_model,
+                                            device=device)}
     length = min(cfg.window, max_len) if btype == "local_attn" else max_len
     return {"kv": L.make_kv_cache(batch, length, cfg.n_kv_heads,
                                   cfg.head_dim, kv_bits=kv_bits, dtype=dtype,
@@ -100,9 +116,10 @@ def block_forward(p, x, positions, cfg: ArchConfig, policy: QuantPolicy,
                   cache=None, mode: str = "prefill", site: str = "",
                   btype: Optional[str] = None):
     """Pre-norm block of type `btype` with residuals: attention (local
-    attention over the config's window) + SwiGLU or MoE, or the
-    recurrent block + SwiGLU. Without `btype` the type is layer i's,
-    read from the site address `layers/<i>`. Returns (x, cache); the MoE
+    attention over the config's window) + SwiGLU or MoE, the recurrent
+    block + SwiGLU, or an xLSTM block (x + block(ln1 x)). Without
+    `btype` the type is layer i's, read from the site address
+    `layers/<i>`. Returns (x, cache); the MoE
     aux loss is dropped until training is ported."""
     if btype is None:
         head, _, layer = site.partition("/")
@@ -119,6 +136,12 @@ def block_forward(p, x, positions, cfg: ArchConfig, policy: QuantPolicy,
         x = x + L.swiglu(p["mlp"], L.rms_norm(x, p["ln2"], eps), policy,
                          site=f"{site}/mlp")
         return x, (None if cache is None else {"rec": st})
+    if btype in ("mlstm", "slstm"):
+        fwd = L.mlstm_forward if btype == "mlstm" else L.slstm_forward
+        h, st = fwd(p[btype], L.rms_norm(x, p["ln1"], eps), cfg, policy,
+                    state=None if cache is None else cache[btype],
+                    site=f"{site}/{btype}")
+        return x + h, (None if cache is None else {btype: st})
     h, kv = L.attention_forward(
         p["attn"], L.rms_norm(x, p["ln1"], eps), positions, cfg, policy,
         window=cfg.window if btype == "local_attn" else 0,
@@ -134,7 +157,8 @@ def block_forward(p, x, positions, cfg: ArchConfig, policy: QuantPolicy,
 
 
 class Model:
-    """Dense, MoE or hybrid LM for one ArchConfig under a QuantPolicy."""
+    """Dense, MoE, hybrid or xLSTM LM for one ArchConfig under a
+    QuantPolicy."""
 
     def __init__(self, cfg: ArchConfig, policy: QuantPolicy = QuantPolicy()):
         check_block_types(cfg)
@@ -194,10 +218,11 @@ class Model:
     def init_caches(self, batch: int, max_len: int, device="cuda",
                     dtype=torch.float32):
         """Slab caches by block type (`block_cache`); kv_bits resolves
-        per KV cache site (`layers/<i>/attn/kv`)."""
+        per KV cache site (`layers/<i>/attn/kv`), and only where the
+        block has one."""
         return {"layers": [
             block_cache(self.cfg, self.block_type(i), batch, max_len,
-                        0 if self.block_type(i) == "rglru" else
+                        0 if self.block_type(i) in RECURRENT_TYPES else
                         self.policy.resolve(f"layers/{i}/attn/kv").kv_bits,
                         device, dtype)
             for i in range(self.cfg.n_layers)]}

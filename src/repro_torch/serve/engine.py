@@ -697,10 +697,15 @@ class ServingEngine:
 
 
 def _leaves(caches) -> List[torch.Tensor]:
-    """Every tensor of a slab cache tree (KV caches and recurrent states),
-    in a fixed order."""
-    return [leaf for layer in caches["layers"] for site in layer.values()
-            for leaf in site.values()]
+    """Every tensor of a slab cache tree (KV caches and recurrent states,
+    nested ones such as an mLSTM site's `mem` included), in a fixed
+    order: depth first, in each dict's key order."""
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            return [node]
+        return [leaf for child in node.values() for leaf in walk(child)]
+
+    return [leaf for layer in caches["layers"] for leaf in walk(layer)]
 
 
 def _splice_slot(full_caches, row_caches, slot: int) -> None:

@@ -82,7 +82,10 @@ def test_accounting_matches_reference(arch, smoke):
         jcfg.param_count()
 
 
-@pytest.mark.parametrize("arch", PORTED)
+# the xLSTM rows (family "ssm") keep the reference's formula, which does
+# not count the drawn weights: test_torch_xlstm.py holds them to it
+@pytest.mark.parametrize(
+    "arch", [a for a in PORTED if tconfigs.get_config(a).family != "ssm"])
 def test_param_count_counts_the_drawn_weights(arch):
     cfg = tconfigs.get_config(arch + "-smoke")
     params = t_build_model(cfg).init(torch.Generator().manual_seed(0),

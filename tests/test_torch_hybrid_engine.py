@@ -14,8 +14,7 @@ carried across.
 - A page pool and the launcher's `--paged` raise the reference's
   ValueError, the launcher before any weight is drawn; a baseline
   preset (`--quant int4`, whose per-period stacks are not ported) and
-  `mlstm`, `slstm` and `encdec_attn` patterns raise naming the ROADMAP
-  item.
+  an `encdec_attn` pattern raise naming the ROADMAP item.
 - The async front end serves the smoke arch through the launcher, and
   a pure-rglru model (`d_rnn` 0, so d_model wide) on the slab path, as
   the reference's `test_async_recurrent_slab_arch`.
@@ -183,7 +182,7 @@ def test_launcher_refuses_a_baseline_over_mixed_blocks():
         tserve.run(["--arch", ARCH, "--quant", "int4"], device="cpu")
 
 
-@pytest.mark.parametrize("btype", ["mlstm", "slstm", "encdec_attn"])
+@pytest.mark.parametrize("btype", ["encdec_attn"])
 def test_unported_block_types_raise(btype):
     cfg = dataclasses.replace(t_get_config(ARCH),
                               block_pattern=("rglru", btype))
