@@ -149,14 +149,14 @@ CUDA toolkit. It builds the hand-written kernels from
    `torch.matmul` on the dequantized weight and the byte bound; then
    serve phase F: the three at full published width through the
    launcher's entry point (`--quant olive_serve`, the launcher's
-   workload), slab, and Qwen2-7B also paged, the card freed between
-   runs: no fallback, K1 once per quantized linear per forward call
-   (none for the unquantized fp32 head), K2 (K3 and K4 paged) and K7 as
-   in phase A, every page returned, the audit, graph against eager,
+   workload), slab (the paged Qwen2-7B run cut for time; phases C, E
+   and L serve paged), the card freed between runs: no fallback, K1
+   once per quantized linear per forward call (none for the
+   unquantized fp32 head), K2 and K7 as in phase A, the audit, graph
+   against eager,
    each run's decode-step profile beside the step's byte bound
    (W4 blocks + fp32 head, from `param_count`), and a 2-layer
-   card-vs-CPU check of each run (`truncated_reference_check`; paged
-   over fp32 pools);
+   card-vs-CPU check of each run (`truncated_reference_check`);
 13. serve phase G: the baseline presets (`--quant int8 | int4 | ant4`)
    on full-width Qwen1.5-0.5B through the launcher: no OVP kernel (K1,
    K6, K7) launched, K2 once a layer a step over fp32 caches, the
@@ -211,7 +211,41 @@ CUDA toolkit. It builds the hand-written kernels from
    then 32 greedy decode steps on the captured step, held to one CPU
    prefill of the same tokens at 1e-3 * max|ref|, greedy tokens equal),
    and K1 at one mLSTM layer's 5 and one sLSTM layer's 6 decode
-   launches (the served weights, ragged N 1364 included).
+   launches (the served weights, ragged N 1364 included);
+17. the encoder-decoder, with the earlier models freed: phase K,
+   SeamlessM4T-large-v2 at full published width and depth (24 encoder
+   + 24 decoder layers, d_model 1024, MHA 16 x 64, GELU MLPs of 8192,
+   untied 256206 vocab, 160-d audio frames), W4 + KV4 self caches and
+   fp32 cross caches, random weights from seed 0 drawn and quantized
+   layer by layer (the encoder as one stack); the launcher refuses the
+   arch (its engine feeds no frames), so the path is `Model.forward`, as
+   in the reference: 4 rows of 400 random frames and an 8-token prompt
+   prefilled into 512-slot cross caches, then 32 greedy decode steps:
+   exactly K1 385 and K7 48 in the prefill, K1 192, K2 48 (24 over the
+   KV4 self caches, 24 over the fp32 cross caches at pos = src_len - 1,
+   told apart by K2's cache-dtype counters) and K7 48 a decode step, no
+   other kernel; every cross cache's src_len 400 and its tail unwritten;
+   the encoder alone timed and counted (exactly K1 145); a decode
+   step profiled beside its byte bound from the served tensors
+   (`encdec_step_bytes`); K1 at one decoder layer's 8 decode launches
+   and at the frontend projection (K 160) and one encoder layer's 6
+   launches at the prefill's 1600 rows, K2 over a served cross cache;
+   a 2 + 2-layer card-vs-CPU check (32 decode steps, 1e-3 * max|ref|,
+   greedy tokens equal) and the padded-vs-tight check (the same run over
+   400-slot cross caches within 1e-4 * max|padded|);
+18. the VLM: phase L, InternVL2-1B at full published width and depth
+   (24 layers, d_model 896, 14 heads over 2 KV heads of 64, SwiGLU
+   4864, untied 151655 vocab) through the launcher (`--arch internvl2-1b
+   --quant olive_serve`, the launcher's workload, on tokens), slab and
+   paged 16 / chunk 16: a decode step's launches exactly K1 168, K2 (K3)
+   24 and K7 48, no other kernel, the audit, graph against eager, the
+   sync check, the decode-step profile beside its byte bound, the
+   2-layer card-vs-CPU check; then `Model.forward` with 256 random
+   1024-d patch embeddings in front of an 8-token prompt on 4 rows
+   (K1 169 and K7 48 in the prefill) and 32 greedy decode steps at pos
+   264 + i, with a 2-layer card-vs-CPU check; K1 at one layer's 7
+   decode launches, and K2, K3 and K4 at Hkv 2 / G 7 / D 64 against
+   their plain versions.
 
 Every serve phase runs the engine's captured steps (CUDA graphs, the
 default) and checks them: the trace audit (`audit_check`: the decode step
@@ -222,9 +256,10 @@ through the graph and through the same step run eagerly,
 bit-identical logits, 0 cache bytes differing, equal greedy tokens), in
 phases A, B, C, D (load and paged) and E (slab and paged); the sync
 check allows no host sync in a captured decode step but the token
-fetch; and in phases A and E (slab) the launcher's workload is drained
-by an eager twin of the served engine (`capture=False`) and by the
-captured engine in turns eager, graph, graph, eager (`capture_ab`:
+fetch; and in phase A the launcher's workload is drained by an eager
+twin of the served engine (`capture=False`) and by the captured engine
+in turns eager, graph, graph, eager (`capture_ab`, cut from phase E for
+time:
 tok/s, mean TTFT, decode-step walls, peak memory, equal greedy tokens),
 then both are profiled; `lru_check` evicts graphs at a prefill cache of
 one entry (phase A's model, slab and paged), and `defrag_check` compacts
@@ -2328,15 +2363,65 @@ def reference_check(model, params, dev, label: str = "W4",
             fail(f"reference check {name}: card and CPU disagree")
 
 
+def profile_steps(step, steps: int = 3, warm: bool = True):
+    """`steps` calls of `step()` under torch.profiler (after one call
+    outside it when `warm`): per call, the profiled wall ms, the device
+    busy ms, the device kernels and the zero-fills among them, K1/K5's
+    decode-body calls and ms, K6's launches and ms, K2/K3's launches and
+    ms, and the 8 costliest kernels as (ms, launches, name). The counts
+    and ms are None when the profiler saw no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if warm:
+        step()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def per_step(name):
+        """(calls, ms) a step of the kernels whose name holds `name`."""
+        hits = [e for e in kernels if name in e.key]
+        return (sum(e.count for e in hits) / steps,
+                sum(e.self_device_time_total for e in hits) / 1e3 / steps)
+
+    out = {"wall_ms": wall,
+           "busy_ms": sum(e.self_device_time_total
+                          for e in kernels) / 1e3 / steps,
+           "top": [(e.self_device_time_total / 1e3 / steps,
+                    e.count // steps, e.key) for e in sorted(
+                        kernels, key=lambda e: -e.self_device_time_total)[:8]]}
+    if not kernels:
+        return dict(out, kernels=None, fills=None, k1_calls=None,
+                    k1_ms=None, k6_calls=None, k6_ms=None, attn_calls=None,
+                    attn_ms=None)
+    # zero-fill kernels (torch.zeros / fill_): a split-K matmul needs one;
+    # K1/K5's decode-body kernels, each one whole call; K6's persistent
+    # kernel (the MoE expert einsums); K2 / K3 (one kernel template, slab
+    # or paged rows)
+    out["kernels"] = sum(e.count for e in kernels) / steps
+    out["fills"] = per_step("FillFunctor")[0]
+    for key, name in (("k1", "ovp_dec_kernel"),
+                      ("k6", "ovp_grouped_dec_kernel"),
+                      ("attn", "decode_attn_kernel")):
+        out[f"{key}_calls"], out[f"{key}_ms"] = per_step(name)
+    return out
+
+
 def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
                    max_new: int = 32) -> None:
     """Where one decode step's time goes on the served model: `steps`
     steps of 4 active slots timed on the host clock, then as many more
-    under torch.profiler for the device busy time and the top kernels
-    (4 requests of `max_new` tokens, drained after)."""
+    under torch.profiler (`profile_steps`) for the device busy time and
+    the top kernels (4 requests of `max_new` tokens, drained after)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     eng = res["engine"]
     rng = np.random.default_rng(3)
     for _ in range(4):
@@ -2350,54 +2435,29 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) / steps * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    n_kernels = sum(e.count for e in kernels) / steps
-    # zero-fill kernels (torch.zeros / fill_): a split-K matmul needs one
-    n_fills = sum(e.count for e in kernels
-                  if "FillFunctor" in e.key) / steps
-    # K1/K5's decode-body kernels: each is one whole call
-    dense = [e for e in kernels if "ovp_dec_kernel" in e.key]
-    n_dense = sum(e.count for e in dense) / steps
-    k1_ms = sum(e.self_device_time_total for e in dense) / 1e3 / steps
-    # K6's persistent kernel (the MoE expert einsums)
-    grouped = [e for e in kernels if "ovp_grouped_dec_kernel" in e.key]
-    k6_ms = sum(e.self_device_time_total for e in grouped) / 1e3 / steps
-    k6_n = sum(e.count for e in grouped) / steps
-    # K2 / K3 (one kernel template, slab or paged rows)
-    attn = [e for e in kernels if "decode_attn_kernel" in e.key]
-    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 / steps
-    attn_n = sum(e.count for e in attn) / steps
+    prof = profile_steps(eng.step, steps, warm=False)
+    prof_ms, busy_ms = prof["wall_ms"], prof["busy_ms"]
     print(f"[profile] decode step (4 slots, {label}, {steps} steps): "
           f"{step_ms:.2f}ms "
           f"wall; under the profiler {prof_ms:.2f}ms wall, device busy "
           + (f"{busy_ms:.3f}ms ({100 * busy_ms / prof_ms:.1f}% of wall), "
-             f"{n_kernels:.1f} device kernels per step, {n_fills:.1f} of "
-             f"them zero-fills, {n_dense:.1f} K1/K5 calls ({k1_ms:.3f}ms)"
-             + (f", K6 {k6_ms:.3f}ms over {k6_n:.1f} launches" if grouped
-                else "")
-             + f", K2/K3 {attn_ms:.3f}ms over {attn_n:.1f} launches"
-             if kernels else "not measured (no device events)"))
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        print(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f}"
-              f"ms/step {e.count // steps:5d} launches/step  {e.key[:90]}")
+             f"{prof['kernels']:.1f} device kernels per step, "
+             f"{prof['fills']:.1f} of them zero-fills, "
+             f"{prof['k1_calls']:.1f} K1/K5 calls ({prof['k1_ms']:.3f}ms)"
+             + (f", K6 {prof['k6_ms']:.3f}ms over {prof['k6_calls']:.1f} "
+                f"launches" if prof["k6_calls"] else "")
+             + f", K2/K3 {prof['attn_ms']:.3f}ms over "
+               f"{prof['attn_calls']:.1f} launches"
+             if prof["kernels"] is not None
+             else "not measured (no device events)"))
+    for ms, n, key in prof["top"]:
+        print(f"[profile]   {ms:8.3f}ms/step {n:5d} launches/step  "
+              f"{key[:90]}")
     eng.run_until_drained()
     return {"step_ms": step_ms, "prof_ms": prof_ms, "busy_ms": busy_ms,
-            "kernels_per_step": n_kernels if kernels else None,
-            "k6_ms": k6_ms if kernels else None,
-            "k1_ms": k1_ms if kernels else None,
-            "attn_ms": attn_ms if kernels else None,
-            "k1_calls": n_dense if kernels else None,
-            "attn_calls": attn_n if kernels else None}
+            "kernels_per_step": prof["kernels"], "k6_ms": prof["k6_ms"],
+            "k1_ms": prof["k1_ms"], "attn_ms": prof["attn_ms"],
+            "k1_calls": prof["k1_calls"], "attn_calls": prof["attn_calls"]}
 
 
 def serve_phase_c(dev, res_a, arch: str = ARCH):
@@ -3247,7 +3307,8 @@ def serve_phase_e(dev):
         audit_check(res["engine"], phase)
         capture_gate(res["engine"], f"E ({label})", steps=3)
         if label == "slab":
-            prof = capture_ab(res, "E", steps=3, max_new=10)["graph"]
+            prof = profile_decode(res, "phase E, graph", steps=3,
+                                  max_new=10)
             truncated_reference_check(res, dev)
         else:
             prof_paged = profile_decode(
@@ -3996,12 +4057,13 @@ def k5_wide_phase(dev):
     return out
 
 
-def serve_phase_f(dev, smi: str):
+def serve_phase_f(dev, smi: str, with_paged: bool = False):
     """The dense 7-8B models at full published width through the
     launcher's entry point (`--arch A --quant olive_serve`, the
-    launcher's workload): Qwen2-7B, Yi-6B and Minitron-8B slab, and
-    Qwen2-7B paged (`--paged 16 --prefill-chunk 16`), the card freed
-    between runs. Counters reset just before and read just after each
+    launcher's workload): Qwen2-7B, Yi-6B and Minitron-8B slab (a paged
+    Qwen2-7B run, `--paged 16 --prefill-chunk 16`, when `with_paged`:
+    `main` leaves it out for time), the card freed between
+    runs. Counters reset just before and read just after each
     run: no fallback; K1 `fp` once per quantized linear (7 a layer, int4
     weights) per forward call and none for the unquantized head; K2 (K3
     and K4 paged) once a layer a step or chunk; K7 twice a layer a cache
@@ -4016,7 +4078,7 @@ def serve_phase_f(dev, smi: str):
     t_phase = time.perf_counter()
     runs = {}
     for arch, paged in [(a, False) for a in DENSE_ARCHS] \
-            + [(DENSE_ARCHS[0], True)]:
+            + ([(DENSE_ARCHS[0], True)] if with_paged else []):
         label = "paged 16, chunk 16" if paged else "slab"
         phase = f"serve phase F ({arch}, {label})"
         attn = "paged_decode_attn" if paged else "decode_attn"
@@ -5056,6 +5118,551 @@ def serve_phase_j(dev, smi: str):
             "k1": recs, "step_bound_ms": step_bound}
 
 
+# --------------------------------------------------------------------------
+# The last two families: the encoder-decoder and the VLM frontend
+# --------------------------------------------------------------------------
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_ROWS = 4         # batch rows of phase K
+ENCDEC_FRAMES = 400     # 160-d encoder frames a row
+ENCDEC_XKV = 512        # cross-cache slots: the tail past src_len is masked
+ENCDEC_PROMPT = 8       # decoder prompt tokens
+ENCDEC_STEPS = 32       # greedy decode steps
+ENCDEC_MAX_LEN = 64     # self-cache slots: prompt, steps and profiled steps
+# the prefill: K1 on the frontend projection, 6 an encoder layer (q, k,
+# v, o, wi, wd) and 10 a decoder layer (self q, k, v, o; cross q, k, v,
+# o; wi, wd), K7 on the self caches' K and V; the encoder alone: its K1
+# share of the prefill; a decode step: K1 8 a decoder layer (self q, k,
+# v, o; cross q, o; wi, wd), K2 twice a layer (over the KV4 self cache
+# and the fp32 cross cache, told apart by the cache-dtype counters), K7
+# twice a layer
+ENCDEC_PREFILL_LAUNCHES = {"ovp_matmul[fp]": 1 + 24 * 6 + 24 * 10,
+                           "ovp_encode": 48}
+ENCDEC_ENCODE_LAUNCHES = {"ovp_matmul[fp]": 1 + 24 * 6}
+ENCDEC_STEP_LAUNCHES = {"ovp_matmul[fp]": 24 * 8, "decode_attn": 48,
+                        "ovp_encode": 48}
+ENCDEC_STEP_CACHE_LAUNCHES = {"decode_attn<int4>": 24,
+                              "decode_attn<float32>": 24}
+VLM_ARCH = "internvl2-1b"
+VLM_PROMPT = 8          # tokens after the 256 patch embeddings
+VLM_STEPS = 32
+# a decode step of the served model: K1 7 a layer, K2 (K3 paged) and K7
+# twice a layer; the prefill with patch embeddings adds the projection
+VLM_STEP_LAUNCHES = {"ovp_matmul[fp]": 168, "decode_attn": 24,
+                     "ovp_encode": 48}
+VLM_PREFILL_LAUNCHES = {"ovp_matmul[fp]": 169, "ovp_encode": 48}
+CUT_LAYERS = 2          # the card-vs-CPU checks' depth (encoder and decoder)
+
+
+def launched(counts):
+    """The nonzero launch counters by kernel and mode (the weight-dtype
+    counters and the dispatch stats left out)."""
+    return {key: n for key, n in counts.items()
+            if key not in ("dispatch", "act_scale") and "<" not in key
+            and n}
+
+
+def greedy_forward(model, params, batch, caches, steps: int, pos0: int,
+                   fed=None):
+    """`Model.forward` as a user calls it: a prefill of `batch` into
+    `caches`, then `steps` greedy decode steps at positions pos0 + i (the
+    tokens `fed` (B, steps) instead of the greedy ones when given). The
+    launch counters are reset just before the prefill and read just after
+    it, then reset again and read after the decode steps. Returns (the
+    last-position logits of every forward call (B, steps + 1, V), the
+    tokens fed (B, steps), the prefill's counts, the decode steps' counts,
+    the prefill's wall ms, a decode step's wall ms)."""
+    import torch
+    dev = batch["tokens"].device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    b = batch["tokens"].shape[0]
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, caches = model.forward(params, batch, mode="prefill",
+                                   caches=caches)
+    sync()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    c_pre = read_counts()
+    reset_counts()
+    out, toks = [logits[:, -1]], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = out[-1].argmax(-1)[:, None] if fed is None \
+            else fed[:, i:i + 1]
+        toks.append(tok)
+        logits, caches = model.forward(
+            params, {"tokens": tok, "pos": torch.full(
+                (b,), pos0 + i, dtype=torch.int32, device=dev)},
+            mode="decode", caches=caches)
+        out.append(logits[:, 0])
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    c_dec = read_counts()
+    return (torch.stack(out, 1).float(), torch.cat(toks, 1), c_pre, c_dec,
+            pre_ms, step_ms)
+
+
+def check_launches(counts, want, phase: str) -> None:
+    """No fallback, and exactly the launches `want` (kernel[mode] -> n),
+    no other kernel."""
+    check_counts(counts, phase, tuple(want))
+    if launched(counts) != want:
+        fail(f"{phase}: launches {launched(counts)}, expected exactly "
+             f"{want}")
+
+
+def encdec_step_bytes(params, caches, src_len: int, pos: int, rows: int):
+    """The bytes one decode step of the served encoder-decoder must move,
+    from its own tensors: every decoder layer's weights but the cross
+    attention's K/V projections (read by the prefill only), the fp32
+    head and final norm, the embedding rows the step reads, each row's
+    first `src_len` cross-cache slots (K and V, fp32), and each row's
+    self-cache slots 0..pos read (packed K/V and scales) and one
+    written. Returns (block weights, head, caches) bytes."""
+    blocks = sum(_tree_bytes(layer) - _tree_bytes(
+        {k: layer["xattn"][k] for k in ("wk", "wv", "bk", "bv")})
+        for layer in params["layers"])
+    head = _tree_bytes(params["lm_head"]) \
+        + _tree_bytes(params["final_norm"]) \
+        + rows * params["embed"]["table"].shape[1] * 4
+    kv = 0
+    for layer in caches["layers"]:
+        xkv, skv = layer["xkv"], layer["kv"]
+        kv += rows * src_len * 2 * xkv["k"][0, 0].numel() \
+            * xkv["k"].element_size()
+        slot = sum(skv[key][0, 0].numel() * skv[key].element_size()
+                   for key in ("k_data", "v_data", "k_scl", "v_scl"))
+        kv += rows * (pos + 2) * slot
+    return blocks, head, kv
+
+
+def encdec_reference_check(model, params, batch, dev, smi: str,
+                           steps: int = ENCDEC_STEPS):
+    """A `CUT_LAYERS`-deep cut of the served full-width encoder-decoder
+    (the first 2 encoder and 2 decoder layers, the same W4 params) over
+    fp32 self caches: the prefill of phase K's frames and prompt into
+    `ENCDEC_XKV`-slot cross caches, then `steps` greedy decode steps, on
+    the card; the same model on the CPU through the plain versions over
+    the same tokens (the card's greedy tokens fed): logits within 1e-3 *
+    max|ref|, greedy tokens equal. Then the padded-vs-tight check: the
+    card's run again over cross caches of exactly `ENCDEC_FRAMES` slots,
+    the same tokens fed: its logits within 1e-4 * max|padded| of the
+    padded run's (the 112 unwritten tail slots get no softmax mass; the
+    key split of K2 may differ, so bit identity is not required)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(model.cfg, n_layers=CUT_LAYERS,
+                              n_enc_layers=CUT_LAYERS)
+    small = build_model(cfg, model.policy.replace_all(kv_bits=0))
+    p2 = dict(params, layers=params["layers"][:CUT_LAYERS],
+              enc_blocks=params["enc_blocks"][:CUT_LAYERS])
+    rows = batch["tokens"].shape[0]
+
+    def run(device, tree, enc_len, fed=None):
+        b = {key: val.to(device) for key, val in batch.items()}
+        caches = small.init_caches(rows, ENCDEC_MAX_LEN, enc_len=enc_len,
+                                   device=device)
+        return greedy_forward(small, tree, b, caches, steps,
+                              ENCDEC_PROMPT,
+                              None if fed is None else fed.to(device))
+
+    got, fed, *_ = run(dev, p2, ENCDEC_XKV)
+    tight = run(dev, p2, ENCDEC_FRAMES, fed)[0]
+    t0 = time.perf_counter()
+    ref = run("cpu", _to(p2, "cpu"), ENCDEC_XKV, fed.cpu())[0]
+    cpu_s = time.perf_counter() - t0
+    got, tight = got.cpu(), tight.cpu()
+    v = cfg.vocab
+    finite = bool(torch.isfinite(got).all())
+    err = float((got[..., :v] - ref[..., :v]).abs().max())
+    tol = 1e-3 * float(ref[..., :v].abs().max())
+    same = bool(torch.equal(got[..., :v].argmax(-1), ref[..., :v].argmax(-1)))
+    pad = float((got - tight).abs().max())
+    pad_tol = 1e-4 * float(got[..., :v].abs().max())
+    print(f"[ref K] {cfg.name} cut to {CUT_LAYERS} encoder + {CUT_LAYERS} "
+          f"decoder layers, W4, fp32 self caches: {ENCDEC_FRAMES} frames "
+          f"and a {ENCDEC_PROMPT}-token prompt x {rows} rows into "
+          f"{ENCDEC_XKV}-slot cross caches, {steps} greedy decode steps; "
+          f"card vs the CPU's plain versions ({cpu_s:.1f}s): logits "
+          f"{'finite' if finite else 'NOT finite'}, shape "
+          f"{tuple(got.shape)}, max |diff| {err:.3e} (tol {tol:.3e} = "
+          f"1e-3 * max|ref|), greedy tokens {'equal' if same else 'differ'};"
+          f" padded ({ENCDEC_XKV}) vs tight ({ENCDEC_FRAMES}) cross caches "
+          f"on the card: max |diff| {pad:.3e} (tol {pad_tol:.3e} = 1e-4 * "
+          f"max|padded|{', bit-identical' if pad == 0 else ''}) ({smi})")
+    if not finite or got.shape != (rows, steps + 1, cfg.padded_vocab) or \
+            not err <= tol or not same:
+        fail("phase K: card and CPU disagree")
+    if not pad <= pad_tol:
+        fail("phase K: the padded cross cache's tail took softmax mass")
+    return {"err": err, "tol": tol, "pad": pad, "pad_tol": pad_tol}
+
+
+def serve_phase_k(dev, smi: str):
+    """The encoder-decoder at full published width and depth:
+    SeamlessM4T-large-v2 (24 encoder + 24 decoder layers, d_model 1024,
+    MHA 16 x 64, GELU MLPs of 8192, untied 256206 vocab, 160-d audio
+    frames), olive_serve as the launcher rewrites it (W4 weights, KV4
+    self caches, fp32 cross caches, activations unquantized), random
+    weights from seed 0 drawn and quantized layer by layer (the encoder
+    as one stack) through `Model.init`. The launcher refuses the arch
+    (its engine feeds no frames), so the path is `Model.forward`, as in
+    the reference: `ENCDEC_ROWS` rows of `ENCDEC_FRAMES` random frames
+    and an `ENCDEC_PROMPT`-token prompt, prefilled into cross caches of
+    `ENCDEC_XKV` slots, then `ENCDEC_STEPS` greedy decode steps.
+    Counters reset just before and read just after the prefill and the
+    decode steps: exactly `ENCDEC_PREFILL_LAUNCHES` and
+    `ENCDEC_STEPS` x `ENCDEC_STEP_LAUNCHES`, no other kernel, no
+    fallback; every cross cache's src_len 400 and its tail unwritten;
+    finite logits. Then the encoder alone timed, a decode step profiled
+    beside its byte bound (`encdec_step_bytes`), K1 at one decoder
+    layer's 8 decode launches (rows 4) and at the frontend and one
+    encoder layer's 6 launches at the prefill's 1600 rows, K2 over a
+    served cross cache at pos = src_len - 1, and
+    `encdec_reference_check`. Returns the counts and records."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qlinear import quantize_params, tree_paths
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    phase = f"phase K ({ENCDEC_ARCH})"
+    try:
+        serve.run(["--arch", ENCDEC_ARCH, "--quant", "olive_serve"]
+                  + SERVE_ARGS, device=dev)
+        fail(f"{phase}: the launcher served an encoder-decoder")
+    except ValueError as err:
+        refusal = str(err)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(ENCDEC_ARCH)
+    policy = get_policy("olive_serve").replace_all(compute_dtype="float32",
+                                                   abits=0)
+    model = build_model(cfg, policy)
+    ptq_s = 0.0
+
+    def quantize(tree, prefix):
+        nonlocal ptq_s
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tree = quantize_params(tree, policy, prefix=prefix)
+        torch.cuda.synchronize(dev)
+        ptq_s += time.perf_counter() - t0
+        return tree
+
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev, quantize=quantize)
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    rows = ENCDEC_ROWS
+    batch = {"frames": torch.as_tensor(rng.standard_normal(
+                 (rows, ENCDEC_FRAMES, cfg.frontend_dim)),
+                 dtype=torch.float32, device=dev),
+             "tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab, size=(rows, ENCDEC_PROMPT)), device=dev)}
+    caches = model.init_caches(rows, ENCDEC_MAX_LEN, enc_len=ENCDEC_XKV,
+                               device=dev)
+    logits, _, c_pre, c_dec, pre_ms, step_ms = greedy_forward(
+        model, params, batch, caches, ENCDEC_STEPS, ENCDEC_PROMPT)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check_launches(c_pre, ENCDEC_PREFILL_LAUNCHES, f"{phase} prefill")
+    check_launches(c_dec, {key: n * ENCDEC_STEPS for key, n in
+                           ENCDEC_STEP_LAUNCHES.items()},
+                   f"{phase} decode steps")
+    by_cache = {key: c_dec[key] for key in ENCDEC_STEP_CACHE_LAUNCHES}
+    if by_cache != {key: n * ENCDEC_STEPS for key, n in
+                    ENCDEC_STEP_CACHE_LAUNCHES.items()}:
+        fail(f"{phase} decode steps: K2 launches by cache dtype "
+             f"{by_cache}, expected {ENCDEC_STEP_CACHE_LAUNCHES} a step")
+    for i, layer in enumerate(caches["layers"]):
+        xkv = layer["xkv"]
+        if xkv["src_len"].tolist() != [ENCDEC_FRAMES] * rows or \
+                bool(xkv["k"][:, ENCDEC_FRAMES:].any()):
+            fail(f"{phase}: layer {i}'s cross cache src_len "
+                 f"{xkv['src_len'].tolist()} or its tail was written")
+    if logits.shape != (rows, ENCDEC_STEPS + 1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{phase}: logits {tuple(logits.shape)} or not finite")
+    n_q = sum(hasattr(w, "scale") for _, w in tree_paths(params))
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    model.encode(params, batch["frames"])
+    torch.cuda.synchronize(dev)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    c_enc = read_counts()
+    check_launches(c_enc, ENCDEC_ENCODE_LAUNCHES, f"{phase} encoder")
+    w_b, head_b, kv_b = encdec_step_bytes(params, caches, ENCDEC_FRAMES,
+                                          ENCDEC_PROMPT + ENCDEC_STEPS, rows)
+    bound = bound_ms(w_b + head_b + kv_b, 0.0)[0]
+    print(f"[serve K] {ENCDEC_ARCH} ({cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}) W4 + KV4 self caches + fp32 cross caches, through "
+          f"Model.forward (the launcher refuses it: {refusal[:60]}...): "
+          f"PTQ {ptq_s:.2f}s of {n_q} linears (layer by layer, the encoder "
+          f"as one stack; build and PTQ {load_s:.2f}s), peak device memory "
+          f"{peak_gb:.2f} GB; {rows} rows x {ENCDEC_FRAMES} frames + "
+          f"{ENCDEC_PROMPT} tokens: prefill {pre_ms:.1f}ms (the encoder "
+          f"alone {enc_ms:.1f}ms), {ENCDEC_STEPS} eager decode steps "
+          f"{step_ms:.2f}ms a step; launches: prefill {launched(c_pre)}, "
+          f"the encoder alone {launched(c_enc)}, decode steps "
+          f"{launched(c_dec)} (K2 {by_cache}); a decode step's byte bound "
+          f"{bound:.3f}ms (decoder blocks {w_b / 1e6:.1f} MB + fp32 head "
+          f"{head_b / 1e6:.1f} MB + caches {kv_b / 1e6:.1f} MB at 3.35 "
+          f"TB/s) ({smi})")
+    pos = [ENCDEC_PROMPT + ENCDEC_STEPS]
+
+    def one_step():
+        tok = torch.zeros((rows, 1), dtype=torch.int64, device=dev)
+        model.forward(params, {"tokens": tok, "pos": torch.full(
+            (rows,), pos[0], dtype=torch.int32, device=dev)},
+            mode="decode", caches=caches)
+        pos[0] += 1
+
+    prof = profile_steps(one_step)
+    if prof["kernels"] is not None:
+        print(f"[serve K] {ENCDEC_ARCH} decode step ({rows} rows, eager "
+              f"Model.forward): {prof['kernels']:.1f} device kernels, busy "
+              f"{prof['busy_ms']:.3f}ms of {prof['wall_ms']:.2f}ms profiled "
+              f"wall, K1 {prof['k1_ms']:.3f}ms over {prof['k1_calls']:g} "
+              f"calls, K2 {prof['attn_ms']:.3f}ms; byte bound {bound:.3f}ms "
+              f"({smi})")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    dec0, enc0 = params["layers"][0], params["enc_blocks"][0]
+    recs = {"decoder": k1_layer_record(
+        dev, gen, [dec0["attn"][n] for n in ("wq", "wk", "wv", "wo")]
+        + [dec0["xattn"][n] for n in ("wq", "wo")]
+        + [dec0["mlp"][n] for n in ("wi", "wd")], 4, "int4",
+        label=f"k1 {ENCDEC_ARCH} decoder")}
+    recs["encoder"] = k1_layer_record(
+        dev, gen, [params["frontend_proj"]["w_in"]]
+        + [enc0["attn"][n] for n in ("wq", "wk", "wv", "wo")]
+        + [enc0["mlp"][n] for n in ("wi", "wd")], rows * ENCDEC_FRAMES,
+        "int4", label=f"k1 {ENCDEC_ARCH} encoder prefill")
+    for what, n in (("decoder", 8), ("encoder", 7)):
+        r = recs[what]
+        print(f"[k1 {ENCDEC_ARCH}] " + (
+            "one decoder layer's 8 decode launches, rows 4" if n == 8 else
+            f"the frontend and one encoder layer's 6 launches, rows "
+            f"{rows * ENCDEC_FRAMES}") + f", fp: kernel {r['ms']:.4f}ms, "
+            f"matmul {r['library_ms']:.4f}ms, bound {r['bound_ms']:.5f}ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f}ms ({smi})")
+    xkv = caches["layers"][0]["xkv"]
+    q = torch.randn((rows, 1, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=dev)
+    recs["cross"] = k2_record(q, xkv, xkv["src_len"] - 1, 0, 0,
+                              f"{ENCDEC_ARCH} cross")
+    recs["check"] = encdec_reference_check(model, params, batch, dev, smi)
+    print(f"[serve K] phase took {time.perf_counter() - t_phase:.1f}s")
+    del params, caches, model
+    return {"prefill": c_pre, "encode": c_enc, "decode": c_dec,
+            "peak_gb": peak_gb,
+            "profile": prof, "records": recs, "bound_ms": bound}
+
+
+def vlm_forward_check(res, dev, smi: str, steps: int = VLM_STEPS):
+    """The VLM frontend on the served full-width model: `Model.forward`
+    with 256 random 1024-d patch embeddings in front of an
+    `VLM_PROMPT`-token prompt on 4 rows (positions 0..263), then `steps`
+    greedy decode steps at pos = 264 + i. Counters reset just before and
+    read just after: the prefill exactly `VLM_PREFILL_LAUNCHES`, each
+    decode step `VLM_STEP_LAUNCHES`; finite logits. Then the
+    `CUT_LAYERS`-deep cut over fp32 KV, card against the CPU's plain
+    versions on the same patches and tokens (the card's greedy tokens
+    fed): logits within 1e-3 * max|ref|, greedy tokens equal. Returns
+    the counts and the check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    model, params = res["model"], res["params"]
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    rows, p = 4, cfg.n_frontend_tokens
+    batch = {"patch_embeds": torch.as_tensor(rng.standard_normal(
+                 (rows, p, cfg.frontend_dim)), dtype=torch.float32,
+                 device=dev),
+             "tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab, size=(rows, VLM_PROMPT)), device=dev)}
+    max_len = p + VLM_PROMPT + steps
+    logits, _, c_pre, c_dec, pre_ms, step_ms = greedy_forward(
+        model, params, batch, model.init_caches(rows, max_len, device=dev),
+        steps, p + VLM_PROMPT)
+    phase = f"phase L ({VLM_ARCH}, Model.forward with patch embeddings)"
+    check_launches(c_pre, VLM_PREFILL_LAUNCHES, f"{phase} prefill")
+    check_launches(c_dec, {key: n * steps for key, n in
+                           VLM_STEP_LAUNCHES.items()},
+                   f"{phase} decode steps")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{phase}: logits not finite")
+    small = build_model(dataclasses.replace(cfg, n_layers=CUT_LAYERS),
+                        model.policy.replace_all(kv_bits=0))
+    p2 = dict(params, layers=params["layers"][:CUT_LAYERS])
+
+    def run(device, tree, fed=None):
+        b = {key: val.to(device) for key, val in batch.items()}
+        return greedy_forward(
+            small, tree, b, small.init_caches(rows, max_len, device=device),
+            steps, p + VLM_PROMPT, None if fed is None else fed.to(device))
+
+    got, fed, *_ = run(dev, p2)
+    t0 = time.perf_counter()
+    ref = run("cpu", _to(p2, "cpu"), fed.cpu())[0]
+    cpu_s = time.perf_counter() - t0
+    got = got.cpu()
+    v = cfg.vocab
+    err = float((got[..., :v] - ref[..., :v]).abs().max())
+    tol = 1e-3 * float(ref[..., :v].abs().max())
+    same = bool(torch.equal(got[..., :v].argmax(-1), ref[..., :v].argmax(-1)))
+    print(f"[ref L] {VLM_ARCH} W4 + KV4, {p} patch embeddings + "
+          f"{VLM_PROMPT} tokens x {rows} rows: prefill {pre_ms:.1f}ms, "
+          f"{steps} eager decode steps at pos {p + VLM_PROMPT}+i "
+          f"{step_ms:.2f}ms a step; launches prefill {launched(c_pre)}, "
+          f"decode steps {launched(c_dec)}; cut to {CUT_LAYERS} layers over "
+          f"fp32 KV, card vs the CPU's plain versions ({cpu_s:.1f}s): max "
+          f"|diff| {err:.3e} (tol {tol:.3e} = 1e-3 * max|ref|) over "
+          f"{steps + 1} positions, greedy tokens "
+          f"{'equal' if same else 'differ'} ({smi})")
+    if not err <= tol or not same:
+        fail(f"{phase}: card and CPU disagree")
+    return {"prefill": c_pre, "decode": c_dec, "err": err, "tol": tol}
+
+
+def serve_phase_l(dev, smi: str):
+    """The VLM at full published width and depth through the launcher's
+    entry point: InternVL2-1B (`--arch internvl2-1b --quant olive_serve`:
+    24 layers, d_model 896, 14 heads over 2 KV heads of 64, SwiGLU 4864,
+    untied 151655 vocab), on tokens as the reference launcher serves it,
+    slab and then paged (`--paged 16 --prefill-chunk 16`), the card freed
+    between runs, the launcher's workload. Counters reset just before and
+    read just after each run: no fallback; K1 once per quantized linear
+    (7 a layer) per forward call, K2 (K3 and K4 paged) once a layer a
+    step or chunk, K7 twice a layer a cache write, no other kernel: a
+    decode step's launches exactly `VLM_STEP_LAUNCHES` (K3 for K2 when
+    paged); 8 requests x 16 tokens, every page returned. Then the audit,
+    `capture_gate`, `sync_check`, the decode-step profile beside the
+    step's byte bound (`step_bytes`), the 2-layer card-vs-CPU check
+    (`truncated_reference_check`), and on the slab run's model
+    `vlm_forward_check` and K1 at one layer's 7 decode launches; last
+    K2, K3 and K4 at Hkv 2 / G 7 / D 64 against their plain versions.
+    Returns each run's counts and the records."""
+    import torch
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    runs = {}
+    for paged in (False, True):
+        label = "paged 16, chunk 16" if paged else "slab"
+        phase = f"serve phase L ({VLM_ARCH}, {label})"
+        attn = "paged_decode_attn" if paged else "decode_attn"
+        kernels = ("ovp_matmul[fp]", attn, "ovp_encode") \
+            + (("prefill_attn",) if paged else ())
+        extra = ["--paged", "16", "--prefill-chunk", "16"] if paged else []
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = serve.run(["--arch", VLM_ARCH, "--quant", "olive_serve"]
+                        + SERVE_ARGS + extra, device=dev)
+        load_s = time.perf_counter() - t0 - res["seconds"]
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        eng, cfg = res["engine"], res["model"].cfg
+        check_counts(counts, phase, kernels)
+        check_attn_counts(res, counts, phase, paged)
+        check_encode_counts(eng, counts, phase)
+        if check_k1_weight_counts(res, counts, phase):
+            fail(f"{phase}: W8 linears under olive_serve")
+        if set(launched(counts)) != set(kernels):
+            fail(f"{phase}: kernels launched {launched(counts)}, expected "
+                 f"only {kernels}")
+        st = eng.stats()
+        forwards = st["prefills_run"] + st["prefill_chunks_run"] \
+            + st["decodes_run"]
+        if counts["ovp_matmul[fp]"] != \
+                VLM_STEP_LAUNCHES["ovp_matmul[fp]"] * forwards:
+            fail(f"{phase}: {counts['ovp_matmul[fp]']} K1 launches over "
+                 f"{forwards} forward calls")
+        done = res["completed"]
+        if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
+            fail(f"{phase}: {len(done)} requests finished with "
+                 f"{[len(r.out_tokens) for r in done]} tokens, expected "
+                 f"8 x 16")
+        if paged:
+            pool = st["page_pool"]
+            if pool["used_pages"] != 0 or pool["allocs"] != pool["frees"]:
+                fail(f"{phase}: pages not all returned: {pool}")
+        w_bytes, head_bytes = step_bytes(cfg)
+        step_bound = bound_ms(w_bytes + head_bytes, 0.0)[0]
+        print(f"[serve L] {VLM_ARCH} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, Hkv {cfg.n_kv_heads} G "
+              f"{cfg.n_heads // cfg.n_kv_heads} D {cfg.head_dim}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab}) W4 + KV4, {label}: PTQ "
+              f"{res['ptq_s']:.2f}s (layer by layer; build and PTQ "
+              f"{load_s:.2f}s), peak device memory {peak_gb:.2f} GB, "
+              f"{res['tokens']} tokens in {res['seconds']:.3f}s = "
+              f"{res['tok_per_s']:.2f} tok/s, mean TTFT "
+              f"{res['mean_ttft_s'] * 1e3:.2f}ms, mean step "
+              f"{res['mean_step_s'] * 1e3:.2f}ms; launches "
+              + " ".join(f"{key}={counts[key]}" for key in kernels)
+              + f" ({st['prefills_run']} prefills, "
+              f"{st['prefill_chunks_run']} chunks, {st['decodes_run']} "
+              f"decode steps; a decode step: K1 168, "
+              f"{'K3' if paged else 'K2'} 24, K7 48), dispatch "
+              f"{counts['dispatch']}; a decode step's byte bound "
+              f"{step_bound:.3f}ms (W4 blocks {w_bytes / 1e6:.1f} MB + fp32 "
+              f"head {head_bytes / 1e6:.1f} MB at 3.35 TB/s) ({smi})")
+        audit_check(eng, phase)
+        capture_gate(eng, phase, steps=3)
+        sync_check(res, f"L {label}")
+        prof = profile_decode(res, f"{VLM_ARCH}, W4 + KV4, {label}",
+                              steps=3, max_new=10)
+        if prof["k1_ms"] is not None:
+            print(f"[serve L] {VLM_ARCH} {label} decode step (4 slots): "
+                  f"{prof['kernels_per_step']:.1f} device kernels, busy "
+                  f"{prof['busy_ms']:.3f}ms of {prof['prof_ms']:.2f}ms "
+                  f"profiled wall ({prof['step_ms']:.2f}ms plain), K1 "
+                  f"{prof['k1_ms']:.3f}ms, {'K3' if paged else 'K2'} "
+                  f"{prof['attn_ms']:.3f}ms; byte bound {step_bound:.3f}ms "
+                  f"({smi})")
+        truncated_reference_check(res, dev, label="W4", paged=paged,
+                                  tag="L")
+        run = {"counts": counts, "stats": st, "profile": prof,
+               "peak_gb": peak_gb, "bound_ms": step_bound}
+        if not paged:
+            run["forward"] = vlm_forward_check(res, dev, smi)
+            gen = torch.Generator(device=dev).manual_seed(26)
+            run["k1"] = k1_layer_record(
+                dev, gen, layer_linears(res["params"]["layers"][0]), 4,
+                "int4", label=f"k1 {VLM_ARCH}")
+            r = run["k1"]
+            print(f"[k1 {VLM_ARCH}] one layer's 7 decode launches, rows 4, "
+                  f"fp: kernel {r['ms']:.4f}ms, matmul {r['library_ms']:.4f}"
+                  f"ms, bound {r['bound_ms']:.5f}ms, plain "
+                  f"{r['plain_ms']:.4f}ms ({smi})")
+        runs[paged] = run
+        del res, eng, done
+    free_device_memory()
+    attn = {"k2": k2_phase(dev, 2, 7, 64, all_pos=False),
+            "k3": k3_phase(dev, 2, 7, 64, all_pos=False),
+            "k4": k4_phase(dev, 2, 7, 64, cs=(16,))}
+    print(f"[attn L] worst errors at Hkv 2, G 7, D 64 (tol atol 1e-5): "
+          + ", ".join(f"{k.upper()} {v[1]:.2e}" for k, v in attn.items()))
+    print(f"[serve L] phase took {time.perf_counter() - t_phase:.1f}s")
+    return {"runs": runs, "attn": attn}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5164,6 +5771,11 @@ def main() -> int:
     # the xLSTM family, the earlier models freed
     free_device_memory()
     run_j = serve_phase_j(dev, card)
+    # the encoder-decoder and the VLM frontend, the earlier models freed
+    free_device_memory()
+    run_k = serve_phase_k(dev, card)
+    free_device_memory()
+    run_l = serve_phase_l(dev, card)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -5294,6 +5906,38 @@ def main() -> int:
             K1_PER_LAYER[what] * n_periods * forwards_j,
             run_j["k1"][what]["max_abs_err"], run_j["k1"][what])
         for what in ("mlstm", "slstm")]
+    # the encoder-decoder (phase K's Model.forward run): the decoder's K1
+    # launches of its decode steps, the frontend's and encoder's K1
+    # launches of its encoder run alone, and the K2 launches of its
+    # decode steps over the fp32 cross caches; the VLM (phase L's launcher
+    # runs): K1, K2 from the slab run, K3 and K4 from the paged run
+    rec_k, runs_l = run_k["records"], run_l["runs"]
+    attn_l = run_l["attn"]
+    kernels += [
+        row(f"ovp_matmul[fp]@{ENCDEC_ARCH} decoder", k1_src,
+            "ovp_matmul.cu", run_k["decode"]["ovp_matmul[fp]"],
+            rec_k["decoder"]["max_abs_err"], rec_k["decoder"]),
+        row(f"ovp_matmul[fp]@{ENCDEC_ARCH} encoder prefill", k1_src,
+            "ovp_matmul.cu", run_k["encode"]["ovp_matmul[fp]"],
+            rec_k["encoder"]["max_abs_err"], rec_k["encoder"]),
+        row(f"decode_attn@{ENCDEC_ARCH} cross",
+            "src/repro/kernels/decode_attn.py:358", "decode_attn.cu",
+            run_k["decode"]["decode_attn<float32>"],
+            rec_k["cross"]["max_abs_err"], rec_k["cross"]),
+        row(f"ovp_matmul[fp]@{VLM_ARCH}", k1_src, "ovp_matmul.cu",
+            runs_l[False]["counts"]["ovp_matmul[fp]"],
+            runs_l[False]["k1"]["max_abs_err"], runs_l[False]["k1"]),
+        row(f"decode_attn@{VLM_ARCH}", "src/repro/kernels/decode_attn.py:358",
+            "decode_attn.cu", runs_l[False]["counts"]["decode_attn"],
+            attn_l["k2"][1], attn_l["k2"][2]),
+        row(f"paged_decode_attn@{VLM_ARCH}",
+            "src/repro/kernels/decode_attn.py:404", "decode_attn.cu",
+            runs_l[True]["counts"]["paged_decode_attn"], attn_l["k3"][1],
+            attn_l["k3"][2]),
+        row(f"prefill_attn@{VLM_ARCH}",
+            "src/repro/kernels/prefill_attn.py:170", "prefill_attn.cu",
+            runs_l[True]["counts"]["prefill_attn"], attn_l["k4"][1],
+            attn_l["k4"][2])]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -5364,7 +6008,25 @@ def main() -> int:
           "mlstm / slstm are the 5 / 6 launches of one served layer's "
           "decode step at rows 4 (the sLSTM MLP's N 1364 padded to 1376 "
           "and K 1364), launches: that layer type's share of phase J's "
-          "K1 launches")
+          "K1 launches. The encoder-decoder (phase K, SeamlessM4T-large-v2 "
+          "through Model.forward): ovp_matmul[fp]@seamless-m4t-large-v2 "
+          "decoder is the 8 launches of one decoder layer's decode step "
+          "at rows 4 (self q, k, v, o; cross q, o; wi, wd), launches: "
+          "phase K's 32 decode steps; ... encoder prefill the frontend "
+          "projection (K 160) and one encoder layer's 6 launches at the "
+          "prefill's 1600 rows (4 x 400 frames), launches: phase K's "
+          "encoder run alone (Model.encode, 1 + 6 x 24 expected); "
+          "decode_attn@seamless-m4t-large-v2 cross "
+          "one launch over a served fp32 cross cache (B 4, S 512, Hkv 16, "
+          "D 64, pos = src_len - 1 = 399), launches: phase K's K2 "
+          "launches over fp32 caches (the decode_attn<float32> counter). "
+          "The VLM (phase L, InternVL2-1B): "
+          "ovp_matmul[fp]@internvl2-1b the 7 launches of one served "
+          "layer's decode step at rows 4, launches from the slab run; "
+          "decode_attn / paged_decode_attn / prefill_attn@internvl2-1b "
+          "one launch at Hkv 2, G 7, D 64 (K2 and K3: B 4, S 256, packed, "
+          "pos mixed; K4: C 16 at offset 240, packed), launches from the "
+          "slab run (K2) and the paged run (K3, K4)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

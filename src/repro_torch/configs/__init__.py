@@ -1,14 +1,14 @@
-"""Architecture registry (the dense, MoE, hybrid and xLSTM configs
-ported so far)."""
+"""Architecture registry: every config of the reference's registry."""
 from .base import ArchConfig
 
-from . import (grok_1_314b, minitron_8b, qwen1_5_0_5b, qwen2_7b,
-               qwen3_moe_30b_a3b, recurrentgemma_9b, xlstm_350m, yi_6b)
+from . import (grok_1_314b, internvl2_1b, minitron_8b, qwen1_5_0_5b,
+               qwen2_7b, qwen3_moe_30b_a3b, recurrentgemma_9b,
+               seamless_m4t_large_v2, xlstm_350m, yi_6b)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
          for m in (minitron_8b, qwen2_7b, qwen1_5_0_5b, yi_6b,
                    recurrentgemma_9b, xlstm_350m, qwen3_moe_30b_a3b,
-                   grok_1_314b)}
+                   grok_1_314b, internvl2_1b, seamless_m4t_large_v2)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,7 +1,6 @@
 """Architecture configuration schema. Port of `repro/configs/base.py`
-(the fields the dense, MoE, hybrid and xLSTM decoders read, and the
-parameter count of their blocks; other families come with their
-layers)."""
+(the fields the dense, MoE, hybrid, xLSTM, encoder-decoder and VLM
+models read, and the parameter count of their blocks)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +10,7 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | hybrid | ssm (ported)
+    family: str                      # dense | hybrid | ssm | moe | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,6 +29,13 @@ class ArchConfig:
     block_pattern: Tuple[str, ...] = ("attn",)
     window: int = 0                  # sliding window for local_attn blocks
     d_rnn: int = 0                   # RG-LRU width (0 -> d_model)
+    # encoder-decoder
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    # modality frontend stubs
+    frontend: str = ""               # "" | vit | audio
+    frontend_dim: int = 0
+    n_frontend_tokens: int = 0
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -54,7 +60,10 @@ class ArchConfig:
         reference's per-block table, its rows for the ported blocks (an
         RG-LRU block's count leaves out its conv kernel and gate decay,
         as the reference's does; its mLSTM row counts `w_up` at 8d², the
-        reference's formula, though the weight is d x 4d)."""
+        reference's formula, though the weight is d x 4d; an
+        encoder-decoder adds its encoder's attention blocks, and neither
+        biases nor the frontend projection are counted, as in the
+        reference)."""
         d, hd = self.d_model, self.head_dim
         dr = self.d_rnn or d
         n_attn_p = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
@@ -67,16 +76,20 @@ class ArchConfig:
                "rglru": dr * (2 * d + d) + 2 * dr ** 2 + mlp,
                "mlstm": 2 * d * (4 * d) + 3 * (2 * d) ** 2 + 2 * d * d,
                "slstm": 4 * d * d + 3 * d * (d // max(self.n_heads, 1))
-               + 2 * d * int(4 * d / 3)}
+               + 2 * d * int(4 * d / 3),
+               "encdec_attn": 2 * n_attn_p + mlp}
         pattern = self.block_pattern
-        return sum(per[pattern[i % len(pattern)]]
-                   for i in range(self.n_layers)) \
-            + 2 * self.vocab * d                        # embed + head
+        total = sum(per[pattern[i % len(pattern)]]
+                    for i in range(self.n_layers))
+        if self.enc_dec:
+            total += self.n_enc_layers * (n_attn_p + mlp)
+        return total + 2 * self.vocab * d               # embed + head
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family/pattern, tiny dimensions (the
-        reference's `reduced()` for the ported families: at most 8
-        experts, top-k at most 2, a window of at most 8, d_rnn 64)."""
+        reference's `reduced()`: at most 8 experts, top-k at most 2, a
+        window of at most 8, d_rnn 64, 2 encoder layers, a 32-wide
+        frontend of 4 tokens)."""
         period = len(self.block_pattern)
         return dataclasses.replace(
             self,
@@ -93,4 +106,7 @@ class ArchConfig:
             top_k=min(self.top_k, 2) if self.top_k else 0,
             window=min(self.window, 8) if self.window else 0,
             d_rnn=64 if self.d_rnn else 0,
+            n_enc_layers=2 if self.enc_dec else 0,
+            frontend_dim=32 if self.frontend else 0,
+            n_frontend_tokens=4 if self.frontend else 0,
         )

@@ -12,7 +12,10 @@ the port's `MixedExpertQuant`. The scanned `blocks/<j>` stacks (leading
 group axis)
 unstack into the port's unrolled `layers` list, layer i = g * period + j,
 followed by the `tail` entries; a tree the reference already unrolled
-(`unroll_params`) keeps its `layers` list.
+(`unroll_params`) keeps its `layers` list. An encoder-decoder's vmapped
+`enc_blocks` (leading axis n_enc_layers) unstacks into the port's list
+of encoder layers; `enc_norm` and `frontend_proj` carry over as they
+are.
 """
 from __future__ import annotations
 
@@ -86,6 +89,9 @@ def _n_groups(x) -> int:
 def params_from_numpy(tree, device="cuda"):
     """Reference tree (numpy leaves) -> port params on `device`."""
     out = {k: v for k, v in tree.items() if k not in ("blocks", "tail")}
+    if "enc_blocks" in tree:
+        enc = tree["enc_blocks"]
+        out["enc_blocks"] = [_slice(enc, i) for i in range(_n_groups(enc))]
     layers = list(tree.get("layers") or [])
     blocks = tree.get("blocks") or {}
     if blocks:

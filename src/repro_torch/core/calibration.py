@@ -425,7 +425,8 @@ def calibrate_streamed(model, generator: torch.Generator,
     a forward of the same model on `device="meta"`, so its samples, and
     the artifact's JSON, are byte for byte `calibrate_model`'s on the
     whole tree, at any number of batches. Returns (params, artifact):
-    the params equal `quantize` of the whole tree."""
+    the params equal `quantize` of the whole tree (a frontend's
+    projection is quantized with the embedding and head)."""
     from repro_torch.models.model import block_forward
     batches = list(batches)
     sizes = SizeTape()

@@ -48,6 +48,11 @@ BASELINE_METHODS = ("int", "ant")
 # (a few fp32 copies of one chunk) at full width
 STACK_CHUNK = 1 << 25
 
+# an encoder-decoder's encoder layers (`params["enc_blocks"]`, a list):
+# the reference vmaps them as one stack and never unrolls it, so every
+# encoder layer's leaf resolves at the one site `enc_blocks/<leaf>`
+ENCODER = "enc_blocks"
+
 
 def quantize_weight(w: torch.Tensor, policy: QuantPolicy) -> Weight:
     """PTQ one weight matrix (K, N) or expert stack (E, K, N): pair along
@@ -218,9 +223,13 @@ def stacks_layers(policy: PolicyLike, n_layers: int) -> bool:
     return any(p.enabled and p.method in BASELINE_METHODS for p in pols)
 
 
-def _quantize_leaf(path: str, w, policy: PolicyLike, min_size: int):
+def _quantize_leaf(path: str, w, policy: PolicyLike, min_size: int,
+                   stack: int = 1):
+    """PTQ of one leaf at site `path`; `stack` > 1: the leaf is one
+    layer of a stack of that many that the reference quantizes as one
+    leaf, whose size is what `min_size` gates."""
     if not (is_linear_weight(path, w) and w.ndim in (2, 3)
-            and w.numel() >= min_size and w.shape[-2] % 2 == 0):
+            and w.numel() * stack >= min_size and w.shape[-2] % 2 == 0):
         return w
     if w.ndim == 3:
         pols = _expert_site_policies(path, w.shape[0], policy)
@@ -238,16 +247,23 @@ def _leaf(tree, path: str):
     return tree
 
 
-def _quantize_layer_stacks(layers, policy: PolicyLike, min_size: int):
+def _quantize_layer_stacks(layers, policy: PolicyLike, min_size: int,
+                           encoder: bool = False):
     """The layers of a scanned-layout PTQ: each site that resolves to a
     baseline fake-quantizes the stack of its weight over all layers at
     one scale (the stack's size passes `min_size`, as the reference's
     does), and every layer takes its slice; the other leaves quantize
     one layer at a time. The fp32 layers and the fake-quantized stacks
-    exist together until the caller drops the fp32 tree."""
+    exist together until the caller drops the fp32 tree. `encoder`: the
+    layers are the encoder's (`ENCODER`), whose every leaf resolves at
+    `enc_blocks/<leaf>` and passes `min_size` by the stack's size."""
+
+    def site_of(i, rel):
+        return f"{ENCODER}/{rel}" if encoder else f"layers/{i}/{rel}"
+
     done = {}
     for rel, w in tree_paths(layers[0]):
-        site = f"layers/0/{rel}"
+        site = site_of(0, rel)
         pol = resolve(policy, site)
         if not (pol.enabled and pol.method in BASELINE_METHODS
                 and is_linear_weight(rel, w)
@@ -263,9 +279,12 @@ def _quantize_layer_stacks(layers, policy: PolicyLike, min_size: int):
         i, rel = path.split("/", 2)[1:]
         if rel in done:
             return done[rel][int(i)]
+        if encoder:
+            return _quantize_leaf(site_of(i, rel), w, policy, min_size,
+                                  stack=len(layers))
         return _quantize_leaf(path, w, policy, min_size)
 
-    return _map_tree(layers, one, "layers")
+    return _map_tree(layers, one, ENCODER if encoder else "layers")
 
 
 def quantize_params(params, policy: PolicyLike, min_size: int = 4096,
@@ -278,9 +297,20 @@ def quantize_params(params, policy: PolicyLike, min_size: int = 4096,
     weights also resolve their per-expert sub-sites and quantize
     group-wise when those differ. `prefix` is the site address of
     `params` itself (`layers/<i>` when a model quantizes one layer at a
-    time)."""
+    time). The encoder's layers (the list under `ENCODER`, or that list
+    itself with `prefix` `ENCODER`) quantize as the reference's one
+    stack: sites `enc_blocks/<leaf>`, `min_size` on the stack's size,
+    a baseline over the stack at one scale."""
     if not policy.enabled:
         return params
+    if prefix == ENCODER:
+        return _quantize_layer_stacks(params, policy, min_size,
+                                      encoder=True)
+    if not prefix and ENCODER in params:
+        rest = {key: val for key, val in params.items() if key != ENCODER}
+        return dict(quantize_params(rest, policy, min_size),
+                    **{ENCODER: quantize_params(params[ENCODER], policy,
+                                                min_size, ENCODER)})
     if not prefix and params.get("layers") and \
             stacks_layers(policy, len(params["layers"])):
         rest = {key: val for key, val in params.items() if key != "layers"}

@@ -19,7 +19,10 @@ j of row b to a physical page. The kernel source is `csrc/decode_attn.cu`
 `fused_decode_attention` takes `decode_attention_plain` for CPU tensors
 and launches K2 (slab) for CUDA tensors, or raises; paged caches go to
 `fused_paged_decode_attention`, which launches K3. Each wrapper's
-`.launches` counts its kernel's launches. `decode_plan` is the
+`.launches` counts its kernel's launches, and its
+`.cache_launches[dtype]` the same launches by cache dtype
+(`CACHE_DTYPES`: "int4" for a packed cache; an encoder-decoder's fp32
+cross caches sit beside its packed self caches). `decode_plan` is the
 launch's layout check and geometry (the key split over a thread-block
 cluster, the tiles a rank walks, tile buffers, shared bytes; any G, D %
 8 == 0, tiles sized from (G, D) in dynamic shared memory), from shapes
@@ -223,6 +226,9 @@ _SIGNATURE = {
 
 # the cache kinds of the C entries: OVP-packed, or fp in one of these
 FP_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
+# the names of `.cache_launches`' keys: the packed cache's, then FP_KINDS'
+CACHE_DTYPES = (KV_NORMAL_DTYPE,) + tuple(
+    str(dt).removeprefix("torch.") for dt in FP_KINDS)
 SMEM_MAX = 232448     # 227 KB, a block's dynamic shared-memory cap
 _TS = 32              # kv tokens per tile
 _MIN_BLOCKS = 132     # one wave: an H100 has 132 SMs
@@ -410,14 +416,16 @@ def _launch(q: torch.Tensor, cache, pos: torch.Tensor, *, window: int,
             plan.kind, _qscale(d), int(window), int(ring), plan.split,
             plan.nbuf, plan.smem, stream)
         _build.check(err, "paged_decode_attn")
-        fused_paged_decode_attention.launches += 1
+        counted = fused_paged_decode_attention
     else:
         err = lib.decode_attn_launch(
             *(t.data_ptr() for t in ops), pos.data_ptr(), out.data_ptr(),
             b, s_len, hkv, plan.g, d, plan.kind, _qscale(d), int(window),
             int(ring), plan.split, plan.nbuf, plan.smem, stream)
         _build.check(err, "decode_attn")
-        fused_decode_attention.launches += 1
+        counted = fused_decode_attention
+    counted.launches += 1
+    counted.cache_launches[CACHE_DTYPES[plan.kind]] += 1
     return out if q.dtype == torch.float32 else out.to(q.dtype)
 
 
@@ -457,3 +465,5 @@ def fused_paged_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor,
 
 fused_decode_attention.launches = 0          # K2 launches
 fused_paged_decode_attention.launches = 0    # K3 launches
+fused_decode_attention.cache_launches = dict.fromkeys(CACHE_DTYPES, 0)
+fused_paged_decode_attention.cache_launches = dict.fromkeys(CACHE_DTYPES, 0)

@@ -7,8 +7,12 @@ synthetic request stream, on the CUDA device:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen1.5-0.5b --quant olive_serve
 
-Any arch of `repro_torch.configs` (dense, MoE or hybrid) is served the
-same way; the weights are drawn and quantized one layer at a time, so
+Any decoder arch of `repro_torch.configs` (dense, MoE, hybrid, xLSTM or
+the VLM InternVL2-1B, on its tokens alone, as the reference launcher
+serves it) is served the same way; an encoder-decoder
+(SeamlessM4T-large-v2) is refused before any weight is drawn, since the
+engine feeds no encoder frames (run it through `Model.forward`). The
+weights are drawn and quantized one layer at a time, so
 the fp32 tree is never whole on the card (Qwen3-30B-A3B's is 122 GB,
 its W4 tree about 17 GB; Qwen2-7B, Yi-6B, Minitron-8B and
 RecurrentGemma-9B serve at W4 with their untied fp32 embedding and
@@ -112,7 +116,7 @@ from repro_torch.core.qlinear import quantize_params, stacks_layers
 from repro_torch.models.model import build_model
 from repro_torch.serve import capture
 from repro_torch.serve.engine import (EngineCfg, ServingEngine,
-                                     check_pageable)
+                                     check_pageable, check_servable)
 from repro_torch.serve.frontend import AsyncFrontend
 from repro_torch.serve.metrics import MetricsLedger
 from repro_torch.serve.paging import PagePoolCfg
@@ -219,8 +223,9 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("repro_torch.launch.serve needs a CUDA device")
     cfg = get_config(args.arch)
+    check_servable(cfg)         # before any weight is drawn
     if args.paged:
-        check_pageable(cfg)     # before any weight is drawn
+        check_pageable(cfg)
     if args.quant in PROGRAM_PRESETS or args.policy_rules:
         policy = get_program(None if args.quant == "fp" else args.quant,
                              n_layers=cfg.n_layers)

@@ -1,9 +1,12 @@
-"""Decoder building blocks. Port of the dense, MoE and hybrid subset of
-`repro/models/layers.py`: RMSNorm, RoPE, causal and sliding-window
-prefill attention, slab and paged KV caches (fp32 and OVP-packed; a
-local-attention cache of `window` slots is a ring), decode attention and
-paged cache-write prefill through the backend registry, the attention
-layer, SwiGLU, the top-k token-choice MoE layer with capacity-based
+"""Model building blocks. Port of `repro/models/layers.py` (all but
+`layer_norm`, which no block of the reference's models calls): RMSNorm,
+RoPE, causal, sliding-window and non-causal (cross) prefill attention,
+slab and paged KV caches (fp32 and OVP-packed; a local-attention cache
+of `window` slots is a ring; a cross-attention cache records the rows
+its encoder wrote in "src_len"), decode attention and paged cache-write
+prefill through the backend registry, the attention layer (self and
+cross), SwiGLU and the GELU MLP, the top-k token-choice MoE layer with
+capacity-based
 dispatch, whose expert einsums go through the registry (K6 on the card),
 the Griffin recurrent block (the width-4 causal conv and the RG-LRU),
 and the xLSTM blocks: the mLSTM (matrix memory; chunkwise-parallel
@@ -71,8 +74,8 @@ ATTN_CHUNK = 512        # the reference's q_chunk = kv_chunk
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     window: int = 0) -> torch.Tensor:
-    """q (B, T, H, D), k/v (B, T, Hkv, D) -> (B, T, H, D): the reference's
+                     window: int = 0, causal: bool = True) -> torch.Tensor:
+    """q (B, T, H, D), k/v (B, S, Hkv, D) -> (B, T, H, D): the reference's
     online-softmax attention (`_flash_fwd_impl`) in blocks of
     `ATTN_CHUNK` queries x `ATTN_CHUNK` keys: scores scaled after the
     dot, -1e30 mask, each key block folded in by m' = max(m, max s),
@@ -83,6 +86,11 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one block. Key blocks past a query block's diagonal hold no valid key
     and are skipped (the reference's update leaves its state unchanged
     there). Scores stay (B, Hkv, G, chunk, chunk) at any prompt length.
+
+    `causal=False` (cross attention: S may differ from T) lets every
+    query see every key; the reference pads the last key block to
+    `ATTN_CHUNK` and masks the pad (`kp < s_len`), the port slices it
+    short, which gives the same sums.
 
     `window` > 0 is sliding-window attention (the reference's
     `local_blockwise_attention`): query p sees keys (p - window, p].
@@ -103,14 +111,16 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for q0 in range(0, t, chunk):
         qpos = pos[q0:q0 + chunk]
         lo = max(0, q0 - window + 1) // chunk * chunk if window else 0
-        for k0 in range(lo, q0 + len(qpos), chunk):
-            kpos = pos[k0:k0 + chunk]
+        hi = q0 + len(qpos) if causal else k.shape[1]
+        for k0 in range(lo, hi, chunk):
             s = torch.matmul(qg[..., q0:q0 + chunk, :],
                              kt[..., k0:k0 + chunk]) * (1.0 / math.sqrt(d))
-            valid = qpos[:, None] >= kpos[None, :]
-            if window:
-                valid = valid & (kpos[None, :] > qpos[:, None] - window)
-            s = torch.where(valid, s, NEG_INF)
+            if causal:
+                kpos = pos[k0:k0 + chunk]
+                valid = qpos[:, None] >= kpos[None, :]
+                if window:
+                    valid = valid & (kpos[None, :] > qpos[:, None] - window)
+                s = torch.where(valid, s, NEG_INF)
             if k0 == lo:
                 m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF)
                 p = torch.exp(s - m)
@@ -129,23 +139,32 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def make_kv_cache(batch: int, length: int, n_kv: int, head_dim: int, *,
-                  kv_bits: int = 0, dtype=torch.float32, device="cuda"):
+                  kv_bits: int = 0, dtype=torch.float32, device="cuda",
+                  track_len: bool = False):
     """Slab KV cache dict: fp ({"k", "v"}) or OVP-packed int4
-    ({"k_data", "v_data"} nibbles + {"k_scl", "v_scl"} scales)."""
+    ({"k_data", "v_data"} nibbles + {"k_scl", "v_scl"} scales).
+    `track_len` adds a per-row int32 "src_len" leaf, the rows that hold
+    data (a cross-attention cache: the encoder output can be shorter
+    than the cache, and its zero tail must get no softmax mass)."""
     if kv_bits == 4:
         if head_dim % 2:
             raise ValueError(f"OVP-packed KV cache needs an even head_dim; "
                              f"got {head_dim}")
         shape = (batch, length, n_kv, head_dim // 2)
-        return {"k_data": torch.zeros(shape, dtype=torch.uint8,
-                                      device=device),
-                "v_data": torch.zeros(shape, dtype=torch.uint8,
-                                      device=device),
-                "k_scl": torch.ones(shape[:3], device=device),
-                "v_scl": torch.ones(shape[:3], device=device)}
-    shape = (batch, length, n_kv, head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        cache = {"k_data": torch.zeros(shape, dtype=torch.uint8,
+                                       device=device),
+                 "v_data": torch.zeros(shape, dtype=torch.uint8,
+                                       device=device),
+                 "k_scl": torch.ones(shape[:3], device=device),
+                 "v_scl": torch.ones(shape[:3], device=device)}
+    else:
+        shape = (batch, length, n_kv, head_dim)
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if track_len:
+        cache["src_len"] = torch.zeros((batch,), dtype=torch.int32,
+                                       device=device)
+    return cache
 
 
 def make_paged_kv_cache(n_pages: int, page_size: int, batch_slots: int,
@@ -220,7 +239,8 @@ def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     lands in slot (pos[b] + t) % ring, and of a write longer than the
     ring only its last `ring` tokens stay (a scatter's later writes
     win). `policy`, the cache site's resolved policy, picks the backend
-    that packs a quantized cache's K and V (None: the torch ops)."""
+    that packs a quantized cache's K and V (None: the torch ops). Leaves
+    other than K/V (a cross cache's "src_len") are left as they are."""
     if ring and k_new.shape[1] > ring:
         drop = k_new.shape[1] - ring
         k_new, v_new, pos = k_new[:, drop:], v_new[:, drop:], pos + drop
@@ -305,15 +325,15 @@ def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
                       policy: QuantPolicy, *, window: int = 0, cache=None,
                       mode: str = "prefill", site: str = "attn"):
     """Self-attention in "prefill" (causal over the prompt at `positions`,
-    cache written from positions[:, 0]) or "decode" (one token at
-    positions[:, 0]) mode. `window` > 0 is local attention: each query
-    sees the last `window` positions, and a cache of exactly `window`
-    slots is a ring (a prefill writes only its last min(window, T)
-    tokens). A paged cache that carries a request's raw
-    "stage_k"/"stage_v" takes the paged prefill path: the chunk's K/V is
-    appended to the stage at its positions, then one registry dispatch
-    attends the chunk over the stage and writes every stage tile onto its
-    pages. Returns (out, cache)."""
+    cache written from positions[:, 0]; with no cache, an encoder's
+    pass) or "decode" (one token at positions[:, 0]) mode. `window` > 0
+    is local attention: each query sees the last `window` positions, and
+    a cache of exactly `window` slots is a ring (a prefill writes only
+    its last min(window, T) tokens). A paged cache that carries a
+    request's raw "stage_k"/"stage_v" takes the paged prefill path: the
+    chunk's K/V is appended to the stage at its positions, then one
+    registry dispatch attends the chunk over the stage and writes every
+    stage tile onto its pages. Returns (out, cache)."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = qlinear.linear(x, p["wq"], p.get("bq"), *rps(policy, site, "wq"))
@@ -352,12 +372,64 @@ def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
     return out, cache
 
 
+def cross_attention(p, x: torch.Tensor, enc_out: Optional[torch.Tensor],
+                    cfg, policy: QuantPolicy, *, cache=None,
+                    mode: str = "prefill", site: str = "xattn"):
+    """The reference's cross-attention branches of `attention_forward`
+    (`kv_x` given, `use_rope=False`, the decoder's `causal=False`):
+    queries from x (B, T, d), no RoPE. "prefill": keys and values
+    projected from the encoder output `enc_out` (B, S, d), every query
+    attending every key, and with a cache, K/V written once at slot 0
+    and its "src_len" set to min(S, cache length) for every row.
+    "decode": only `wq` and `wo` run (`enc_out` is not read); the one
+    query attends the cache (a `track_len` one) through the decode
+    attention of the site `<site>/kv` at pos = src_len - 1, so the
+    unwritten tail of a longer cache gets no softmax mass. Returns (out,
+    cache)."""
+    b, t, _ = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = qlinear.linear(x, p["wq"], p.get("bq"), *rps(policy, site, "wq"))
+    q = q.reshape(b, t, nh, hd)
+    kv_policy = rp(policy, site, "kv")
+    if mode == "decode":
+        out = decode_attention(q, cache, cache["src_len"] - 1,
+                               policy=kv_policy)
+    elif mode == "prefill":
+        s_len = enc_out.shape[1]
+        k = qlinear.linear(enc_out, p["wk"], p.get("bk"),
+                           *rps(policy, site, "wk")).reshape(b, s_len, nkv,
+                                                             hd)
+        v = qlinear.linear(enc_out, p["wv"], p.get("bv"),
+                           *rps(policy, site, "wv")).reshape(b, s_len, nkv,
+                                                             hd)
+        out = causal_attention(q, k, v, causal=False)
+        if cache is not None:
+            cache = cache_write(cache, k, v, torch.zeros(
+                (b,), dtype=torch.int64, device=x.device), kv_policy)
+            if "src_len" in cache:
+                cache["src_len"].fill_(min(s_len, cache_len(cache)))
+    else:
+        raise ValueError(f"mode {mode!r}: the port runs prefill and decode")
+    out = qlinear.linear(out.reshape(b, t, nh * hd), p["wo"], None,
+                         *rps(policy, site, "wo"))
+    return out, cache
+
+
 def swiglu(p, x: torch.Tensor, policy: QuantPolicy,
            site: str = "mlp") -> torch.Tensor:
     g = qlinear.linear(x, p["wg"], None, *rps(policy, site, "wg"))
     u = qlinear.linear(x, p["wu"], None, *rps(policy, site, "wu"))
     return qlinear.linear(torch.nn.functional.silu(g) * u, p["wd"], None,
                           *rps(policy, site, "wd"))
+
+
+def gelu_mlp(p, x: torch.Tensor, policy: QuantPolicy,
+             site: str = "mlp") -> torch.Tensor:
+    """wi + bi, GELU (`jax.nn.gelu`'s default, the tanh approximation),
+    then wd + bd."""
+    h = qlinear.linear(x, p["wi"], p["bi"], *rps(policy, site, "wi"))
+    return qlinear.linear(torch.nn.functional.gelu(h, approximate="tanh"),
+                          p["wd"], p["bd"], *rps(policy, site, "wd"))
 
 
 # --------------------------------------------------------------------------

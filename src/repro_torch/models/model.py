@@ -1,15 +1,19 @@
-"""Model assembly for the dense, MoE, hybrid and xLSTM decoder families:
-block builders, caches and forwards by block type over the ported types
-`attn`, `moe`, `local_attn`, `rglru`, `mlstm` and `slstm` (layer i has
-type `block_pattern[i % period]`). Port of those paths of
-`repro/models/model.py`.
+"""Model assembly for every family of the reference: block builders,
+caches and forwards by block type over `attn`, `moe`, `local_attn`,
+`rglru`, `mlstm`, `slstm` and `encdec_attn` (layer i has type
+`block_pattern[i % period]`), the encoder of an encoder-decoder and the
+frontend stubs. Port of `repro/models/model.py`.
 
 The reference scans a stacked layer group; the port keeps layers
 unrolled (`params["layers"][i]`, site addresses `layers/<i>/...`) and
-runs a Python loop over them. `convert.params_from_numpy` unstacks a
-reference tree into this layout. `Model.init(..., quantize=...)` draws
-and quantizes one layer at a time, so a model whose fp32 weights do not
-fit on the card can still be built there.
+runs a Python loop over them. The encoder's layers are a list too
+(`params["enc_blocks"][i]`), but every one of them resolves its policy
+at the reference's one address `enc_blocks/<leaf>` (the reference
+vmaps its encoder stack and never unrolls it).
+`convert.params_from_numpy` unstacks a reference tree into this layout.
+`Model.init(..., quantize=...)` draws and quantizes one layer at a time,
+so a model whose fp32 weights do not fit on the card can still be built
+there.
 """
 from __future__ import annotations
 
@@ -21,27 +25,30 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import qlinear
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.qlinear import ENCODER
 
 from . import layers as L
 
 Params = Dict[str, Any]
 
-BLOCK_TYPES = ("attn", "moe", "local_attn", "rglru", "mlstm",
-               "slstm")                                 # ported
+BLOCK_TYPES = ("attn", "moe", "local_attn", "rglru", "mlstm", "slstm",
+               "encdec_attn")
 RECURRENT_TYPES = ("rglru", "mlstm", "slstm")           # no KV cache
-QUEUED_BLOCK_TYPES = ("encdec_attn",)                   # ROADMAP queue 1
 
 
 def check_block_types(cfg: ArchConfig) -> None:
-    """Raise a ValueError on a block type the port does not run."""
+    """Raise a ValueError on a block type the port does not know, and on
+    `encdec_attn` blocks without the encoder that feeds their cross
+    attention (`enc_dec`)."""
     for btype in cfg.block_pattern:
-        if btype in QUEUED_BLOCK_TYPES:
-            raise ValueError(
-                f"{cfg.name}: block type {btype!r} is not ported yet "
-                f"(ROADMAP queue 1, item 4: other architectures); the port "
-                f"runs {BLOCK_TYPES}")
         if btype not in BLOCK_TYPES:
             raise ValueError(f"{cfg.name}: unknown block type {btype!r}")
+        if btype == "encdec_attn" and not (cfg.enc_dec
+                                           and cfg.n_enc_layers):
+            raise ValueError(
+                f"{cfg.name}: block type 'encdec_attn' cross-attends an "
+                f"encoder's output, and the config has no encoder "
+                f"(enc_dec={cfg.enc_dec}, n_enc_layers={cfg.n_enc_layers})")
 
 
 def _normal(gen: torch.Generator, shape, scale: float, device):
@@ -52,9 +59,11 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, btype: str,
                  device) -> Params:
     """One block of type `btype`, drawn as the reference draws it:
     normal weights scaled by 1/sqrt(fan_in), zero biases, unit norms.
-    attn / local_attn: attention + SwiGLU; moe: attention + MoE; rglru:
-    the recurrent block + SwiGLU; mlstm / slstm: the xLSTM block alone
-    (it carries its own projections)."""
+    attn / local_attn: attention + the config's MLP (SwiGLU, or the GELU
+    MLP with its biases); moe: attention + MoE; rglru: the recurrent
+    block + SwiGLU; mlstm / slstm: the xLSTM block alone (it carries its
+    own projections); encdec_attn: self-attention, cross attention
+    (`lnx`, `xattn`) + the config's MLP."""
     d, hd = cfg.d_model, cfg.head_dim
 
     def w(k, n):
@@ -64,8 +73,23 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, btype: str,
         return {"gamma_scale": torch.ones(d, device=device)}
 
     def mlp():
+        if cfg.mlp_kind == "gelu":
+            return {"wi": w(d, cfg.d_ff), "wd": w(cfg.d_ff, d),
+                    "bi": torch.zeros(cfg.d_ff, device=device),
+                    "bd": torch.zeros(d, device=device)}
         return {"wg": w(d, cfg.d_ff), "wu": w(d, cfg.d_ff),
                 "wd": w(cfg.d_ff, d)}
+
+    def attention():
+        attn = {"wq": w(d, cfg.n_heads * hd),
+                "wk": w(d, cfg.n_kv_heads * hd),
+                "wv": w(d, cfg.n_kv_heads * hd),
+                "wo": w(cfg.n_heads * hd, d)}
+        if cfg.qkv_bias:
+            attn["bq"] = torch.zeros(cfg.n_heads * hd, device=device)
+            attn["bk"] = torch.zeros(cfg.n_kv_heads * hd, device=device)
+            attn["bv"] = torch.zeros(cfg.n_kv_heads * hd, device=device)
+        return attn
 
     if btype == "rglru":
         return {"ln1": norm(),
@@ -77,13 +101,10 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, btype: str,
     if btype == "slstm":
         return {"ln1": norm(),
                 "slstm": L.slstm_params(gen, d, cfg.n_heads, device)}
-    attn = {"wq": w(d, cfg.n_heads * hd), "wk": w(d, cfg.n_kv_heads * hd),
-            "wv": w(d, cfg.n_kv_heads * hd), "wo": w(cfg.n_heads * hd, d)}
-    if cfg.qkv_bias:
-        attn["bq"] = torch.zeros(cfg.n_heads * hd, device=device)
-        attn["bk"] = torch.zeros(cfg.n_kv_heads * hd, device=device)
-        attn["bv"] = torch.zeros(cfg.n_kv_heads * hd, device=device)
-    block = {"ln1": norm(), "attn": attn, "ln2": norm()}
+    if btype == "encdec_attn":
+        return {"ln1": norm(), "attn": attention(), "lnx": norm(),
+                "xattn": attention(), "ln2": norm(), "mlp": mlp()}
+    block = {"ln1": norm(), "attn": attention(), "ln2": norm()}
     if btype == "moe":
         block["moe"] = L.moe_params(gen, d, cfg.d_ff, cfg.n_experts, device)
     else:
@@ -92,11 +113,14 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, btype: str,
 
 
 def block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
-                kv_bits: int, device, dtype=torch.float32):
+                kv_bits: int, device, dtype=torch.float32,
+                enc_len: int = 0):
     """A slab cache site: a KV cache of `max_len` slots (attn, moe) or of
     min(window, max_len) slots (local_attn: a ring once max_len reaches
     the window), or the recurrent state (rglru, mlstm, slstm; `kv_bits`
-    unread)."""
+    unread); encdec_attn: the self-attention's KV cache ("kv") and an fp
+    cross-attention cache of `enc_len` slots that records the rows its
+    encoder output filled ("xkv", with "src_len")."""
     if btype == "rglru":
         return {"rec": L.rglru_init_state(batch, cfg.d_rnn or cfg.d_model,
                                           device=device)}
@@ -107,20 +131,28 @@ def block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
         return {"slstm": L.slstm_init_state(batch, cfg.d_model,
                                             device=device)}
     length = min(cfg.window, max_len) if btype == "local_attn" else max_len
-    return {"kv": L.make_kv_cache(batch, length, cfg.n_kv_heads,
+    site = {"kv": L.make_kv_cache(batch, length, cfg.n_kv_heads,
                                   cfg.head_dim, kv_bits=kv_bits, dtype=dtype,
                                   device=device)}
+    if btype == "encdec_attn":
+        site["xkv"] = L.make_kv_cache(batch, enc_len, cfg.n_kv_heads,
+                                      cfg.head_dim, dtype=dtype,
+                                      device=device, track_len=True)
+    return site
 
 
 def block_forward(p, x, positions, cfg: ArchConfig, policy: QuantPolicy,
                   cache=None, mode: str = "prefill", site: str = "",
-                  btype: Optional[str] = None):
+                  btype: Optional[str] = None,
+                  enc_out: Optional[torch.Tensor] = None):
     """Pre-norm block of type `btype` with residuals: attention (local
-    attention over the config's window) + SwiGLU or MoE, the recurrent
-    block + SwiGLU, or an xLSTM block (x + block(ln1 x)). Without
-    `btype` the type is layer i's, read from the site address
-    `layers/<i>`. Returns (x, cache); the MoE
-    aux loss is dropped until training is ported."""
+    attention over the config's window) + the config's MLP or MoE, the
+    recurrent block + SwiGLU, an xLSTM block (x + block(ln1 x)), or an
+    encoder-decoder block (self-attention, cross attention over the
+    encoder output `enc_out` or, in decode, over the "xkv" cache, then
+    the MLP). Without `btype` the type is layer i's, read from the site
+    address `layers/<i>`. Returns (x, cache); the MoE aux loss is
+    dropped until training is ported."""
     if btype is None:
         head, _, layer = site.partition("/")
         if head != "layers" or not layer.isdigit():
@@ -148,17 +180,29 @@ def block_forward(p, x, positions, cfg: ArchConfig, policy: QuantPolicy,
         cache=None if cache is None else cache["kv"], mode=mode,
         site=f"{site}/attn")
     x = x + h
+    new = None if cache is None else {"kv": kv}
+    if btype == "encdec_attn":
+        hx, xkv = L.cross_attention(
+            p["xattn"], L.rms_norm(x, p["lnx"], eps), enc_out, cfg, policy,
+            cache=None if cache is None else cache["xkv"], mode=mode,
+            site=f"{site}/xattn")
+        x = x + hx
+        if cache is not None:
+            new["xkv"] = xkv
     xm = L.rms_norm(x, p["ln2"], eps)
     if btype == "moe":
         h2, _ = L.moe_layer(p["moe"], xm, cfg, policy, site=f"{site}/moe")
     else:
-        h2 = L.swiglu(p["mlp"], xm, policy, site=f"{site}/mlp")
-    return x + h2, (None if cache is None else {"kv": kv})
+        mlp = L.gelu_mlp if cfg.mlp_kind == "gelu" else L.swiglu
+        h2 = mlp(p["mlp"], xm, policy, site=f"{site}/mlp")
+    return x + h2, new
 
 
 class Model:
-    """Dense, MoE, hybrid or xLSTM LM for one ArchConfig under a
-    QuantPolicy."""
+    """The LM of one ArchConfig under a QuantPolicy: a decoder, with the
+    encoder of an encoder-decoder (`enc_dec`) and the projection of a
+    frontend stub (`frontend`: audio frames into the encoder, or ViT
+    patch embeddings in front of the prompt)."""
 
     def __init__(self, cfg: ArchConfig, policy: QuantPolicy = QuantPolicy()):
         check_block_types(cfg)
@@ -171,16 +215,20 @@ class Model:
     def init_stream(self, generator: Optional[torch.Generator],
                     device="cuda") -> Iterator[Tuple[str, Params]]:
         """The random weights in their draw order, one piece at a time:
-        ("", {embed, final_norm, lm_head}) first, then ("layers/<i>",
-        block i) for each layer, each piece drawn when it is asked for
-        (the reference's distributions: embed N(0, 0.02²), head N(0,
-        1/d), blocks by type as `block_params`). torch and JAX draw
-        different numbers from one seed: tests carry the reference's
-        weights over with `convert.params_from_numpy`. `device="meta"`
-        (and no generator) gives the shapes alone."""
+        ("", {embed, final_norm, lm_head}, with a frontend's
+        `frontend_proj` {w_in, b_in} and an encoder's `enc_norm`) first,
+        then an encoder-decoder's ("enc_blocks", [its n_enc_layers attn
+        blocks]) in one piece (the reference quantizes the encoder as
+        one stack), then ("layers/<i>", block i) for each layer, each
+        piece drawn when it is asked for (the reference's distributions:
+        embed N(0, 0.02²), head N(0, 1/d), frontend N(0, 1/frontend_dim)
+        with a zero bias, blocks by type as `block_params`). torch and
+        JAX draw different numbers from one seed: tests carry the
+        reference's weights over with `convert.params_from_numpy`.
+        `device="meta"` (and no generator) gives the shapes alone."""
         cfg = self.cfg
         vp = cfg.padded_vocab
-        yield "", {
+        top = {
             "embed": {"table": _normal(generator, (vp, cfg.d_model), 0.02,
                                        device)},
             "final_norm": {"gamma_scale": torch.ones(cfg.d_model,
@@ -189,6 +237,18 @@ class Model:
                                          1.0 / math.sqrt(cfg.d_model),
                                          device)},
         }
+        if cfg.frontend:
+            top["frontend_proj"] = {
+                "w_in": _normal(generator, (cfg.frontend_dim, cfg.d_model),
+                                1.0 / math.sqrt(cfg.frontend_dim), device),
+                "b_in": torch.zeros(cfg.d_model, device=device)}
+        if cfg.enc_dec:
+            top["enc_norm"] = {"gamma_scale": torch.ones(cfg.d_model,
+                                                         device=device)}
+        yield "", top
+        if cfg.enc_dec:
+            yield ENCODER, [block_params(generator, cfg, "attn", device)
+                            for _ in range(cfg.n_enc_layers)]
         for i in range(cfg.n_layers):
             yield f"layers/{i}", block_params(generator, cfg,
                                               self.block_type(i), device)
@@ -198,33 +258,38 @@ class Model:
              ) -> Params:
         """The whole tree `init_stream` draws. `quantize(tree, prefix)`
         (e.g. `qlinear.quantize_params` under a policy, with `prefix` the
-        tree's site address) is applied to each layer as soon as it is
-        drawn, and to the embedding and head last. The draws keep their
-        order, so the result equals init-then-quantize, but only one
-        layer's fp32 weights exist at a time."""
+        tree's site address) is applied to each layer (the encoder: to
+        its stack) as soon as it is drawn, and to the embedding, head
+        and frontend last. The draws keep their order, so the result
+        equals init-then-quantize, but only one layer's fp32 weights (or
+        the encoder's) exist at a time."""
         pieces = self.init_stream(generator, device)
         _, params = next(pieces)
         layers = []
         for prefix, block in pieces:
-            layers.append(block if quantize is None
-                          else quantize(block, prefix))
+            block = block if quantize is None else quantize(block, prefix)
+            if prefix == ENCODER:
+                params[ENCODER] = block
+            else:
+                layers.append(block)
             del block       # before the next layer is drawn
         params["layers"] = layers
         if quantize is not None:
             params.update(quantize({key: val for key, val in params.items()
-                                    if key != "layers"}, ""))
+                                    if key not in ("layers", ENCODER)}, ""))
         return params
 
-    def init_caches(self, batch: int, max_len: int, device="cuda",
-                    dtype=torch.float32):
+    def init_caches(self, batch: int, max_len: int, enc_len: int = 0,
+                    device="cuda", dtype=torch.float32):
         """Slab caches by block type (`block_cache`); kv_bits resolves
         per KV cache site (`layers/<i>/attn/kv`), and only where the
-        block has one."""
+        block has one. An encdec_attn layer's cross cache has `enc_len`
+        slots (fp, whatever the policy)."""
         return {"layers": [
             block_cache(self.cfg, self.block_type(i), batch, max_len,
                         0 if self.block_type(i) in RECURRENT_TYPES else
                         self.policy.resolve(f"layers/{i}/attn/kv").kv_bits,
-                        device, dtype)
+                        device, dtype, enc_len)
             for i in range(self.cfg.n_layers)]}
 
     def init_paged_caches(self, n_pages: int, page_size: int,
@@ -257,13 +322,26 @@ class Model:
         """Returns (logits, caches).
 
         prefill: batch["tokens"] (B, T), positions 0..T-1 unless
-                 `positions` (B, T) gives absolute ones (a prefill chunk)
+                 `positions` (B, T) gives absolute ones (a prefill chunk);
+                 an encoder-decoder also takes batch["frames"] (B, S,
+                 frontend_dim), which the encoder runs on (`encode`) and
+                 the cross caches take; a ViT frontend takes
+                 batch["patch_embeds"] (B, P, frontend_dim), projected
+                 and put in front of the prompt's embeddings (positions
+                 then run 0..P+T-1)
         decode:  batch["tokens"] (B, 1), batch["pos"] (B,)
         """
         cfg = self.cfg
+        enc_out = None
+        if cfg.enc_dec and mode != "decode":
+            enc_out = self.encode(params, batch["frames"])
         tok = batch["tokens"]
         x = self.embed(params, tok)
-        b, t = tok.shape
+        if cfg.frontend == "vit" and "patch_embeds" in batch:
+            # projected patches, not scaled by sqrt(d) as the tokens are
+            x = torch.cat([self.frontend(params, batch["patch_embeds"]), x],
+                          dim=1)
+        b, t = x.shape[:2]
         if positions is None and mode == "decode":
             positions = batch["pos"][:, None]
         elif positions is None:
@@ -274,10 +352,35 @@ class Model:
                                   cache=None if caches is None
                                   else caches["layers"][i], mode=mode,
                                   site=f"layers/{i}",
-                                  btype=self.block_type(i))
+                                  btype=self.block_type(i), enc_out=enc_out)
             new.append(nc)
         return self.head(params, x), (None if caches is None
                                       else {"layers": new})
+
+    def frontend(self, params, feats: torch.Tensor) -> torch.Tensor:
+        """The frontend stub's projection (B, S, frontend_dim) -> (B, S,
+        d): `frontend_proj` w_in + b_in at the site
+        `frontend_proj/w_in`."""
+        cdt = getattr(torch, self.policy.compute_dtype)
+        proj = params["frontend_proj"]
+        return qlinear.linear(feats.to(cdt), proj["w_in"], proj["b_in"],
+                              self.policy.resolve("frontend_proj/w_in"),
+                              site="frontend_proj/w_in")
+
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over stub frame embeddings (B, S, frontend_dim):
+        the frontend projection, the n_enc_layers `attn` blocks (their
+        self-attention causal, as the reference's encoder calls it,
+        RoPE at 0..S-1, the config's MLP), each at the site prefix
+        `enc_blocks`, then `enc_norm`. Returns (B, S, d)."""
+        cfg = self.cfg
+        x = self.frontend(params, frames)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        for p in params[ENCODER]:
+            x, _ = block_forward(p, x, positions, cfg, self.policy,
+                                 site=ENCODER, btype="attn")
+        return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Token ids (B, T) -> the first hidden states (B, T, d)."""

@@ -45,6 +45,9 @@ _COUNTED = {"ovp_encode": ovp_encode.fused_ovp_encode,
             "decode_attn": decode_attn.fused_decode_attention,
             "paged_decode_attn": decode_attn.fused_paged_decode_attention,
             "prefill_attn": prefill_attn.fused_prefill_attention}
+# the `_COUNTED` wrappers whose `.cache_launches` dict counts the same
+# launches per KV-cache dtype
+_CACHE_COUNTED = ("decode_attn", "paged_decode_attn")
 # the backends' module-level Counters, keyed "<prefix>:<counter key>"
 _COUNTERS = {"dispatch": backends._DISPATCH_STATS,
              "act_scale": base._ACT_SCALE_STATS}
@@ -57,7 +60,9 @@ def launch_counts() -> Dict[str, int]:
     mode ("grouped[<mode>]"; `grouped[fp]` on the MoE serving path), the
     same launches of both by weight dtype ("ovp_matmul<int8>",
     "grouped<int4>", ...), the encoder K7 ("ovp_encode") and the three
-    attention kernels. A captured engine step counts each replay."""
+    attention kernels, K2's and K3's launches also by cache dtype
+    ("decode_attn<int4>", "decode_attn<float32>", ...). A captured engine
+    step counts each replay."""
     counts = {}
     for name, fn in _MODE_COUNTED.items():
         for mode, n in fn.mode_launches.items():
@@ -66,6 +71,9 @@ def launch_counts() -> Dict[str, int]:
             counts[f"{name}<{w_dtype}>"] = n
     for name, fn in _COUNTED.items():
         counts[name] = fn.launches
+    for name in _CACHE_COUNTED:
+        for kv_dtype, n in _COUNTED[name].cache_launches.items():
+            counts[f"{name}<{kv_dtype}>"] = n
     return counts
 
 
@@ -76,6 +84,9 @@ def reset_launch_counts() -> None:
         fn.weight_launches = dict.fromkeys(ovp_matmul.W_DTYPES, 0)
     for fn in _COUNTED.values():
         fn.launches = 0
+    for name in _CACHE_COUNTED:
+        _COUNTED[name].cache_launches = dict.fromkeys(
+            decode_attn.CACHE_DTYPES, 0)
 
 
 def host_counts() -> Dict[str, int]:
@@ -112,8 +123,11 @@ def add_counts(delta: Dict[str, int]) -> None:
             name, mode = key[:-1].split("[")
             _MODE_COUNTED[name].mode_launches[mode] += n
         elif key.endswith(">"):
-            name, w_dtype = key[:-1].split("<")
-            _MODE_COUNTED[name].weight_launches[w_dtype] += n
+            name, dtype = key[:-1].split("<")
+            if name in _CACHE_COUNTED:
+                _COUNTED[name].cache_launches[dtype] += n
+            else:
+                _MODE_COUNTED[name].weight_launches[dtype] += n
         else:
             _COUNTED[key].launches += n
 

@@ -78,6 +78,19 @@ def bucketable(cfg) -> bool:
     return all(bt in ("attn", "moe") for bt in cfg.block_pattern)
 
 
+def check_servable(cfg) -> None:
+    """Refuse an encoder-decoder: the engine feeds tokens only, and an
+    encoder-decoder's prefill needs its encoder's input (`frames`). The
+    reference engine fails there at the first prefill (a KeyError on
+    `frames`); such a model runs through `Model.forward`."""
+    if cfg.enc_dec:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: its prefill needs the "
+            f"encoder's input frames, and the serving engine feeds tokens "
+            f"only; run it through Model.forward (batch 'frames' and "
+            f"'tokens', then decode steps)")
+
+
 def check_pageable(cfg) -> None:
     """The reference engine's refusal of a page pool for a pattern that
     is not pure attn/moe."""
@@ -191,6 +204,7 @@ class ServingEngine:
             model.policy = apply_calibration(model.policy, cfg.calibration)
         for name in model.policy.backends():
             backends.get_backend(name)
+        check_servable(model.cfg)
         if uses_static_scales(model.policy):
             misses = static_scale_misses(params, model.policy)
             if misses:

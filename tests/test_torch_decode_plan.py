@@ -126,6 +126,19 @@ def test_plan_refuses_past_the_shared_memory_cap():
         tda.decode_plan(4, 256, 16, 16, 64, torch.float64)
 
 
+@pytest.mark.parametrize("fp_dtype,name", [(None, "int4"),
+                                            (torch.float32, "float32"),
+                                            (torch.bfloat16, "bfloat16"),
+                                            (torch.float16, "float16")])
+def test_cache_launch_counter_names_the_cache_dtype(fp_dtype, name):
+    """K2 and K3 count each launch under `CACHE_DTYPES[plan.kind]` too:
+    the cache's dtype, int4 for a packed cache."""
+    plan = tda.decode_plan(4, 256, 16, 16, 64, fp_dtype)
+    assert tda.CACHE_DTYPES[plan.kind] == name
+    for fn in (tda.fused_decode_attention, tda.fused_paged_decode_attention):
+        assert set(fn.cache_launches) == set(tda.CACHE_DTYPES)
+
+
 def test_paged_plan_is_the_slab_plan_of_the_logical_length():
     """K3 is bit-identical to K2 only if both run the same split and live
     range: the wrapper plans a pool's call from s_len (ring or n * ps),

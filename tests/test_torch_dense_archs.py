@@ -6,7 +6,8 @@ reference.
   (the port's fields; `source` strings included).
 - `param_count` equals the reference's on every ported config and its
   smoke variant, and counts the linear weights the port's `Model.init`
-  draws (plus the vocab-wide embedding and head).
+  draws in the layers and an encoder's layers (plus the vocab-wide
+  embedding and head).
 - Smoke-size logits of each new arch under `olive_serve` (W4A4 + KV4,
   fp32 compute): the reference's `xla` backend against the port's
   `eager` (which mirrors its bfloat16 rounding of a packed cache), on
@@ -90,9 +91,13 @@ def test_param_count_counts_the_drawn_weights(arch):
     cfg = tconfigs.get_config(arch + "-smoke")
     params = t_build_model(cfg).init(torch.Generator().manual_seed(0),
                                      device="cpu")
-    # the linear weights: the depthwise conv kernel of an RG-LRU block
-    # is 2-D too, and the reference's count leaves it out
-    drawn = sum(w.numel() for path, w in tree_paths(params["layers"])
+    # the linear weights of the layers and of an encoder's layers: the
+    # depthwise conv kernel of an RG-LRU block is 2-D too, and the
+    # reference's count leaves it out (as it leaves out a frontend's
+    # projection, which is not among the layers)
+    blocks = {key: params[key] for key in ("layers", "enc_blocks")
+              if key in params}
+    drawn = sum(w.numel() for path, w in tree_paths(blocks)
                 if w.ndim >= 2 and not path.endswith("/conv_kernel"))
     assert cfg.param_count() == drawn + 2 * cfg.vocab * cfg.d_model
 

@@ -13,8 +13,9 @@ carried across.
   keep their `data_ptr()` and change value.
 - A page pool and the launcher's `--paged` raise the reference's
   ValueError, the launcher before any weight is drawn; a baseline
-  preset (`--quant int4`, whose per-period stacks are not ported) and
-  an `encdec_attn` pattern raise naming the ROADMAP item.
+  preset (`--quant int4`, whose per-period stacks are not ported)
+  raises naming the ROADMAP item, and an `encdec_attn` block in a
+  config without an encoder (`enc_dec` false) raises naming it.
 - The async front end serves the smoke arch through the launcher, and
   a pure-rglru model (`d_rnn` 0, so d_model wide) on the slab path, as
   the reference's `test_async_recurrent_slab_arch`.
@@ -186,7 +187,7 @@ def test_launcher_refuses_a_baseline_over_mixed_blocks():
 def test_unported_block_types_raise(btype):
     cfg = dataclasses.replace(t_get_config(ARCH),
                               block_pattern=("rglru", btype))
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 4"):
+    with pytest.raises(ValueError, match="has no encoder"):
         tmodel.build_model(cfg)
 
 

@@ -83,7 +83,15 @@ def test_port_serves_on_cpu_without_jax_or_kernels():
                                 "grouped<flint4>": 0, "grouped<int8>": 0,
                                 "ovp_encode": 0,
                                 "decode_attn": 0, "paged_decode_attn": 0,
-                                "prefill_attn": 0}}
+                                "prefill_attn": 0,
+                                "decode_attn<int4>": 0,
+                                "decode_attn<float32>": 0,
+                                "decode_attn<bfloat16>": 0,
+                                "decode_attn<float16>": 0,
+                                "paged_decode_attn<int4>": 0,
+                                "paged_decode_attn<float32>": 0,
+                                "paged_decode_attn<bfloat16>": 0,
+                                "paged_decode_attn<float16>": 0}}
 
 
 def test_launcher_has_no_cpu_switch():

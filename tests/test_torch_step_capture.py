@@ -38,7 +38,8 @@ from repro_torch import backends as tbackends
 from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import policy as tpol
-from repro_torch.kernels import ovp_matmul, prefill_attn
+from repro_torch.kernels import (decode_attn, ovp_matmul,
+                                 prefill_attn)
 from repro_torch.models import layers as tlayers
 from repro_torch.models.model import build_model as t_build_model
 from repro_torch.serve import capture
@@ -222,6 +223,34 @@ def test_count_delta_rolls_back_and_replays():
         twice = capture.host_counts()
         assert capture.count_delta(before, twice) == \
             {key: 2 * n for key, n in delta.items()}
+
+
+def test_cache_dtype_counts_roll_back_and_replay():
+    """K2's and K3's launches by cache dtype are host counters like the
+    rest: listed under "<kernel><dtype>", rolled back and replayed, and
+    zeroed by a reset."""
+    k2 = decode_attn.fused_decode_attention
+    k3 = decode_attn.fused_paged_decode_attention
+    with _restored_counts() as before:
+        k2.launches += 2
+        k2.cache_launches["float32"] += 2
+        k3.launches += 1
+        k3.cache_launches["int4"] += 1
+        after = capture.host_counts()
+        delta = capture.count_delta(before, after)
+        assert delta == {"decode_attn": 2, "decode_attn<float32>": 2,
+                         "paged_decode_attn": 1,
+                         "paged_decode_attn<int4>": 1}
+        capture.add_counts(capture.count_delta(after, before))
+        assert capture.host_counts() == before
+        capture.add_counts(delta)
+        assert capture.host_counts() == after
+        capture.reset_launch_counts()
+        counts = capture.launch_counts()
+        assert not any(counts.values())
+        assert {f"{name}<{dtype}>" for name in ("decode_attn",
+                                                 "paged_decode_attn")
+                for dtype in decode_attn.CACHE_DTYPES} <= set(counts)
 
 
 class _FakeGraph:
