@@ -245,7 +245,28 @@ CUDA toolkit. It builds the hand-written kernels from
    (K1 169 and K7 48 in the prefill) and 32 greedy decode steps at pos
    264 + i, with a 2-layer card-vs-CPU check; K1 at one layer's 7
    decode launches, and K2, K3 and K4 at Hkv 2 / G 7 / D 64 against
-   their plain versions.
+   their plain versions;
+19. training: phase M, Qwen1.5-0.5B at full published width and depth
+   (24 layers, d_model 1024, 16 x 64, d_ff 2816, tied 151936 vocab)
+   through the training launcher (`repro_torch.launch.train`,
+   `--quant olive_w4a4`: QAT with STE fake-quant of every linear's
+   weight and activation, bf16 compute, every layer rematerialized,
+   AdamW with bf16 moments, `--batch 8 --seq 512 --steps 20
+   --ckpt-every 10`, checkpoints under `build/ckpt_m`): every loss
+   finite and the last below the first; the final checkpoint save
+   timed; a second launcher run restores step 10 and reproduces steps 11-20's
+   losses within rtol 1e-3; a 2-layer cut at full width takes the
+   gradients of one train step on the card and on the CPU in fp32
+   compute, QAT with W4 weights and with W4A4 (loss, gradient norm and
+   every gradient leaf against the tolerances `TRAIN_CUT_CHECKS` states,
+   beside the card's own one-ulp scale sensitivity); then the trained fp32 tree is quantized under
+   `olive_serve` (activations off, as the launcher rewrites it) and
+   serves 4 requests through the slab engine on captured steps,
+   exactly K1 `fp` 168, K2 24 and K7 48 a decode step (168 and 48 a
+   prefill), no other kernel. It prints the median step time after the
+   first, tokens/s, peak device memory, checkpoint seconds and bytes,
+   and the model FLOPs a step beside the H100 SXM data sheet's dense
+   bf16 peak.
 
 Every serve phase runs the engine's captured steps (CUDA graphs, the
 default) and checks them: the trace audit (`audit_check`: the decode step
@@ -283,6 +304,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -5663,6 +5685,277 @@ def serve_phase_l(dev, smi: str):
     return {"runs": runs, "attn": attn}
 
 
+# --------------------------------------------------------------------------
+# Phase M: training (the training launcher at full width, resume,
+# card against CPU, and the trained weights served)
+# --------------------------------------------------------------------------
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_ARGS = ["--quant", "olive_w4a4", "--batch", "8", "--seq", "512",
+              "--steps", "20", "--ckpt-every", "10", "--seed", "0"]
+TRAIN_CKPT = os.path.join(ROOT, "build", "ckpt_m")
+TRAIN_RESUME_RTOL = 1e-3    # steps 11-20 resumed vs uninterrupted
+TRAIN_CUT = 2               # the card-vs-CPU step's depth
+TRAIN_CUT_BATCH = (2, 64)   # its batch: rows, tokens
+# Card vs CPU, the gradients of one fp32 QAT step: (preset, loss rtol,
+# grad-norm rtol, worst gradient leaf's |difference| over its max). The
+# fake-quant's per-tensor 3-sigma scale is a reduction whose last bits
+# differ between the two, and a code that flips moves by a whole step:
+# the card's own gradients with every scale one ulp up (`TRAIN_ULP`,
+# printed beside) show how far that alone moves each number. W4A4's
+# 4-bit activations flip outlier codes, which moves whole gradient rows,
+# so its leaves are only bounded.
+TRAIN_CUT_CHECKS = (("olive_w4", 1e-4, 1e-3, 2e-2),
+                    ("olive_w4a4", 1e-2, 1e-2, 1.0))
+TRAIN_ULP = 2.0 ** -23      # the scales' relative change of the ulp step
+H100_BF16_DENSE = 989e12    # FLOP/s, H100 SXM data sheet, dense bf16
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _grad_norm(grads) -> float:
+    return sum(float((g.double() ** 2).sum()) for g in grads.values()) ** 0.5
+
+
+def _ulp_step(model, params, batch, base) -> dict:
+    """The card's gradients with every fake-quant scale `TRAIN_ULP`
+    relative up (`sigma_init_scale` scaled), against `base`, the same
+    step unperturbed: how far one ulp of a scale moves the loss, the
+    gradient norm and the worst gradient leaf."""
+    from repro_torch.core import qlinear
+    from repro_torch.core.qlinear import tree_paths
+    from repro_torch.train.train_step import value_and_grad
+    real = qlinear.sigma_init_scale
+    qlinear.sigma_init_scale = \
+        lambda x, nd: real(x, nd) * (1.0 + TRAIN_ULP)
+    try:
+        loss, _, grads = value_and_grad(model, params, batch)
+    finally:
+        qlinear.sigma_init_scale = real
+    grads = dict(tree_paths(grads))
+    worst = max(float((grads[p] - g).abs().max() / g.abs().max())
+                for p, g in base["grads"].items() if g.abs().max() > 0)
+    return {"loss_rel": abs(float(loss) - base["loss"]) / abs(base["loss"]),
+            "gnorm_rel": abs(_grad_norm(grads) - base["gnorm"])
+            / base["gnorm"], "grad_rel": worst}
+
+
+def train_card_vs_cpu(dev, smi: str) -> dict:
+    """The gradients of one QAT train step of a `TRAIN_CUT`-layer cut of
+    the config at full width on the card and on the CPU, fp32 compute,
+    the same drawn weights and batch, under each preset of
+    `TRAIN_CUT_CHECKS`: loss, gradient norm and every gradient leaf (the
+    AdamW update on them is held to the reference on the CPU)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qlinear import tree_paths
+    from repro_torch.data.loader import LoaderCfg, SyntheticLoader
+    from repro_torch.data.synthetic import CorpusCfg
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    from repro_torch.train.train_step import value_and_grad
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CUT)
+    rows, seq = TRAIN_CUT_BATCH
+    batch = SyntheticLoader(LoaderCfg(
+        global_batch=rows, seq_len=seq,
+        corpus=CorpusCfg(vocab=cfg.vocab))).global_batch_at(0)
+    params = {str(dev): build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0), device=dev)}
+    params["cpu"] = tree_unflatten(params[str(dev)], [
+        p.cpu() for p in tree_leaves(params[str(dev)])])
+    out = {}
+    for quant, loss_tol, gnorm_tol, grad_tol in TRAIN_CUT_CHECKS:
+        model = build_model(cfg, dataclasses.replace(
+            get_policy(quant), qat=True, compute_dtype="float32"))
+        got = {}
+        for where in ("cpu", str(dev)):
+            on = {k: v.to(where) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            loss, _, grads = value_and_grad(model, params[where], on)
+            grads = dict(tree_paths(grads))
+            got[where] = {"loss": float(loss), "grads": grads,
+                          "gnorm": _grad_norm(grads),
+                          "s": time.perf_counter() - t0}
+        ref, card = got["cpu"], got[str(dev)]
+        ulp = _ulp_step(model, params[str(dev)],
+                        {k: v.to(dev) for k, v in batch.items()}, card)
+        loss_err = abs(card["loss"] - ref["loss"]) / abs(ref["loss"])
+        gnorm_err = abs(card["gnorm"] - ref["gnorm"]) / ref["gnorm"]
+        grad_err = max(float((card["grads"][p].cpu() - g).abs().max())
+                       / float(g.abs().max())
+                       for p, g in ref["grads"].items() if g.abs().max() > 0)
+        print(f"[train M] card vs CPU, {TRAIN_CUT}-layer cut at full width, "
+              f"the gradients of one fp32 QAT {quant} step of {rows} x {seq} "
+              f"tokens: loss {card['loss']:.6f} vs {ref['loss']:.6f} (rel "
+              f"{loss_err:.2e}, tol {loss_tol}), grad norm "
+              f"{card['gnorm']:.5f} vs {ref['gnorm']:.5f} (rel "
+              f"{gnorm_err:.2e}, tol {gnorm_tol}), worst gradient leaf "
+              f"{grad_err:.2e} of its max (tol {grad_tol}); {card['s']:.3f}s "
+              f"card, {ref['s']:.3f}s CPU; the card against itself with "
+              f"every scale one ulp up: loss {ulp['loss_rel']:.2e}, grad "
+              f"norm {ulp['gnorm_rel']:.2e}, worst leaf "
+              f"{ulp['grad_rel']:.2e} [{smi}]")
+        if not (loss_err <= loss_tol and gnorm_err <= gnorm_tol
+                and grad_err <= grad_tol):
+            fail(f"phase M: the card's {quant} gradients disagree with the "
+                 f"CPU's")
+        out[quant] = {"loss_rel": loss_err, "gnorm_rel": gnorm_err,
+                      "grad_rel": grad_err, "ulp": ulp}
+    return out
+
+
+def train_serve_check(dev, params, smi: str):
+    """The trained fp32 tree quantized under olive_serve (activations
+    off, the launcher's rewrite) and served: 4 requests through the slab
+    engine on captured steps, the launches gated exactly."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import OLIVE_SERVE
+    from repro_torch.core.qlinear import quantize_params
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import EngineCfg, ServingEngine
+    policy = OLIVE_SERVE.replace_all(compute_dtype="float32", abits=0)
+    model = build_model(get_config(TRAIN_ARCH), policy)
+    t0 = time.perf_counter()
+    qparams = quantize_params(params, policy)
+    ptq_s = time.perf_counter() - t0
+    eng = ServingEngine(model, qparams, EngineCfg(batch_slots=4, max_len=256),
+                        device=dev)
+    rng = np.random.default_rng(3)
+    for _ in range(4):
+        eng.submit(rng.integers(0, model.cfg.vocab,
+                                size=int(rng.integers(4, 32))),
+                   max_new_tokens=16)
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    res = {"engine": eng, "model": model}
+    check_counts(counts, "phase M serve")
+    check_attn_counts(res, counts, "phase M serve", paged=False)
+    check_encode_counts(eng, counts, "phase M serve")
+    st = eng.stats()
+    forwards = st["decodes_run"] + st["prefills_run"]
+    if counts["ovp_matmul[fp]"] != 7 * model.cfg.n_layers * forwards:
+        fail(f"phase M serve: K1 launches {counts['ovp_matmul[fp]']}, "
+             f"expected 7 x {model.cfg.n_layers} x {forwards} forward calls")
+    if len(done) != 4 or any(len(r.out_tokens) != 16 for r in done):
+        fail("phase M serve: expected 4 requests x 16 tokens")
+    audit_check(eng, "phase M serve")
+    toks = sum(len(r.out_tokens) for r in done)
+    print(f"[train M] served the trained weights (olive_serve W4 + KV4, PTQ "
+          f"{ptq_s:.2f}s): {toks} tokens in {dt:.3f}s, launches a decode "
+          f"step K1 {7 * model.cfg.n_layers}, K2 {model.cfg.n_layers}, K7 "
+          f"{2 * model.cfg.n_layers} (totals ovp_matmul[fp]="
+          f"{counts['ovp_matmul[fp]']} decode_attn={counts['decode_attn']} "
+          f"ovp_encode={counts['ovp_encode']} over {st['decodes_run']} "
+          f"decode steps and {st['prefills_run']} prefills) [{smi}]")
+    return counts
+
+
+def train_phase_m(dev, smi: str) -> dict:
+    """Phase M: the training slice through its launcher (see the module
+    docstring, item 19)."""
+    import shutil
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, *TRAIN_ARGS, "--ckpt-dir", TRAIN_CKPT]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = train.run(argv, device=dev)
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    hist, trainer = res["history"], res["trainer"]
+    losses, times = hist["loss"], hist["step_time"]
+    if len(losses) != 20 or not all(map(math.isfinite, losses)) or \
+            not losses[-1] < losses[0]:
+        fail(f"phase M: losses {losses}: not 20 finite losses ending below "
+             f"the first")
+    cfg = get_config(TRAIN_ARCH)
+    rows, seq = (int(TRAIN_ARGS[TRAIN_ARGS.index(flag) + 1])
+                 for flag in ("--batch", "--seq"))
+    step_ms = statistics.median(times[1:]) * 1e3
+    unused = trainer.state.params["lm_head"]["w_out"] \
+        if cfg.tie_embeddings else None     # a tied head reads the table
+    n_params = sum(p.numel() for p in tree_leaves(trainer.state.params)
+                   if p is not unused)
+    n_layers = sum(p.numel() for p in tree_leaves(
+        trainer.state.params["layers"]))
+    tokens = rows * seq
+    flops = 6 * n_params * tokens + 2 * n_layers * tokens   # + remat
+    print(f"[train M] {TRAIN_ARCH} QAT olive_w4a4, bf16 compute, remat, "
+          f"{rows} x {seq} tokens a step: losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, held-out ppl {res['ppl']:.3f}; first step "
+          f"{times[0] * 1e3:.1f} ms, median step after it {step_ms:.1f} ms "
+          f"= {tokens / step_ms * 1e3:.0f} tokens/s; peak device memory "
+          f"{peak_gb:.2f} GB; run {run_s:.1f}s [{smi}]")
+    print(f"[train M] model FLOPs a step: 6 x {n_params} params x {tokens} "
+          f"tokens + 2 x {n_layers} layer params x {tokens} (remat's "
+          f"recompute) = {flops:.3e} (attention's T^2 terms left out); at "
+          f"the median step {flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s = "
+          f"{flops / (step_ms / 1e3) / H100_BF16_DENSE * 100:.1f} % of the "
+          f"H100 SXM data sheet's dense bf16 peak "
+          f"({H100_BF16_DENSE / 1e12:.0f} TFLOP/s) [{smi}]")
+    # resume: restore step 10 and run steps 11-20 again
+    shutil.rmtree(os.path.join(TRAIN_CKPT, f"step_{20:08d}"))
+    res2 = train.run(argv, device=dev)
+    save_s = trainer.ckpt_seconds["save"]
+    restore_s = res2["trainer"].ckpt_seconds["restore"]
+    n_bytes = _dir_bytes(os.path.join(TRAIN_CKPT, f"step_{20:08d}"))
+    print(f"[train M] checkpoint of step 20 (fp32 params, bf16 moments): "
+          f"{n_bytes} bytes on disk, its save {save_s:.2f}s (from the start "
+          f"to the file's publication), "
+          f"the resumed run's restore of step 10 {restore_s:.2f}s [{smi}]")
+    again = res2["history"]["loss"]
+    if res2["history"]["step"] != list(range(11, 21)):
+        fail(f"phase M: the resumed run ran steps {res2['history']['step']}")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(again, losses[10:]))
+    print(f"[train M] resumed at step 10: steps 11-20 losses within "
+          f"{worst:.2e} relative of the uninterrupted run's (tol "
+          f"{TRAIN_RESUME_RTOL}) [{smi}]")
+    if worst > TRAIN_RESUME_RTOL:
+        fail(f"phase M: resumed losses {again} vs {losses[10:]}")
+    # one more step of the resumed trainer, profiled
+    t2 = res2["trainer"]
+    batch = t2._batch(t2.step)
+
+    def train_step():
+        t2.state, metrics = t2.step_fn(t2.state, batch)
+        float(metrics["loss"])
+
+    prof = profile_steps(train_step, steps=1, warm=False)
+    print(f"[train M] one profiled train step: wall {prof['wall_ms']:.1f} ms "
+          f"under the profiler, device busy {prof['busy_ms']:.1f} ms, "
+          f"{prof['kernels']} device kernels; costliest: "
+          + "; ".join(f"{ms:.1f} ms x{n} {name[:60]}"
+                      for ms, n, name in prof["top"][:5]) + f" [{smi}]")
+    params = res["state"].params
+    del res2, res, trainer, t2, batch
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    free_device_memory()
+    cut = train_card_vs_cpu(dev, smi)
+    free_device_memory()
+    counts = train_serve_check(dev, params, smi)
+    took = time.perf_counter() - t_phase
+    print(f"[train M] phase took {took:.1f}s")
+    return {"counts": counts, "step_ms": step_ms, "peak_gb": peak_gb,
+            "profile": prof,
+            "cut": cut, "save_s": save_s, "restore_s": restore_s,
+            "bytes": n_bytes, "flops": flops, "took": took}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5776,6 +6069,9 @@ def main() -> int:
     run_k = serve_phase_k(dev, card)
     free_device_memory()
     run_l = serve_phase_l(dev, card)
+    # the training slice, the earlier models freed
+    free_device_memory()
+    run_m = train_phase_m(dev, card)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -5938,6 +6234,18 @@ def main() -> int:
             "src/repro/kernels/prefill_attn.py:170", "prefill_attn.cu",
             runs_l[True]["counts"]["prefill_attn"], attn_l["k4"][1],
             attn_l["k4"][2])]
+    # the training slice's hand-off (phase M): the trained weights served
+    # at phase A's shapes, so phase A's records; launches from phase M
+    counts_m = run_m["counts"]
+    kernels += [
+        row(f"ovp_matmul[fp]@{TRAIN_ARCH} trained", k1_src, "ovp_matmul.cu",
+            counts_m["ovp_matmul[fp]"], k1_err, k1_main["fp"], k1_by),
+        row(f"decode_attn@{TRAIN_ARCH} trained",
+            "src/repro/kernels/decode_attn.py:358", "decode_attn.cu",
+            counts_m["decode_attn"], k2_err, k2_main),
+        row(f"ovp_encode@{TRAIN_ARCH} trained",
+            "src/repro/kernels/ovp_encode.py:59", "ovp_encode.cu",
+            counts_m["ovp_encode"], 0.0, k7_main)]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -6026,7 +6334,11 @@ def main() -> int:
           "decode_attn / paged_decode_attn / prefill_attn@internvl2-1b "
           "one launch at Hkv 2, G 7, D 64 (K2 and K3: B 4, S 256, packed, "
           "pos mixed; K4: C 16 at offset 240, packed), launches from the "
-          "slab run (K2) and the paged run (K3, K4)")
+          "slab run (K2) and the paged run (K3, K4). Training (phase M, "
+          "Qwen1.5-0.5B QAT, then the trained fp32 tree quantized under "
+          "olive_serve and served): <kernel>@qwen1.5-0.5b trained carry "
+          "phase A's records (the same shapes), launches from phase M's "
+          "served run of 4 requests")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

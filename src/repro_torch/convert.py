@@ -15,7 +15,17 @@ followed by the `tail` entries; a tree the reference already unrolled
 (`unroll_params`) keeps its `layers` list. An encoder-decoder's vmapped
 `enc_blocks` (leading axis n_enc_layers) unstacks into the port's list
 of encoder layers; `enc_norm` and `frontend_proj` carry over as they
-are.
+are. Leaves may also be torch tensors (a checkpoint the port restored
+in the reference's layout), and bfloat16 arrays (`ml_dtypes`) become
+bfloat16 tensors bit for bit.
+
+The other direction, `params_to_reference(params, cfg)`, stacks the
+port's raw layers back into the scanned layout (`blocks/<j>` over the
+n_layers // period full periods, the rest in `tail`, the encoder's list
+into one stack). `state_from_reference` and `state_to_reference` carry
+a whole training state, the AdamW moments in the params' layout and
+the step, both ways: with them a checkpoint written by either package
+restores in the other.
 """
 from __future__ import annotations
 
@@ -25,12 +35,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.ovp import MixedExpertQuant, QuantizedTensor
+from repro_torch.optim.adamw import AdamWState
 
 _QT_FIELDS = ("data", "scale", "normal_dtype", "pair_axis", "orig_dim")
 _MIXED_FIELDS = ("groups", "expert_ids", "n_experts")
 
 
 def _fields(x, names):
+    if isinstance(x, (np.ndarray, torch.Tensor)):
+        return None
     if isinstance(x, dict) and set(names) <= set(x):
         return x
     if all(hasattr(x, f) for f in names):
@@ -63,7 +76,21 @@ def _convert(x, device) -> Any:
         return {k: _convert(v, device) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return [_convert(v, device) for v in x]
-    return torch.as_tensor(np.ascontiguousarray(x), device=device)
+    return _tensor(x, device)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    x = np.asarray(x)
+    if not (x.flags.c_contiguous and x.flags.writeable):
+        # a read-only view of another array's buffer (a JAX array's) is
+        # copied, since the port updates params and moments in place
+        x = np.array(x, order="C")
+    if x.dtype.name == "bfloat16":                      # ml_dtypes
+        return torch.from_numpy(x.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(x, device=device)
 
 
 def _slice(x, g: int):
@@ -74,7 +101,7 @@ def _slice(x, g: int):
         return dict(q, data=q["data"][g], scale=q["scale"][g])
     if isinstance(x, dict):
         return {k: _slice(v, g) for k, v in x.items()}
-    return np.asarray(x)[g]
+    return x[g] if isinstance(x, torch.Tensor) else np.asarray(x)[g]
 
 
 def _n_groups(x) -> int:
@@ -83,7 +110,7 @@ def _n_groups(x) -> int:
         return np.shape(q["data"])[0]
     if isinstance(x, dict):
         return _n_groups(next(iter(x.values())))
-    return np.shape(x)[0]
+    return x.shape[0]
 
 
 def params_from_numpy(tree, device="cuda"):
@@ -101,3 +128,52 @@ def params_from_numpy(tree, device="cuda"):
     layers.extend(tree.get("tail") or [])
     out["layers"] = layers
     return _convert(out, device)
+
+
+def _stack(trees):
+    """Raw layer trees of one structure -> one tree of stacked leaves."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def params_to_reference(params, cfg):
+    """Port params (raw tensors, unrolled) -> the reference's scanned
+    tree: `blocks` {str(j): layers j, j + period, ... stacked} over the
+    n_layers // period full periods, `tail` the layers after them, and
+    an encoder's layers stacked into `enc_blocks`."""
+    from repro_torch.core.qlinear import ENCODER
+    period = len(cfg.block_pattern)
+    layers = params["layers"]
+    n_groups = len(layers) // period
+    out = {k: v for k, v in params.items() if k not in ("layers", ENCODER)}
+    out["blocks"] = {str(j): _stack(layers[j:n_groups * period:period])
+                     for j in range(period)} if n_groups else {}
+    out["tail"] = list(layers[n_groups * period:])
+    if ENCODER in params:
+        out[ENCODER] = _stack(params[ENCODER])
+    return out
+
+
+def state_to_reference(state, cfg):
+    """A port `TrainState` -> the same NamedTuples with params and
+    moments in the reference's scanned layout (`params_to_reference`)."""
+    opt = state.opt
+    return type(state)(
+        params_to_reference(state.params, cfg),
+        AdamWState(step=opt.step, mu=params_to_reference(opt.mu, cfg),
+                   nu=params_to_reference(opt.nu, cfg)))
+
+
+def state_from_reference(state, device="cuda"):
+    """A reference training state (its `TrainState` with numpy leaves,
+    or one `state_to_reference` shaped, with tensors) -> the port's
+    `TrainState` on `device`: params and moments unrolled, the step an
+    int32 scalar."""
+    from repro_torch.train.train_step import TrainState
+    opt = state.opt
+    return TrainState(
+        params=params_from_numpy(state.params, device),
+        opt=AdamWState(step=_tensor(opt.step, device).to(torch.int32),
+                       mu=params_from_numpy(opt.mu, device),
+                       nu=params_from_numpy(opt.nu, device)))

@@ -155,6 +155,19 @@ def collecting_activations(tape: ActTape):
         _ACTIVE_TAPE = prev
 
 
+@contextlib.contextmanager
+def tape_suspended():
+    """No tape inside the block (the active one, if any, comes back
+    after): what the reference's encoder, run under `jax.lax.scan`
+    (which traces its body even eagerly), never records."""
+    global _ACTIVE_TAPE
+    prev, _ACTIVE_TAPE = _ACTIVE_TAPE, None
+    try:
+        yield
+    finally:
+        _ACTIVE_TAPE = prev
+
+
 def tap(site: str, x) -> None:
     """Record one matmul input on the active tape (no-op when inactive or
     when the site is anonymous)."""
@@ -396,7 +409,10 @@ def calibrate_model(model, params, batches: Iterable,
     then the fp activations the paper calibrates on, under the same site
     addresses the quantized tree has. The port's layers are unrolled, so
     the sites are `layers/<i>/...` as the reference's unrolled twin
-    tapes them."""
+    tapes them. An encoder-decoder's encoder layers stay off the tape
+    (`Model.encode`), as the reference's scanned encoder does: its
+    frontend projection, decoder and head sites are taped, and under
+    `apply_calibration` the encoder keeps the base policy."""
     from .qlinear import tree_paths
     device = next(w.device for _, w in tree_paths(params)
                   if isinstance(w, torch.Tensor))
@@ -417,23 +433,29 @@ def calibrate_streamed(model, generator: torch.Generator,
                        max_per_site: int = 65536):
     """`calibrate_model` on the tree `model.init(generator, device)`
     draws, without that tree: the weights are drawn in `Model.init`'s
-    order (embedding and head, then the layers); each layer, as soon as
-    it is drawn, takes every batch's hidden states forward under the
-    tape, is quantized by `quantize(tree, "layers/<i>")` and its fp32
-    weights are dropped; the head is taped last, then the embedding and
-    head are quantized (`quantize(tree, "")`). The tape is planned over
-    a forward of the same model on `device="meta"`, so its samples, and
-    the artifact's JSON, are byte for byte `calibrate_model`'s on the
-    whole tree, at any number of batches. Returns (params, artifact):
-    the params equal `quantize` of the whole tree (a frontend's
-    projection is quantized with the embedding and head)."""
+    order (embedding and head, an encoder-decoder's encoder, then the
+    layers); the encoder, as soon as it is drawn, runs on every batch's
+    "frames" (its frontend projection taped, its layers not, as in
+    `calibrate_model`), is quantized by `quantize(layers, ENCODER)` and
+    dropped; each layer, as soon as it is drawn, takes every batch's
+    hidden states forward under the tape, is quantized by
+    `quantize(tree, "layers/<i>")` and its fp32 weights are dropped; the
+    head is taped last, then the embedding and head are quantized
+    (`quantize(tree, "")`). The tape is planned over a forward of the
+    same model on `device="meta"`, so its samples, and the artifact's
+    JSON, are byte for byte `calibrate_model`'s on the whole tree, at any
+    number of batches. Returns (params, artifact): the params equal
+    `quantize` of the whole tree (a frontend's projection is quantized
+    with the embedding and head)."""
     from repro_torch.models.model import block_forward
+    from .qlinear import ENCODER
     batches = list(batches)
     sizes = SizeTape()
     meta = model.init(None, device="meta")
     with collecting_activations(sizes):
         for batch in batches:
-            model.forward(meta, {"tokens": batch["tokens"].to("meta")},
+            model.forward(meta, {key: val.to("meta")
+                                 for key, val in batch.items()},
                           mode="prefill")
     del meta
     tape = ActTape(max_per_site=max_per_site).plan(sizes.records)
@@ -442,19 +464,30 @@ def calibrate_streamed(model, generator: torch.Generator,
     hidden = [model.embed(rest, batch["tokens"]) for batch in batches]
     positions = [torch.arange(x.shape[1], device=x.device)[None]
                  .expand(x.shape[0], x.shape[1]) for x in hidden]
-    layers = []
+    enc_out = [None] * len(batches)
+    layers, encoder = [], None
     with collecting_activations(tape):
         for prefix, block in pieces:
+            if prefix == ENCODER:
+                enc_out = [model.encode(dict(rest, **{ENCODER: block}),
+                                        batch["frames"])
+                           for batch in batches]
+                encoder = quantize(block, ENCODER)
+                del block
+                continue
             hidden = [block_forward(block, x, pos, model.cfg, model.policy,
-                                    site=prefix)[0]
-                      for x, pos in zip(hidden, positions)]
+                                    site=prefix, enc_out=enc)[0]
+                      for x, pos, enc in zip(hidden, positions, enc_out)]
             layers.append(quantize(block, prefix))
             del block       # before the next layer is drawn
         for x in hidden:
             model.head(rest, x)
     artifact = _artifact(model, tape, normal_dtype, n_grid, device,
                          len(batches), max_per_site)
-    return dict(quantize(rest, ""), layers=layers), artifact
+    params = dict(quantize(rest, ""), layers=layers)
+    if encoder is not None:
+        params[ENCODER] = encoder
+    return params, artifact
 
 
 def static_scale_misses(params, policy: PolicyLike) -> List[str]:

@@ -203,14 +203,53 @@ def ovp_dequantize(qt: QuantizedTensor,
     return (vals * qt.scale).to(dtype)
 
 
+def _abfloat_values(u: torch.Tensor, spec: AbfloatSpec) -> torch.Tensor:
+    """`abfloat_decode(abfloat_encode(u))` in the value domain: the
+    magnitude clamped to [min_mag, max_mag] and rounded to mb mantissa
+    bits at its exponent e = floor(log2), i.e. round(m · 2^(mb - e)) ·
+    2^(e - mb) with the sign. The code path's other steps change no
+    value in that range: its mantissa-overflow bump encodes the same
+    value (2^mb · 2^(e + 1 - mb) = 2^(mb + 1) · 2^(e - mb)), its field
+    clamps and its e=0/m=0 rule never act on a clamped magnitude, and
+    max_mag is at most the 2^15 clip."""
+    mag = torch.clamp(torch.abs(u), spec.min_mag, spec.max_mag)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - spec.mb)
+    val = torch.round(mag / step) * step
+    return torch.where(u < 0, -val, val)
+
+
 def ovp_fake_quant(x: torch.Tensor, scale, normal_dtype: str = "int4",
                    spec: Optional[AbfloatSpec] = None,
                    pair_axis: int = -1) -> torch.Tensor:
-    """quantize -> dequantize without packing (the scale search)."""
+    """quantize -> dequantize without packing (the scale search, QAT):
+    `ovp_decode_codes(ovp_encode_codes(x / scale)) * scale`, computed on
+    values in about a quarter of the tensor ops for int normals: per
+    pair along `pair_axis`, the outlier (`ovp_encode_codes`' rule) takes
+    its abfloat value, its victim 0, and normal pairs round half to even
+    within ±NORMAL_MAX. Bit for bit the code path's
+    (tests/test_torch_qat.py); flint4 normals run the code path."""
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     u = x.to(torch.float32) / scale
-    codes = ovp_encode_codes(u, normal_dtype, spec, pair_axis)
-    return ovp_decode_codes(codes, normal_dtype, spec, pair_axis) * scale
+    if normal_dtype == "flint4":
+        codes = ovp_encode_codes(u, normal_dtype, spec, pair_axis)
+        return ovp_decode_codes(codes, normal_dtype, spec, pair_axis) * scale
+    spec = ABFLOAT_FOR_NORMAL[normal_dtype] if spec is None else spec
+    t = float(NORMAL_MAX[normal_dtype])
+    u = torch.movedim(u, pair_axis, -1)
+    if u.shape[-1] % 2 != 0:
+        raise ValueError(f"pair axis length {u.shape[-1]} must be even")
+    pairs = u.unflatten(-1, (-1, 2))
+    a = torch.abs(pairs)
+    over = a > t
+    first = over[..., 0] & (~over[..., 1] | (a[..., 0] >= a[..., 1]))
+    second = over[..., 1] & ~first
+    outlier = torch.stack([first, second], dim=-1)
+    victim = torch.stack([second, first], dim=-1)
+    q = torch.where(outlier, _abfloat_values(pairs, spec),
+                    torch.where(victim, 0.0,
+                                torch.clamp(torch.round(pairs), -t, t)))
+    # + 0.0: a normal rounding to -0 is +0 in the code path
+    return (torch.movedim(q.flatten(-2), -1, pair_axis) + 0.0) * scale
 
 
 def pair_statistics(x: torch.Tensor, k_sigma: float = 3.0,

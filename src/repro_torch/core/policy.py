@@ -6,7 +6,7 @@ the mixed-precision program presets (`olive_mixed_w48`,
 the baseline presets (`int8`, `int4`, `ant4`: fake-quant through
 `core/baselines.py`), and the layer probes (`addresses_layers`) that
 tell PTQ whether the reference would keep a program's layer stack
-scanned. QAT's `qat` field waits for the code that reads it.
+scanned, and QAT's `qat` flag, which `qlinear.qmatmul` reads.
 
 `QuantPolicy` is the per-site decision record. `PolicyProgram` holds
 ordered (glob pattern -> QuantPolicy) rules matched case-insensitively
@@ -46,6 +46,10 @@ class QuantPolicy:
     quantize_embed: bool = False
     quantize_router: bool = False
     kv_bits: int = 0                    # 4 = OVP-packed KV cache
+    # QAT: raw weights (and activations, when `abits` is set) take STE
+    # fake-quant in the forward pass; off, raw weights under an enabled
+    # policy run full precision (PTQ serving)
+    qat: bool = False
     backend: str = "cuda"               # a `repro_torch.backends` name
     compute_dtype: str = "bfloat16"
 
@@ -137,6 +141,10 @@ class PolicyProgram:
         cache site may be packed (caches resolve kv_bits per layer site)."""
         return max([self.default.kv_bits]
                    + [r.policy.kv_bits for r in self.rules])
+
+    @property
+    def qat(self) -> bool:
+        return self.default.qat or any(r.policy.qat for r in self.rules)
 
     def backends(self) -> frozenset:
         return frozenset([self.default.backend]

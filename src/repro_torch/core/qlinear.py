@@ -1,10 +1,13 @@
 """Quantized linear ops — the integration point between OliVe and the
-models. Port of `repro/core/qlinear.py` (PTQ serving, the baselines and
-the calibration tape: no QAT).
+models. Port of `repro/core/qlinear.py`: PTQ serving, QAT, the
+baselines and the calibration tape.
 
   raw weight                 -> plain matmul in the compute dtype (a
                                 baseline with `abits` set fake-quantizes
                                 the activation first)
+  raw weight, policy on with -> QAT: STE fake-quant of the weight (and of
+  `qat` (method "olive")        the activation when `abits` is set),
+                                then `torch.matmul`
   QuantizedTensor,           -> `repro_torch.backends.dispatch` on the
   MixedExpertQuant              backend `policy.backend` names
 
@@ -13,9 +16,10 @@ reference: PTQ leaves a dense fp32 weight holding the quantized values,
 which runs through `torch.matmul` (the reference's `jnp.matmul`, outside
 any kernel). Their one scale a tensor spans what the reference's layout
 hands them: in its scanned layout (a flat policy, or a program that does
-not address layers) the stack of one site over every layer, so
-`quantize_params` on a whole tree fake-quantizes that stack
-(`stacks_layers`); a program that addresses layers quantizes each layer
+not address layers) the stack of one site over the layers at one
+position of the block pattern's period (its `blocks/<j>`; a layer past
+the last full period, its `tail`, alone), so `quantize_params` on a
+whole tree fake-quantizes those stacks (`stacks_layers`); a program that addresses layers quantizes each layer
 alone, as the reference's unrolled layout does.
 
 Weights pair along the reduction dim K with per-output-channel scales, so
@@ -29,6 +33,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import dataclasses
+import weakref
 
 import torch
 
@@ -37,8 +42,9 @@ from repro_torch import backends
 from . import baselines, calibration
 from .ovp import MixedExpertQuant, QuantizedTensor, ovp_quantize
 from .policy import PolicyLike, PolicyProgram, QuantPolicy, resolve
-from .quantizer import (QuantSpec, ovp_search_scale,
-                        ovp_search_scale_per_channel, quantize)
+from .quantizer import (QuantSpec, fake_quant_ste, ovp_search_scale,
+                        ovp_search_scale_per_channel, quantize,
+                        sigma_init_scale)
 
 Weight = Union[torch.Tensor, QuantizedTensor, MixedExpertQuant]
 
@@ -105,6 +111,25 @@ def _quantize_stack(w: torch.Tensor, spec: QuantSpec) -> QuantizedTensor:
                            pair_axis=q0.pair_axis, orig_dim=q0.orig_dim)
 
 
+# QAT: the last fake-quantized activation (a weak reference to its
+# input, the input's version, the normal dtype, the result), so linears
+# called one after another on one tensor (attention's wq, wk, wv;
+# SwiGLU's wg, wu) fake-quantize it once, as XLA's common-subexpression
+# elimination does for the reference
+_QAT_LAST_ACT: list = [None]
+
+
+def _qat_activation(x: torch.Tensor, normal_dtype: str) -> torch.Tensor:
+    last = _QAT_LAST_ACT[0]
+    if last is not None and last[0]() is x and \
+            last[1:3] == (x._version, normal_dtype):
+        return last[3]
+    xq = fake_quant_ste(x, sigma_init_scale(x.detach(), normal_dtype),
+                        normal_dtype, pair_axis=-1)
+    _QAT_LAST_ACT[0] = (weakref.ref(x), x._version, normal_dtype, xq)
+    return xq
+
+
 def qmatmul(x: torch.Tensor, w: Weight, policy: QuantPolicy, site: str = "",
             act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., K) @ w (K, N) with the policy's quantization applied.
@@ -119,6 +144,15 @@ def qmatmul(x: torch.Tensor, w: Weight, policy: QuantPolicy, site: str = "",
             raise calibration.MissingStaticScaleError([site or "<unknown>"])
         return backends.dispatch(x, w, policy, act_scale=act_scale)
     cdt = backends.base.torch_dtype(policy.compute_dtype)
+    if policy.enabled and policy.qat and policy.method == "olive":
+        # QAT: STE fake-quant of W at its per-tensor 3σ scale, pairs
+        # along K, and of the activation (pairs along its last dim)
+        nd = policy.normal_dtype_for_bits(policy.wbits)
+        w = fake_quant_ste(w, sigma_init_scale(w.detach(), nd), nd,
+                           pair_axis=-2)
+        if policy.abits:
+            x = _qat_activation(x, policy.a_normal_dtype)
+        return torch.matmul(x.to(cdt), w.to(cdt))
     if policy.enabled and policy.abits and \
             policy.method in BASELINE_METHODS:
         # baseline PTQ serving: the weight was fake-quantized offline; the
@@ -211,9 +245,9 @@ def stacks_layers(policy: PolicyLike, n_layers: int) -> bool:
     """Does PTQ of a whole tree fake-quantize a baseline site over its
     stack of layers? True when the reference keeps this policy's layer
     stack scanned (a flat policy, or a program that does not address
-    layers) and some rule or the default is a baseline. The port's
-    families repeat one block, so the reference's stack of a site holds
-    every layer's weight there."""
+    layers) and some rule or the default is a baseline. The reference's
+    stack of a site is the `blocks/<j>` group stack: the layers at one
+    position j of the block pattern's period (`_quantize_layer_stacks`)."""
     if isinstance(policy, PolicyProgram):
         if policy.addresses_layers(n_layers):
             return False
@@ -248,37 +282,50 @@ def _leaf(tree, path: str):
 
 
 def _quantize_layer_stacks(layers, policy: PolicyLike, min_size: int,
-                           encoder: bool = False):
-    """The layers of a scanned-layout PTQ: each site that resolves to a
-    baseline fake-quantizes the stack of its weight over all layers at
-    one scale (the stack's size passes `min_size`, as the reference's
-    does), and every layer takes its slice; the other leaves quantize
-    one layer at a time. The fp32 layers and the fake-quantized stacks
-    exist together until the caller drops the fp32 tree. `encoder`: the
-    layers are the encoder's (`ENCODER`), whose every leaf resolves at
+                           encoder: bool = False, period: int = 1):
+    """The layers of a scanned-layout PTQ, as the reference's `blocks/<j>`
+    group stacks and `tail`: layer i sits at period position i % period;
+    the layers of the n_groups = len(layers) // period full periods at
+    position j form one stack, and each site of such a stack that
+    resolves to a baseline fake-quantizes the stack at one scale (its
+    size passes `min_size`, as the reference's does), every layer taking
+    its slice. The layers past the last full period (the reference's
+    `tail`) and every other leaf quantize one layer at a time. The fp32
+    layers and the fake-quantized stacks exist together until the caller
+    drops the fp32 tree. `encoder`: the layers are the encoder's
+    (`ENCODER`, one stack of period 1), whose every leaf resolves at
     `enc_blocks/<leaf>` and passes `min_size` by the stack's size."""
 
     def site_of(i, rel):
         return f"{ENCODER}/{rel}" if encoder else f"layers/{i}/{rel}"
 
+    n_groups = len(layers) // period
     done = {}
-    for rel, w in tree_paths(layers[0]):
-        site = site_of(0, rel)
-        pol = resolve(policy, site)
-        if not (pol.enabled and pol.method in BASELINE_METHODS
-                and is_linear_weight(rel, w)
-                and w.numel() * len(layers) >= min_size
-                and w.shape[-2] % 2 == 0):
-            continue
-        stack = torch.stack([_leaf(layer, rel).to(torch.float32)
-                             for layer in layers])
-        done[rel] = quantize_weight(stack, pol).unbind(0)
-        del stack
+    for j in range(period if n_groups else 0):
+        members = range(j, n_groups * period, period)
+        paths = [p for p, _ in tree_paths(layers[j])]
+        if any([p for p, _ in tree_paths(layers[i])] != paths
+               for i in members):
+            raise ValueError(
+                f"layers at period position {j} of period {period} differ "
+                f"in structure: pass the block pattern's period")
+        for rel, w in tree_paths(layers[j]):
+            pol = resolve(policy, site_of(j, rel))
+            if not (pol.enabled and pol.method in BASELINE_METHODS
+                    and is_linear_weight(rel, w)
+                    and w.numel() * len(members) >= min_size
+                    and w.shape[-2] % 2 == 0):
+                continue
+            stack = torch.stack([_leaf(layers[i], rel).to(torch.float32)
+                                 for i in members])
+            for i, q in zip(members, quantize_weight(stack, pol).unbind(0)):
+                done[(i, rel)] = q
+            del stack
 
     def one(path, w):
         i, rel = path.split("/", 2)[1:]
-        if rel in done:
-            return done[rel][int(i)]
+        if (int(i), rel) in done:
+            return done[(int(i), rel)]
         if encoder:
             return _quantize_leaf(site_of(i, rel), w, policy, min_size,
                                   stack=len(layers))
@@ -288,12 +335,14 @@ def _quantize_layer_stacks(layers, policy: PolicyLike, min_size: int,
 
 
 def quantize_params(params, policy: PolicyLike, min_size: int = 4096,
-                    prefix: str = ""):
+                    prefix: str = "", period: int = 1):
     """Map PTQ over a parameter tree: every linear weight whose site
     resolves to an enabled policy quantizes; norms, biases and small
     tensors stay fp. Sizes are per layer (the port keeps layers
     unrolled), but a whole tree under `stacks_layers` fake-quantizes each
-    baseline site over its stack of layers. Stacked (E, K, N) expert
+    baseline site over its stack of layers: the layers at one position
+    of the block pattern's `period` (`len(cfg.block_pattern)`; 1 for a
+    pattern of one block type), as `_quantize_layer_stacks` says. Stacked (E, K, N) expert
     weights also resolve their per-expert sub-sites and quantize
     group-wise when those differ. `prefix` is the site address of
     `params` itself (`layers/<i>` when a model quantizes one layer at a
@@ -316,7 +365,7 @@ def quantize_params(params, policy: PolicyLike, min_size: int = 4096,
         rest = {key: val for key, val in params.items() if key != "layers"}
         return dict(quantize_params(rest, policy, min_size),
                     layers=_quantize_layer_stacks(params["layers"], policy,
-                                                  min_size))
+                                                  min_size, period=period))
 
     def one(path, w):
         return _quantize_leaf(path, w, policy, min_size)

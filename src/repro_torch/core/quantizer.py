@@ -145,6 +145,16 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     return ovp_dequantize(qt, dtype=dtype)
 
 
+def fake_quant_ste(x: torch.Tensor, scale, normal_dtype: str = "int4",
+                   spec: Optional[AbfloatSpec] = None,
+                   pair_axis: int = -1) -> torch.Tensor:
+    """QAT fake-quant with the straight-through estimator (§3.4, STE
+    [5]): the forward value is `ovp_fake_quant`'s, the gradient passes
+    to x unchanged (none reaches `scale`)."""
+    xh = ovp_fake_quant(x.detach(), scale, normal_dtype, spec, pair_axis)
+    return x + (xh - x.detach())
+
+
 def quantization_error(x: torch.Tensor, spec: QuantSpec = QuantSpec()
                        ) -> dict:
     """MSE / SQNR diagnostics of one tensor under full OliVe PTQ."""

@@ -32,8 +32,11 @@ The baselines the paper compares against are presets too (`int8`,
 better of int4 and flint4 per tensor). They are fake-quant, as in the
 reference: the weights stay dense fp32 holding the quantized values and
 run through `torch.matmul`, over an fp32 KV cache. As in the reference's
-scanned layout, each linear is fake-quantized over the stack of all its
-layers at one scale, so a baseline builds the whole fp32 tree first:
+scanned layout, each linear is fake-quantized at one scale over the
+stack of its layers at one position of the block pattern (every layer
+of a one-type pattern; a hybrid's or xLSTM's period position; the
+layers past the last full period alone), so a baseline builds the whole
+fp32 tree first:
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen1.5-0.5b --quant int4
@@ -250,13 +253,6 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
                      f"pass --calibrate to create it")
         artifact = CalibrationArtifact.load(args.calibration)
         policy = apply_calibration(policy, artifact)
-    if stacks_layers(policy, cfg.n_layers) and \
-            len(set(cfg.block_pattern)) > 1:
-        raise ValueError(
-            f"a baseline preset fake-quantizes each linear over its stack "
-            f"of layers, and {cfg.name} mixes block types "
-            f"{cfg.block_pattern}: the reference's per-period stacks are "
-            f"not ported (ROADMAP queue 1, item 3)")
     model = build_model(cfg, policy)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -266,11 +262,11 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
 
     ptq_s = 0.0
 
-    def quantize(tree, prefix):
+    def quantize(tree, prefix, **kw):
         nonlocal ptq_s
         sync()
         t0 = time.perf_counter()
-        tree = quantize_params(tree, policy, prefix=prefix)
+        tree = quantize_params(tree, policy, prefix=prefix, **kw)
         sync()
         ptq_s += time.perf_counter() - t0
         return tree
@@ -289,7 +285,7 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
             artifact = calibrate_model(model, params, [calibration_batch()])
             calib_s = time.perf_counter() - t0
             policy = apply_calibration(policy, artifact)
-        params = quantize(params, "")
+        params = quantize(params, "", period=len(cfg.block_pattern))
     elif args.calibrate:
         # each layer quantizes under the uncalibrated policy, before the
         # artifact exists: it changes only the activation side

@@ -1,6 +1,8 @@
 """Model building blocks. Port of `repro/models/layers.py` (all but
 `layer_norm`, which no block of the reference's models calls): RMSNorm,
-RoPE, causal, sliding-window and non-causal (cross) prefill attention,
+RoPE, causal, sliding-window and non-causal (cross) prefill attention
+(full attention with the reference's FlashAttention-2 backward under
+autograd, `flash_attention`),
 slab and paged KV caches (fp32 and OVP-packed; a local-attention cache
 of `window` slots is a ring; a cross-attention cache records the rows
 its encoder wrote in "src_len"), decode attention and paged cache-write
@@ -97,26 +99,48 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Key blocks wholly below every window of a query block are skipped
     too; a query row with no key in its block's first key block starts
     from garbage that the first block holding one of its keys scales to
-    0 (exp(-1e30 - m) = 0), as the reference's online update does."""
+    0 (exp(-1e30 - m) = 0), as the reference's online update does.
+
+    When autograd records through q, k or v (training), full (window 0)
+    attention runs as `flash_attention`, whose backward is the
+    reference's FlashAttention-2 VJP; windowed attention differentiates
+    through these torch ops, as the reference's does through its own."""
+    if not window and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return flash_attention(q, k, v, causal=causal)
+    return _online_softmax(q, k, v, window=window, causal=causal)
+
+
+def _online_softmax(q, k, v, *, window: int = 0, causal: bool = True,
+                    q_offset: int = 0, q_chunk: Optional[int] = None,
+                    kv_chunk: Optional[int] = None, with_lse: bool = False):
+    """`causal_attention`'s blocks at any chunk sizes (None:
+    `ATTN_CHUNK`), with the queries at absolute positions q_offset..
+    (the keys at 0..S-1). `with_lse`
+    also returns the per-row log-sum-exp m + log l (B, Hkv, G, T, 1)
+    f32, +inf on a row with no valid key (the backward's p is then
+    0)."""
+    q_chunk, kv_chunk = q_chunk or ATTN_CHUNK, kv_chunk or ATTN_CHUNK
     b, t, h, d = q.shape
-    hkv = k.shape[2]
+    s_len, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     f32 = torch.float32
     qg = q.reshape(b, t, hkv, g, d).to(f32).permute(0, 2, 3, 1, 4)
-    kt = k.to(f32).permute(0, 2, 3, 1)[:, :, None]          # (B,Hkv,1,D,T)
-    vt = v.to(f32).permute(0, 2, 1, 3)[:, :, None]          # (B,Hkv,1,T,D)
-    pos = torch.arange(t, device=q.device)
-    chunk = ATTN_CHUNK
-    outs = []
-    for q0 in range(0, t, chunk):
-        qpos = pos[q0:q0 + chunk]
-        lo = max(0, q0 - window + 1) // chunk * chunk if window else 0
-        hi = q0 + len(qpos) if causal else k.shape[1]
-        for k0 in range(lo, hi, chunk):
-            s = torch.matmul(qg[..., q0:q0 + chunk, :],
-                             kt[..., k0:k0 + chunk]) * (1.0 / math.sqrt(d))
+    kt = k.to(f32).permute(0, 2, 3, 1)[:, :, None]          # (B,Hkv,1,D,S)
+    vt = v.to(f32).permute(0, 2, 1, 3)[:, :, None]          # (B,Hkv,1,S,D)
+    pos = torch.arange(max(t + q_offset, s_len), device=q.device)
+    outs, lses = [], []
+    for q0 in range(0, t, q_chunk):
+        qpos = pos[q_offset + q0:q_offset + min(q0 + q_chunk, t)]
+        lo = max(0, q_offset + q0 - window + 1) // kv_chunk * kv_chunk \
+            if window else 0
+        hi = min(q_offset + q0 + len(qpos), s_len) if causal else s_len
+        for k0 in range(lo, hi, kv_chunk):
+            s = torch.matmul(qg[..., q0:q0 + q_chunk, :],
+                             kt[..., k0:k0 + kv_chunk]) \
+                * (1.0 / math.sqrt(d))
             if causal:
-                kpos = pos[k0:k0 + chunk]
+                kpos = pos[k0:k0 + kv_chunk]
                 valid = qpos[:, None] >= kpos[None, :]
                 if window:
                     valid = valid & (kpos[None, :] > qpos[:, None] - window)
@@ -125,17 +149,109 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF)
                 p = torch.exp(s - m)
                 l_sum = p.sum(dim=-1, keepdim=True)
-                acc = torch.matmul(p, vt[..., k0:k0 + chunk, :])
+                acc = torch.matmul(p, vt[..., k0:k0 + kv_chunk, :])
                 continue
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l_sum = l_sum * corr + p.sum(dim=-1, keepdim=True)
-            acc = acc * corr + torch.matmul(p, vt[..., k0:k0 + chunk, :])
+            acc = acc * corr + torch.matmul(p, vt[..., k0:k0 + kv_chunk, :])
             m = m_new
         outs.append(acc / torch.clamp(l_sum, min=1e-30))    # (B,Hkv,G,qc,D)
+        if with_lse:
+            lses.append(torch.where(
+                l_sum > 0, m + torch.log(torch.clamp(l_sum, min=1e-30)),
+                torch.inf))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, lses[0] if len(lses) == 1 else torch.cat(lses, dim=-2)
+
+
+def _flash_bwd(q, k, v, out, lse, do, causal: bool, q_offset: int,
+               q_chunk: int, kv_chunk: int):
+    """The reference's FlashAttention-2 backward (`_flash_bwd`): for each
+    (query chunk, key chunk) pair the probabilities are recomputed from
+    q, k and the saved log-sum-exp, p = exp(s - lse), so no (T, S) score
+    tensor is ever held; with dp = dO·vᵀ and delta = rowsum(dO ∘ O),
+    ds = p (dp - delta) / sqrt(D), dq += ds k, dk += dsᵀ q (summed over
+    the G query heads of a kv head), dv += pᵀ dO. Key chunks past a
+    query chunk's diagonal (all masked) are skipped. f32 throughout;
+    the gradients come back in the inputs' dtypes."""
+    b, t, h, d = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(d)
+
+    def heads(x):                                           # (B,Hkv,G,T,D)
+        return x.reshape(b, t, hkv, g, d).to(f32).permute(0, 2, 3, 1, 4)
+
+    qg, dog = heads(q), heads(do)
+    delta = (dog * heads(out)).sum(dim=-1, keepdim=True)    # (B,Hkv,G,T,1)
+    kf = k.to(f32).permute(0, 2, 1, 3)[:, :, None]          # (B,Hkv,1,S,D)
+    vf = v.to(f32).permute(0, 2, 1, 3)[:, :, None]
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros((b, hkv, s_len, d), dtype=f32, device=q.device)
+    dv = torch.zeros_like(dk)
+    pos = torch.arange(max(t + q_offset, s_len), device=q.device)
+    for q0 in range(0, t, q_chunk):
+        rows = slice(q0, min(q0 + q_chunk, t))
+        qb, dob = qg[..., rows, :], dog[..., rows, :]
+        lse_i, delta_i = lse[..., rows, :], delta[..., rows, :]
+        qpos = pos[q_offset + rows.start:q_offset + rows.stop]
+        hi = min(q_offset + rows.stop, s_len) if causal else s_len
+        for k0 in range(0, hi, kv_chunk):
+            cols = slice(k0, min(k0 + kv_chunk, s_len))
+            kb, vb = kf[..., cols, :], vf[..., cols, :]
+            p = torch.exp(torch.matmul(qb, kb.transpose(-1, -2)) * scale
+                          - lse_i)
+            if causal:
+                valid = qpos[:, None] >= pos[cols][None, :]
+                p = torch.where(valid, p, 0.0)
+            dp = torch.matmul(dob, vb.transpose(-1, -2))
+            ds = p * (dp - delta_i) * scale
+            dq[..., rows, :] += torch.matmul(ds, kb)
+            dk[:, :, cols] += torch.matmul(ds.transpose(-1, -2), qb).sum(2)
+            dv[:, :, cols] += torch.matmul(p.transpose(-1, -2), dob).sum(2)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: `_online_softmax`, saving q, k, v, the output and the
+    log-sum-exp (O(T·D) tensors); backward: `_flash_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, q_chunk, kv_chunk):
+        out, lse = _online_softmax(q, k, v, causal=causal, q_offset=q_offset,
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                   with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    q_chunk: Optional[int] = None,
+                    kv_chunk: Optional[int] = None) -> torch.Tensor:
+    """The reference's `blockwise_attention`: q (B, T, H, D), k/v (B, S,
+    Hkv, D) -> (B, T, H, D), queries at positions q_offset.. (causal:
+    query p sees keys <= p), with the FlashAttention-2 backward, so
+    memory stays O(T·D + q_chunk·kv_chunk) in both directions (chunks
+    of `ATTN_CHUNK` unless given)."""
+    return _FlashAttention.apply(q, k, v, causal, int(q_offset),
+                                 q_chunk or ATTN_CHUNK,
+                                 kv_chunk or ATTN_CHUNK)
 
 
 def make_kv_cache(batch: int, length: int, n_kv: int, head_dim: int, *,

@@ -21,9 +21,10 @@ import math
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import qlinear
+from repro_torch.core import calibration, qlinear
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qlinear import ENCODER
 
@@ -144,15 +145,16 @@ def block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
 def block_forward(p, x, positions, cfg: ArchConfig, policy: QuantPolicy,
                   cache=None, mode: str = "prefill", site: str = "",
                   btype: Optional[str] = None,
-                  enc_out: Optional[torch.Tensor] = None):
+                  enc_out: Optional[torch.Tensor] = None,
+                  aux: Optional[list] = None):
     """Pre-norm block of type `btype` with residuals: attention (local
     attention over the config's window) + the config's MLP or MoE, the
     recurrent block + SwiGLU, an xLSTM block (x + block(ln1 x)), or an
     encoder-decoder block (self-attention, cross attention over the
     encoder output `enc_out` or, in decode, over the "xkv" cache, then
     the MLP). Without `btype` the type is layer i's, read from the site
-    address `layers/<i>`. Returns (x, cache); the MoE aux loss is
-    dropped until training is ported."""
+    address `layers/<i>`. Returns (x, cache); a MoE block appends its
+    load-balance loss to the list `aux` when one is given."""
     if btype is None:
         head, _, layer = site.partition("/")
         if head != "layers" or not layer.isdigit():
@@ -191,7 +193,10 @@ def block_forward(p, x, positions, cfg: ArchConfig, policy: QuantPolicy,
             new["xkv"] = xkv
     xm = L.rms_norm(x, p["ln2"], eps)
     if btype == "moe":
-        h2, _ = L.moe_layer(p["moe"], xm, cfg, policy, site=f"{site}/moe")
+        h2, moe_aux = L.moe_layer(p["moe"], xm, cfg, policy,
+                                  site=f"{site}/moe")
+        if aux is not None:
+            aux.append(moe_aux)
     else:
         mlp = L.gelu_mlp if cfg.mlp_kind == "gelu" else L.swiglu
         h2 = mlp(p["mlp"], xm, policy, site=f"{site}/mlp")
@@ -204,10 +209,27 @@ class Model:
     frontend stub (`frontend`: audio frames into the encoder, or ViT
     patch embeddings in front of the prompt)."""
 
-    def __init__(self, cfg: ArchConfig, policy: QuantPolicy = QuantPolicy()):
+    def __init__(self, cfg: ArchConfig, policy: QuantPolicy = QuantPolicy(),
+                 remat: bool = True):
         check_block_types(cfg)
         self.cfg = cfg
         self.policy = policy
+        self.remat = remat
+
+    def _remat(self, fn, p, x):
+        """fn(p, x) for a layer's params p and hidden states x, under
+        activation checkpointing when `remat` is on and autograd records
+        through them (the reference's `jax.checkpoint` around a layer,
+        which only training differentiates): the layer's activations are
+        recomputed in the backward pass instead of kept. Serving, where
+        nothing requires grad, runs fn as it is."""
+        if self.remat and torch.is_grad_enabled() and (
+                x.requires_grad or any(
+                    isinstance(w, torch.Tensor) and w.requires_grad
+                    for _, w in qlinear.tree_paths(p))):
+            return torch.utils.checkpoint.checkpoint(fn, p, x,
+                                                     use_reentrant=False)
+        return fn(p, x)
 
     def block_type(self, layer: int) -> str:
         return self.cfg.block_pattern[layer % len(self.cfg.block_pattern)]
@@ -319,8 +341,13 @@ class Model:
 
     def forward(self, params, batch: Dict[str, torch.Tensor], *,
                 mode: str = "prefill", caches=None, positions=None):
-        """Returns (logits, caches).
+        """Returns (logits, caches); "train" returns (logits, None, aux),
+        the reference's triple.
 
+        train:   a prefill's batch and positions with no cache, the MoE
+                 load-balance losses summed over the blocks into `aux`
+                 (f32 scalar), each layer under `remat` (other keys of
+                 the batch, "labels" and "loss_mask", are not read)
         prefill: batch["tokens"] (B, T), positions 0..T-1 unless
                  `positions` (B, T) gives absolute ones (a prefill chunk);
                  an encoder-decoder also takes batch["frames"] (B, S,
@@ -331,6 +358,25 @@ class Model:
                  then run 0..P+T-1)
         decode:  batch["tokens"] (B, 1), batch["pos"] (B,)
         """
+        cfg = self.cfg
+        x, positions, enc_out = self._inputs(params, batch, mode, positions)
+        if mode == "train":
+            return self._train_layers(params, x, positions, enc_out)
+        new = []
+        for i, p in enumerate(params["layers"]):
+            x, nc = block_forward(p, x, positions, cfg, self.policy,
+                                  cache=None if caches is None
+                                  else caches["layers"][i], mode=mode,
+                                  site=f"layers/{i}",
+                                  btype=self.block_type(i), enc_out=enc_out)
+            new.append(nc)
+        return self.head(params, x), (None if caches is None
+                                      else {"layers": new})
+
+    def _inputs(self, params, batch: Dict[str, torch.Tensor], mode: str,
+                positions):
+        """The first hidden states, their positions and (an
+        encoder-decoder's, but in decode) the encoder output."""
         cfg = self.cfg
         enc_out = None
         if cfg.enc_dec and mode != "decode":
@@ -346,16 +392,25 @@ class Model:
             positions = batch["pos"][:, None]
         elif positions is None:
             positions = torch.arange(t, device=tok.device)[None].expand(b, t)
-        new = []
+        return x, positions, enc_out
+
+    def _train_layers(self, params, x, positions, enc_out):
+        """The train forward's layers, each under `remat`, and the head;
+        returns (logits, None, aux)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, p in enumerate(params["layers"]):
-            x, nc = block_forward(p, x, positions, cfg, self.policy,
-                                  cache=None if caches is None
-                                  else caches["layers"][i], mode=mode,
-                                  site=f"layers/{i}",
-                                  btype=self.block_type(i), enc_out=enc_out)
-            new.append(nc)
-        return self.head(params, x), (None if caches is None
-                                      else {"layers": new})
+
+            def layer(p, h, i=i):
+                got = []
+                h, _ = block_forward(p, h, positions, self.cfg, self.policy,
+                                     site=f"layers/{i}",
+                                     btype=self.block_type(i),
+                                     enc_out=enc_out, aux=got)
+                return h, sum(got, torch.zeros_like(aux))
+
+            x, a = self._remat(layer, p, x)
+            aux = aux + a
+        return self.head(params, x), None, aux
 
     def frontend(self, params, feats: torch.Tensor) -> torch.Tensor:
         """The frontend stub's projection (B, S, frontend_dim) -> (B, S,
@@ -372,20 +427,34 @@ class Model:
         the frontend projection, the n_enc_layers `attn` blocks (their
         self-attention causal, as the reference's encoder calls it,
         RoPE at 0..S-1, the config's MLP), each at the site prefix
-        `enc_blocks`, then `enc_norm`. Returns (B, S, d)."""
+        `enc_blocks`, then `enc_norm`. Returns (B, S, d). The blocks run
+        with the calibration tape suspended: the reference scans them
+        (`jax.lax.scan` traces its body), so no `enc_blocks/` site
+        reaches its tape, while the frontend projection does. With
+        `remat` under autograd, each block is recomputed in the
+        backward pass."""
         cfg = self.cfg
         x = self.frontend(params, frames)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        for p in params[ENCODER]:
-            x, _ = block_forward(p, x, positions, cfg, self.policy,
-                                 site=ENCODER, btype="attn")
+
+        def block(p, h):
+            return block_forward(p, h, positions, cfg, self.policy,
+                                 site=ENCODER, btype="attn")[0]
+
+        with calibration.tape_suspended():
+            for p in params[ENCODER]:
+                x = self._remat(block, p, x)
         return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Token ids (B, T) -> the first hidden states (B, T, d)."""
+        """Token ids (B, T) -> the first hidden states (B, T, d): rows of
+        the table (`F.embedding`, whose backward on the card sums each
+        row's gradients in a fixed order, so a training step is
+        reproducible; an index's backward adds them atomically)."""
         cdt = getattr(torch, self.policy.compute_dtype)
-        return params["embed"]["table"][tokens].to(cdt) \
+        return torch.nn.functional.embedding(
+            tokens, params["embed"]["table"]).to(cdt) \
             * math.sqrt(self.cfg.d_model)
 
     def head(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -403,6 +472,6 @@ class Model:
         return logits
 
 
-def build_model(cfg: ArchConfig,
-                policy: QuantPolicy = QuantPolicy()) -> Model:
-    return Model(cfg, policy)
+def build_model(cfg: ArchConfig, policy: QuantPolicy = QuantPolicy(),
+                remat: bool = True) -> Model:
+    return Model(cfg, policy, remat)

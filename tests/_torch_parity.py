@@ -59,3 +59,24 @@ def port_forced(model, params, toks, fed, max_len: int, *, inputs=None,
             mode="decode", caches=caches)
         out.append(logits[:, 0].numpy())
     return np.stack(out, 1)
+
+
+def shared_weights(cfg, seed: int = 0):
+    """Raw fp32 weights drawn on the CPU by the port's `Model.init` for
+    `cfg` (a port ArchConfig), and the same values in the reference's
+    scanned layout (`convert.params_to_reference`) as JAX arrays: the
+    two packages' shared weights, with no JAX init to run."""
+    from repro_torch.convert import params_to_reference
+    from repro_torch.models.model import build_model
+    params = build_model(cfg).init(torch.Generator().manual_seed(seed),
+                                   device="cpu")
+    ref = params_to_reference(params, cfg)
+
+    def to_jax(x):
+        if isinstance(x, dict):
+            return {k: to_jax(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_jax(v) for v in x]
+        return jnp.asarray(x.numpy())
+
+    return params, to_jax(ref)

@@ -13,9 +13,10 @@ carried across.
   keep their `data_ptr()` and change value.
 - A page pool and the launcher's `--paged` raise the reference's
   ValueError, the launcher before any weight is drawn; a baseline
-  preset (`--quant int4`, whose per-period stacks are not ported)
-  raises naming the ROADMAP item, and an `encdec_attn` block in a
-  config without an encoder (`enc_dec` false) raises naming it.
+  preset (`--quant int4`) serves, each linear fake-quantized over the
+  stack of its period position (the reference's `blocks/<j>`), and an
+  `encdec_attn` block in a config without an encoder (`enc_dec` false)
+  raises naming it.
 - The async front end serves the smoke arch through the launcher, and
   a pure-rglru model (`d_rnn` 0, so d_model wide) on the slab path, as
   the reference's `test_async_recurrent_slab_arch`.
@@ -177,10 +178,24 @@ def test_launcher_paged_raises_before_drawing_weights(monkeypatch):
 
 
 def test_launcher_refuses_a_baseline_over_mixed_blocks():
-    """A flat baseline stacks each linear over all layers; over a period
-    of different block types it raises before drawing weights."""
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 3"):
-        tserve.run(["--arch", ARCH, "--quant", "int4"], device="cpu")
+    """No longer refused (the name is kept from when it was): a flat
+    baseline fake-quantizes each linear over the stack of its period
+    position, the reference's `blocks/<j>`, so the launcher serves
+    `--quant int4` over mixed block types, its weights the per-period
+    PTQ of the tree its seed draws (held to the reference's in
+    `test_torch_baselines_families.py`)."""
+    from repro_torch.core.qlinear import quantize_params, tree_paths
+    res = tserve.run(["--arch", ARCH, "--quant", "int4", "--requests", "2",
+                      "--max-new", "3", "--slots", "2", "--max-len", "64"],
+                     device="cpu")
+    assert res["tokens"] == 6 and len(res["completed"]) == 2
+    cfg = t_get_config(ARCH)
+    want = quantize_params(tmodel.build_model(cfg).init(
+        torch.Generator().manual_seed(0), device="cpu"), res["policy"],
+        period=len(cfg.block_pattern))
+    got = dict(tree_paths(res["params"]))
+    for path, leaf in tree_paths(want):
+        assert torch.equal(got[path], leaf), path
 
 
 @pytest.mark.parametrize("btype", ["encdec_attn"])

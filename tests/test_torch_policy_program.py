@@ -7,8 +7,8 @@
   `qwen3-moe-30b-a3b-smoke` to the reference's fields: each weight and
   norm leaf, each `layers/<i>/attn/kv`, and each per-expert sub-site
   `.../experts/w?/<e>`. The backend is the one field that differs by
-  design (the port's default is `cuda`, the reference's `xla`), and the
-  reference's `qat` is a field the port leaves out until QAT is ported;
+  design (the port's default is `cuda`, the reference's `xla`); `qat`
+  (QAT's flag) is compared with the rest;
 - `kv_bits`, `enabled`, `compute_dtype`, `backends` and resolution on the
   reference's own cases (`tests/test_policy_program.py`: rule
   precedence, `with_rules`, a layer-uniform `layers/` rule, a per-layer
