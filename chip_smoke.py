@@ -153,10 +153,9 @@ CUDA toolkit. It builds the hand-written kernels from
    and L serve paged), the card freed between runs: no fallback, K1
    once per quantized linear per forward call (none for the
    unquantized fp32 head), K2 and K7 as in phase A, the audit, graph
-   against eager,
-   each run's decode-step profile beside the step's byte bound
-   (W4 blocks + fp32 head, from `param_count`), and a 2-layer
-   card-vs-CPU check of each run (`truncated_reference_check`);
+   against eager, each run's decode-step profile beside the step's
+   roofline, and a 2-layer card-vs-CPU check of each run
+   (`truncated_reference_check`);
 13. serve phase G: the baseline presets (`--quant int8 | int4 | ant4`)
    on full-width Qwen1.5-0.5B through the launcher: no OVP kernel (K1,
    K6, K7) launched, K2 once a layer a step over fp32 caches, the
@@ -187,7 +186,7 @@ CUDA toolkit. It builds the hand-written kernels from
    decode step's launches exactly K1 292, K2 12 and K7 24 (the launch
    counters), the audit (one prefill entry per distinct length), graph
    against eager (recurrent states among the cache bytes), the sync check (and the ring's KV write under
-   "error"), the decode-step profile beside its byte bound, a 3-layer
+   "error"), the decode-step profile beside its roofline, a 3-layer
    (one period) card-vs-CPU check, and the ring check: the 3-layer cut
    at max_len 2560 (a 2048-slot ring) serves a 2100-token prompt and 64
    greedy decode steps on the captured decode step, K2 at window 2048
@@ -204,10 +203,9 @@ CUDA toolkit. It builds the hand-written kernels from
    prefilled at its exact length): no fallback, a decode step's
    launches exactly K1 132 and no K2, K3, K4, K6 or K7 launch, the
    audit, graph against eager (every mLSTM and sLSTM state leaf among
-   the cache bytes), the sync check, the decode-step profile beside a
-   byte bound from the served tree's and caches' own bytes (weights,
-   fp32 head, the state read and written), a 2-layer (one period)
-   card-vs-CPU check (a 300-token prompt through its captured prefill,
+   the cache bytes), the sync check, the decode-step profile beside its
+   roofline (the state read and written among the bytes), a 2-layer
+   (one period) card-vs-CPU check (a 300-token prompt through its captured prefill,
    then 32 greedy decode steps on the captured step, held to one CPU
    prefill of the same tokens at 1e-3 * max|ref|, greedy tokens equal),
    and K1 at one mLSTM layer's 5 and one sLSTM layer's 6 decode
@@ -226,8 +224,8 @@ CUDA toolkit. It builds the hand-written kernels from
    told apart by K2's cache-dtype counters) and K7 48 a decode step, no
    other kernel; every cross cache's src_len 400 and its tail unwritten;
    the encoder alone timed and counted (exactly K1 145); a decode
-   step profiled beside its byte bound from the served tensors
-   (`encdec_step_bytes`); K1 at one decoder layer's 8 decode launches
+   step profiled beside its roofline (the cross caches' filled slots
+   among the bytes); K1 at one decoder layer's 8 decode launches
    and at the frontend projection (K 160) and one encoder layer's 6
    launches at the prefill's 1600 rows, K2 over a served cross cache;
    a 2 + 2-layer card-vs-CPU check (32 decode steps, 1e-3 * max|ref|,
@@ -239,7 +237,7 @@ CUDA toolkit. It builds the hand-written kernels from
    --quant olive_serve`, the launcher's workload, on tokens), slab and
    paged 16 / chunk 16: a decode step's launches exactly K1 168, K2 (K3)
    24 and K7 48, no other kernel, the audit, graph against eager, the
-   sync check, the decode-step profile beside its byte bound, the
+   sync check, the decode-step profile beside its roofline, the
    2-layer card-vs-CPU check; then `Model.forward` with 256 random
    1024-d patch embeddings in front of an 8-token prompt on 4 rows
    (K1 169 and K7 48 in the prefill) and 32 greedy decode steps at pos
@@ -266,7 +264,29 @@ CUDA toolkit. It builds the hand-written kernels from
    prefill), no other kernel. It prints the median step time after the
    first, tokens/s, peak device memory, checkpoint seconds and bytes,
    and the model FLOPs a step beside the H100 SXM data sheet's dense
-   bf16 peak.
+   bf16 peak, and the profiled step's roofline;
+20. the tooling: phase N (`tooling_phase_n`), the port of the
+   reference's analysis and single-card roofline: `repro_torch.analysis.
+   run_all()` (the vocabulary, kernel-contract, policy and hygiene
+   passes) must give 0 findings; each kernel case of the kernel pass
+   (the reference's eight: K1 and K6 with int4 and int8 weights, K7, K2
+   slab, K3 paged, K4 paged; and the KV write through
+   `layers.cache_write`) runs once on the card at its shape, held to its
+   plain version on the card, its launches counted, timed beside the
+   plain version, a library call and its bound, each plan's shared
+   memory printed beside the card's opt-in limit (and the largest plan
+   of the served sweep of each kernel), K4's and the KV write's pools
+   written in place (pointers unchanged, untouched pages and slots
+   bit-identical); the sanitize smoke (`python -m repro_torch.analysis
+   --sanitize-smoke`) at the full width of Qwen1.5-0.5B under
+   REPRO_SANITIZE=1, its trace audit clean and K1, K2 and K7 launched
+   under the checks; and a child process whose NaN KV scale must fail
+   the named check in front of K7, while this process goes on.
+
+Every profile phase (A-M) prints its step's roofline (`step_roofline`:
+`repro_torch.roofline.analyze` of the step's work counted from the
+served tensors by `repro_torch.roofline.step_stats`) beside the
+profiled device busy time.
 
 Every serve phase runs the engine's captured steps (CUDA graphs, the
 default) and checks them: the trace audit (`audit_check`: the decode step
@@ -312,8 +332,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARCH = "qwen1.5-0.5b"
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-FP32_FLOP_PER_S = 67e12       # H100 SXM fp32, CUDA cores
 
 
 def fail(msg: str) -> None:
@@ -359,10 +377,12 @@ def time_ms(fn, iters: int = 50, graph: bool = True):
 
 
 def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    """A kernel's bound (ms, "bytes" or "operations"): its bytes over the
+    H100's HBM rate and its FLOPs over the fp32 CUDA-core peak, the peak
+    PERF.md's kernel table states (`repro_torch.roofline.hw`)."""
+    from repro_torch.roofline import hw
+    t, by = hw.bound_s(n_bytes, n_flops, peak=hw.PEAK_FLOPS_FP32)
+    return t * 1e3, by
 
 
 def within(got, ref, rtol: float, atol: float) -> bool:
@@ -1779,9 +1799,10 @@ def k7_ab_phase(old_root: str, order=("old", "new", "new", "old"),
                 moe: bool = True):
     """The parent tree (unpacked with `git archive` at `old_root`)
     against this one on the same card, alternated in separate processes
-    (`order`): each process times its tree's encode at every K7 case
-    (`k7_tree_times`) and profiles one decode step of phase A's and, with
-    `moe`, phase E's model (`step_kernels`)."""
+    (`order`): each process runs its own tree's `chip_smoke.py`, times
+    the encode at every K7 case (`k7_tree_times`) and profiles one decode
+    step of phase A's and, with `moe`, phase E's model (`step_kernels`;
+    device kernels a captured step, busy and wall ms)."""
     trees = {"old": os.path.abspath(old_root), "new": ROOT}
     cases = [(label, r, k, dt) for label, r, k, _ in K7_SHAPES
              for dt in K7_DTYPES]
@@ -1790,15 +1811,17 @@ def k7_ab_phase(old_root: str, order=("old", "new", "new", "old"),
     for label in order:
         code = ("import json, sys, torch; "
                 f"sys.path.insert(0, {os.path.join(trees[label], 'src')!r}); "
-                f"sys.path.insert(0, {ROOT!r}); import chip_smoke as cs; "
+                f"sys.path.insert(0, {trees[label]!r}); "
+                "import chip_smoke as cs; "
                 "dev = torch.device('cuda:0'); "
                 "t = cs.k7_tree_times(dev); "
                 f"print(json.dumps([t, cs.step_kernels(dev, {moe!r})]))")
         out = subprocess.run([sys.executable, "-c", code], check=True,
-                             capture_output=True, text=True).stdout
+                             capture_output=True, text=True,
+                             cwd=trees[label]).stdout
         lines = out.strip().splitlines()
         for line in lines:
-            if line.startswith("[profile] decode step"):
+            if line.startswith(("[profile] decode step", "[roofline]")):
                 print(f"[k7 a/b] {label}: {line}")
         times, kern = json.loads(lines[-1])
         got[label].append(times)
@@ -2436,14 +2459,37 @@ def profile_steps(step, steps: int = 3, warm: bool = True):
     return out
 
 
+def step_roofline(label: str, stats, busy_ms=None, smi: str = ""):
+    """Print one step's roofline (`repro_torch.roofline.analyze` of its
+    `step_stats` count: t_bound, the term that sets it, bytes by part,
+    FLOPs) beside the profiled device busy ms; returns the Roofline."""
+    from repro_torch.roofline import analyze
+    roof = analyze(stats)
+    t_ms = roof.t_bound * 1e3
+    parts = ", ".join(f"{k} {v / 1e6:.2f}" for k, v in stats.parts.items()
+                      if v)
+    busy = (f"busy {busy_ms:.3f}ms = {busy_ms / t_ms:.1f} x t_bound"
+            if busy_ms is not None and t_ms else "busy not measured")
+    print(f"[roofline] {label}: t_bound {t_ms:.4f}ms ({roof.bottleneck}; "
+          f"compute {roof.t_compute * 1e3:.4f}ms at the dense bf16 peak, "
+          f"memory {roof.t_memory * 1e3:.4f}ms); {stats.bytes / 1e6:.2f} MB "
+          f"({parts}), {stats.flops:.4e} FLOPs, model FLOPs "
+          f"{roof.model_flops_global:.4e}; {busy}"
+          + (f" ({smi})" if smi else ""))
+    return roof
+
+
 def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
                    max_new: int = 32) -> None:
     """Where one decode step's time goes on the served model: `steps`
     steps of 4 active slots timed on the host clock, then as many more
     under torch.profiler (`profile_steps`) for the device busy time and
-    the top kernels (4 requests of `max_new` tokens, drained after)."""
+    the top kernels (4 requests of `max_new` tokens, drained after),
+    beside the profiled steps' roofline (`step_roofline`, from the
+    served tensors at the profiled positions)."""
     import numpy as np
     import torch
+    from repro_torch.roofline import step_stats
     eng = res["engine"]
     rng = np.random.default_rng(3)
     for _ in range(4):
@@ -2452,11 +2498,15 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
     while len(eng._active()) < 4:         # admission (and paged prefill)
         eng.step()
     torch.cuda.synchronize()
+    pos0 = eng.pos.copy()
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
+    stats = step_stats.mean([step_stats.decode_step_stats(
+        eng.model, eng.params, eng.caches, pos0 + steps + i)
+        for i in range(steps)])
     prof = profile_steps(eng.step, steps, warm=False)
     prof_ms, busy_ms = prof["wall_ms"], prof["busy_ms"]
     print(f"[profile] decode step (4 slots, {label}, {steps} steps): "
@@ -2475,8 +2525,11 @@ def profile_decode(res, label: str = "W4 + KV4", steps: int = 6,
     for ms, n, key in prof["top"]:
         print(f"[profile]   {ms:8.3f}ms/step {n:5d} launches/step  "
               f"{key[:90]}")
+    roof = step_roofline(f"decode step (4 slots, {label})", stats,
+                         busy_ms if prof["kernels"] is not None else None)
     eng.run_until_drained()
     return {"step_ms": step_ms, "prof_ms": prof_ms, "busy_ms": busy_ms,
+            "roofline": roof, "stats": stats,
             "kernels_per_step": prof["kernels"], "k6_ms": prof["k6_ms"],
             "k1_ms": prof["k1_ms"], "attn_ms": prof["attn_ms"],
             "k1_calls": prof["k1_calls"], "attn_calls": prof["attn_calls"]}
@@ -2925,7 +2978,7 @@ def k6_phase(dev):
             n_bytes = touched * (k // 2 * n + 4 * n) \
                 + filled * (k * 4 + n * 4) + b * e * 4
             b_ms, b_by = bound_ms(n_bytes, 2.0 * filled * k * n)
-            stack_ms = (e * (k // 2 * n + 4 * n)) / HBM_BYTES_PER_S * 1e3
+            stack_ms = bound_ms(e * (k // 2 * n + 4 * n), 0.0)[0]
             rec = dict(shape=label, B=b, E=e, C=c, K=k, N=n,
                        touched_experts=touched, filled_rows=filled,
                        grid_blocks=blocks, split=plan.split,
@@ -2955,7 +3008,7 @@ def k6_phase(dev):
           f"ms warm; every row {decode['all_rows_ms']:.4f}ms), bound "
           f"{decode['bound_ms']:.4f}ms ({decode['bound_by']}), plain "
           f"{decode['plain_ms']:.4f}ms, einsum {decode['library_ms']:.4f}ms;"
-          f" whole stacks at 3.35 TB/s {decode['stack_bytes_ms']:.4f}ms")
+          f" whole stacks at the HBM rate {decode['stack_bytes_ms']:.4f}ms")
     k6_fill_paths(dev, gen, stacks, fills)
     del stacks, dense
     return rows_out, worst, decode
@@ -2977,7 +3030,7 @@ def k6_fill_paths(dev, gen, stacks, fills):
 
     e, c, k, n = 128, 4, 2048, 768
     codes, sw = stacks[(k, n)][0]
-    stack_ms = (e * (k // 2 * n + 4 * n)) / HBM_BYTES_PER_S * 1e3
+    stack_ms = bound_ms(e * (k // 2 * n + 4 * n), 0.0)[0]
     big = 72
     cases = [(f"FMA body, {label} fill", b, fill,
               mm.grouped_launch_plan(b, e, c, k, n, "int4", body="fma"))
@@ -4000,14 +4053,6 @@ def dense_layer_shapes(cfg):
             (cfg.d_ff, d)]
 
 
-def step_bytes(cfg):
-    """Bytes a decode step must read, from `param_count`: the blocks'
-    weights at 4 bits and the unquantized fp32 head (the embedding rows
-    a step reads, the scales and the KV cache are left out)."""
-    head = cfg.vocab * cfg.d_model
-    return (cfg.param_count() - 2 * head) / 2, 4 * head
-
-
 def k1_dense_phase(dev):
     """K1 at the widths of Qwen2-7B, Yi-6B and Minitron-8B: one layer's 7
     decode launches at rows 4 in fp mode, int4 OVP weights, and one
@@ -4093,7 +4138,7 @@ def serve_phase_f(dev, smi: str, with_paged: bool = False):
     `capture_gate(steps=3)`, the decode-step profile, and the 2-layer
     card-vs-CPU check (slab, or paged over fp32 pools). Prints
     PTQ seconds, peak device memory, tok/s, mean TTFT, mean step, the
-    profile and the step's byte bound beside the card. Returns each
+    profile and the step's roofline beside the card. Returns each
     run's counts, engine stats and profile."""
     import torch
     from repro_torch.launch import serve
@@ -4135,8 +4180,6 @@ def serve_phase_f(dev, smi: str, with_paged: bool = False):
             pool = st["page_pool"]
             if pool["used_pages"] != 0 or pool["allocs"] != pool["frees"]:
                 fail(f"{phase}: pages not all returned: {pool}")
-        w_bytes, head_bytes = step_bytes(cfg)
-        step_bound = bound_ms(w_bytes + head_bytes, 0.0)[0]
         print(f"[serve F] {arch} ({cfg.n_layers} layers, d_model "
               f"{cfg.d_model}, Hkv {cfg.n_kv_heads} G "
               f"{cfg.n_heads // cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
@@ -4149,10 +4192,7 @@ def serve_phase_f(dev, smi: str, with_paged: bool = False):
               + " ".join(f"{key}={counts[key]}" for key in kernels)
               + f" ({st['prefills_run']} prefills, "
               f"{st['prefill_chunks_run']} chunks, {st['decodes_run']} "
-              f"decode steps), dispatch {counts['dispatch']}; a decode "
-              f"step's byte bound {step_bound:.3f}ms (W4 blocks "
-              f"{w_bytes / 1e9:.2f} GB + fp32 head {head_bytes / 1e9:.2f} "
-              f"GB at 3.35 TB/s) ({smi})")
+              f"decode steps), dispatch {counts['dispatch']} ({smi})")
         audit_check(eng, phase)
         capture_gate(eng, phase, steps=3)
         prof = profile_decode(res, f"{arch}, W4 + KV4, {label}", steps=3,
@@ -4163,8 +4203,8 @@ def serve_phase_f(dev, smi: str, with_paged: bool = False):
                   f"{prof['busy_ms']:.3f}ms of {prof['prof_ms']:.2f}ms "
                   f"profiled wall ({prof['step_ms']:.2f}ms plain), K1 "
                   f"{prof['k1_ms']:.3f}ms, {'K3' if paged else 'K2'} "
-                  f"{prof['attn_ms']:.3f}ms; byte bound {step_bound:.3f}ms "
-                  f"({smi})")
+                  f"{prof['attn_ms']:.3f}ms; roofline "
+                  f"{prof['roofline'].t_bound * 1e3:.3f}ms ({smi})")
         truncated_reference_check(res, dev, label="W4", paged=paged,
                                   tag="F")
         if arch == DENSE_ARCHS[0] and not paged:
@@ -4431,6 +4471,7 @@ def serve_phase_h(dev, smi: str, peak_f_gb: float, peak_e_gb: float):
     from repro_torch.configs import get_config
     from repro_torch.core.policy import PolicyProgram
     from repro_torch.launch import serve
+    from repro_torch.roofline.step_stats import tree_bytes
     t_phase = time.perf_counter()
     promoted, sens, sens_s = sensitivity_pass(dev, H_DENSE)
     n_cand = 7 * get_config(H_DENSE).n_layers
@@ -4495,8 +4536,8 @@ def serve_phase_h(dev, smi: str, peak_f_gb: float, peak_e_gb: float):
         # (weights and caches, per layer from this run) of the layers cut
         if moe:
             full_layers = get_config(arch).n_layers
-            per_layer = (_tree_bytes(res["params"]["layers"])
-                         + _tree_bytes(eng.caches["layers"])) / cfg.n_layers
+            per_layer = (tree_bytes(res["params"]["layers"])
+                         + tree_bytes(eng.caches["layers"])) / cfg.n_layers
             cut = full_layers - cfg.n_layers
             peak_e_cut = peak_e_gb - cut * per_layer / 1e9
             bound = peak_e_cut + 2 * layer_fp32_bytes(arch) / 1e9 + 1.0
@@ -4797,9 +4838,8 @@ def serve_phase_i(dev, smi: str):
     the audit (one prefill entry per distinct prompt length: the model
     cannot bucket), `capture_gate` (the recurrent
     states among the cache bytes), `sync_check`, the decode-step profile
-    beside the step's byte bound (W4 blocks + fp32 head from
-    `param_count`), the `HYBRID_CUT`-layer card-vs-CPU check and
-    `ring_check`. Then K1 at one rglru layer's 8 and one local layer's 7
+    beside the step's roofline, the `HYBRID_CUT`-layer card-vs-CPU
+    check and `ring_check`. Then K1 at one rglru layer's 8 and one local layer's 7
     decode launches (the served weights, rows 4, `k1_layer_record`) and
     K2 at the served shape (B 4, S 256, window 2048 over 256 slots: no
     ring at max_len 256). Prints PTQ seconds, peak device memory, tok/s,
@@ -4842,8 +4882,6 @@ def serve_phase_i(dev, smi: str):
     if len(done) != 8 or any(len(r.out_tokens) != 16 for r in done):
         fail(f"{phase}: {len(done)} requests finished with "
              f"{[len(r.out_tokens) for r in done]} tokens, expected 8 x 16")
-    w_bytes, head_bytes = step_bytes(cfg)
-    step_bound = bound_ms(w_bytes + head_bytes, 0.0)[0]
     print(f"[serve I] {HYBRID_ARCH} ({cfg.n_layers} layers: "
           f"{attn_layers(model)} local_attn, "
           f"{cfg.n_layers - attn_layers(model)} rglru; d_model "
@@ -4860,9 +4898,7 @@ def serve_phase_i(dev, smi: str):
           + f" ({st['prefills_run']} exact-length prefills, "
           f"{st['decodes_run']} decode steps; a decode step: "
           + ", ".join(f"{k} {v:g}" for k, v in step.items())
-          + f"), dispatch {counts['dispatch']}; a decode step's byte bound "
-          f"{step_bound:.3f}ms (W4 blocks {w_bytes / 1e9:.2f} GB + fp32 "
-          f"head {head_bytes / 1e9:.2f} GB at 3.35 TB/s) ({smi})")
+          + f"), dispatch {counts['dispatch']} ({smi})")
     audit_check(eng, phase)
     capture_gate(eng, "I", steps=3)
     sync_check(res, "I")
@@ -4874,8 +4910,8 @@ def serve_phase_i(dev, smi: str):
               f"{prof['busy_ms']:.3f}ms of {prof['prof_ms']:.2f}ms profiled "
               f"wall ({prof['step_ms']:.2f}ms plain), K1 "
               f"{prof['k1_ms']:.3f}ms over {prof['k1_calls']:g} calls, K2 "
-              f"{prof['attn_ms']:.3f}ms over {prof['attn_calls']:g}; byte "
-              f"bound {step_bound:.3f}ms ({smi})")
+              f"{prof['attn_ms']:.3f}ms over {prof['attn_calls']:g}; "
+              f"roofline {prof['roofline'].t_bound * 1e3:.3f}ms ({smi})")
     truncated_reference_check(res, dev, label="W4", tag="I",
                               n_layers=HYBRID_CUT)
     k2_ring, ring_launches = ring_check(res, dev, smi)
@@ -4917,31 +4953,6 @@ XLSTM_STEP_LAUNCHES = {"ovp_matmul[fp]": 132}
 XLSTM_CUT = 2           # the card-vs-CPU check's depth: one whole period
 XLSTM_PROMPT = 300      # tokens: 4 whole 64-token chunks and one of 44
 XLSTM_STEPS = 32        # greedy decode steps on the captured step
-
-
-def _tree_bytes(tree) -> int:
-    """Bytes of every tensor of a params or cache tree (a quantized
-    leaf's codes and scales)."""
-    from repro_torch.core.qlinear import tree_paths
-    return sum(t.numel() * t.element_size()
-               for _, leaf in tree_paths(tree) for t in _tensors(leaf))
-
-
-def xlstm_step_bytes(res):
-    """The bytes one decode step of the served xLSTM model must move,
-    from the served tree's and caches' own tensors: every layer's
-    weights (W4 codes and scales; fp32 r_*, gate projections, conv,
-    biases, norms), the fp32 head and final norm, the embedding rows
-    the step reads, and every recurrent state leaf read and written.
-    Returns (block weights, head, state) bytes."""
-    params, eng = res["params"], res["engine"]
-    slots = eng.cfg.batch_slots
-    blocks = _tree_bytes(params["layers"])
-    head = _tree_bytes(params["lm_head"]) \
-        + _tree_bytes(params["final_norm"]) \
-        + slots * params["embed"]["table"].shape[1] * 4
-    state = 2 * _tree_bytes(eng.caches)
-    return blocks, head, state
 
 
 def xlstm_reference_check(res, dev, smi: str, t: int = XLSTM_PROMPT,
@@ -5041,8 +5052,7 @@ def serve_phase_j(dev, smi: str):
     launch; 8 requests x 16 tokens. Then the audit (one prefill entry
     per distinct prompt length), `capture_gate` (every mLSTM and sLSTM
     state leaf among the cache bytes), `sync_check`, the decode-step
-    profile beside the step's byte bound (`xlstm_step_bytes`: the
-    served tree's and caches' own bytes), `xlstm_reference_check`, and
+    profile beside the step's roofline, `xlstm_reference_check`, and
     K1 at one mLSTM layer's 5 and one sLSTM layer's 6 decode launches
     (the served weights, rows 4, the sLSTM MLP's ragged N 1364 and K
     1364 included). Prints PTQ seconds, peak device memory, tok/s, mean
@@ -5050,6 +5060,7 @@ def serve_phase_j(dev, smi: str):
     the profile and the K1 records."""
     import torch
     from repro_torch.launch import serve
+    from repro_torch.roofline.step_stats import tree_bytes
     from repro_torch.serve.engine import _leaves
     t_phase = time.perf_counter()
     phase = f"serve phase J ({XLSTM_ARCH}, slab)"
@@ -5090,8 +5101,7 @@ def serve_phase_j(dev, smi: str):
             sorted(set(sites)) != ["mlstm", "slstm"]:
         fail(f"{phase}: {len(leaves)} cache leaves over sites "
              f"{sorted(set(sites))}, expected 4 a layer, mlstm and slstm")
-    w_bytes, head_bytes, state_bytes = xlstm_step_bytes(res)
-    step_bound = bound_ms(w_bytes + head_bytes + state_bytes, 0.0)[0]
+    state_bytes = tree_bytes(eng.caches)
     print(f"[serve J] {XLSTM_ARCH} ({cfg.n_layers} layers: "
           f"{cfg.n_layers // 2} mlstm, {cfg.n_layers // 2} slstm; d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab}) W4, "
@@ -5105,11 +5115,8 @@ def serve_phase_j(dev, smi: str):
           f"prefills, {st['decodes_run']} decode steps; a decode step: "
           f"{step['ovp_matmul[fp]']:g}), other kernels {others}, dispatch "
           f"{counts['dispatch']}; {len(leaves)} state leaves, "
-          f"{state_bytes / 2 / 1e6:.1f} MB for {eng.cfg.batch_slots} slots;"
-          f" a decode step's byte bound {step_bound:.3f}ms (blocks "
-          f"{w_bytes / 1e6:.1f} MB + fp32 head {head_bytes / 1e6:.1f} MB + "
-          f"state read and written {state_bytes / 1e6:.1f} MB at 3.35 "
-          f"TB/s) ({smi})")
+          f"{state_bytes / 1e6:.1f} MB for {eng.cfg.batch_slots} slots "
+          f"({smi})")
     audit_check(eng, phase)
     capture_gate(eng, "J", steps=3)
     sync_check(res, "J")
@@ -5121,7 +5128,7 @@ def serve_phase_j(dev, smi: str):
               f"{prof['busy_ms']:.3f}ms of {prof['prof_ms']:.2f}ms profiled "
               f"wall ({prof['step_ms']:.2f}ms plain), K1 "
               f"{prof['k1_ms']:.3f}ms over {prof['k1_calls']:g} calls; "
-              f"byte bound {step_bound:.3f}ms ({smi})")
+              f"roofline {prof['roofline'].t_bound * 1e3:.3f}ms ({smi})")
     xlstm_reference_check(res, dev, smi)
     gen = torch.Generator(device=dev).manual_seed(24)
     recs = {}
@@ -5137,7 +5144,7 @@ def serve_phase_j(dev, smi: str):
     print(f"[serve J] phase took {time.perf_counter() - t_phase:.1f}s")
     del res, eng, done
     return {"counts": counts, "peak_gb": peak_gb, "profile": prof,
-            "k1": recs, "step_bound_ms": step_bound}
+            "k1": recs, "step_bound_ms": prof["roofline"].t_bound * 1e3}
 
 
 # --------------------------------------------------------------------------
@@ -5238,31 +5245,6 @@ def check_launches(counts, want, phase: str) -> None:
              f"{want}")
 
 
-def encdec_step_bytes(params, caches, src_len: int, pos: int, rows: int):
-    """The bytes one decode step of the served encoder-decoder must move,
-    from its own tensors: every decoder layer's weights but the cross
-    attention's K/V projections (read by the prefill only), the fp32
-    head and final norm, the embedding rows the step reads, each row's
-    first `src_len` cross-cache slots (K and V, fp32), and each row's
-    self-cache slots 0..pos read (packed K/V and scales) and one
-    written. Returns (block weights, head, caches) bytes."""
-    blocks = sum(_tree_bytes(layer) - _tree_bytes(
-        {k: layer["xattn"][k] for k in ("wk", "wv", "bk", "bv")})
-        for layer in params["layers"])
-    head = _tree_bytes(params["lm_head"]) \
-        + _tree_bytes(params["final_norm"]) \
-        + rows * params["embed"]["table"].shape[1] * 4
-    kv = 0
-    for layer in caches["layers"]:
-        xkv, skv = layer["xkv"], layer["kv"]
-        kv += rows * src_len * 2 * xkv["k"][0, 0].numel() \
-            * xkv["k"].element_size()
-        slot = sum(skv[key][0, 0].numel() * skv[key].element_size()
-                   for key in ("k_data", "v_data", "k_scl", "v_scl"))
-        kv += rows * (pos + 2) * slot
-    return blocks, head, kv
-
-
 def encdec_reference_check(model, params, batch, dev, smi: str,
                            steps: int = ENCDEC_STEPS):
     """A `CUT_LAYERS`-deep cut of the served full-width encoder-decoder
@@ -5344,7 +5326,7 @@ def serve_phase_k(dev, smi: str):
     `ENCDEC_STEPS` x `ENCDEC_STEP_LAUNCHES`, no other kernel, no
     fallback; every cross cache's src_len 400 and its tail unwritten;
     finite logits. Then the encoder alone timed, a decode step profiled
-    beside its byte bound (`encdec_step_bytes`), K1 at one decoder
+    beside its roofline, K1 at one decoder
     layer's 8 decode launches (rows 4) and at the frontend and one
     encoder layer's 6 launches at the prefill's 1600 rows, K2 over a
     served cross cache at pos = src_len - 1, and
@@ -5356,6 +5338,7 @@ def serve_phase_k(dev, smi: str):
     from repro_torch.core.qlinear import quantize_params, tree_paths
     from repro_torch.launch import serve
     from repro_torch.models.model import build_model
+    from repro_torch.roofline import step_stats
     t_phase = time.perf_counter()
     phase = f"phase K ({ENCDEC_ARCH})"
     try:
@@ -5424,9 +5407,6 @@ def serve_phase_k(dev, smi: str):
     enc_ms = (time.perf_counter() - t0) * 1e3
     c_enc = read_counts()
     check_launches(c_enc, ENCDEC_ENCODE_LAUNCHES, f"{phase} encoder")
-    w_b, head_b, kv_b = encdec_step_bytes(params, caches, ENCDEC_FRAMES,
-                                          ENCDEC_PROMPT + ENCDEC_STEPS, rows)
-    bound = bound_ms(w_b + head_b + kv_b, 0.0)[0]
     print(f"[serve K] {ENCDEC_ARCH} ({cfg.n_enc_layers} encoder + "
           f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
@@ -5439,10 +5419,7 @@ def serve_phase_k(dev, smi: str):
           f"alone {enc_ms:.1f}ms), {ENCDEC_STEPS} eager decode steps "
           f"{step_ms:.2f}ms a step; launches: prefill {launched(c_pre)}, "
           f"the encoder alone {launched(c_enc)}, decode steps "
-          f"{launched(c_dec)} (K2 {by_cache}); a decode step's byte bound "
-          f"{bound:.3f}ms (decoder blocks {w_b / 1e6:.1f} MB + fp32 head "
-          f"{head_b / 1e6:.1f} MB + caches {kv_b / 1e6:.1f} MB at 3.35 "
-          f"TB/s) ({smi})")
+          f"{launched(c_dec)} (K2 {by_cache}) ({smi})")
     pos = [ENCDEC_PROMPT + ENCDEC_STEPS]
 
     def one_step():
@@ -5452,13 +5429,20 @@ def serve_phase_k(dev, smi: str):
             mode="decode", caches=caches)
         pos[0] += 1
 
+    p0 = pos[0] + 1             # profile_steps warms up with one step
     prof = profile_steps(one_step)
+    stats = step_stats.mean([step_stats.decode_step_stats(
+        model, params, caches, [p0 + i] * rows, src_len=ENCDEC_FRAMES)
+        for i in range(3)])
+    roof = step_roofline(f"{ENCDEC_ARCH} decode step ({rows} rows)", stats,
+                         prof["busy_ms"] if prof["kernels"] else None, smi)
+    bound = roof.t_bound * 1e3
     if prof["kernels"] is not None:
         print(f"[serve K] {ENCDEC_ARCH} decode step ({rows} rows, eager "
               f"Model.forward): {prof['kernels']:.1f} device kernels, busy "
               f"{prof['busy_ms']:.3f}ms of {prof['wall_ms']:.2f}ms profiled "
               f"wall, K1 {prof['k1_ms']:.3f}ms over {prof['k1_calls']:g} "
-              f"calls, K2 {prof['attn_ms']:.3f}ms; byte bound {bound:.3f}ms "
+              f"calls, K2 {prof['attn_ms']:.3f}ms; roofline {bound:.3f}ms "
               f"({smi})")
     gen = torch.Generator(device=dev).manual_seed(25)
     dec0, enc0 = params["layers"][0], params["enc_blocks"][0]
@@ -5575,7 +5559,7 @@ def serve_phase_l(dev, smi: str):
     decode step's launches exactly `VLM_STEP_LAUNCHES` (K3 for K2 when
     paged); 8 requests x 16 tokens, every page returned. Then the audit,
     `capture_gate`, `sync_check`, the decode-step profile beside the
-    step's byte bound (`step_bytes`), the 2-layer card-vs-CPU check
+    step's roofline (`repro_torch.roofline`), the 2-layer card-vs-CPU check
     (`truncated_reference_check`), and on the slab run's model
     `vlm_forward_check` and K1 at one layer's 7 decode launches; last
     K2, K3 and K4 at Hkv 2 / G 7 / D 64 against their plain versions.
@@ -5625,8 +5609,6 @@ def serve_phase_l(dev, smi: str):
             pool = st["page_pool"]
             if pool["used_pages"] != 0 or pool["allocs"] != pool["frees"]:
                 fail(f"{phase}: pages not all returned: {pool}")
-        w_bytes, head_bytes = step_bytes(cfg)
-        step_bound = bound_ms(w_bytes + head_bytes, 0.0)[0]
         print(f"[serve L] {VLM_ARCH} ({cfg.n_layers} layers, d_model "
               f"{cfg.d_model}, Hkv {cfg.n_kv_heads} G "
               f"{cfg.n_heads // cfg.n_kv_heads} D {cfg.head_dim}, d_ff "
@@ -5642,9 +5624,7 @@ def serve_phase_l(dev, smi: str):
               f"{st['prefill_chunks_run']} chunks, {st['decodes_run']} "
               f"decode steps; a decode step: K1 168, "
               f"{'K3' if paged else 'K2'} 24, K7 48), dispatch "
-              f"{counts['dispatch']}; a decode step's byte bound "
-              f"{step_bound:.3f}ms (W4 blocks {w_bytes / 1e6:.1f} MB + fp32 "
-              f"head {head_bytes / 1e6:.1f} MB at 3.35 TB/s) ({smi})")
+              f"{counts['dispatch']} ({smi})")
         audit_check(eng, phase)
         capture_gate(eng, phase, steps=3)
         sync_check(res, f"L {label}")
@@ -5656,12 +5636,13 @@ def serve_phase_l(dev, smi: str):
                   f"{prof['busy_ms']:.3f}ms of {prof['prof_ms']:.2f}ms "
                   f"profiled wall ({prof['step_ms']:.2f}ms plain), K1 "
                   f"{prof['k1_ms']:.3f}ms, {'K3' if paged else 'K2'} "
-                  f"{prof['attn_ms']:.3f}ms; byte bound {step_bound:.3f}ms "
-                  f"({smi})")
+                  f"{prof['attn_ms']:.3f}ms; roofline "
+                  f"{prof['roofline'].t_bound * 1e3:.3f}ms ({smi})")
         truncated_reference_check(res, dev, label="W4", paged=paged,
                                   tag="L")
         run = {"counts": counts, "stats": st, "profile": prof,
-               "peak_gb": peak_gb, "bound_ms": step_bound}
+               "peak_gb": peak_gb,
+               "bound_ms": prof["roofline"].t_bound * 1e3}
         if not paged:
             run["forward"] = vlm_forward_check(res, dev, smi)
             gen = torch.Generator(device=dev).manual_seed(26)
@@ -5707,7 +5688,6 @@ TRAIN_CUT_BATCH = (2, 64)   # its batch: rows, tokens
 TRAIN_CUT_CHECKS = (("olive_w4", 1e-4, 1e-3, 2e-2),
                     ("olive_w4a4", 1e-2, 1e-2, 1.0))
 TRAIN_ULP = 2.0 ** -23      # the scales' relative change of the ulp step
-H100_BF16_DENSE = 989e12    # FLOP/s, H100 SXM data sheet, dense bf16
 
 
 def _dir_bytes(path: str) -> int:
@@ -5869,6 +5849,7 @@ def train_phase_m(dev, smi: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.roofline import hw, step_stats
     t_phase = time.perf_counter()
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     argv = ["--arch", TRAIN_ARCH, *TRAIN_ARGS, "--ckpt-dir", TRAIN_CKPT]
@@ -5905,9 +5886,9 @@ def train_phase_m(dev, smi: str) -> dict:
           f"tokens + 2 x {n_layers} layer params x {tokens} (remat's "
           f"recompute) = {flops:.3e} (attention's T^2 terms left out); at "
           f"the median step {flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s = "
-          f"{flops / (step_ms / 1e3) / H100_BF16_DENSE * 100:.1f} % of the "
-          f"H100 SXM data sheet's dense bf16 peak "
-          f"({H100_BF16_DENSE / 1e12:.0f} TFLOP/s) [{smi}]")
+          f"{flops / (step_ms / 1e3) / hw.PEAK_FLOPS_BF16 * 100:.1f} % of "
+          f"the H100 SXM data sheet's dense bf16 peak "
+          f"({hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s) [{smi}]")
     # resume: restore step 10 and run steps 11-20 again
     shutil.rmtree(os.path.join(TRAIN_CKPT, f"step_{20:08d}"))
     res2 = train.run(argv, device=dev)
@@ -5941,6 +5922,12 @@ def train_phase_m(dev, smi: str) -> dict:
           f"{prof['kernels']} device kernels; costliest: "
           + "; ".join(f"{ms:.1f} ms x{n} {name[:60]}"
                       for ms, n, name in prof["top"][:5]) + f" [{smi}]")
+    opt = t2.state.opt
+    roof = step_roofline(
+        f"{TRAIN_ARCH} train step ({rows} x {seq}, remat)",
+        step_stats.train_step_stats(t2.model, t2.state.params, rows, seq,
+                                    opt_state=(opt.mu, opt.nu)),
+        prof["busy_ms"] if prof["kernels"] else None, smi)
     params = res["state"].params
     del res2, res, trainer, t2, batch
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
@@ -5952,8 +5939,315 @@ def train_phase_m(dev, smi: str) -> dict:
     print(f"[train M] phase took {took:.1f}s")
     return {"counts": counts, "step_ms": step_ms, "peak_gb": peak_gb,
             "profile": prof,
+            "roofline": roof,
             "cut": cut, "save_s": save_s, "restore_s": restore_s,
             "bytes": n_bytes, "flops": flops, "took": took}
+
+
+# --------------------------------------------------------------------------
+# Phase N: the tooling (repro_torch.analysis, repro_torch.roofline)
+# --------------------------------------------------------------------------
+# each analysis case's counter, launches a call, TPU kernel replaced, and
+# source: the reference's eight kernel cases and the KV write
+N_CASES = {
+    "fused_matmul_w4a16": ("ovp_matmul[fp]", 1, "ovp_matmul.py:367",
+                           "ovp_matmul.cu"),
+    "fused_matmul_w8a16": ("ovp_matmul[fp]", 1, "ovp_matmul.py:367",
+                           "ovp_matmul.cu"),
+    "grouped_matmul_w4a16": ("grouped[fp]", 1, "ovp_matmul.py:436",
+                             "ovp_matmul.cu"),
+    "grouped_matmul_w8a16": ("grouped[fp]", 1, "ovp_matmul.py:436",
+                             "ovp_matmul.cu"),
+    "ovp_encode": ("ovp_encode", 1, "ovp_encode.py:59", "ovp_encode.cu"),
+    "decode_attn_slab_packed": ("decode_attn", 1, "decode_attn.py:358",
+                                "decode_attn.cu"),
+    "decode_attn_paged_packed": ("paged_decode_attn", 1,
+                                 "decode_attn.py:404", "decode_attn.cu"),
+    "prefill_attn_paged_packed": ("prefill_attn", 1, "prefill_attn.py:170",
+                                  "prefill_attn.cu"),
+    "kv_write_packed": ("ovp_encode", 2, "ovp_encode.py:59",
+                        "ovp_encode.cu"),
+}
+# a child process whose NaN KV scale must fail the sanitizer's named
+# check in front of K7 (blocking launches tie the device assert to it)
+SANITIZE_CHILD = r"""
+import sys
+import torch
+from repro_torch import backends
+from repro_torch.core.policy import OLIVE_SERVE
+x = torch.randn((64, 64), device="cuda")
+scale = torch.ones((64,), device="cuda")
+scale[3] = float("nan")
+try:
+    backends.encode_kv(x, scale, policy=OLIVE_SERVE)
+    torch.cuda.synchronize()
+except AssertionError as err:
+    print(f"child failed on: {err}")
+    sys.exit(3)
+print("child: no check failed")
+"""
+SANITIZE_CHECK = "encode_kv: the KV scale must be positive and finite"
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_clone(v) for v in tree)
+    return tree.clone() if hasattr(tree, "clone") else tree
+
+
+def _dense_weight(wd, sw, w_dtype: str):
+    """Codes (…, K/2 | K, N) and scales (…, N) -> the dense fp32 weight."""
+    import torch
+    from repro_torch.kernels import ovp_matmul as mm
+    even, odd = mm.weight_planes(wd, w_dtype)
+    w = torch.stack([even, odd], dim=-2)
+    return w.reshape(*w.shape[:-3], -1, w.shape[-1]) * sw[..., None, :]
+
+
+def _case_work(name: str, args, out):
+    """(bytes, FLOPs, library call or None) of one analysis case: each
+    input read once and each output written once; the library call is
+    one PyTorch call computing the same function."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.roofline.step_stats import tree_bytes
+    if "matmul" in name:
+        a, wd, sw = args
+        w_dtype = "int8" if "w8" in name else "int4"
+        dense = _dense_weight(wd, sw, w_dtype)
+        k, n = dense.shape[-2:]
+        rows = a.numel() // k           # each row against one (K, N)
+        lib = (lambda: torch.matmul(a, dense)) if dense.ndim == 2 else \
+            (lambda: torch.einsum("beck,ekn->becn", a, dense))
+        return tree_bytes(args) + tree_bytes(out), 2.0 * rows * k * n, lib
+    if name == "ovp_encode":
+        return tree_bytes(args) + tree_bytes(out), 0.0, None
+    if name.startswith("decode_attn"):
+        q, cache, pos = args
+        live = int(pos.sum()) + len(pos)        # slots 0..pos of each row
+        slab = da.gather_paged_cache(cache) if "block_table" in cache \
+            else cache
+        per_slot = sum(slab[k][0, 0].numel() * slab[k].element_size()
+                       for k in ("k_data", "v_data", "k_scl", "v_scl"))
+        kd = da.dequant_kv(slab["k_data"], slab["k_scl"])
+        vd = da.dequant_kv(slab["v_data"], slab["v_scl"])
+        h, d = q.shape[2], q.shape[3]
+        table = cache["block_table"].numel() * 4 if "block_table" in cache \
+            else 0
+        return (q.numel() * 4 + live * per_slot + pos.numel() * 4 + table
+                + tree_bytes(out), 4.0 * h * d * live,
+                _attn_library(q, kd, vd, pos, h // kd.shape[2]))
+    if name.startswith("prefill_attn"):
+        q, cache, positions = args
+        c, h, d = q.shape[1:]
+        s = cache["stage_k"].shape[1]
+        ps = cache["k_data"].shape[1]
+        per_slot = sum(cache[k][0, 0].numel() * cache[k].element_size()
+                       for k in ("k_data", "v_data", "k_scl", "v_scl"))
+        off = int(positions[0, 0])
+        keys = c * off + c * (c + 1) // 2
+        kh = cache["stage_k"].transpose(1, 2)
+        vh = cache["stage_v"].transpose(1, 2)
+        qpos = torch.arange(off, off + c, device=q.device)
+        mask = qpos[:, None] >= torch.arange(s, device=q.device)[None]
+        lib = (lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kh, vh, attn_mask=mask,
+            enable_gqa=h != kh.shape[1]))
+        return (q.numel() * 4 + 2 * cache["stage_k"].numel() * 4
+                + (s // ps) * ps * per_slot + tree_bytes(out[0]),
+                4.0 * h * d * keys, lib)
+    cache, k, v, pos = args                  # the KV write
+    per_slot = sum(cache[key][0, 0].numel() * cache[key].element_size()
+                   for key in ("k_data", "v_data", "k_scl", "v_scl"))
+    return k.numel() * 4 + v.numel() * 4 + len(pos) * per_slot, 0.0, None
+
+
+def _untouched(name: str, args):
+    """Index of the pool pages (K4) or cache slots (the KV write) the call
+    must not write, as a (leaf key -> bool mask over dim 0 or (0, 1))."""
+    import torch
+    cache = next(a for a in args if isinstance(a, dict))
+    leaf = cache["k_data"]
+    if name.startswith("prefill_attn"):
+        pages = cache["stage_k"].shape[1] // leaf.shape[1]
+        keep = torch.ones(leaf.shape[0], dtype=torch.bool)
+        keep[cache["block_table"][0, :pages].long().cpu()] = False
+        return keep
+    pos = args[3].long().cpu()
+    keep = torch.ones(leaf.shape[:2], dtype=torch.bool)
+    keep[torch.arange(len(pos)), pos] = False
+    return keep
+
+
+def analysis_case_phase(dev, smi: str):
+    """Each analysis case (`repro_torch.analysis.kernels.repo_cases`: the
+    reference's eight kernel cases and the KV write) once on the card at
+    its shape, held to its plain version on the card (same inputs), its
+    launches counted, timed beside the plain version, a library call and
+    its bound; each plan's shared memory beside the card's opt-in limit;
+    K4's and the KV write's pools written in place (pointers unchanged,
+    untouched pages and slots bit-identical)."""
+    import torch
+    from repro_torch.analysis import kernels as ak
+    props = torch.cuda.get_device_properties(dev)
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    recs = {}
+    for case in ak.repo_cases():
+        counter, want, replaces, source = N_CASES[case.name]
+        fn, args = case.build(dev)
+        ref_args = _tree_clone(args)
+        cache = next((a for a in args if isinstance(a, dict)), None)
+        before = _tree_clone(cache) if case.pool_leaves else None
+        ptrs = {k: cache[k].data_ptr() for k in case.pool_leaves}
+        reset_counts()
+        got = fn(*args)
+        torch.cuda.synchronize(dev)
+        launches = read_counts()[counter]
+        ref = case.plain(*ref_args)
+        torch.cuda.synchronize(dev)
+        if launches != want:
+            fail(f"phase N {case.name}: {launches} {counter} launches, "
+                 f"expected {want}")
+        notes = []
+        if case.pool_leaves:
+            back = got if isinstance(got, dict) else got[-1]
+            ref_cache = ref if isinstance(ref, dict) else ref[-1]
+            keep = _untouched(case.name, args).to(dev)
+            for key in case.pool_leaves:
+                if back[key].data_ptr() != ptrs[key]:
+                    fail(f"phase N {case.name}: {key} came back in another "
+                         f"buffer")
+                old, new = before[key], back[key]
+                if not torch.equal(new[keep], old[keep]):
+                    fail(f"phase N {case.name}: {key}'s untouched "
+                         f"{'pages' if keep.ndim == 1 else 'slots'} changed")
+            written = ~keep
+            code_bytes = sum(int((back[k][written] != ref_cache[k][written])
+                                 .sum()) for k in ("k_data", "v_data"))
+            total = sum(back[k][written].numel() for k in ("k_data", "v_data"))
+            scl = max(float(((back[k] - ref_cache[k]).abs()
+                             / ref_cache[k].abs().clamp_min(1e-30)).max())
+                      for k in ("k_scl", "v_scl"))
+            # K4 sums its row statistics in another order than the plain
+            # version (0.01 % of code bytes, at least one byte, as in
+            # k4_phase); K7 is exact
+            code_tol = max(1, int(1e-4 * total)) \
+                if case.name.startswith("prefill") else 0
+            if code_bytes > code_tol or scl > 1e-6:
+                fail(f"phase N {case.name}: {code_bytes} of {total} written "
+                     f"code bytes differ (tol {code_tol}), scales by "
+                     f"{scl:.2e} relative (tol 1e-6)")
+            notes.append(f"pools in place, untouched "
+                         f"{int(keep.sum())} "
+                         f"{'pages' if keep.ndim == 1 else 'slots'} "
+                         f"bit-identical, {code_bytes} of {total} written "
+                         f"code bytes differing, scales {scl:.1e} relative")
+        out, out_ref = (got[0], ref[0]) if isinstance(got, tuple) else \
+            (got, ref)
+        if isinstance(out, dict):
+            err = 0.0
+        elif out.dtype == torch.uint8:
+            err = float((out != out_ref).sum())     # bytes differing
+            if err:
+                fail(f"phase N {case.name}: {int(err)} bytes differ from "
+                     f"the plain version")
+        else:
+            err = float((out - out_ref).abs().max())
+            scale = float(out_ref.abs().max())
+            rtol, atol = (1e-5, 1e-5 * scale) if "matmul" in case.name \
+                else (0.0, 1e-5)
+            if not within(out, out_ref, rtol, atol):
+                fail(f"phase N {case.name}: max abs err {err:.3e} over "
+                     f"rtol {rtol}, atol {atol:.2e}")
+        n_bytes, flops, lib = _case_work(case.name, args, got)
+        ms, _ = time_ms(lambda: fn(*args))
+        plain_ms, _ = time_ms(lambda: case.plain(*ref_args), 10, graph=False)
+        lib_ms = time_ms(lib)[0] if lib is not None else None
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        smem = [ak.describe(x).smem for x in case.launches()]
+        recs[case.name] = dict(
+            counter=counter, launches=launches, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+            bound_by=b_by, replaces=f"src/repro/kernels/{replaces}",
+            source=source, smem=smem)
+        print(f"[analysis N] {case.name}: {counter} x{launches}, err "
+              f"{err:.2e}, kernel {ms:.4f}ms, plain {plain_ms:.4f}ms "
+              f"(eager), library "
+              + (f"{lib_ms:.4f}ms" if lib_ms is not None else "none")
+              + f", bound {b_ms:.3e}ms ({b_by}); shared memory a block "
+              f"{smem} of the card's opt-in {optin}"
+              + ("; " + "; ".join(notes) if notes else "") + f" ({smi})")
+        if optin is not None and max(smem) > optin:
+            fail(f"phase N {case.name}: a plan's {max(smem)} shared bytes "
+                 f"exceed the card's opt-in {optin}")
+    sweep = {}
+    for name, launch in ak.served_launches():
+        kern = launch.kernel
+        if launch.smem > sweep.get(kern, (0, ""))[0]:
+            sweep[kern] = (launch.smem, name)
+    for kern, (most, where) in sorted(sweep.items()):
+        print(f"[analysis N] served sweep: {kern}'s largest plan "
+              f"{most} shared bytes a block ({where}) of the card's opt-in "
+              f"{optin} ({smi})")
+        if optin is not None and most > optin:
+            fail(f"phase N: {where} needs {most} shared bytes, over the "
+                 f"card's opt-in {optin}")
+    return recs
+
+
+def tooling_phase_n(dev, smi: str):
+    """Phase N: the port's tooling on the card (see the module docstring,
+    item 20). Returns the case records and the sanitize smoke's result."""
+    import torch
+    from repro_torch import analysis
+    from repro_torch.analysis import sanitize
+    from repro_torch.analysis.__main__ import sanitize_smoke
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    findings = analysis.run_all()
+    print(f"[analysis N] run_all(): {len(findings)} finding(s) in "
+          f"{time.perf_counter() - t0:.1f}s" + "".join(
+              f"\n[analysis N]   {f}" for f in findings))
+    if findings:
+        fail(f"phase N: {len(findings)} analysis finding(s)")
+    recs = analysis_case_phase(dev, smi)
+    t0 = time.perf_counter()
+    try:
+        smoke = sanitize_smoke("cuda")
+    finally:
+        os.environ.pop("REPRO_SANITIZE", None)
+    checks = "; ".join(f"{msg[:48]}... x{n}"
+                       for msg, n in smoke["checks"].items())
+    print(f"[analysis N] sanitize smoke ({smoke['arch']}, olive_serve W4 + "
+          f"KV4, slab, captured steps, 4 prompts x 8 tokens, "
+          f"REPRO_SANITIZE=1, logits checked): audit {smoke['audit']}, "
+          f"launches {smoke['launches']}, {smoke['tokens']} tokens, checks "
+          f"placed {checks}; {time.perf_counter() - t0:.1f}s ({smi})")
+    if sanitize.enabled():
+        fail("phase N: REPRO_SANITIZE left on after the smoke")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_SANITIZE="1", CUDA_LAUNCH_BLOCKING="1")
+    child = subprocess.run([sys.executable, "-c", SANITIZE_CHILD], env=env,
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=180)
+    said = (child.stdout + child.stderr).strip().splitlines()
+    print(f"[analysis N] child with a NaN KV scale: exit {child.returncode}"
+          f" in {time.perf_counter() - t0:.1f}s, "
+          f"{said[-1] if said else 'no output'!r}")
+    if child.returncode != 3 or SANITIZE_CHECK not in child.stdout:
+        fail(f"phase N: the child did not fail on the named check "
+             f"({SANITIZE_CHECK!r}): exit {child.returncode}, "
+             f"{child.stdout[-400:]} {child.stderr[-800:]}")
+    alive = float(torch.ones(4, device=dev).sum())
+    if alive != 4.0:
+        fail("phase N: the parent's CUDA context is not usable")
+    print(f"[analysis N] the parent goes on: its CUDA context answers "
+          f"({alive:g}); phase took {time.perf_counter() - t_phase:.1f}s")
+    return {"cases": recs, "smoke": smoke}
 
 
 def main() -> int:
@@ -6072,6 +6366,10 @@ def main() -> int:
     # the training slice, the earlier models freed
     free_device_memory()
     run_m = train_phase_m(dev, card)
+    # the tooling: the analysis passes, their kernel cases on the card,
+    # the sanitizer at full width and in a child process
+    free_device_memory()
+    run_n = tooling_phase_n(dev, card)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -6246,6 +6544,10 @@ def main() -> int:
         row(f"ovp_encode@{TRAIN_ARCH} trained",
             "src/repro/kernels/ovp_encode.py:59", "ovp_encode.cu",
             counts_m["ovp_encode"], 0.0, k7_main)]
+    # the tooling (phase N): each analysis case's one call on the card
+    kernels += [row(f"{rec['counter']}@analysis {name}", rec["replaces"],
+                    rec["source"], rec["launches"], rec["max_abs_err"], rec)
+                for name, rec in run_n["cases"].items()]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -6338,7 +6640,12 @@ def main() -> int:
           "Qwen1.5-0.5B QAT, then the trained fp32 tree quantized under "
           "olive_serve and served): <kernel>@qwen1.5-0.5b trained carry "
           "phase A's records (the same shapes), launches from phase M's "
-          "served run of 4 requests")
+          "served run of 4 requests. The tooling (phase N): <kernel>"
+          "@analysis <case> is one call of a kernel case of "
+          "repro_torch.analysis.kernels at the reference's shape, against "
+          "its plain version on the card (plain ms eager), launches from "
+          "that call; kv_write_packed is layers.cache_write's two K7 "
+          "launches (K and V) of a 4-row decode write")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

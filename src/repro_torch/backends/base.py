@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.calibration import MissingStaticScaleError
 from repro_torch.core.ovp import QuantizedTensor, ovp_quantize
 from repro_torch.core.policy import QuantPolicy
@@ -159,7 +160,13 @@ def torch_dtype(name: str) -> torch.dtype:
 def encode_rows(encode, x: torch.Tensor, scale: torch.Tensor
                 ) -> torch.Tensor:
     """Apply an (R, K) encoder `encode(x, scale=)` to x (…, D) with one
-    scale per row (…): the leading dims fold into rows."""
+    scale per row (…): the leading dims fold into rows. Under
+    REPRO_SANITIZE=1 the scales and the rows are checked first (on the
+    card as device asserts in front of K7)."""
+    if sanitize.enabled():
+        sanitize.check((scale > 0) & torch.isfinite(scale),
+                       "encode_kv: the KV scale must be positive and finite")
+        sanitize.check(torch.isfinite(x), "encode_kv: non-finite K/V rows")
     d = x.shape[-1]
     out = encode(x.reshape(-1, d), scale=scale.reshape(-1))
     return out.reshape(*x.shape[:-1], d // 2)

@@ -1,5 +1,6 @@
-"""Architecture registry: every config of the reference's registry."""
-from .base import ArchConfig
+"""Architecture registry: every config of the reference's registry, and
+the canonical input shapes."""
+from .base import SHAPES, ArchConfig, ShapeCfg, shape_applicable
 
 from . import (grok_1_314b, internvl2_1b, minitron_8b, qwen1_5_0_5b,
                qwen2_7b, qwen3_moe_30b_a3b, recurrentgemma_9b,
@@ -18,3 +19,9 @@ def get_config(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; options: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeCfg:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; options: {sorted(SHAPES)}")
+    return SHAPES[name]

@@ -1,6 +1,8 @@
-"""Architecture configuration schema. Port of `repro/configs/base.py`
-(the fields the dense, MoE, hybrid, xLSTM, encoder-decoder and VLM
-models read, and the parameter count of their blocks)."""
+"""Architecture and shape configuration schema. Port of
+`repro/configs/base.py`: the fields the dense, MoE, hybrid, xLSTM,
+encoder-decoder and VLM models read, the accounting the roofline and
+the analysis passes read (parameter counts, MoE blocks, which decode
+shapes apply), and the four canonical input shapes (`ShapeCfg`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -55,6 +57,23 @@ class ArchConfig:
         in the logits."""
         return -(-self.vocab // 256) * 256
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if decode memory and compute do not grow with a full
+        attention cache: every block is recurrent or windowed."""
+        return all(bt in ("rglru", "mlstm", "slstm", "local_attn")
+                   for bt in self.block_pattern)
+
+    @property
+    def has_decoder(self) -> bool:
+        return True     # every config decodes (an encoder-decoder too)
+
+    def moe_block_count(self) -> int:
+        """Number of MoE blocks in the layer stack."""
+        return sum(1 for i in range(self.n_layers)
+                   if self.block_pattern[i % len(self.block_pattern)]
+                   == "moe")
+
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks): the
         reference's per-block table, its rows for the ported blocks (an
@@ -85,6 +104,14 @@ class ArchConfig:
             total += self.n_enc_layers * (n_attn_p + mlp)
         return total + 2 * self.vocab * d               # embed + head
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: the top-k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        inactive = self.moe_block_count() * (self.n_experts - self.top_k) \
+            * 3 * self.d_model * self.d_ff
+        return self.param_count() - inactive
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family/pattern, tiny dimensions (the
         reference's `reduced()`: at most 8 experts, top-k at most 2, a
@@ -110,3 +137,28 @@ class ArchConfig:
             frontend_dim=32 if self.frontend else 0,
             n_frontend_tokens=4 if self.frontend else 0,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeCfg) -> Tuple[bool, str]:
+    """(runs?, reason if skipped): a 524k-token decode needs a
+    sub-quadratic architecture."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention architecture: 524k-token decode is "
+                       "O(T) cache / O(T^2) prefill — skipped")
+    return True, ""

@@ -19,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import sanitize
+
 from .datatypes import (ABFLOAT_FOR_NORMAL, ID4, ID8, NORMAL_MAX, AbfloatSpec,
                         abfloat_decode, abfloat_encode, normal_decode,
                         normal_encode)
@@ -44,6 +46,10 @@ def ovp_encode_codes(u: torch.Tensor, normal_dtype: str = "int4",
     v = torch.movedim(u, pair_axis, -1)
     if v.shape[-1] % 2 != 0:
         raise ValueError(f"pair axis length {v.shape[-1]} must be even")
+    if sanitize.enabled():
+        sanitize.check(torch.isfinite(v),
+                       "ovp_encode_codes: non-finite scaled input (NaN/Inf "
+                       "upstream of the encoder, or a zero/garbage scale)")
     x0, x1 = v[..., 0::2], v[..., 1::2]
     a0, a1 = torch.abs(x0), torch.abs(x1)
     o0, o1 = a0 > t, a1 > t
@@ -81,6 +87,12 @@ def ovp_decode_codes(codes: torch.Tensor, normal_dtype: str = "int4",
                      pair_axis: int = -1) -> torch.Tensor:
     """uint8 code tensor -> scaled float32 values. Victims decode to 0."""
     c = torch.movedim(codes, pair_axis, -1)
+    if sanitize.enabled():
+        ident = identifier(normal_dtype)
+        sanitize.check(~((c[..., 0::2] == ident) & (c[..., 1::2] == ident)),
+                       "ovp_decode_codes: both codes of a pair hold the "
+                       "identifier — not a valid OVP encoding (corrupt or "
+                       "misaligned code stream)")
     v0, v1 = decode_pair_planes(c[..., 0::2], c[..., 1::2], normal_dtype,
                                 spec)
     return torch.movedim(_interleave(v0, v1), -1, pair_axis)
@@ -184,6 +196,9 @@ def ovp_quantize(x: torch.Tensor, scale, normal_dtype: str = "int4",
                  pair_axis: int = -1) -> QuantizedTensor:
     """Quantize a real tensor with OVP at a given scale."""
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    if sanitize.enabled():
+        sanitize.check((scale > 0) & torch.isfinite(scale),
+                       "ovp_quantize: scale must be positive and finite")
     u = x.to(torch.float32) / scale
     codes = ovp_encode_codes(u, normal_dtype, spec, pair_axis)
     neg_ax = pair_axis if pair_axis < 0 else pair_axis - x.ndim

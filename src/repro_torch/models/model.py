@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.analysis import sanitize
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import calibration, qlinear
 from repro_torch.core.policy import QuantPolicy
@@ -459,7 +460,8 @@ class Model:
 
     def head(self, params, x: torch.Tensor) -> torch.Tensor:
         """Final norm and LM head: hidden states -> f32 logits, the
-        padded vocab columns masked."""
+        padded vocab columns masked (and, under `sanitize.configure()`,
+        checked finite)."""
         cfg = self.cfg
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"]["table"].T if cfg.tie_embeddings \
@@ -469,6 +471,7 @@ class Model:
         if cfg.padded_vocab != cfg.vocab:
             col = torch.arange(logits.shape[-1], device=logits.device)
             logits = torch.where(col >= cfg.vocab, -1e9, logits)
+        sanitize.check_logits(logits)
         return logits
 
 
