@@ -169,12 +169,12 @@ CUDA toolkit. It builds the hand-written kernels from
    (`record_weights` one layer at a time, `site_sensitivity` on the
    card, `auto_mixed(budget_bits=4.5)`), then `--calibrate` with a
    `--policy-rules` W8A8 rule for each promoted site; H2, Qwen3-30B-A3B
-   at `H2_LAYERS` = 12 of its 48 layers (cut for time) `--calibrate`:
+   at `H2_LAYERS` = 8 of its 48 layers (cut for time) `--calibrate`:
    K5 launches by weight dtype per forward call, no K1
    `fp` or `quantize` launch, no dynamic scale, K6 on the experts, the
    audit, graph against eager, the calibrated decode-step profile, the
    2-layer card-vs-CPU check, peak device memory (H2 held to phase E's
-   48-layer peak less the served weights and caches of the 36 layers
+   48-layer peak less the served weights and caches of the 40 layers
    cut, + 2 layers of fp32 weights + 1 GB), and on a 2-layer cut of
    Qwen2-7B the streamed artifact byte for byte the whole tree's;
 15. the hybrid family, with the earlier models freed: serve phase I,
@@ -249,11 +249,12 @@ CUDA toolkit. It builds the hand-written kernels from
    through the training launcher (`repro_torch.launch.train`,
    `--quant olive_w4a4`: QAT with STE fake-quant of every linear's
    weight and activation, bf16 compute, every layer rematerialized,
-   AdamW with bf16 moments, `--batch 8 --seq 512 --steps 20
-   --ckpt-every 10`, checkpoints under `build/ckpt_m`): every loss
+   AdamW with bf16 moments, `--batch 8 --seq 512 --steps 12
+   --ckpt-every 6 --eval-every 12` (`TRAIN_STEPS`, `TRAIN_CKPT_EVERY`;
+   20 and 10 until PR 28), checkpoints under `build/ckpt_m`): every loss
    finite and the last below the first; the final checkpoint save
-   timed; a second launcher run restores step 10 and reproduces steps 11-20's
-   losses within rtol 1e-3; a 2-layer cut at full width takes the
+   timed; a second launcher run restores step 6 and reproduces steps
+   7-12's losses within rtol 1e-3; a 2-layer cut at full width takes the
    gradients of one train step on the card and on the CPU in fp32
    compute, QAT with W4 weights and with W4A4 (loss, gradient norm and
    every gradient leaf against the tolerances `TRAIN_CUT_CHECKS` states,
@@ -281,7 +282,30 @@ CUDA toolkit. It builds the hand-written kernels from
    --sanitize-smoke`) at the full width of Qwen1.5-0.5B under
    REPRO_SANITIZE=1, its trace audit clean and K1, K2 and K7 launched
    under the checks; and a child process whose NaN KV scale must fail
-   the named check in front of K7, while this process goes on.
+   the named check in front of K7, while this process goes on;
+21. serving on a mesh: phase O (`serve_phase_o`), two ranks spawned on
+   card 0, joined over gloo through a rendezvous file (NCCL refuses two
+   ranks on one device), each serving the launcher's workload through
+   `run()` with `--backend cuda_sharded --mesh 1,2` (column-, row- and
+   expert-parallel matmuls, KV caches split by KV heads; gloo steps run
+   eagerly): Qwen1.5-0.5B at full width and depth, slab and paged 16 /
+   chunk 16, then Qwen3-30B-A3B at `MESH_E_LAYERS` = 4 of its 48 layers
+   (cut for time), slab and paged, with EP 2. Gated per rank: tokens
+   equal to the other rank's and to one rank's run of the same argv
+   (phases A and C; the MoE cut served here on `cuda`), no fallback and
+   every call on `cuda_sharded`, the launches of every forward call
+   and of a decode step run alone (Qwen1.5: K1 168, K2 or K3 24, K7 48;
+   K4 24 a chunk; the MoE cut: K1 16, K6 12 over 64 local experts), KV
+   bytes half of one rank's, quantized weight bytes 0.50-0.55 of one
+   rank's, the first prompt's prefill logits within `MESH_LOGIT_TOL` x
+   max|ref| of one rank's and equal on both ranks, the audit naming
+   the eager gloo steps. Printed per rank: a decode step's wall ms,
+   collectives and bytes a step, peak memory (two ranks sharing one
+   card over gloo: no speed claim). Then each new shard shape once
+   against its plain version (`mesh_kernel_phase`): K1 over a Qwen1.5
+   layer's column and row slices of both ranks, K6 at E 64 with each
+   rank's slice of a top-8 fill, K2, K3 and K4 at the local Hkv (8, G
+   1, D 64; 2, G 8, D 128), K7 on the local heads' KV write.
 
 Every profile phase (A-M) prints its step's roofline (`step_roofline`:
 `repro_torch.roofline.analyze` of the step's work counted from the
@@ -1852,6 +1876,7 @@ def reset_counts():
     from repro_torch.launch import serve
     backends.reset_dispatch_stats()
     backends.reset_act_scale_stats()
+    backends.sharded.reset_shard_launches()
     serve.reset_kernel_launches()
 
 
@@ -1859,7 +1884,8 @@ def read_counts():
     from repro_torch import backends
     from repro_torch.launch import serve
     return dict(serve.kernel_launches(), dispatch=backends.dispatch_stats(),
-                act_scale=backends.act_scale_stats())
+                act_scale=backends.act_scale_stats(),
+                shard=backends.sharded.shard_launches())
 
 
 def check_counts(counts, phase: str,
@@ -3278,7 +3304,8 @@ def k6_api_phase(dev):
     return rows, counts
 
 
-PAGED_E_LAYERS = 12     # phase E's paged run, cut from the published 48
+PAGED_E_LAYERS = 8      # phase E's paged run, cut from the published 48
+#                         (12 until PR 28)
 
 
 @contextlib.contextmanager
@@ -3483,7 +3510,8 @@ def truncated_reference_check(res, dev, label: str = "W4 experts",
 TRACE_DIR = os.path.join(ROOT, "build", "traces")
 MIXED_CALIB = os.path.join(ROOT, "build", "calib", f"{ARCH}-mixed_w48.json")
 W8_EXPERTS = 8          # mixed E: experts 0-7 of every stack at W8
-MIXED_E_LAYERS = 12     # mixed E's depth, cut from the published 48 for time
+MIXED_E_LAYERS = 8      # mixed E's depth, cut from the published 48 for
+#                         time (12 until PR 28)
 MIXED_A_LAYERS = 12     # mixed A's depth, cut from the published 24 for time
 SERVE_ARGS = ["--requests", "8", "--max-new", "16", "--slots", "4",
               "--max-len", "256", "--seed", "0"]
@@ -4352,7 +4380,8 @@ H_CALIB = {H_DENSE: os.path.join(ROOT, "build", "calib",
            MOE_ARCH: os.path.join(ROOT, "build", "calib",
                                   f"{MOE_ARCH}.json")}
 AUTO_MIXED_BUDGET = 4.5     # mean weight bits: 1/8 of the linears at W8
-H2_LAYERS = 12              # H2's depth, cut from the published 48 for time
+H2_LAYERS = 8               # H2's depth, cut from the published 48 for time
+#                             (12 until PR 28)
 
 
 def sensitivity_pass(dev, arch: str, seed: int = 0):
@@ -5186,7 +5215,8 @@ def launched(counts):
     """The nonzero launch counters by kernel and mode (the weight-dtype
     counters and the dispatch stats left out)."""
     return {key: n for key, n in counts.items()
-            if key not in ("dispatch", "act_scale") and "<" not in key
+            if key not in ("dispatch", "act_scale", "shard")
+            and "<" not in key
             and n}
 
 
@@ -5671,10 +5701,16 @@ def serve_phase_l(dev, smi: str):
 # card against CPU, and the trained weights served)
 # --------------------------------------------------------------------------
 TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_STEPS = 12       # cut from 20 for time in PR 28 (phase O)
+TRAIN_CKPT_EVERY = 6   # the resumed run restores this step, then runs the rest
+# the launcher reports a held-out perplexity from 20 steps on, or with
+# --eval-every (the trainer's in-loop evaluation at the last step)
 TRAIN_ARGS = ["--quant", "olive_w4a4", "--batch", "8", "--seq", "512",
-              "--steps", "20", "--ckpt-every", "10", "--seed", "0"]
+              "--steps", str(TRAIN_STEPS), "--ckpt-every",
+              str(TRAIN_CKPT_EVERY), "--eval-every", str(TRAIN_STEPS),
+              "--seed", "0"]
 TRAIN_CKPT = os.path.join(ROOT, "build", "ckpt_m")
-TRAIN_RESUME_RTOL = 1e-3    # steps 11-20 resumed vs uninterrupted
+TRAIN_RESUME_RTOL = 1e-3    # the resumed steps vs the uninterrupted run
 TRAIN_CUT = 2               # the card-vs-CPU step's depth
 TRAIN_CUT_BATCH = (2, 64)   # its batch: rows, tokens
 # Card vs CPU, the gradients of one fp32 QAT step: (preset, loss rtol,
@@ -5860,10 +5896,10 @@ def train_phase_m(dev, smi: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     hist, trainer = res["history"], res["trainer"]
     losses, times = hist["loss"], hist["step_time"]
-    if len(losses) != 20 or not all(map(math.isfinite, losses)) or \
-            not losses[-1] < losses[0]:
-        fail(f"phase M: losses {losses}: not 20 finite losses ending below "
-             f"the first")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        fail(f"phase M: losses {losses}: not {TRAIN_STEPS} finite losses "
+             f"ending below the first")
     cfg = get_config(TRAIN_ARCH)
     rows, seq = (int(TRAIN_ARGS[TRAIN_ARGS.index(flag) + 1])
                  for flag in ("--batch", "--seq"))
@@ -5889,25 +5925,28 @@ def train_phase_m(dev, smi: str) -> dict:
           f"{flops / (step_ms / 1e3) / hw.PEAK_FLOPS_BF16 * 100:.1f} % of "
           f"the H100 SXM data sheet's dense bf16 peak "
           f"({hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s) [{smi}]")
-    # resume: restore step 10 and run steps 11-20 again
-    shutil.rmtree(os.path.join(TRAIN_CKPT, f"step_{20:08d}"))
+    # resume: restore the first checkpoint and run the steps after it again
+    mid, last = TRAIN_CKPT_EVERY, TRAIN_STEPS
+    shutil.rmtree(os.path.join(TRAIN_CKPT, f"step_{last:08d}"))
     res2 = train.run(argv, device=dev)
     save_s = trainer.ckpt_seconds["save"]
     restore_s = res2["trainer"].ckpt_seconds["restore"]
-    n_bytes = _dir_bytes(os.path.join(TRAIN_CKPT, f"step_{20:08d}"))
-    print(f"[train M] checkpoint of step 20 (fp32 params, bf16 moments): "
+    n_bytes = _dir_bytes(os.path.join(TRAIN_CKPT, f"step_{last:08d}"))
+    print(f"[train M] checkpoint of step {last} (fp32 params, bf16 moments): "
           f"{n_bytes} bytes on disk, its save {save_s:.2f}s (from the start "
           f"to the file's publication), "
-          f"the resumed run's restore of step 10 {restore_s:.2f}s [{smi}]")
+          f"the resumed run's restore of step {mid} {restore_s:.2f}s "
+          f"[{smi}]")
     again = res2["history"]["loss"]
-    if res2["history"]["step"] != list(range(11, 21)):
+    if res2["history"]["step"] != list(range(mid + 1, last + 1)):
         fail(f"phase M: the resumed run ran steps {res2['history']['step']}")
-    worst = max(abs(a - b) / abs(b) for a, b in zip(again, losses[10:]))
-    print(f"[train M] resumed at step 10: steps 11-20 losses within "
+    worst = max(abs(a - b) / abs(b) for a, b in zip(again, losses[mid:]))
+    print(f"[train M] resumed at step {mid}: steps {mid + 1}-{last} losses "
+          f"within "
           f"{worst:.2e} relative of the uninterrupted run's (tol "
           f"{TRAIN_RESUME_RTOL}) [{smi}]")
     if worst > TRAIN_RESUME_RTOL:
-        fail(f"phase M: resumed losses {again} vs {losses[10:]}")
+        fail(f"phase M: resumed losses {again} vs {losses[mid:]}")
     # one more step of the resumed trainer, profiled
     t2 = res2["trainer"]
     batch = t2._batch(t2.step)
@@ -6250,6 +6289,474 @@ def tooling_phase_n(dev, smi: str):
     return {"cases": recs, "smoke": smoke}
 
 
+# --------------------------------------------------------------------------
+# Phase O: serving on a mesh (two ranks sharing the card over gloo)
+# --------------------------------------------------------------------------
+MESH_E_LAYERS = 4       # phase O's Qwen3-30B-A3B depth, cut from the 48
+MESH_STEPS = 4          # decode steps timed alone in each rank and run
+MESH_LOGIT_TOL = 1e-4   # x max|ref|: the first prefill's logits, 2 ranks
+#                         against one (fp32 reassociation of the
+#                         row-parallel sums, and of K1's split-K at half K)
+MESH_RANK_TIMEOUT = 600     # seconds a rank may take for all its runs
+
+
+class _Rank:
+    """A stand-in for one rank's mesh where `backends.sharded.local_shard`
+    only asks for the "model" axis's size and this rank's place on it."""
+
+    def __init__(self, rank: int, tp: int = 2):
+        self.rank, self.tp = rank, tp
+
+    def size(self, axis):
+        return self.tp if axis == "model" else 1
+
+    def coord(self, axis):
+        return self.rank if axis == "model" else 0
+
+
+def _tree_bytes(tree):
+    """(bytes of quantized leaves, bytes of raw tensors) of a param tree."""
+    from repro_torch.core.ovp import QuantizedTensor
+    q = raw = 0
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif isinstance(node, QuantizedTensor):
+            q += node.nbytes()
+        elif hasattr(node, "groups"):            # MixedExpertQuant
+            stack.extend(node.groups)
+        else:
+            raw += node.numel() * node.element_size()
+    return q, raw
+
+
+def _kv_bytes(eng) -> int:
+    """Bytes of every KV leaf of the engine's caches (slab or pool; the
+    block table aside)."""
+    return sum(leaf.numel() * leaf.element_size()
+               for layer in eng.caches["layers"]
+               for key, leaf in layer["kv"].items() if key != "block_table")
+
+
+def _mesh_runs():
+    """(label, argv, (arch, depth)) of phase O: Qwen1.5-0.5B at full
+    width and depth, slab and paged, and Qwen3-30B-A3B cut to
+    `MESH_E_LAYERS` layers, slab and paged; the launcher's workload."""
+    paged = ["--paged", "16", "--prefill-chunk", "16"]
+    base = ["--quant", "olive_serve"] + SERVE_ARGS
+    return [("qwen slab", base, (ARCH, 24)),
+            ("qwen paged", base + paged, (ARCH, 24)),
+            ("moe slab", base, (MOE_ARCH, MESH_E_LAYERS)),
+            ("moe paged", base + paged, (MOE_ARCH, MESH_E_LAYERS))]
+
+
+def _serve_record(res, dev, steps: int = MESH_STEPS):
+    """What phase O compares of one served run (either side): tokens,
+    launches and dispatch, engine stats, pool and weight bytes, the first
+    prompt's prefill logits (slab), and `steps` decode steps run alone:
+    their launches and collectives a step and wall ms a step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    eng = res["engine"]
+    rec = {"outputs": res["outputs"],
+           "counts": read_counts(), "stats": eng.stats(),
+           "pool": eng.device_pool_stats(), "kv_bytes": _kv_bytes(eng),
+           "weights": _tree_bytes(res["params"]),
+           "seconds": res["seconds"], "tok_per_s": res["tok_per_s"],
+           "collectives": mesh_lib.collective_stats()}
+    if not eng.paged:
+        prompt = launcher_prompts(res["model"].cfg.vocab)[0]
+        logits, _ = eng._prefill(prompt)
+        rec["logits"] = logits.float().cpu().numpy()
+    tokens = np.zeros((eng.cfg.batch_slots, 1), np.int64)
+    eng._decode.run(tokens=tokens, pos=eng.pos)        # warm
+    torch.cuda.synchronize(dev)
+    if dist.is_initialized():
+        dist.barrier()
+    reset_counts()
+    mesh_lib.reset_collective_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng._decode.run(tokens=tokens, pos=eng.pos)
+    torch.cuda.synchronize(dev)
+    rec["step_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    step = read_counts()
+    rec["step_counts"] = {k: v / steps for k, v in step.items()
+                          if isinstance(v, int) and v}
+    rec["step_counts"].update({k: v / steps for k, v in
+                               step["shard"].items()})
+    rec["step_collectives"] = {k: v / steps for k, v in
+                               mesh_lib.collective_stats().items()}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return rec
+
+
+def _mesh_rank(rank: int, init: str, out_dir: str) -> None:
+    """One rank of phase O: join the gloo group through the file `init`
+    (two ranks on card 0), serve every run of `_mesh_runs` through the
+    launcher's `run()` with `--backend cuda_sharded --mesh 1,2`, and
+    write the records to `out_dir/rank<rank>.pkl`. Any error exits
+    non-zero."""
+    import pickle
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh_lib.init_distributed(
+        "cuda", rank=rank, world_size=2, local_rank=rank,
+        local_world_size=2, init_method=f"file://{init}",
+        verbose=rank == 0)
+    recs = {}
+    for label, argv, (arch, depth) in _mesh_runs():
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        mesh_lib.reset_collective_stats()
+        with cut_arch(arch, depth) as name:
+            res = serve.run(["--arch", name] + argv + [
+                "--backend", "cuda_sharded", "--mesh", "1,2"], device="cuda")
+        recs[label] = _serve_record(res, dev)
+        recs[label]["audit"] = res["engine"].trace_audit()
+        del res
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(recs, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_mesh_ranks():
+    """Run `_mesh_rank` in two processes; their records by rank. A rank
+    that fails, exits non-zero or outlives `MESH_RANK_TIMEOUT` fails the
+    phase."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(ROOT, "build", "mesh_o")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    init = os.path.join(out_dir, "rendezvous")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, init, out_dir))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        fail(f"phase O: ranks exited {codes} (0 expected; negative: killed "
+             f"after {MESH_RANK_TIMEOUT}s or by a signal)")
+    recs = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            recs.append(pickle.load(f))
+    return recs
+
+
+def _single_moe_runs(dev):
+    """The single-rank (`cuda`, captured) runs of phase O's Qwen3-30B-A3B
+    cut, slab and paged, as `_serve_record`s."""
+    import torch
+    from repro_torch.launch import serve
+    out = {}
+    for label, argv, (arch, depth) in _mesh_runs():
+        if arch != MOE_ARCH:
+            continue
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        with cut_arch(arch, depth) as name:
+            res = serve.run(["--arch", name] + argv, device=dev)
+        out[label] = _serve_record(res, dev)
+        del res
+    return out
+
+
+def mesh_reference(res_a, res_c):
+    """Phase A's and C's single-rank facts phase O compares against: the
+    launcher's tokens (its `outputs`, taken when the run returned; the
+    engines serve more requests in later checks), the first prompt's
+    prefill logits, the quantized weight and KV bytes."""
+    eng = res_a["engine"]
+    prompt = launcher_prompts(res_a["model"].cfg.vocab)[0]
+    logits, _ = eng._prefill(prompt)
+    return {
+        "qwen slab": {"outputs": res_a["outputs"],
+                      "logits": logits.float().cpu().numpy(),
+                      "weights": _tree_bytes(res_a["params"]),
+                      "kv_bytes": _kv_bytes(eng)},
+        "qwen paged": {"outputs": res_c["outputs"],
+                       "weights": _tree_bytes(res_c["params"]),
+                       "kv_bytes": _kv_bytes(res_c["engine"]),
+                       "pool": res_c["engine"].device_pool_stats()}}
+
+
+def _check_mesh_run(label, ranks, single, layers: int):
+    """Phase O's gates on one run: both ranks' tokens equal each other's
+    and the single rank's; no fallback and every call on cuda_sharded;
+    launches per forward call and per decode step; KV bytes half the
+    single rank's, quantized weight bytes about half; logits (slab)
+    within `MESH_LOGIT_TOL`. Returns a summary line's facts."""
+    import numpy as np
+    paged = "paged" in label
+    want = single["outputs"]
+    for r, rec in enumerate(ranks):
+        if rec["outputs"] != want:
+            differ = sum(int(x != y) for uid, toks in want.items()
+                         for x, y in zip(toks, rec["outputs"].get(uid, [])))
+            fail(f"phase O {label}: rank {r}'s tokens differ from the "
+                 f"single-rank run's ({differ} of "
+                 f"{sum(map(len, want.values()))})")
+        counts = rec["counts"]
+        bad = [k for k in counts["dispatch"] if "->fallback" in k
+               or not k.startswith("cuda_sharded")]
+        if bad:
+            fail(f"phase O {label}: rank {r} dispatch {counts['dispatch']}")
+        st = rec["stats"]
+        fwd = st["prefills_run"] + st["prefill_chunks_run"] \
+            + st["decodes_run"]
+        moe = label.startswith("moe")
+        k1_per_layer = 4 if moe else 7
+        wants = {"ovp_matmul[fp]": k1_per_layer * layers * fwd,
+                 "ovp_encode": 2 * layers * (st["decodes_run"]
+                                             + st["prefills_run"]),
+                 "decode_attn": 0 if paged else layers * st["decodes_run"],
+                 "paged_decode_attn":
+                     layers * st["decodes_run"] if paged else 0,
+                 "prefill_attn": layers * st["prefill_chunks_run"],
+                 "grouped[fp]": 3 * layers * fwd if moe else 0}
+        # K1 by layout: wq wk wv (wg wu) column-parallel, wo (wd) row
+        k1_row = 1 if moe else 2
+        shard = {"ovp_matmul[fp]@col": (k1_per_layer - k1_row) * layers,
+                 "ovp_matmul[fp]@row": k1_row * layers}
+        if moe:
+            shard["grouped[fp]@expert"] = 3 * layers
+        wants.update({k: v * fwd for k, v in shard.items()})
+        got = {k: counts["shard"].get(k, counts.get(k)) for k in wants}
+        if got != wants:
+            fail(f"phase O {label}: rank {r} launches {got}, expected "
+                 f"{wants} ({fwd} forward calls)")
+        step = rec["step_counts"]
+        want_step = {"ovp_matmul[fp]": k1_per_layer * layers,
+                     "paged_decode_attn" if paged else "decode_attn": layers,
+                     "ovp_encode": 2 * layers, **shard}
+        if moe:
+            want_step["grouped[fp]"] = 3 * layers
+        if any(step.get(k) != v for k, v in want_step.items()):
+            fail(f"phase O {label}: rank {r}'s decode step launched {step},"
+                 f" expected {want_step}")
+        if rec["kv_bytes"] * 2 != single["kv_bytes"]:
+            fail(f"phase O {label}: rank {r}'s KV bytes {rec['kv_bytes']}, "
+                 f"half of the single rank's {single['kv_bytes']} expected")
+        q, q1 = rec["weights"][0], single["weights"][0]
+        if not 0.5 < q / q1 < 0.55:
+            fail(f"phase O {label}: rank {r}'s quantized weight bytes "
+                 f"{q} are {q / q1:.3f} of one rank's {q1}")
+        if paged:
+            pool = rec["pool"]
+            if pool["n_devices"] != 2 or 2 * pool["pool_bytes_per_device"] \
+                    != single["pool"]["pool_bytes_total"] or \
+                    pool["pool_bytes_total"] != \
+                    single["pool"]["pool_bytes_total"]:
+                fail(f"phase O {label}: rank {r}'s pool {pool}, the single "
+                     f"rank's {single['pool']}")
+        if "logits" in single:
+            ref = single["logits"]
+            err = float(np.abs(rec["logits"] - ref).max())
+            if err > MESH_LOGIT_TOL * float(np.abs(ref).max()):
+                fail(f"phase O {label}: rank {r}'s first prefill logits "
+                     f"differ by {err:.3e} (tol {MESH_LOGIT_TOL} x "
+                     f"max|ref| {float(np.abs(ref).max()):.3e})")
+            rec["logit_err"] = err
+        if "gloo" not in rec["audit"].get("eager_steps", ""):
+            fail(f"phase O {label}: rank {r}'s audit {rec['audit']} does "
+                 f"not say its steps ran eagerly under gloo")
+    if "logits" in single and \
+            ranks[0]["logits"].tobytes() != ranks[1]["logits"].tobytes():
+        fail(f"phase O {label}: the two ranks' logits differ")
+
+
+def mesh_kernel_phase(dev):
+    """Each new shard shape of phase O once on the card against its plain
+    version, with the tolerances the kernel phases use, timed like them
+    (CUDA-graph replay) beside the plain version, a library call and the
+    bound: K1 over one Qwen1.5-0.5B layer's column slices (wq, wk, wv,
+    wg, wu: N / 2) and row slices (wo 256 and wd 704 packed rows) of
+    rank 0 and rank 1, rows 4; K6 at E 64 (each rank's experts of
+    Qwen3-30B-A3B's 128) with that rank's slice of a seeded top-8
+    routing's decode fill; K2, K3 and K4 at the local Hkv (Qwen1.5:
+    Hkv 8, G 1, D 64; Qwen3: Hkv 2, G 8, D 128); K7 on the local heads'
+    KV write (R 4 slots x 8 heads, K 64; R 4 x 2, K 128)."""
+    import torch
+    from repro_torch.backends.sharded import local_shard
+    from repro_torch.core import policy
+    from repro_torch.core.ovp import ovp_dequantize
+    from repro_torch.core.qlinear import quantize_weight
+    from repro_torch.kernels import ovp_encode as enc
+    from repro_torch.kernels import ovp_matmul as mm
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(28)
+    w4 = policy.OLIVE_W4.replace_all(compute_dtype="float32")
+    sites = {"attn/wq": (1024, 1024), "attn/wk": (1024, 1024),
+             "attn/wv": (1024, 1024), "attn/wo": (1024, 1024),
+             "mlp/wg": (1024, 2816), "mlp/wu": (1024, 2816),
+             "mlp/wd": (2816, 1024)}
+    whole = {s: quantize_weight(torch.randn(kn, generator=gen, device=dev)
+                                / kn[0] ** 0.5, w4)
+             for s, kn in sites.items()}
+    out = {}
+    for r in range(2):
+        shards = {s: local_shard(w, f"layers/0/{s}", _Rank(r))
+                  for s, w in whole.items()}
+        for kind in ("col", "row"):
+            linears = [w for w in shards.values() if w.mode == kind]
+            rec = k1_layer_record(dev, gen, linears, 4, "int4",
+                                  label=f"k1 tp2 {kind} rank {r}")
+            out.setdefault(f"k1 {kind}", rec)
+            out[f"k1 {kind}"]["max_abs_err"] = max(
+                out[f"k1 {kind}"]["max_abs_err"], rec["max_abs_err"])
+    # K6 at E 64 with each rank's slice of the decode fill
+    e, b, c = 128, 4, 4
+    fill = _routed_fill(gen, dev, b, 1)
+    k6 = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+    k6.update(max_abs_err=0.0, bound_by="bytes")
+    for k, n in ((2048, 768), (2048, 768), (768, 2048)):
+        stack = quantize_weight(torch.randn((e, k, n), generator=gen,
+                                            device=dev) / k ** 0.5, w4)
+        for r in range(2):
+            qt = local_shard(stack, "layers/0/moe/experts/wg", _Rank(r))
+            el = qt.data.shape[0]
+            fl = fill[:, r * el:(r + 1) * el].contiguous()
+            sw = qt.scale.reshape(el, n).contiguous()
+            a = torch.randn((b, el, c, k), generator=gen, device=dev)
+
+            def kern():
+                return mm.run_grouped(a, None, qt.data, sw, w_dtype="int4",
+                                      a_mode="fp", fill=fl)
+
+            def plain():
+                return mm.grouped_ovp_matmul_plain(
+                    a, None, qt.data, sw, w_dtype="int4", a_mode="fp",
+                    a_dtype="int4", fill=fl)
+
+            got, ref = kern(), plain()
+            live = torch.arange(c, device=dev) < fl[..., None]
+            g, rr = got[live], ref[live]
+            err = float((g - rr).abs().max()) if g.numel() else 0.0
+            scale = float(rr.abs().max()) if rr.numel() else 0.0
+            if not within(g, rr, 1e-5, 1e-5 * scale):
+                fail(f"K6 tp2 rank {r} E={el} K={k} N={n}: max abs err "
+                     f"{err:.3e} on filled rows (rtol 1e-5, atol "
+                     f"1e-5*{scale:.3e})")
+            touched, filled = int((fl.sum(0) > 0).sum()), int(fl.sum())
+            dense = ovp_dequantize(qt)
+            b_ms, b_by = bound_ms(touched * (k // 2 * n + 4 * n)
+                                  + filled * (k * 4 + n * 4) + b * el * 4,
+                                  2.0 * filled * k * n)
+            rec = dict(ms=time_ms(kern)[0], plain_ms=time_ms(plain, 10)[0],
+                       bound_ms=b_ms, library_ms=time_ms(
+                           lambda: torch.einsum("beck,ekn->becn", a, dense),
+                           10)[0])
+            del dense
+            print(f"[k6 tp2] rank {r} B={b} E={el} C={c} K={k:4d} N={n:4d}"
+                  f": {touched} experts touched, {filled} rows; err="
+                  f"{err:.2e} on filled rows (tol rtol 1e-5, atol "
+                  f"1e-5*max|ref|) kernel={rec['ms']:.4f}ms warm L2, plain="
+                  f"{rec['plain_ms']:.4f}ms einsum={rec['library_ms']:.4f}ms"
+                  f" bound={b_ms:.5f}ms ({b_by})")
+            if r == 0:
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                    k6[key] += rec[key]
+                k6["bound_by"] = b_by
+            k6["max_abs_err"] = max(k6["max_abs_err"], err)
+        del stack
+    out["k6"] = k6
+    # K2, K3, K4 at the local Hkv (G unchanged), the kernel phases' checks
+    for tag, (hkv, g, d) in (("qwen", (8, 1, 64)), ("moe", (2, 8, 128))):
+        out[f"k2 {tag}"] = k2_phase(dev, hkv, g, d, all_pos=False)
+        out[f"k3 {tag}"] = k3_phase(dev, hkv, g, d, all_pos=False)
+        out[f"k4 {tag}"] = k4_phase(dev, hkv, g, d, cs=(16,))
+    # K7 on the local heads' KV write, 0 bytes differing
+    for tag, r_rows, k in (("qwen", 4 * 8, 64), ("moe", 4 * 2, 128)):
+        x, scales = _k7_inputs(dev, gen, r_rows, k, "float32")
+        scale = scales["row"]
+        got = enc.fused_ovp_encode(x, scale=scale)
+        ref = enc.ovp_encode_plain(x, scale)
+        differ = int((got != ref).sum())
+        if differ:
+            fail(f"K7 tp2 {tag} R={r_rows} K={k}: {differ} bytes differ")
+        b_ms, b_by = bound_ms(r_rows * k * 4 + r_rows * k // 2 + 4 * r_rows,
+                              0.0)
+        out[f"k7 {tag}"] = rec = dict(
+            ms=time_ms(lambda: enc.fused_ovp_encode(x, scale=scale))[0],
+            plain_ms=time_ms(lambda: enc.ovp_encode_plain(x, scale),
+                             graph=False)[0],
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0)
+        print(f"[k7 tp2] {tag} KV write on the local heads R={r_rows} K={k}"
+              f" f32, a scale a row: 0 bytes differing; kernel="
+              f"{rec['ms']:.4f}ms plain={rec['plain_ms']:.4f}ms (eager) "
+              f"bound={b_ms:.3g}ms ({b_by})")
+    print(f"[mesh O] shard kernels phase took "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def serve_phase_o(dev, smi: str, ref):
+    """Serving on a mesh: two ranks on card 0 over gloo (`_spawn_mesh_
+    ranks`), Qwen1.5-0.5B at full width and depth, slab and paged, held to
+    phases A and C (`ref`, `mesh_reference`), and Qwen3-30B-A3B at
+    `MESH_E_LAYERS` layers with EP 2, slab and paged, held to one rank's
+    run of the same cut here; then the shard shapes' kernels
+    (`mesh_kernel_phase`). Prints per rank: wall ms a decode step,
+    collectives and bytes a step, peak memory. No speed claim: the two
+    ranks share one card, and gloo runs the collectives on the host."""
+    import torch
+    t_phase = time.perf_counter()
+    free_device_memory()
+    ranks = _spawn_mesh_ranks()
+    t_ranks = time.perf_counter() - t_phase
+    single = dict(ref, **_single_moe_runs(dev))
+    free_device_memory()
+    for label, _, (arch, depth) in _mesh_runs():
+        recs = [r[label] for r in ranks]
+        _check_mesh_run(label, recs, single[label], depth)
+        for r, rec in enumerate(recs):
+            coll = rec["step_collectives"]
+            q, raw = rec["weights"]
+            print(f"[mesh O] {label} rank {r} ({smi}; two ranks sharing one "
+                  f"card over gloo, eager steps): tokens equal to one rank's "
+                  f"({sum(map(len, rec['outputs'].values()))}), no fallback,"
+                  f" a decode step {rec['step_ms']:.2f}ms wall, launches "
+                  f"{rec['step_counts']}, "
+                  f"collectives a step {coll.get('all_gather', 0):g} "
+                  f"all-gathers + {coll.get('sum', 0):g} sums, "
+                  f"{coll.get('bytes', 0) / 1e6:.3f} MB received; KV bytes "
+                  f"{rec['kv_bytes']} (one rank: {single[label]['kv_bytes']})"
+                  f", quantized weights {q / 1e6:.1f} MB "
+                  f"({q / single[label]['weights'][0]:.3f} of one rank's), "
+                  f"replicated raw {raw / 1e6:.1f} MB; peak {rec['peak_gb']:.2f} GB; run "
+                  f"{rec['seconds']:.2f}s, {rec['tok_per_s']:.1f} tok/s"
+                  + (f"; first prefill logits within {rec['logit_err']:.2e}"
+                     f" of one rank's" if "logit_err" in rec else ""))
+    kern = mesh_kernel_phase(dev)
+    print(f"[mesh O] ranks {t_ranks:.1f}s; phase took "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return {"ranks": ranks, "kernels": kern}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6326,6 +6833,8 @@ def main() -> int:
               f"{prof_b['busy_ms']:.3f} vs {prof_d['busy_ms']:.3f}ms")
     step_wall_ab(res_b, runs_d["load"][0])
     counts_d = runs_d["calibrate"][1]
+    # what phase O holds its two ranks to, before phases A-D are freed
+    mesh_ref = mesh_reference(res, res_c)
     # the MoE slice: phases A-D's models are freed first
     del res, res_b, res_c, runs_d, res_d, prof_b, prof_d
     free_device_memory()
@@ -6370,6 +6879,9 @@ def main() -> int:
     # the sanitizer at full width and in a child process
     free_device_memory()
     run_n = tooling_phase_n(dev, card)
+    # serving on a mesh: two ranks sharing the card over gloo
+    free_device_memory()
+    run_o = serve_phase_o(dev, card, mesh_ref)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -6548,6 +7060,42 @@ def main() -> int:
     kernels += [row(f"{rec['counter']}@analysis {name}", rec["replaces"],
                     rec["source"], rec["launches"], rec["max_abs_err"], rec)
                 for name, rec in run_n["cases"].items()]
+    # serving on a mesh (phase O): each shard shape's one check on the
+    # card; launches from rank 0's runs, K1 and K6 by shard layout
+    o_rank, o_k = run_o["ranks"][0], run_o["kernels"]
+    o_qs, o_qp = o_rank["qwen slab"]["counts"], o_rank["qwen paged"]["counts"]
+    o_ms, o_mp = o_rank["moe slab"]["counts"], o_rank["moe paged"]["counts"]
+    k2_src = "src/repro/kernels/decode_attn.py:358"
+    k3_src = "src/repro/kernels/decode_attn.py:404"
+    k4_src = "src/repro/kernels/prefill_attn.py:170"
+    k7_src = "src/repro/kernels/ovp_encode.py:59"
+    kernels += [
+        row("ovp_matmul[fp]@tp2 col", k1_src, "ovp_matmul.cu",
+            o_qs["shard"]["ovp_matmul[fp]@col"],
+            o_k["k1 col"]["max_abs_err"],
+            o_k["k1 col"]),
+        row("ovp_matmul[fp]@tp2 row", k1_src, "ovp_matmul.cu",
+            o_qs["shard"]["ovp_matmul[fp]@row"],
+            o_k["k1 row"]["max_abs_err"],
+            o_k["k1 row"]),
+        row("grouped[fp]@tp2 E64", "src/repro/kernels/ovp_matmul.py:436",
+            "ovp_matmul.cu", o_ms["shard"]["grouped[fp]@expert"],
+            o_k["k6"]["max_abs_err"],
+            o_k["k6"])]
+    for tag, slab, paged in (("Hkv8", o_qs, o_qp), ("Hkv2", o_ms, o_mp)):
+        key = "qwen" if tag == "Hkv8" else "moe"
+        kernels += [
+            row(f"decode_attn@tp2 {tag}", k2_src, "decode_attn.cu",
+                slab["decode_attn"], o_k[f"k2 {key}"][1],
+                o_k[f"k2 {key}"][2]),
+            row(f"paged_decode_attn@tp2 {tag}", k3_src, "decode_attn.cu",
+                paged["paged_decode_attn"], o_k[f"k3 {key}"][1],
+                o_k[f"k3 {key}"][2]),
+            row(f"prefill_attn@tp2 {tag}", k4_src, "prefill_attn.cu",
+                paged["prefill_attn"], o_k[f"k4 {key}"][1],
+                o_k[f"k4 {key}"][2]),
+            row(f"ovp_encode@tp2 {tag}", k7_src, "ovp_encode.cu",
+                slab["ovp_encode"], 0.0, o_k[f"k7 {key}"])]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -6645,7 +7193,18 @@ def main() -> int:
           "repro_torch.analysis.kernels at the reference's shape, against "
           "its plain version on the card (plain ms eager), launches from "
           "that call; kv_write_packed is layers.cache_write's two K7 "
-          "launches (K and V) of a 4-row decode write")
+          "launches (K and V) of a 4-row decode write. Serving on a mesh "
+          "(phase O, two ranks sharing the card over gloo): <kernel>@tp2 "
+          "is one rank's shard shape checked once in this process: K1 col "
+          "the 5 column slices of a Qwen1.5-0.5B layer (N / 2) and row the "
+          "2 row slices (wo 256, wd 704 packed rows), rows 4, rank 0's; "
+          "grouped[fp]@tp2 E64 the 3 launches of one Qwen3-30B-A3B layer's "
+          "decode step over rank 0's 64 experts with its slice of a top-8 "
+          "fill, warm L2; K2/K3/K4@tp2 Hkv8 at Hkv 8, G 1, D 64, Hkv2 at "
+          "Hkv 2, G 8, D 128 (K4: C 16); ovp_encode@tp2 the KV write on "
+          "the local heads (R 32 x K 64; R 8 x K 128); launches from rank "
+          "0's phase O runs (K1 col / row: 5 / 2 sevenths of its K1 "
+          "launches)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

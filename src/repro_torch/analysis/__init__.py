@@ -28,7 +28,7 @@ The finding codes are the reference's (docs/static_analysis.md), with
 two renamed for the card: `KC_SMEM_BUDGET` (shared memory a block, in
 place of `KC_VMEM_BUDGET`) and `KC_NO_LAUNCH` (a CUDA operand that
 reaches no kernel launch, in place of `KC_NO_PALLAS_CALL`).
-`KC_SHARD_SPLIT` waits for the port of `backends/sharded.py`.
+`KC_SHARD_SPLIT` sweeps the sharded backend's row-split predicate.
 
 `sanitize.py` is the runtime side: ``REPRO_SANITIZE=1`` turns on the
 checks in the OVP encode/decode paths and in front of the KV encoder,

@@ -18,8 +18,13 @@ every case, describes each launch in one form (`Launch`) and checks:
   byte) that holds an odd number of values and so cuts an
   outlier-victim pair; a K7 item of an odd number of values (an item
   writes whole bytes, one pair each). Packed nibbles are whole pairs by
-  construction. The sharded half, `KC_SHARD_SPLIT`, waits for the port
-  of `backends/sharded.py` (ROADMAP.md, queue 4).
+  construction.
+- **KC_SHARD_SPLIT**: the sharded half. `backends/sharded.py::
+  row_shard_pair_aligned`, the predicate that decides whether a
+  row-parallel K split over `tp` ranks keeps whole outlier-victim pairs
+  (`shard_k_indivisible` otherwise), swept against an independent ground
+  truth of where the shard boundaries fall; a fixture module that
+  defines its own `row_shard_pair_aligned` is swept the same way.
 - **KC_PAGE_TILE**: a paged launch that addresses its pool with another
   page size than the pool's (K3's per-token page lookup, K4's page-write
   tile), or whose block table backs other than the plan's slots.
@@ -554,7 +559,64 @@ def served_launches():
             for dt in (torch.float32, torch.bfloat16):
                 out.append((f"{arch}/K7 KV write R {r} K {d} {dt}", describe(
                     enc.encode_plan(r, d, dt, "row"), r=r, k=d)))
+        out.extend(_shard_launches(arch, cfg, dense, stacks))
     return tuple(out)
+
+
+def _shard_launches(arch: str, cfg, dense, stacks, tp: int = 2):
+    """The launches one rank of a "model" axis of `tp` makes where
+    `backends/sharded.py` splits (the decode shapes): each linear's
+    column slice (N / tp) and row slice (K / tp, where the split keeps
+    whole pairs), each expert stack's E / tp experts at its slice of the
+    decode fill, and the attention and KV-write launches over Hkv / tp
+    heads (G unchanged)."""
+    from repro_torch.backends.sharded import row_shard_pair_aligned
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import ovp_encode as enc
+    from repro_torch.kernels import ovp_matmul as mm
+    from repro_torch.kernels import prefill_attn as pa
+    from repro_torch.models.model import RECURRENT_TYPES
+    out = []
+    tag = f"{arch}/tp {tp}"
+    for k, n in dense:
+        shapes = [(k, n // tp)] if n % tp == 0 else []
+        if row_shard_pair_aligned(k // 2, tp, True):
+            shapes.append((k // tp, n))
+        for kl, nl in shapes:
+            for rows in SLOTS:
+                for wd in ("int4", "int8"):
+                    out.append((f"{tag} K1 fp {wd} rows {rows} K {kl} N {nl}",
+                                describe(mm.launch_plan(rows, kl, nl, wd, None,
+                                                        "fp"), n=nl,
+                                         w_dtype=wd)))
+    for e, k, n in stacks:
+        if e % tp:
+            continue
+        for i, b in enumerate(SLOTS):
+            c = _cap(cfg, 1)
+            fill = _routed_fill(b, e, c, 1, cfg.top_k, i)[:, :e // tp]
+            plan = mm.grouped_launch_plan(b, e // tp, c, k, n, "int4", "fp",
+                                          filled=True)
+            out.append((f"{tag} K6 fp B {b} E {e // tp} C {c} K {k} N {n}",
+                        describe(plan, n=n, w_dtype="int4", fill=fill)))
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if set(cfg.block_pattern) <= set(RECURRENT_TYPES) or hkv % tp:
+        return out
+    hl, kl = h // tp, hkv // tp
+    for fp in (None, torch.float32):
+        kind = fp or "packed"
+        out.append((f"{tag} K2 B 4 S 256 {kind}",
+                    describe(da.decode_plan(4, 256, hl, kl, d, fp))))
+        if set(cfg.block_pattern) <= {"attn", "moe"}:
+            out.append((f"{tag} K3 B 4 S 256 {kind}", describe(
+                da.decode_plan(4, 256, hl, kl, d, fp), pool_ps=PAGE_SIZE,
+                table_pages=256 // PAGE_SIZE)))
+            out.append((f"{tag} K4 C {PAGED_CHUNK} S 256 {kind}", describe(
+                pa.prefill_plan(PAGED_CHUNK, hl, kl, d, 256, PAGE_SIZE, fp),
+                pool_ps=PAGE_SIZE)))
+    out.append((f"{tag} K7 KV write R {4 * kl} K {d}", describe(
+        enc.encode_plan(4 * kl, d, torch.float32, "row"), r=4 * kl, k=d)))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -674,6 +736,52 @@ def repo_cases(fixtures: Sequence[str] = ()) -> List[Case]:
     return cases
 
 
+def _shard_boundary_aligned(k_rows: int, tp: int, packed: bool) -> bool:
+    """Ground truth for the row-parallel K split: pairs are the value
+    indices (2p, 2p + 1), shards hold contiguous row ranges, and every
+    shard must decode whole pairs, so K must divide and every shard's
+    end (the last one's, the total value count, included) must land on
+    an even value index."""
+    if k_rows % tp != 0:
+        return False
+    per_shard = (k_rows // tp) * (2 if packed else 1)
+    return all((s * per_shard) % 2 == 0 for s in range(1, tp + 1))
+
+
+def _check_shard_split(predicate, where: str) -> List[Finding]:
+    findings: List[Finding] = []
+    for packed in (False, True):
+        for tp in (1, 2, 3, 4, 8):
+            for k_rows in range(1, 65):
+                got = predicate(k_rows, tp, packed)
+                want = _shard_boundary_aligned(k_rows, tp, packed)
+                if got != want:
+                    findings.append(Finding(
+                        "KC_SHARD_SPLIT", where,
+                        f"k_rows={k_rows} tp={tp} packed={packed}: the "
+                        f"predicate says {got}, the shard-boundary ground "
+                        f"truth says {want}"))
+    return findings
+
+
+def _shard_predicates(fixtures: Sequence[str]):
+    """(predicate, location): the backend's, then each fixture module's
+    own `row_shard_pair_aligned`."""
+    from repro_torch.backends.sharded import row_shard_pair_aligned
+    out = [(row_shard_pair_aligned,
+            "backends/sharded.py::row_shard_pair_aligned")]
+    for f in fixtures:
+        if str(f).endswith(".py"):
+            spec = importlib.util.spec_from_file_location(
+                f"_analysis_shard_{Path(f).stem}", f)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            if hasattr(mod, "row_shard_pair_aligned"):
+                out.append((mod.row_shard_pair_aligned,
+                            f"{Path(f).name}::row_shard_pair_aligned"))
+    return out
+
+
 def check(fixtures: Sequence[str] = (),
           smem_budget: Optional[int] = None) -> List[Finding]:
     if smem_budget is None:
@@ -692,4 +800,6 @@ def check(fixtures: Sequence[str] = (),
             findings.extend(_aliasing(case))
     for name, launch in served_launches():
         findings.extend(_check_launch(name, launch, smem_budget))
+    for predicate, where in _shard_predicates(fixtures):
+        findings.extend(_check_shard_split(predicate, where))
     return findings

@@ -10,8 +10,7 @@ Three directions of drift:
   `record_act_scale(...)` keys and the `"[...]"` dispatch markers; each
   must be registered (VOCAB_UNREGISTERED_CODE, VOCAB_BAD_STATS_KEY).
 - **registry -> code**: every registered decline code is produced
-  somewhere in the scanned source (VOCAB_UNUSED_CODE), but for the
-  families in `NOT_YET_PRODUCED`, whose producer is not ported yet.
+  somewhere in the scanned source (VOCAB_UNUSED_CODE).
 - **registry <-> docs**: the quoted tables of docs/backends.md and
   docs/sharding.md, read as they stand, list exactly the registered
   codes (VOCAB_UNDOCUMENTED_CODE, VOCAB_DOC_DRIFT).
@@ -36,12 +35,6 @@ DOC_VOCAB = (
     (REPO / "docs" / "backends.md", "Decline and dispatch vocabulary"),
     (REPO / "docs" / "sharding.md", "Sharded decline vocabulary"),
 )
-
-# Code prefixes registered for a producer the port does not have yet:
-# the `shard_*` family comes from `backends/sharded.py`, which the
-# multi-device slice ports (ROADMAP.md, queue 4). Exactly these are
-# exempt from VOCAB_UNUSED_CODE; they stay registered and documented.
-NOT_YET_PRODUCED = ("shard_",)
 
 # decline codes are lower_snake identifiers of these families; the
 # filter keeps ordinary literals ("int8", error text) and the
@@ -166,8 +159,6 @@ def check(fixtures: Sequence[str] = ()) -> List[Finding]:
                     f"{DISPATCH_MARKERS}"))
 
     for code in sorted(ALL_DECLINE_CODES - produced):
-        if code.startswith(NOT_YET_PRODUCED):
-            continue
         findings.append(Finding(
             "VOCAB_UNUSED_CODE", "backends/base.py::DECLINE_CODES",
             f"registered decline code {code!r} is produced nowhere in "

@@ -7,6 +7,10 @@ chunk of a paged prefill and `encode_kv(x, scale, policy=...)` the
 packing of every other KV-cache write, on the backend `policy.backend`
 names:
   cuda   — the hand-written kernels (default; plain versions on CPU)
+  cuda_sharded — the same kernels, one shard a rank, on the "model"
+           axis of the mesh `configure_mesh` installs: column-, row- and
+           expert-parallel matmuls and KV-head-split attention
+           (`backends/sharded.py`)
   eager  — dequantize-then-torch.matmul and the dense attention paths
            (the fallback)
   reference — the fp32 oracle (`backends/reference.py`): dequantize,
@@ -39,6 +43,7 @@ from .base import (ACT_SCALE_KEYS, ALL_DECLINE_CODES, DECLINE_CODES,
 from .cuda import CudaBackend
 from .eager import EagerBackend
 from .reference import ReferenceBackend
+from .sharded import ShardedCudaBackend, configure_mesh, current_mesh
 
 _REGISTRY: Dict[str, QuantizedMatmulBackend] = {}
 
@@ -62,6 +67,7 @@ def available() -> list:
 register(EagerBackend())
 register(CudaBackend())
 register(ReferenceBackend())
+register(ShardedCudaBackend())
 
 _DISPATCH_STATS: collections.Counter = collections.Counter()
 
@@ -187,4 +193,5 @@ __all__ = ["QuantizedMatmulBackend", "register", "get_backend", "available",
            "quantize_activation", "resolve_act_scale", "act_normal_dtype",
            "ACT_SCALE_KEYS", "act_scale_stats", "record_act_scale",
            "reset_act_scale_stats", "CudaBackend", "EagerBackend",
-           "ReferenceBackend"]
+           "ReferenceBackend", "ShardedCudaBackend", "configure_mesh",
+           "current_mesh"]

@@ -32,6 +32,11 @@ from .base import (QuantizedMatmulBackend, decline, encode_rows,
 class CudaBackend(QuantizedMatmulBackend):
     name = "cuda"
 
+    @staticmethod
+    def _experts(w) -> int:
+        """The E of a stacked weight, as the lhs must carry it."""
+        return w.data.shape[0]
+
     def decline_reason(self, x, w: QuantizedTensor,
                        policy: QuantPolicy) -> Optional[str]:
         if w.pair_axis % 2 != 0:
@@ -42,7 +47,7 @@ class CudaBackend(QuantizedMatmulBackend):
             # grouped path: the lhs carries the matching expert dim at -3
             if x.ndim < 3:
                 return decline("grouped_lhs_rank_lt_3")
-            if x.shape[-3] != w.data.shape[0]:
+            if x.shape[-3] != self._experts(w):
                 return decline("grouped_lhs_expert_mismatch")
             return None
         return decline("stacked_rank_gt_3")

@@ -113,8 +113,12 @@ def _n_groups(x) -> int:
     return x.shape[0]
 
 
-def params_from_numpy(tree, device="cuda"):
-    """Reference tree (numpy leaves) -> port params on `device`."""
+def params_from_numpy(tree, device="cuda", mesh=None):
+    """Reference tree (numpy leaves) -> port params on `device`. With a
+    `launch.mesh.Mesh`, each piece (the top-level leaves, then each
+    layer) is converted and cut to this rank's shards
+    (`backends.sharded.place_params`) before the next one, so a
+    reference tree serves sharded on `cuda_sharded`."""
     out = {k: v for k, v in tree.items() if k not in ("blocks", "tail")}
     if "enc_blocks" in tree:
         enc = tree["enc_blocks"]
@@ -126,8 +130,16 @@ def params_from_numpy(tree, device="cuda"):
         for g in range(_n_groups(blocks["0"])):
             layers.extend(_slice(blocks[str(j)], g) for j in range(period))
     layers.extend(tree.get("tail") or [])
-    out["layers"] = layers
-    return _convert(out, device)
+    if mesh is None:
+        out["layers"] = layers
+        return _convert(out, device)
+    from repro_torch.backends.sharded import place_params
+    placed = {k: place_params(_convert(v, device), k, mesh)
+              for k, v in out.items()}
+    placed["layers"] = [place_params(_convert(layer, device),
+                                     f"layers/{i}", mesh)
+                        for i, layer in enumerate(layers)]
+    return placed
 
 
 def _stack(trees):

@@ -88,6 +88,18 @@ the JSONL metrics trace (`--metrics-out`, also in the drained loop):
       --arch qwen1.5-0.5b --quant olive_serve --paged 16 \
       --prefill-chunk 16 --async --stream --metrics-out build/trace.jsonl
 
+Serving on a mesh (docs/sharding.md): `--mesh DATA,MODEL` runs one
+process a rank under `torchrun`, and `--backend cuda_sharded` splits
+every quantized matmul column-, row- or expert-parallel and every KV
+cache by its KV heads over the MODEL ranks (`backends/sharded.py`); each
+rank keeps only its shard of each layer as the layer is drawn. A DATA
+axis above 1 replicates the work, as in the reference. Ranks that share
+a card talk over gloo and run their steps eagerly:
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch qwen1.5-0.5b --quant olive_serve --backend cuda_sharded \
+      --mesh 1,2
+
 As in the reference launcher, the preset (every rule of a program) is
 rewritten to fp32 compute
 (`compute_dtype="float32"`). Without `--calibration` activations are
@@ -107,8 +119,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import backends
+from repro_torch.backends.sharded import place_params
 from repro_torch.configs import get_config
 from repro_torch.core.calibration import (CalibrationArtifact,
                                           apply_calibration, calibrate_model,
@@ -116,7 +130,9 @@ from repro_torch.core.calibration import (CalibrationArtifact,
 from repro_torch.core.policy import (PRESETS, PROGRAM_PRESETS, get_policy,
                                      get_program, parse_rules)
 from repro_torch.core.qlinear import quantize_params, stacks_layers
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model import build_model
+from repro_torch.runtime.elastic import MeshPlan
 from repro_torch.serve import capture
 from repro_torch.serve.engine import (EngineCfg, ServingEngine,
                                      check_pageable, check_servable)
@@ -171,6 +187,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--stream", action="store_true",
                     help="async mode: print every token the step it is "
                          "sampled (one line per request completion too)")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="comma-separated mesh axis sizes for the sharded "
+                         "backend, e.g. '1,2' for a (data=1, model=2) mesh "
+                         "over 2 ranks (launch with `torchrun "
+                         "--nproc-per-node 2`). Installs the mesh via "
+                         "backends.configure_mesh, so --backend "
+                         "cuda_sharded tensor/expert/KV-shards the "
+                         "quantized serve path (see docs/sharding.md)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the step/request JSONL metrics trace "
                          "(serve/metrics.py vocabulary) to PATH; works "
@@ -225,6 +249,9 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("repro_torch.launch.serve needs a CUDA device")
+    mesh = None
+    if args.mesh:
+        mesh, device = _mesh(ap, args.mesh, device)
     cfg = get_config(args.arch)
     check_servable(cfg)         # before any weight is drawn
     if args.paged:
@@ -263,13 +290,14 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     ptq_s = 0.0
 
     def quantize(tree, prefix, **kw):
+        """PTQ of one piece, then this rank's shards of it."""
         nonlocal ptq_s
         sync()
         t0 = time.perf_counter()
         tree = quantize_params(tree, policy, prefix=prefix, **kw)
         sync()
         ptq_s += time.perf_counter() - t0
-        return tree
+        return tree if mesh is None else place_params(tree, prefix, mesh)
 
     def calibration_batch():
         rng = np.random.default_rng(args.seed)
@@ -303,7 +331,7 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     page_pool = PagePoolCfg(page_size=args.paged) if args.paged else None
     eng = ServingEngine(model, params, EngineCfg(
         batch_slots=args.slots, max_len=args.max_len, page_pool=page_pool,
-        prefill_chunk=args.prefill_chunk), device=device)
+        prefill_chunk=args.prefill_chunk, mesh=mesh), device=device)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 32)))
                .astype(np.int32) for _ in range(args.requests)]
@@ -323,6 +351,12 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
     if args.metrics_out:
         metrics.write_jsonl(args.metrics_out)
     return {"engine": eng, "model": model, "params": params,
+            "rank": 0 if mesh is None else mesh.rank,
+            "outputs": {r.uid: list(r.out_tokens) for r in done},
+            "dispatch": backends.dispatch_stats(),
+            "launches": kernel_launches(),
+            "shard_launches": backends.sharded.shard_launches(),
+            "pool": eng.device_pool_stats(),
             "policy": policy, "artifact": artifact, "calib_s": calib_s,
             "completed": done, "tokens": toks, "seconds": dt,
             "ptq_s": ptq_s, "tok_per_s": toks / dt,
@@ -335,6 +369,36 @@ def run(argv: Optional[List[str]] = None, device="cuda") -> Dict:
             "metrics_out": args.metrics_out}
 
 
+def _mesh(ap, spec: str, device: torch.device):
+    """Parse `--mesh DATA,MODEL` (two positive sizes whose product is the
+    world size), start the process group from `torchrun`'s environment
+    if no group runs yet, and install the mesh. Returns (mesh, this
+    rank's device)."""
+    try:
+        sizes = tuple(int(s) for s in spec.split(","))
+    except ValueError:
+        sizes = ()
+    if len(sizes) != 2 or any(s < 1 for s in sizes):
+        ap.error(f"--mesh wants two positive sizes 'data,model', got "
+                 f"{spec!r}")
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                        1)) > 1:
+        device = mesh_lib.init_distributed(device.type)
+    elif dist.is_initialized() and device.type == "cuda":
+        device = mesh_lib.rank_device("cuda", int(os.environ.get(
+            "LOCAL_RANK", dist.get_rank())))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if sizes[0] * sizes[1] != world:
+        ap.error(f"--mesh {spec} needs {sizes[0] * sizes[1]} ranks, have "
+                 f"{world}: launch with `torchrun --nproc-per-node "
+                 f"{sizes[0] * sizes[1]}`")
+    mesh = backends.configure_mesh(MeshPlan(sizes, ("data", "model"), 0))
+    if mesh.rank == 0:
+        print(f"[serve] mesh: data={sizes[0]} model={sizes[1]} over "
+              f"{world} ranks ({mesh.backend or 'one process'})")
+    return mesh, device
+
+
 def _fmt_dist(d, digits: int = 1) -> str:
     if not d.get("n"):
         return "n=0"
@@ -345,6 +409,14 @@ def _fmt_dist(d, digits: int = 1) -> str:
 
 def main():
     res = run()
+    if res["rank"] == 0:            # rank 0 prints the summary
+        _summary(res)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _summary(res):
     eng = res["engine"]
     art = res["artifact"]
     print(f"[serve] quantized-matmul backend(s): "
@@ -383,6 +455,10 @@ def main():
                  if snap["prefill_interleave_ratio"] is not None else ""))
         if res["metrics_out"]:
             print(f"[serve] metrics trace -> {res['metrics_out']}")
+    if backends.current_mesh() is not None:
+        print(f"[serve] per-device pool: {res['pool']}")
+        print(f"[serve] collectives: {mesh_lib.collective_stats()}")
+        print(f"[serve] launches by shard layout: {res['shard_launches']}")
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch import backends
+from repro_torch.backends import sharded
 from repro_torch.core import qlinear
 from repro_torch.core.ovp import (MixedExpertQuant, QuantizedTensor,
                                   ovp_encode_codes, pack4)
@@ -449,7 +450,11 @@ def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
     request's raw "stage_k"/"stage_v" takes the paged prefill path: the
     chunk's K/V is appended to the stage at its positions, then one
     registry dispatch attends the chunk over the stage and writes every
-    stage tile onto its pages. Returns (out, cache)."""
+    stage tile onto its pages. Under a mesh a cache may hold only this
+    rank's KV heads (`backends/sharded.py`): q, k and v are computed
+    whole, the cache writes and the stage take the heads the cache
+    holds, and the attention call gets the whole q and returns every
+    head. Returns (out, cache)."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = qlinear.linear(x, p["wq"], p.get("bq"), *rps(policy, site, "wq"))
@@ -460,27 +465,28 @@ def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
     v = v.reshape(b, t, nkv, hd)
     kv_policy = rp(policy, site, "kv")
     ring = window if window and cache_len(cache) == window else 0
+    kc, vc = sharded.cache_rows(k, cache), sharded.cache_rows(v, cache)
     if mode == "decode":
-        cache = cache_write(cache, k, v, positions[:, 0], kv_policy,
+        cache = cache_write(cache, kc, vc, positions[:, 0], kv_policy,
                             ring=ring)
         out = decode_attention(q, cache, positions[:, 0], window=window,
                                ring=ring, policy=kv_policy)
     elif mode == "prefill" and prefill_attn.is_paged_prefill(cache):
         rows = positions[0].to(torch.int64)
         cache["stage_k"][0].index_copy_(0, rows,
-                                        k[0].to(cache["stage_k"].dtype))
+                                        kc[0].to(cache["stage_k"].dtype))
         cache["stage_v"][0].index_copy_(0, rows,
-                                        v[0].to(cache["stage_v"].dtype))
+                                        vc[0].to(cache["stage_v"].dtype))
         out, cache = backends.prefill_attention(q, cache, positions,
                                                 policy=kv_policy)
     elif mode == "prefill":
         out = causal_attention(q, k, v, window=window)
         if ring:
             keep = min(window, t)
-            cache = cache_write(cache, k[:, -keep:], v[:, -keep:],
+            cache = cache_write(cache, kc[:, -keep:], vc[:, -keep:],
                                 positions[:, -keep], kv_policy, ring=ring)
         elif cache is not None:
-            cache = cache_write(cache, k, v, positions[:, 0], kv_policy)
+            cache = cache_write(cache, kc, vc, positions[:, 0], kv_policy)
     else:
         raise ValueError(f"mode {mode!r}: the port runs prefill and decode")
     out = qlinear.linear(out.reshape(b, t, nh * hd), p["wo"], None,
@@ -520,7 +526,8 @@ def cross_attention(p, x: torch.Tensor, enc_out: Optional[torch.Tensor],
                                                              hd)
         out = causal_attention(q, k, v, causal=False)
         if cache is not None:
-            cache = cache_write(cache, k, v, torch.zeros(
+            cache = cache_write(cache, sharded.cache_rows(k, cache),
+                                sharded.cache_rows(v, cache), torch.zeros(
                 (b,), dtype=torch.int64, device=x.device), kv_policy)
             if "src_len" in cache:
                 cache["src_len"].fill_(min(s_len, cache_len(cache)))

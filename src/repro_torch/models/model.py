@@ -24,6 +24,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.analysis import sanitize
+from repro_torch.backends import sharded
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import calibration, qlinear
 from repro_torch.core.policy import QuantPolicy
@@ -116,13 +117,15 @@ def block_params(gen: torch.Generator, cfg: ArchConfig, btype: str,
 
 def block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
                 kv_bits: int, device, dtype=torch.float32,
-                enc_len: int = 0):
+                enc_len: int = 0, backend: str = ""):
     """A slab cache site: a KV cache of `max_len` slots (attn, moe) or of
     min(window, max_len) slots (local_attn: a ring once max_len reaches
     the window), or the recurrent state (rglru, mlstm, slstm; `kv_bits`
     unread); encdec_attn: the self-attention's KV cache ("kv") and an fp
     cross-attention cache of `enc_len` slots that records the rows its
-    encoder output filled ("xkv", with "src_len")."""
+    encoder output filled ("xkv", with "src_len"). Under a mesh, a KV
+    cache served by `backend` "cuda_sharded" holds only this rank's KV
+    heads (`backends.sharded.make_kv_site`)."""
     if btype == "rglru":
         return {"rec": L.rglru_init_state(batch, cfg.d_rnn or cfg.d_model,
                                           device=device)}
@@ -133,13 +136,17 @@ def block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
         return {"slstm": L.slstm_init_state(batch, cfg.d_model,
                                             device=device)}
     length = min(cfg.window, max_len) if btype == "local_attn" else max_len
-    site = {"kv": L.make_kv_cache(batch, length, cfg.n_kv_heads,
-                                  cfg.head_dim, kv_bits=kv_bits, dtype=dtype,
-                                  device=device)}
+    site = {"kv": sharded.make_kv_site(
+        lambda heads: L.make_kv_cache(batch, length, heads, cfg.head_dim,
+                                      kv_bits=kv_bits, dtype=dtype,
+                                      device=device),
+        cfg.n_kv_heads, backend)}
     if btype == "encdec_attn":
-        site["xkv"] = L.make_kv_cache(batch, enc_len, cfg.n_kv_heads,
-                                      cfg.head_dim, dtype=dtype,
-                                      device=device, track_len=True)
+        site["xkv"] = sharded.make_kv_site(
+            lambda heads: L.make_kv_cache(batch, enc_len, heads,
+                                          cfg.head_dim, dtype=dtype,
+                                          device=device, track_len=True),
+            cfg.n_kv_heads, backend)
     return site
 
 
@@ -308,12 +315,15 @@ class Model:
         per KV cache site (`layers/<i>/attn/kv`), and only where the
         block has one. An encdec_attn layer's cross cache has `enc_len`
         slots (fp, whatever the policy)."""
-        return {"layers": [
-            block_cache(self.cfg, self.block_type(i), batch, max_len,
-                        0 if self.block_type(i) in RECURRENT_TYPES else
-                        self.policy.resolve(f"layers/{i}/attn/kv").kv_bits,
-                        device, dtype, enc_len)
-            for i in range(self.cfg.n_layers)]}
+        layers = []
+        for i in range(self.cfg.n_layers):
+            kv = self.policy.resolve(f"layers/{i}/attn/kv")
+            recurrent = self.block_type(i) in RECURRENT_TYPES
+            layers.append(block_cache(
+                self.cfg, self.block_type(i), batch, max_len,
+                0 if recurrent else kv.kv_bits, device, dtype, enc_len,
+                kv.backend))
+        return {"layers": layers}
 
     def init_paged_caches(self, n_pages: int, page_size: int,
                           batch_slots: int, pages_per_row: int,
@@ -332,13 +342,16 @@ class Model:
             raise ValueError(
                 f"paged KV caches support pure attn/moe block patterns; "
                 f"pattern {cfg.block_pattern} has {bad}")
-        return {"layers": [
-            {"kv": L.make_paged_kv_cache(
-                n_pages, page_size, batch_slots, pages_per_row,
-                cfg.n_kv_heads, cfg.head_dim,
-                kv_bits=self.policy.resolve(f"layers/{i}/attn/kv").kv_bits,
-                dtype=dtype, device=device)}
-            for i in range(cfg.n_layers)]}
+        layers = []
+        for i in range(cfg.n_layers):
+            kv = self.policy.resolve(f"layers/{i}/attn/kv")
+            layers.append({"kv": sharded.make_kv_site(
+                lambda heads, kv=kv: L.make_paged_kv_cache(
+                    n_pages, page_size, batch_slots, pages_per_row, heads,
+                    cfg.head_dim, kv_bits=kv.kv_bits, dtype=dtype,
+                    device=device),
+                cfg.n_kv_heads, kv.backend)})
+        return {"layers": layers}
 
     def forward(self, params, batch: Dict[str, torch.Tensor], *,
                 mode: str = "prefill", caches=None, positions=None):

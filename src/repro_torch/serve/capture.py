@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import backends
-from repro_torch.backends import base
+from repro_torch.backends import base, sharded
 from repro_torch.kernels import (decode_attn, ovp_encode, ovp_matmul,
                                  prefill_attn)
 
@@ -50,7 +50,8 @@ _COUNTED = {"ovp_encode": ovp_encode.fused_ovp_encode,
 _CACHE_COUNTED = ("decode_attn", "paged_decode_attn")
 # the backends' module-level Counters, keyed "<prefix>:<counter key>"
 _COUNTERS = {"dispatch": backends._DISPATCH_STATS,
-             "act_scale": base._ACT_SCALE_STATS}
+             "act_scale": base._ACT_SCALE_STATS,
+             "shard": sharded._SHARD_LAUNCHES}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -91,8 +92,9 @@ def reset_launch_counts() -> None:
 
 def host_counts() -> Dict[str, int]:
     """Every host-side counter of device work, flat: `launch_counts()`,
-    and "dispatch:<key>" / "act_scale:<key>" for
-    `backends.dispatch_stats()` and `act_scale_stats()`."""
+    and "dispatch:<key>" / "act_scale:<key>" / "shard:<key>" for
+    `backends.dispatch_stats()`, `act_scale_stats()` and
+    `backends.sharded.shard_launches()`."""
     counts = launch_counts()
     for prefix, counter in _COUNTERS.items():
         for key, n in counter.items():

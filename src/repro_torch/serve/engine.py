@@ -184,17 +184,28 @@ class EngineCfg:
     # bucket; paged: one per stage length), as the reference caps its
     # jitted ones; an evicted entry's graph is dropped
     prefill_cache_cap: int = 8
+    # device mesh for the sharded backend: a `runtime.elastic.MeshPlan`
+    # over the running process group (or a built `launch.mesh.Mesh`),
+    # installed by `backends.configure_mesh` at construction, before the
+    # caches are made, so they hold this rank's KV heads. None leaves any
+    # process-level mesh as it is: without one `cuda_sharded` declines
+    # every call with `shard_no_mesh` and serves through its fallback.
+    mesh: Optional[object] = None
 
 
 class ServingEngine:
-    """Single-device engine on `device` (the tensors' device decides
-    whether the kernels or their plain versions run), slab or paged.
+    """Engine on `device` (the tensors' device decides whether the
+    kernels or their plain versions run), slab or paged; one rank of a
+    mesh under `EngineCfg.mesh`, every rank running the same steps.
     On the card its steps are captured as CUDA graphs; `capture=False`
     runs them eagerly (the counterpart of the reference under
-    `jax.disable_jit()`)."""
+    `jax.disable_jit()`). `capture=None` captures unless the mesh's
+    "model" axis runs its collectives over gloo, which works on the host
+    where a CUDA graph cannot follow: those steps run eagerly, and
+    `capture=True` there raises."""
 
     def __init__(self, model: Model, params, cfg: EngineCfg,
-                 device="cuda", capture: bool = True):
+                 device="cuda", capture: Optional[bool] = None):
         if cfg.backend is not None and \
                 model.policy.backends() != frozenset((cfg.backend,)):
             model = copy.copy(model)
@@ -209,6 +220,12 @@ class ServingEngine:
             misses = static_scale_misses(params, model.policy)
             if misses:
                 raise MissingStaticScaleError(misses)
+        if cfg.mesh is not None:
+            backends.configure_mesh(cfg.mesh)
+        self.eager_reason = _eager_reason(backends.current_mesh())
+        if self.eager_reason and capture:
+            raise ValueError(f"capture=True: {self.eager_reason}")
+        capture = not self.eager_reason if capture is None else capture
         self._bucket_ok = bucketable(model.cfg)
         if cfg.page_pool is not None:
             check_pageable(model.cfg)
@@ -339,7 +356,7 @@ class ServingEngine:
         decode entry built more than once, counts as unexpected. An
         evicted entry is built again when its key returns (the reference
         keeps jax's trace cache, so its traces can stay below its jits)."""
-        return {
+        audit = {
             "prefill_traces": self.prefill_traces,
             "prefill_jits": self._prefill_jits,
             "decode_traces": self.decode_traces,
@@ -347,6 +364,9 @@ class ServingEngine:
                 max(0, self.prefill_traces - self._prefill_jits)
                 + max(0, self.decode_traces - 1),
         }
+        if self.eager_reason:
+            audit["eager_steps"] = self.eager_reason
+        return audit
 
     def _decode_fn(self, tokens, pos):
         """One batched greedy decode over every slot; the caches are
@@ -463,9 +483,11 @@ class ServingEngine:
         cfg = self.model.cfg
 
         def make():
-            shape = (1, stage_len, cfg.n_kv_heads, cfg.head_dim)
-            stage = [{key: torch.zeros(shape, device=self.device)
-                      for key in STAGE_KEYS} for _ in self._sites()]
+            # a site's stage holds the KV heads its pool holds
+            stage = [{key: torch.zeros(
+                (1, stage_len, _kv_leaf(site).shape[2], cfg.head_dim),
+                device=self.device) for key in STAGE_KEYS}
+                for site in self._sites()]
             return self._step_graph(
                 self._chunk_fn,
                 {"stage": stage,
@@ -692,22 +714,42 @@ class ServingEngine:
                                      self.prefill_cache_evictions}
         if self.paged:
             st["page_pool"] = self.pool.stats()
+        if self.eager_reason:
+            st["eager_steps"] = self.eager_reason
         return st
 
     def device_pool_stats(self) -> Dict[str, object]:
-        """The KV pool's footprint per device (paged mode), in the
-        reference's single-device view: one device holds every pool
-        byte, and its occupancy is the pool's. Slab mode reports no
-        pool."""
+        """The KV pool's footprint per device (paged mode). Under a mesh
+        whose "model" axis splits the KV heads, each of its `tp` devices
+        holds 1/tp of the pool bytes, measured from this rank's own pool,
+        at the same page occupancy (pages allocate globally; devices
+        differ only in which heads of a page they hold), so the
+        occupancy repeats once per device. Otherwise one device holds
+        every pool byte. Slab mode reports no pool."""
         if not self.paged:
             return {"n_devices": 1, "pool_bytes_total": 0,
                     "pool_bytes_per_device": 0, "occupancy_per_device": []}
-        total = sum(leaf.numel() * leaf.element_size()
+        local = sum(leaf.numel() * leaf.element_size()
                     for site in self._sites()
                     for key, leaf in site.items() if key != "block_table")
-        return {"n_devices": 1, "pool_bytes_total": int(total),
-                "pool_bytes_per_device": int(total),
-                "occupancy_per_device": [float(self.pool.occupancy())]}
+        part = backends.sharded.cache_part(self._sites()[0])
+        tp = part[2] // part[1] if part else 1
+        return {"n_devices": tp, "pool_bytes_total": int(local) * tp,
+                "pool_bytes_per_device": int(local),
+                "occupancy_per_device": [float(self.pool.occupancy())] * tp}
+
+
+def _kv_leaf(site) -> torch.Tensor:
+    return site["k"] if "k" in site else site["k_data"]
+
+
+def _eager_reason(mesh) -> Optional[str]:
+    """Why steps on `mesh` cannot be captured, or None."""
+    if mesh is None or mesh.size("model") == 1 or mesh.backend != "gloo":
+        return None
+    return ("the mesh's \"model\" axis runs its collectives over gloo, on "
+            "the host, which a CUDA graph cannot capture: steps run "
+            "eagerly")
 
 
 def _leaves(caches) -> List[torch.Tensor]:

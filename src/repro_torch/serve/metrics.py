@@ -26,8 +26,9 @@ times are `time.monotonic()` seconds):
 | `batch_occupancy`  | decode batch size / `batch_slots`                 |
 | `pool_occupancy`   | `PagePool` used / total pages after the step      |
 | `pool_fragmentation` | free fraction of the pool's live span           |
-| `pool_device_occupancy` | the occupancy per device: one device here,   |
-|                    | `[pool_occupancy]`                                |
+| `pool_device_occupancy` | the occupancy per device: `[pool_occupancy]`|
+|                    | once per "model" shard under a mesh (pages        |
+|                    | allocate globally; devices hold different heads)  |
 | `prefill_interleave_ratio` | of the steps that ran a prefill chunk,    |
 |                    | the fraction that also decoded                    |
 | `dispatch` / `fallbacks` | summed `backends.dispatch_stats()` deltas;  |

@@ -1,0 +1,305 @@
+"""Gloo ranks for the port's sharded tests, on the CPU.
+
+`spawn(world, cases, tmp)` starts `world` processes (the "spawn" start
+method: each child imports this module afresh, which is why it imports
+torch and the port only, never JAX), joins them into one gloo process
+group through a rendezvous file under `tmp` (so pytest-xdist workers
+never share a port), and runs every case in each rank, in order. A case
+is `(name, function name in this module, keyword arguments)`; each
+rank's results come back as {name: value}, or {name: "ERROR: ..."} with
+the traceback when the case raised, and {"seconds": {name: wall time}}. A gloo timeout bounds a collective
+that a failed rank would leave waiting.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import time
+import traceback
+
+import numpy as np
+import pytest
+import torch
+
+GLOO_TIMEOUT_S = 120
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one intra-op thread (import it into a
+    test module to apply it there). The suite runs several pytest
+    workers at once, and torch's default of one thread a core then
+    oversubscribes the cores: each of the many small ops of a CPU serve
+    waits for its descheduled threads (a launcher test took 40 s instead
+    of 0.7 s beside six busy processes, on 8 cores)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+def spawn(world: int, cases, tmp, timeout: float = 600.0):
+    """Run `cases` in `world` gloo ranks; returns one result dict a
+    rank. A rank that exits non-zero or outlives `timeout` raises."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    tmp = str(tmp)
+    init = os.path.join(tmp, "rendezvous")
+    procs = [ctx.Process(target=_rank, args=(r, world, init, cases, tmp))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode]
+    if bad:
+        raise RuntimeError(f"ranks exited abnormally (rank, code): {bad}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _rank(rank, world, init, cases, tmp):
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+    results = {"seconds": {}}
+    for name, fn, kw in cases:
+        t0 = time.perf_counter()
+        try:
+            results[name] = globals()[fn](**kw)
+        except Exception:                       # reported by the test
+            results[name] = "ERROR: " + traceback.format_exc()
+        results["seconds"][name] = time.perf_counter() - t0
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ cases
+def _mesh(shape=(1, 2)):
+    from repro_torch import backends
+    from repro_torch.runtime.elastic import MeshPlan
+    return backends.configure_mesh(MeshPlan(tuple(shape), ("data", "model"),
+                                            0))
+
+
+def _policy(**kw):
+    from repro_torch.core.policy import QuantPolicy
+    base = dict(method="olive", wbits=4, abits=0, compute_dtype="float32",
+                backend="cuda_sharded")
+    base.update(kw)
+    return QuantPolicy(**base)
+
+
+def _shard_stats():
+    from repro_torch import backends
+    return backends.dispatch_stats()
+
+
+def matmul(x, w, policy, site, fill=None, shape=(1, 2)):
+    """dispatch(x, w) on cuda_sharded, the weight placed first
+    (`local_shard`), or, with site suffix "@whole", left whole (which
+    raises); returns (output, dispatch stats, shard mode or None)."""
+    from repro_torch import backends
+    from repro_torch.backends import sharded
+    mesh = _mesh(shape)
+    whole = site.endswith("@whole")
+    site = site.split("@")[0]
+    wl = w if whole else sharded.local_shard(w, site, mesh)
+    backends.reset_dispatch_stats()
+    y = backends.dispatch(torch.as_tensor(x), wl, _policy(**policy),
+                          fill=None if fill is None else torch.as_tensor(
+                              fill))
+    return (y.numpy(), _shard_stats(), getattr(wl, "mode", None))
+
+
+def decline(x, w, policy, site, shape=(1, 2), mesh=True):
+    """The sharded backend's decline code for (x, w), w placed at
+    `site`."""
+    from repro_torch import backends
+    from repro_torch.backends import sharded
+    if mesh:
+        _mesh(shape)
+    else:
+        backends.configure_mesh(None)
+    b = backends.get_backend("cuda_sharded")
+    return b.decline_reason(torch.as_tensor(x), sharded.local_shard(w, site),
+                            _policy(**policy))
+
+
+def mixed_experts(x, w, policy, site, shape=(1, 2)):
+    """A MixedExpertQuant stack on cuda_sharded (declines whole) ->
+    (output, stats, whether local_shard kept it whole)."""
+    from repro_torch import backends
+    from repro_torch.backends import sharded
+    mesh = _mesh(shape)
+    backends.reset_dispatch_stats()
+    y = backends.dispatch(torch.as_tensor(x), w, _policy(**policy))
+    return y.numpy(), _shard_stats(), sharded.local_shard(w, site,
+                                                          mesh) is w
+
+
+def attn_decline(q, cache, kind, shape=(1, 2)):
+    from repro_torch import backends
+    _mesh(shape)
+    b = backends.get_backend("cuda_sharded")
+    cache = {k: torch.as_tensor(v) for k, v in cache.items()}
+    fn = b.decode_attn_decline_reason if kind == "decode" \
+        else b.prefill_attn_decline_reason
+    return fn(torch.as_tensor(q), cache)
+
+
+def decode(q, cache, pos, whole=False, shape=(1, 2)):
+    """Decode attention on cuda_sharded over this rank's part of `cache`
+    (or the whole cache, which raises) -> (out, stats)."""
+    from repro_torch import backends
+    from repro_torch.backends import sharded
+    mesh = _mesh(shape)
+    cache = {k: torch.as_tensor(v) for k, v in cache.items()}
+    if not whole:
+        cache = sharded.local_kv_cache(cache, mesh)
+    backends.reset_dispatch_stats()
+    y = backends.decode_attention(torch.as_tensor(q), cache,
+                                  torch.as_tensor(pos),
+                                  policy=_policy(kv_bits=4))
+    return y.numpy(), _shard_stats()
+
+
+def prefill(q, cache, positions, whole=False, shape=(1, 2)):
+    """Paged cache-write prefill on cuda_sharded over this rank's part
+    (or the whole cache, which raises) -> (out, the cache's leaves after
+    the call, this rank's first head, stats)."""
+    from repro_torch import backends
+    from repro_torch.backends import sharded
+    mesh = _mesh(shape)
+    cache = {k: torch.as_tensor(v).clone() for k, v in cache.items()}
+    if not whole:
+        cache = sharded.local_kv_cache(cache, mesh)
+    part = sharded.cache_part(cache)
+    backends.reset_dispatch_stats()
+    y, new = backends.prefill_attention(torch.as_tensor(q), cache,
+                                        torch.as_tensor(positions),
+                                        policy=_policy(kv_bits=4))
+    return (y.numpy(), {k: v.numpy() for k, v in new.items()},
+            None if part is None else part[0], _shard_stats())
+
+
+def partial_declined(q, cache, pos, shape=(1, 2)):
+    """Decode attention on cuda_sharded over this rank's part of `cache`
+    with a q the decode kernels decline (`q`'s tokens > 1): raises,
+    since no fallback serves a part of the heads."""
+    from repro_torch import backends
+    from repro_torch.backends import sharded
+    mesh = _mesh(shape)
+    cache = sharded.local_kv_cache(
+        {k: torch.as_tensor(v) for k, v in cache.items()}, mesh)
+    return backends.decode_attention(torch.as_tensor(q), cache,
+                                     torch.as_tensor(pos),
+                                     policy=_policy(kv_bits=4))
+
+
+def kv_site_heads(head_dim, n_kv=4, shape=(1, 2)):
+    """`make_kv_site` for an fp slab cache of `head_dim` on cuda_sharded
+    -> (its K leaf's heads, its part or None)."""
+    from repro_torch.backends import sharded
+    from repro_torch.models import layers
+    _mesh(shape)
+    cache = sharded.make_kv_site(
+        lambda heads: layers.make_kv_cache(2, 8, heads, head_dim,
+                                           device="cpu"),
+        n_kv, "cuda_sharded")
+    return int(cache["k"].shape[2]), sharded.cache_part(cache)
+
+
+def engine(cfg, tree, policy, requests, engine_kw, shape=(1, 2)):
+    """Serve `requests` [(prompt, max new tokens)] on a ServingEngine
+    over cuda_sharded, the mesh's plan in its EngineCfg; the weights are
+    a reference tree (numpy) converted and placed by
+    `convert.params_from_numpy(..., mesh=)` -> (tokens by uid, dispatch
+    stats, device_pool_stats, trace_audit, stats)."""
+    from repro_torch import backends
+    from repro_torch.convert import params_from_numpy as convert
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.elastic import MeshPlan
+    from repro_torch.serve.engine import EngineCfg, ServingEngine
+    params = convert(tree, device="cpu", mesh=_mesh(shape))
+    backends.reset_dispatch_stats()
+    eng = ServingEngine(build_model(cfg, _policy(**policy)), params,
+                        EngineCfg(backend="cuda_sharded", mesh=MeshPlan(
+                            tuple(shape), ("data", "model"), 0),
+                            **engine_kw), device="cpu")
+    for p, max_new in requests:
+        eng.submit(np.asarray(p, np.int32), max_new_tokens=max_new)
+    done = eng.run_until_drained()
+    return ({r.uid: list(r.out_tokens) for r in done}, _shard_stats(),
+            eng.device_pool_stats(), eng.trace_audit(), eng.stats())
+
+
+def capture_refused(cfg, shape=(1, 2)):
+    """ServingEngine(..., capture=True) under a gloo mesh -> its
+    ValueError's message."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.elastic import MeshPlan
+    from repro_torch.serve.engine import EngineCfg, ServingEngine
+    model = build_model(cfg, _policy())
+    try:
+        ServingEngine(model, {}, EngineCfg(
+            mesh=MeshPlan(tuple(shape), ("data", "model"), 0)),
+            device="cpu", capture=True)
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+def serve(argv):
+    """The launcher's run() at `argv` on the CPU -> its tokens, dispatch
+    stats, kernel launches, pool stats and rank."""
+    from repro_torch import backends
+    from repro_torch.launch import serve as launcher
+    backends.configure_mesh(None)
+    backends.reset_dispatch_stats()
+    launcher.reset_kernel_launches()
+    res = launcher.run(argv, device="cpu")
+    return {k: res[k] for k in ("outputs", "dispatch", "launches", "pool",
+                                "rank")}
+
+
+def params_from_numpy(tree, shape=(1, 2)):
+    """convert.params_from_numpy with the mesh -> the placed tree's
+    shard modes and shapes by site, as (mode, data shape, scale shape,
+    orig_dim) or the raw tensor's shape."""
+    from repro_torch.backends import sharded
+    from repro_torch.convert import params_from_numpy as convert
+    from repro_torch.core.ovp import QuantizedTensor
+    mesh = _mesh(shape)
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}/{i}")
+        elif isinstance(node, QuantizedTensor):
+            out[prefix] = (getattr(node, "mode", None),
+                           tuple(node.data.shape), tuple(node.scale.shape),
+                           node.orig_dim)
+            if isinstance(node, sharded.QuantShard):
+                out[prefix + "@data"] = node.data.numpy()
+        else:
+            out[prefix] = tuple(node.shape)
+
+    walk(convert(tree, device="cpu", mesh=mesh), "")
+    return out

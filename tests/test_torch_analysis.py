@@ -23,6 +23,7 @@ FIX = Path(__file__).parent / "fixtures" / "analysis_torch"
 FIXTURE_CODES = {
     "bad_vocab.py": "VOCAB_UNREGISTERED_CODE",
     "bad_pair_split.py": "KC_PAIR_SPLIT",
+    "bad_shard_split.py": "KC_SHARD_SPLIT",
     "bad_aliasing.py": "KC_ALIAS_MISSING",
     "bad_smem.py": "KC_SMEM_BUDGET",
     "bad_dead_rule.py": "POL_DEAD_RULE",

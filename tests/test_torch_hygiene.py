@@ -95,14 +95,13 @@ def test_port_serves_on_cpu_without_jax_or_kernels():
 
 
 def test_launcher_has_no_cpu_switch():
-    """The CLI's flags are the reference launcher's but `--mesh` (the
-    multi-device path is not ported); there is no device flag (without a
-    card it raises)."""
+    """The CLI's flags are the reference launcher's, `--mesh` included;
+    there is no device flag (without a card it raises)."""
     from repro_torch.launch import serve
     flags = {a.option_strings[0] for a in serve.parser()._actions
              if a.option_strings and a.option_strings[0] != "-h"}
     assert flags == {"--arch", "--quant", "--policy-rules", "--backend",
                      "--calibration", "--calibrate", "--requests",
                      "--max-new", "--slots", "--max-len", "--paged",
-                     "--prefill-chunk", "--async", "--stream",
+                     "--prefill-chunk", "--async", "--stream", "--mesh",
                      "--metrics-out", "--seed"}

@@ -46,6 +46,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models.model import build_model as t_build_model
 from repro_torch.serve import engine as teng
 from repro_torch.serve import paging as tpg
+from _torch_dist import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "qwen3-moe-30b-a3b-smoke"
 B, T, MAX_LEN, STEPS = 2, 8, 32, 3

@@ -34,6 +34,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models.model import build_model as t_build_model
 from repro_torch.serve import engine as teng
 from repro_torch.serve import paging as tpg
+from _torch_dist import one_torch_thread  # noqa: F401 (autouse)
 
 SLOTS, MAX_LEN, MAX_NEW, PAGE = 4, 64, 8, 16
 

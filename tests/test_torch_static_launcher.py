@@ -19,6 +19,7 @@ from repro.core import policy as jpol
 from repro.models.model import build_model as j_build_model
 from repro_torch import backends as tbackends
 from repro_torch.launch import serve
+from _torch_dist import one_torch_thread  # noqa: F401 (autouse)
 
 STATIC = dict(compute_dtype="float32", act_scale_mode="static")
 
