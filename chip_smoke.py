@@ -249,12 +249,12 @@ CUDA toolkit. It builds the hand-written kernels from
    through the training launcher (`repro_torch.launch.train`,
    `--quant olive_w4a4`: QAT with STE fake-quant of every linear's
    weight and activation, bf16 compute, every layer rematerialized,
-   AdamW with bf16 moments, `--batch 8 --seq 512 --steps 12
-   --ckpt-every 6 --eval-every 12` (`TRAIN_STEPS`, `TRAIN_CKPT_EVERY`;
-   20 and 10 until PR 28), checkpoints under `build/ckpt_m`): every loss
-   finite and the last below the first; the final checkpoint save
-   timed; a second launcher run restores step 6 and reproduces steps
-   7-12's losses within rtol 1e-3; a 2-layer cut at full width takes the
+   AdamW with bf16 moments, `--batch 8 --seq 512 --steps 8
+   --ckpt-every 4 --eval-every 8` (`TRAIN_STEPS`, `TRAIN_CKPT_EVERY`;
+   20 and 10, then 12 and 6, before cuts for time), checkpoints under
+   `build/ckpt_m`): every loss finite and the last below the first; the
+   final checkpoint save timed; a second launcher run restores step 4
+   and reproduces steps 5-8's losses within rtol 1e-3; a 2-layer cut at full width takes the
    gradients of one train step on the card and on the CPU in fp32
    compute, QAT with W4 weights and with W4A4 (loss, gradient norm and
    every gradient leaf against the tolerances `TRAIN_CUT_CHECKS` states,
@@ -306,6 +306,33 @@ CUDA toolkit. It builds the hand-written kernels from
    layer's column and row slices of both ranks, K6 at E 64 with each
    rank's slice of a top-8 fill, K2, K3 and K4 at the local Hkv (8, G
    1, D 64; 2, G 8, D 128), K7 on the local heads' KV write.
+
+22. training on a mesh: phase P (`train_phase_p`), two ranks spawned on
+   card 0 over gloo as in phase O. P1: the training launcher with
+   `--mesh 1x2` (`P_ARGS`: Qwen1.5-0.5B at full width and depth, QAT
+   `olive_w4a4`, 8 x 512 tokens, `P_STEPS` = 2 steps from `--seed 0`,
+   checkpoints every `P_CKPT_STEP` = 1 under `build/ckpt_p`; dp_only at
+   train_4k's global batch: every parameter and AdamW moment split over
+   both ranks), beside one rank's run of the same argv here: both
+   ranks' losses equal; against one rank's, step 1's loss within
+   `P_FIRST_RTOL` and grad norm within `P_GNORM_RTOL`, every loss within
+   `P_LOSS_RTOL` (later grad norms printed: the states part after step
+   1, see `P_FIRST_RTOL`); printed per rank: its parameter and moment
+   bytes beside one rank's, its last step's wall ms (run alone after a
+   barrier, `_LastStep`), all-gathers and rank sums and MB received,
+   peak memory. P2: the mesh's step-1 checkpoint restored by one rank,
+   which finishes step 2 within `P_LOSS_RTOL` of the mesh's loss. P3: xLSTM-350M at full width,
+   `P_XLSTM_LAYERS` = 2 of its 24 layers (one period: mLSTM, sLSTM; cut
+   for time), `--mesh 1x2` under the TP rules (the sLSTM keeps them), 3
+   steps of 2 x 128 tokens, within `P_XLSTM_RTOL` of one rank. P4: the
+   params of the mesh's step-2 checkpoint restored on the card and
+   served under olive_serve through the slab engine (K1 168, K2 24, K7
+   48 a decode step, gated as in phase M). P5: `python -m
+   repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k`
+   on both production meshes (256 and 512 fake ranks; "meta" tensors,
+   no card), started in a child process after the build so it runs
+   beside the card's phases, waited for here: both records "ok",
+   their per-rank bytes, collectives and bottleneck printed.
 
 Every profile phase (A-M) prints its step's roofline (`step_roofline`:
 `repro_torch.roofline.analyze` of the step's work counted from the
@@ -362,13 +389,14 @@ def fail(msg: str) -> None:
     sys.exit(f"[chip_smoke] FAIL: {msg}")
 
 
-def time_ms(fn, iters: int = 50, graph: bool = True):
+def time_ms(fn, iters: int = 50, graph: bool = True, replays: int = 1):
     """(device ms, wall ms) per call. Device: `iters` calls captured in one
     CUDA graph and replayed between CUDA events, so host launch cost is
-    out. Wall: CUDA events around the eager Python loop, host launch cost
-    in. Operands stay resident in L2 between calls in both. `graph=False`
-    (a function that copies from the host, which capture refuses)
-    reports the wall time twice."""
+    out; with `replays` > 1, the median of that many replays, each timed
+    alone. Wall: CUDA events around the eager Python loop, host launch
+    cost in. Operands stay resident in L2 between calls in both.
+    `graph=False` (a function that copies from the host, which capture
+    refuses) reports the wall time twice."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -393,11 +421,14 @@ def time_ms(fn, iters: int = 50, graph: bool = True):
             fn()
     cuda_graph.replay()
     torch.cuda.synchronize()
-    start.record()
-    cuda_graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, wall
+    times = []
+    for _ in range(replays):
+        start.record()
+        cuda_graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[len(times) // 2], wall
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -3092,10 +3123,13 @@ def k6_fill_paths(dev, gen, stacks, fills):
                 mm.run_grouped(a, None, cw, cs, w_dtype="int4", a_mode="fp",
                                fill=f)
 
-        ms = time_ms(cold, 12)[0] / len(stacks[(k, n)])
+        # the median of 5 replays: one replay read 0.0152 and 0.0160 ms
+        # against the 0.0151 ms gate on hosts that read 0.0135 on others
+        ms = time_ms(cold, 12, replays=5)[0] / len(stacks[(k, n)])
         print(f"[k6 paths] decode B={b} E={e} C={c} K={k} N={n}, fill "
-              f"touching {label}: kernel={ms:.4f}ms cold L2; reading the "
-              f"whole stack would take {stack_ms:.4f}ms")
+              f"touching {label}: kernel={ms:.4f}ms cold L2 (median of 5 "
+              f"graph replays); reading the whole stack would take "
+              f"{stack_ms:.4f}ms")
         if ms >= stack_ms / 2:
             fail(f"K6 with a fill touching {label} took {ms:.4f}ms, not "
                  f"under half the whole stack's read time {stack_ms:.4f}ms")
@@ -5701,8 +5735,8 @@ def serve_phase_l(dev, smi: str):
 # card against CPU, and the trained weights served)
 # --------------------------------------------------------------------------
 TRAIN_ARCH = "qwen1.5-0.5b"
-TRAIN_STEPS = 12       # cut from 20 for time in PR 28 (phase O)
-TRAIN_CKPT_EVERY = 6   # the resumed run restores this step, then runs the rest
+TRAIN_STEPS = 8        # cut from 20, then 12, for time (phases O, P)
+TRAIN_CKPT_EVERY = 4   # the resumed run restores this step, then runs the rest
 # the launcher reports a held-out perplexity from 20 steps on, or with
 # --eval-every (the trainer's in-loop evaluation at the last step)
 TRAIN_ARGS = ["--quant", "olive_w4a4", "--batch", "8", "--seq", "512",
@@ -5825,7 +5859,8 @@ def train_card_vs_cpu(dev, smi: str) -> dict:
     return out
 
 
-def train_serve_check(dev, params, smi: str):
+def train_serve_check(dev, params, smi: str,
+                      label: str = "phase M serve"):
     """The trained fp32 tree quantized under olive_serve (activations
     off, the launcher's rewrite) and served: 4 requests through the slab
     engine on captured steps, the launches gated exactly."""
@@ -5853,19 +5888,19 @@ def train_serve_check(dev, params, smi: str):
     dt = time.perf_counter() - t0
     counts = read_counts()
     res = {"engine": eng, "model": model}
-    check_counts(counts, "phase M serve")
-    check_attn_counts(res, counts, "phase M serve", paged=False)
-    check_encode_counts(eng, counts, "phase M serve")
+    check_counts(counts, label)
+    check_attn_counts(res, counts, label, paged=False)
+    check_encode_counts(eng, counts, label)
     st = eng.stats()
     forwards = st["decodes_run"] + st["prefills_run"]
     if counts["ovp_matmul[fp]"] != 7 * model.cfg.n_layers * forwards:
-        fail(f"phase M serve: K1 launches {counts['ovp_matmul[fp]']}, "
+        fail(f"{label}: K1 launches {counts['ovp_matmul[fp]']}, "
              f"expected 7 x {model.cfg.n_layers} x {forwards} forward calls")
     if len(done) != 4 or any(len(r.out_tokens) != 16 for r in done):
-        fail("phase M serve: expected 4 requests x 16 tokens")
-    audit_check(eng, "phase M serve")
+        fail(f"{label}: expected 4 requests x 16 tokens")
+    audit_check(eng, label)
     toks = sum(len(r.out_tokens) for r in done)
-    print(f"[train M] served the trained weights (olive_serve W4 + KV4, PTQ "
+    print(f"[{label}] served the trained weights (olive_serve W4 + KV4, PTQ "
           f"{ptq_s:.2f}s): {toks} tokens in {dt:.3f}s, launches a decode "
           f"step K1 {7 * model.cfg.n_layers}, K2 {model.cfg.n_layers}, K7 "
           f"{2 * model.cfg.n_layers} (totals ovp_matmul[fp]="
@@ -6757,6 +6792,409 @@ def serve_phase_o(dev, smi: str, ref):
     return {"ranks": ranks, "kernels": kern}
 
 
+# --------------------------------------------------------------------------
+# Phase P: training on a mesh (two ranks sharing the card over gloo) and
+# the dry run of the production meshes
+# --------------------------------------------------------------------------
+P_STEPS = 2             # P1's steps (4 and an eval until cut for time)
+P_CKPT_STEP = 1         # P1's checkpoint that P2 restores and finishes
+P_ARGS = ["--quant", "olive_w4a4", "--batch", "8", "--seq", "512",
+          "--steps", str(P_STEPS), "--ckpt-every", str(P_CKPT_STEP),
+          "--seed", "0"]
+P_CKPT = os.path.join(ROOT, "build", "ckpt_p")
+# 2 ranks (4 rows each) against one rank (8 rows), bf16 compute under
+# W4A4 QAT. Step 1 starts from the same weights: its loss within
+# P_FIRST_RTOL, its grad norm within phase M's W4A4 card-vs-CPU
+# tolerance (the two sum their bf16 gradients in another order, and a
+# last-bit difference can flip a 4-bit code, which moves whole gradient
+# rows). After it the states part: AdamW's first steps move each weight
+# by about lr * sign(g), and a gradient near 0 whose bf16 sum takes the
+# other sign moves its weight 2 * lr the other way, so later losses are
+# held to phase M's W4A4 loss tolerance and later grad norms are printed
+P_FIRST_RTOL = 1e-3
+P_LOSS_RTOL = 1e-2
+P_GNORM_RTOL = 1e-2
+P_XLSTM_LAYERS = 2      # P3's depth: one whole period (mLSTM, sLSTM) of 24
+P_XLSTM_ARGS = ["--batch", "2", "--seq", "128", "--steps", "3", "--seed",
+                "0"]
+P_XLSTM_RTOL = 1e-3     # TP ranks compute the same rows as one rank
+P_RANK_TIMEOUT = 600    # seconds a rank may take for its runs
+P_DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_p")
+P_DRYRUN_TIMEOUT = 900  # seconds the dry run (started with the script) gets
+
+
+def start_dryrun():
+    """Start phase P5's dry run of Qwen1.5-0.5B train_4k on both
+    production meshes (256 and 512 fake ranks, "meta" tensors: CPU only)
+    in a child process at once, so it runs beside the card's phases;
+    `dryrun_phase` waits for it. The child is killed when this process
+    exits."""
+    import atexit
+    import shutil
+    shutil.rmtree(P_DRYRUN_OUT, ignore_errors=True)
+    os.makedirs(P_DRYRUN_OUT)
+    log = open(os.path.join(P_DRYRUN_OUT, "log.txt"), "w")
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         TRAIN_ARCH, "--shape", "train_4k", "--mesh", "both", "--out",
+         P_DRYRUN_OUT, "--force"], stdout=log, stderr=subprocess.STDOUT,
+        env=env, cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "log": log, "t0": time.perf_counter()}
+
+
+class _LastStep:
+    """Wraps the launcher's train cell (`launch/specs.py::
+    build_train_cell`, patched while `run()` builds it) so that each
+    step runs alone (a barrier first, the card synchronized around it)
+    with the collective counts reset: the last step's wall ms and
+    collectives stay in `ms` and `collectives`."""
+
+    def __init__(self, dev):
+        self.dev, self.ms, self.collectives = dev, None, None
+
+    def __enter__(self):
+        from repro_torch.launch import specs
+        self.specs, self.real = specs, specs.build_train_cell
+
+        def build(*args, **kw):
+            cell = self.real(*args, **kw)
+            cell.fn = self.wrap(cell.fn)
+            return cell
+
+        specs.build_train_cell = build
+        return self
+
+    def __exit__(self, *exc):
+        self.specs.build_train_cell = self.real
+
+    def wrap(self, step):
+        import torch
+        import torch.distributed as dist
+        from repro_torch.launch import mesh as mesh_lib
+
+        def timed(state, batch):
+            torch.cuda.synchronize(self.dev)
+            dist.barrier()
+            mesh_lib.reset_collective_stats()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            float(out[1]["loss"])
+            torch.cuda.synchronize(self.dev)
+            self.ms = (time.perf_counter() - t0) * 1e3
+            self.collectives = mesh_lib.collective_stats()
+            return out
+
+        timed.evaluate = step.evaluate
+        timed.value_and_grad = step.value_and_grad
+        return timed
+
+
+def _p_rank_record(res, dev, last: _LastStep):
+    """What phase P keeps of one rank's training run: the history, this
+    rank's parameter and moment bytes, peak memory, and its last step's
+    wall ms, collectives and bytes (`last`)."""
+    import torch
+    from repro_torch.roofline.step_stats import tree_bytes
+    st = res["trainer"].state
+    return {"history": res["history"],
+            "param_bytes": tree_bytes(st.params),
+            "moment_bytes": tree_bytes(st.opt.mu) + tree_bytes(st.opt.nu),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "note": res["cell"].note if res["cell"] else None,
+            "step_ms": last.ms, "step_collectives": last.collectives}
+
+
+def _p_rank(rank: int, init: str, out_dir: str) -> None:
+    """One rank of phase P: P1 (`launch/train.py --mesh 1x2` at full
+    width and depth, checkpoints every `P_CKPT_STEP` steps under
+    `P_CKPT`), whose `run()` starts the gloo group through the file
+    `init` (two ranks on card 0), then P3 (xLSTM-350M cut to
+    `P_XLSTM_LAYERS`, `--mesh 1x2`: the TP rules) in that group; the
+    records go to `out_dir/rank<rank>.pkl`. Any error exits non-zero."""
+    import pickle
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)           # both ranks share card 0
+    torch.cuda.set_device(dev)
+    recs = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    # the launcher starts the process group itself (gloo: two ranks on
+    # one card) from the rank and the rendezvous file
+    with _LastStep(dev) as last:
+        res = train.run(["--arch", TRAIN_ARCH, *P_ARGS, "--mesh", "1x2",
+                         "--ckpt-dir", P_CKPT], device="cuda",
+                        log_fn=lambda *a: None, rank=rank, world_size=2,
+                        init_method=f"file://{init}")
+    recs["p1"] = _p_rank_record(res, dev, last)
+    recs["p1"]["seconds"] = time.perf_counter() - t0
+    del res
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with cut_arch(XLSTM_ARCH, P_XLSTM_LAYERS) as name, \
+            _LastStep(dev) as last:
+        res = train.run(["--arch", name, *P_XLSTM_ARGS, "--mesh", "1x2"],
+                        device="cuda", log_fn=lambda *a: None)
+    recs["p3"] = _p_rank_record(res, dev, last)
+    recs["p3"]["seconds"] = time.perf_counter() - t0
+    del res
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(recs, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_p_ranks():
+    """Run `_p_rank` in two processes; their records by rank. A rank that
+    fails, exits non-zero or outlives `P_RANK_TIMEOUT` fails the
+    phase."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(ROOT, "build", "mesh_p")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(P_CKPT, ignore_errors=True)
+    os.makedirs(out_dir)
+    init = os.path.join(out_dir, "rendezvous")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_p_rank, args=(r, init, out_dir))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + P_RANK_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        fail(f"phase P: ranks exited {codes} (0 expected; negative: killed "
+             f"after {P_RANK_TIMEOUT}s or by a signal)")
+    recs = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            recs.append(pickle.load(f))
+    return recs
+
+
+def _rel(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def _p_compare(label, ranks, one, loss_rtol, gnorm_rtol, smi,
+               first_rtol=None):
+    """Both ranks' losses and grad norms equal each other's and, within
+    the tolerances, one rank's run of the same steps: every loss within
+    `loss_rtol`; with `first_rtol`, step 1's loss within it and only step
+    1's grad norm within `gnorm_rtol` (later ones printed), else every
+    grad norm. Printed step by step."""
+    h0 = ranks[0]["history"]
+    for r, rec in enumerate(ranks):
+        if rec["history"]["loss"] != h0["loss"]:
+            fail(f"phase P {label}: rank {r}'s losses {rec['history']} "
+                 f"differ from rank 0's {h0}")
+    want = one["history"]
+    if h0["step"] != want["step"]:
+        fail(f"phase P {label}: steps {h0['step']} vs one rank's "
+             f"{want['step']}")
+    loss_err = _rel(h0["loss"], want["loss"])
+    gnorm_err = _rel(h0["grad_norm"], want["grad_norm"])
+    first = _rel(h0["loss"][:1], want["loss"][:1])
+    gated = gnorm_err if first_rtol is None else \
+        _rel(h0["grad_norm"][:1], want["grad_norm"][:1])
+    for i, step in enumerate(h0["step"]):
+        print(f"[train P] {label} step {step}: loss {h0['loss'][i]:.6f} "
+              f"(2 ranks) vs {want['loss'][i]:.6f} (one rank), grad norm "
+              f"{h0['grad_norm'][i]:.5f} vs {want['grad_norm'][i]:.5f} "
+              f"[{smi}]")
+    if first_rtol is None:
+        gates = (f"grad norm {gnorm_err:.2e} (tol {gnorm_rtol})")
+    else:
+        gates = (f"step 1: loss {first:.2e} (tol {first_rtol}), grad norm "
+                 f"{gated:.2e} (tol {gnorm_rtol}); every grad norm "
+                 f"{gnorm_err:.2e} (printed, not gated)")
+    print(f"[train P] {label}: worst gap loss {loss_err:.2e} (tol "
+          f"{loss_rtol}), {gates} [{smi}]")
+    if loss_err > loss_rtol or gated > gnorm_rtol or \
+            (first_rtol is not None and first > first_rtol):
+        fail(f"phase P {label}: the 2-rank run is not one rank's within "
+             f"the tolerances")
+    return {"loss_rel": loss_err, "gnorm_rel": gnorm_err,
+            "first_loss_rel": first}
+
+
+def _p_bytes(label, ranks, one, smi):
+    """Each rank's parameter and moment bytes beside one rank's, its
+    peak memory, and its last step's wall, collectives and bytes."""
+    from repro_torch.roofline.step_stats import tree_bytes
+    st = one["state"]
+    p1 = tree_bytes(st.params)
+    m1 = tree_bytes(st.opt.mu) + tree_bytes(st.opt.nu)
+    for r, rec in enumerate(ranks):
+        coll = rec["step_collectives"]
+        print(f"[train P] {label} rank {r} ({smi}; two ranks sharing one "
+              f"card over gloo, eager): params {rec['param_bytes'] / 1e6:.1f}"
+              f" MB, moments {rec['moment_bytes'] / 1e6:.1f} MB (one rank: "
+              f"{p1 / 1e6:.1f} and {m1 / 1e6:.1f} MB, ratio "
+              f"{rec['param_bytes'] / p1:.3f}); its last step "
+              f"{rec['step_ms']:.0f} ms wall, "
+              f"{coll.get('all_gather', 0)} all-gathers "
+              f"{coll.get('all_gather_bytes', 0) / 1e6:.1f} MB + "
+              f"{coll.get('sum', 0)} rank sums "
+              f"{coll.get('sum_bytes', 0) / 1e6:.1f} MB received; peak "
+              f"{rec['peak_gb']:.2f} GB; run {rec['seconds']:.1f}s")
+    return p1, m1
+
+
+def dryrun_phase(job, smi: str) -> dict:
+    """P5: wait for the dry run `start_dryrun` started and print its
+    records' per-rank bytes, collectives and bottleneck. Both cells must
+    be "ok"."""
+    proc = job["proc"]
+    try:
+        code = proc.wait(max(1.0, P_DRYRUN_TIMEOUT
+                             - (time.perf_counter() - job["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"phase P5: the dry run outlived {P_DRYRUN_TIMEOUT}s")
+    job["log"].close()
+    if code:
+        with open(job["log"].name) as f:
+            tail = f.read()[-2000:]
+        fail(f"phase P5: the dry run exited {code}:\n{tail}")
+    out = {}
+    for mk in ("single", "multi"):
+        path = os.path.join(P_DRYRUN_OUT,
+                            f"{TRAIN_ARCH}__train_4k__{mk}__none.json")
+        with open(path) as f:
+            rec = json.load(f)
+        if rec["status"] != "ok":
+            fail(f"phase P5: {rec['cell']} is {rec['status']}")
+        mem, roof = rec["memory_analysis"], rec["roofline"]
+        print(f"[dryrun P] {rec['cell']} ({rec['n_chips']} fake ranks, "
+              f"rank 0 traced on meta in {rec['trace_s']}s; CPU only, no "
+              f"card): {rec['note']}; per rank arguments "
+              f"{mem['argument_size_per_chip'] / 1e6:.2f} MB, outputs "
+              f"{mem['output_size_per_chip'] / 1e6:.2f} MB; collectives "
+              f"{rec['collective_ops']}, "
+              f"{rec['collective_bytes']['total'] / 1e9:.2f} GB received a "
+              f"step; roofline on the H100 SXM data sheet: compute "
+              f"{roof['t_compute_s']:.4f}s, memory {roof['t_memory_s']:.4f}s,"
+              f" collective {roof['t_collective_s']:.4f}s -> "
+              f"{roof['bottleneck']} [{smi}]")
+        out[mk] = rec
+    print(f"[dryrun P] the two cells took "
+          f"{sum(r['build_s'] + r['trace_s'] for r in out.values()):.1f}s "
+          f"to build and trace, in a child started after the build (CPU "
+          f"only, beside the card's phases); waited "
+          f"{time.perf_counter() - job['t0']:.1f}s after its start")
+    return out
+
+
+def train_phase_p(dev, smi: str, job) -> dict:
+    """Phase P: training on a mesh (see the module docstring, item 22)."""
+    import shutil
+
+    import torch
+    from repro_torch.launch import train
+    t_phase = time.perf_counter()
+    free_device_memory()
+    ranks = _spawn_p_ranks()
+    t_ranks = time.perf_counter() - t_phase
+    # P1: one rank, the same steps
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    one = train.run(["--arch", TRAIN_ARCH, *P_ARGS], device=dev,
+                    log_fn=lambda *a: None)
+    one_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    p1 = [r["p1"] for r in ranks]
+    cmp1 = _p_compare("P1 qwen1.5-0.5b QAT olive_w4a4 8 x 512, --mesh 1x2 "
+                      "(dp_only: FSDP)", p1, one, P_LOSS_RTOL, P_GNORM_RTOL,
+                      smi, first_rtol=P_FIRST_RTOL)
+    print(f"[train P] P1 one rank's peak {one_peak:.2f} GB [{smi}]")
+    p_bytes = _p_bytes("P1", p1, one, smi)
+    one_losses = one["history"]["loss"]
+    del one
+    free_device_memory()
+    # P2: the mesh's mid-run checkpoint, restored by one rank that
+    # finishes the run
+    resume_dir = os.path.join(ROOT, "build", "ckpt_p2")
+    mid = f"step_{P_CKPT_STEP:08d}"
+    shutil.rmtree(resume_dir, ignore_errors=True)
+    shutil.copytree(os.path.join(P_CKPT, mid),
+                    os.path.join(resume_dir, mid))
+    res2 = train.run(["--arch", TRAIN_ARCH, *P_ARGS, "--ckpt-dir",
+                      resume_dir], device=dev, log_fn=lambda *a: None)
+    h2, mesh_h = res2["history"], p1[0]["history"]
+    if h2["step"] != list(range(P_CKPT_STEP + 1, P_STEPS + 1)):
+        fail(f"phase P2: the resumed run ran steps {h2['step']}")
+    p2_err = _rel(h2["loss"], mesh_h["loss"][P_CKPT_STEP:])
+    print(f"[train P] P2 the 2-rank run's step-{P_CKPT_STEP} checkpoint "
+          f"restored on one rank (restore "
+          f"{res2['trainer'].ckpt_seconds['restore']:.2f}s): steps "
+          f"{h2['step']} losses {[round(x, 6) for x in h2['loss']]} vs the "
+          f"mesh's {[round(x, 6) for x in mesh_h['loss'][P_CKPT_STEP:]]}: "
+          f"worst {p2_err:.2e} (tol {P_LOSS_RTOL}) [{smi}]")
+    if p2_err > P_LOSS_RTOL:
+        fail("phase P2: the resumed losses are not the mesh's")
+    del res2
+    shutil.rmtree(resume_dir, ignore_errors=True)
+    free_device_memory()
+    # P3: xLSTM-350M's TP branch against one rank
+    with cut_arch(XLSTM_ARCH, P_XLSTM_LAYERS) as name:
+        one3 = train.run(["--arch", name, *P_XLSTM_ARGS], device=dev,
+                         log_fn=lambda *a: None)
+    p3 = [r["p3"] for r in ranks]
+    if "dp_only" in (p3[0]["note"] or ""):
+        fail(f"phase P3: xLSTM ran dp_only ({p3[0]['note']})")
+    cmp3 = _p_compare(f"P3 xlstm-350m {P_XLSTM_LAYERS} of 24 layers, 2 x "
+                      f"128, --mesh 1x2 (TP)", p3, one3, P_XLSTM_RTOL,
+                      P_XLSTM_RTOL, smi)
+    _p_bytes("P3", p3, one3, smi)
+    del one3
+    free_device_memory()
+    # P4: the mesh's trained weights (the params of rank 0's last
+    # checkpoint, in the one-device layout, restored on the card) served
+    # through K1, K2, K7
+    from repro_torch import convert
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import init_state
+    if ckpt.latest_step(P_CKPT) != P_STEPS:
+        fail(f"phase P4: no checkpoint of step {P_STEPS} in {P_CKPT}")
+    meta = init_state(build_model(get_config(TRAIN_ARCH)),
+                      AdamW(moment_dtype=torch.bfloat16), None,
+                      device="meta")
+    ref = convert.state_to_reference(meta, get_config(TRAIN_ARCH))
+    # the params alone ("state/.params/..." in the checkpoint's paths)
+    got = ckpt.restore(P_CKPT, P_STEPS, {"state": {".params": ref.params}},
+                       device=dev)
+    params = convert.params_from_numpy(got["state"][".params"], dev)
+    del got
+    counts = train_serve_check(dev, params, smi, label="phase P serve")
+    del params
+    shutil.rmtree(P_CKPT, ignore_errors=True)
+    free_device_memory()
+    dry = dryrun_phase(job, smi)
+    took = time.perf_counter() - t_phase
+    print(f"[train P] ranks {t_ranks:.1f}s; phase took {took:.1f}s "
+          f"(P1's one-rank losses {[round(x, 4) for x in one_losses]})")
+    return {"counts": counts, "p1": cmp1, "p3": cmp3, "bytes": p_bytes,
+            "dryrun": dry, "took": took}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6780,6 +7218,8 @@ def main() -> int:
                          "prefill_attn"])
     print(f"[build] {json.dumps({k: round(v, 2) for k, v in took.items()})}"
           f" wall {time.perf_counter() - t0:.2f}s")
+    # phase P5's dry run (CPU only) runs beside the card's phases
+    dry_job = start_dryrun()
 
     _, k1_err, k1_main, k1_by = k1_phase(dev)
     k1_sweep_phase(dev)
@@ -6882,6 +7322,10 @@ def main() -> int:
     # serving on a mesh: two ranks sharing the card over gloo
     free_device_memory()
     run_o = serve_phase_o(dev, card, mesh_ref)
+    # training on a mesh: two ranks sharing the card over gloo, the
+    # trained weights served, and the dry run of the production meshes
+    free_device_memory()
+    run_p = train_phase_p(dev, card, dry_job)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -7096,6 +7540,17 @@ def main() -> int:
                 o_k[f"k4 {key}"][2]),
             row(f"ovp_encode@tp2 {tag}", k7_src, "ovp_encode.cu",
                 slab["ovp_encode"], 0.0, o_k[f"k7 {key}"])]
+    # training on a mesh (phase P): the mesh-trained weights served at
+    # phase A's shapes, so phase A's records; launches from phase P4
+    counts_p = run_p["counts"]
+    kernels += [
+        row(f"ovp_matmul[fp]@{TRAIN_ARCH} mesh-trained", k1_src,
+            "ovp_matmul.cu", counts_p["ovp_matmul[fp]"], k1_err,
+            k1_main["fp"], k1_by),
+        row(f"decode_attn@{TRAIN_ARCH} mesh-trained", k2_src,
+            "decode_attn.cu", counts_p["decode_attn"], k2_err, k2_main),
+        row(f"ovp_encode@{TRAIN_ARCH} mesh-trained", k7_src,
+            "ovp_encode.cu", counts_p["ovp_encode"], 0.0, k7_main)]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -7204,7 +7659,13 @@ def main() -> int:
           "Hkv 2, G 8, D 128 (K4: C 16); ovp_encode@tp2 the KV write on "
           "the local heads (R 32 x K 64; R 8 x K 128); launches from rank "
           "0's phase O runs (K1 col / row: 5 / 2 sevenths of its K1 "
-          "launches)")
+          "launches). Training on a mesh (phase P: Qwen1.5-0.5B QAT on "
+          "two ranks, its last checkpoint (step 2) restored and served "
+          "under olive_serve): <kernel>@qwen1.5-0.5b mesh-trained carry "
+          "phase A's records (the same shapes), launches from phase P4's "
+          "served "
+          "run of 4 requests; the mesh's training step itself reaches no "
+          "TPU kernel's counterpart")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,13 +38,15 @@ import weakref
 import torch
 
 from repro_torch import backends
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.sharding import axes
 
 from . import baselines, calibration
 from .ovp import MixedExpertQuant, QuantizedTensor, ovp_quantize
 from .policy import PolicyLike, PolicyProgram, QuantPolicy, resolve
 from .quantizer import (QuantSpec, fake_quant_ste, ovp_search_scale,
                         ovp_search_scale_per_channel, quantize,
-                        sigma_init_scale)
+                        sigma_init_scale, sigma_scale)
 
 Weight = Union[torch.Tensor, QuantizedTensor, MixedExpertQuant]
 
@@ -119,12 +121,38 @@ def _quantize_stack(w: torch.Tensor, spec: QuantSpec) -> QuantizedTensor:
 _QAT_LAST_ACT: list = [None]
 
 
+def _act_scale(x: torch.Tensor, normal_dtype: str) -> torch.Tensor:
+    """The activation's per-tensor 3σ scale. When a mesh
+    (`sharding.axes.axis_rules`) splits the batch over ranks of equal
+    row counts, σ is the whole batch's, computed as one device computes
+    it in the tensor's dtype (`quantizer._pop_std`: the mean, rounded;
+    the squared deviations, each rounded; their mean, rounded; its
+    root), with each fp32 sum taken over the ranks in rank order."""
+    cur = axes.current()
+    split = () if cur is None else axes.batch_split(cur[1], cur[0])
+    if not split:
+        return sigma_init_scale(x, normal_dtype)
+    mesh = cur[0]
+
+    def over(t):
+        for a in split:
+            t = mesh_lib.rank_sum(t, mesh, a)
+        return t
+
+    n = x.numel()
+    for a in split:
+        n *= mesh.size(a)
+    mu = (over(x.sum(dtype=torch.float32)) / n).to(x.dtype)
+    var = over(((x - mu) ** 2).sum(dtype=torch.float32)) / n
+    return sigma_scale(torch.sqrt(var.to(x.dtype)), normal_dtype)
+
+
 def _qat_activation(x: torch.Tensor, normal_dtype: str) -> torch.Tensor:
     last = _QAT_LAST_ACT[0]
     if last is not None and last[0]() is x and \
             last[1:3] == (x._version, normal_dtype):
         return last[3]
-    xq = fake_quant_ste(x, sigma_init_scale(x.detach(), normal_dtype),
+    xq = fake_quant_ste(x, _act_scale(x.detach(), normal_dtype),
                         normal_dtype, pair_axis=-1)
     _QAT_LAST_ACT[0] = (weakref.ref(x), x._version, normal_dtype, xq)
     return xq

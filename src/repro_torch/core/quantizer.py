@@ -62,8 +62,14 @@ def _pop_std(x: torch.Tensor, dim=None, keepdim: bool = False):
 def sigma_init_scale(x: torch.Tensor, normal_dtype: str,
                      k_sigma: float = 3.0, dim=None) -> torch.Tensor:
     """3σ rule initial scale (§3.4): k·σ maps to the normal max."""
+    return sigma_scale(_pop_std(x, dim=dim, keepdim=dim is not None),
+                       normal_dtype, k_sigma)
+
+
+def sigma_scale(sigma: torch.Tensor, normal_dtype: str,
+                k_sigma: float = 3.0) -> torch.Tensor:
+    """The 3σ rule's scale of a given σ."""
     nmax = float(NORMAL_MAX[normal_dtype])
-    sigma = _pop_std(x, dim=dim, keepdim=dim is not None)
     return torch.clamp(k_sigma * sigma / nmax, min=1e-8)
 
 

@@ -171,12 +171,19 @@ _STATS: collections.Counter = collections.Counter()
 def collective_stats() -> Dict[str, int]:
     """Counts since the last reset: "all_gather" and "sum" calls,
     "bytes" each rank received (the whole gathered tensor, its own
-    shard included)."""
+    shard included), and those bytes by kind ("all_gather_bytes",
+    "sum_bytes")."""
     return dict(_STATS)
 
 
 def reset_collective_stats() -> None:
     _STATS.clear()
+
+
+def _count(kind: str, n_bytes: int) -> None:
+    _STATS[kind] += 1
+    _STATS["bytes"] += n_bytes
+    _STATS[f"{kind}_bytes"] += n_bytes
 
 
 def _gather_list(x: torch.Tensor, mesh: "Mesh", axis: str):
@@ -194,22 +201,21 @@ def all_gather(x: torch.Tensor, dim: int, mesh: Mesh,
     if n == 1:
         return x
     outs = _gather_list(x, mesh, axis)
-    _STATS["all_gather"] += 1
-    _STATS["bytes"] += x.numel() * x.element_size() * n
+    _count("all_gather", x.numel() * x.element_size() * n)
     return torch.cat(outs, dim=dim)
 
 
-def rank_sum(x: torch.Tensor, mesh: Mesh, axis: str = "model"
-             ) -> torch.Tensor:
+def rank_sum(x: torch.Tensor, mesh: Mesh, axis: str = "model",
+             acc_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The sum of every rank's `x` over `axis`, added in rank order, so
-    every rank holds the same bytes."""
+    every rank holds the same bytes. `acc_dtype` adds in that dtype and
+    returns it (a bf16 gradient moves as bf16 and sums in fp32)."""
     n = mesh.size(axis)
     if n == 1:
-        return x
+        return x if acc_dtype is None else x.to(acc_dtype)
     outs = _gather_list(x, mesh, axis)
-    _STATS["sum"] += 1
-    _STATS["bytes"] += x.numel() * x.element_size() * n
-    acc = outs[0]
+    _count("sum", x.numel() * x.element_size() * n)
+    acc = outs[0] if acc_dtype is None else outs[0].to(acc_dtype)
     for part in outs[1:]:
         acc = acc + part
     return acc

@@ -37,6 +37,8 @@ from repro_torch.core.ovp import (MixedExpertQuant, QuantizedTensor,
                                   ovp_encode_codes, pack4)
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.kernels import prefill_attn
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.sharding import axes
 
 NEG_INF = -1e30
 
@@ -608,6 +610,30 @@ def route(p, x: torch.Tensor, cfg):
     return probs, topw, topi
 
 
+def _means_over_batch_ranks(me: torch.Tensor, ce: torch.Tensor):
+    """The router's mean probability and load (E,) over every row of the
+    batch, when a mesh (`axes.axis_rules`) splits the batch over ranks
+    of equal row counts: the mean of the ranks' means, summed in rank
+    order. aux = E * sum(me * ce) / k is not linear in the rows, so each
+    rank's local means alone would give another loss. The value is the
+    whole batch's; the gradient reaches this rank's `me` as 1 / n of
+    the whole mean's (`ce` has none), so the ranks' gradients, summed
+    over the batch axes as the sharded step sums them, are one
+    device's."""
+    cur = axes.current()
+    split = () if cur is None else axes.batch_split(cur[1], cur[0])
+    if not split:
+        return me, ce
+    mesh = cur[0]
+    both = torch.stack([me.detach(), ce])
+    n = 1
+    for a in split:
+        both = mesh_lib.rank_sum(both, mesh, a)
+        n *= mesh.size(a)
+    both = both / n
+    return me / n + (both[0] - me.detach() / n), both[1]
+
+
 def moe_layer(p, x: torch.Tensor, cfg, policy: QuantPolicy,
               capacity_factor: Optional[float] = None, site: str = "moe"):
     """Top-k token-choice MoE with the reference's semantics. Returns
@@ -636,6 +662,7 @@ def moe_layer(p, x: torch.Tensor, cfg, policy: QuantPolicy,
     me = probs.mean(dim=(0, 1))
     ce = torch.nn.functional.one_hot(topi, e).to(torch.float32) \
         .sum(dim=2).mean(dim=(0, 1))
+    me, ce = _means_over_batch_ranks(me, ce)
     aux = e * torch.sum(me * ce) / k
 
     cap = max(int(cf * t * k / e), 4)

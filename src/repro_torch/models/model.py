@@ -17,6 +17,7 @@ there.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
@@ -29,6 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import calibration, qlinear
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qlinear import ENCODER
+from repro_torch.sharding import axes
 
 from . import layers as L
 
@@ -354,14 +356,23 @@ class Model:
         return {"layers": layers}
 
     def forward(self, params, batch: Dict[str, torch.Tensor], *,
-                mode: str = "prefill", caches=None, positions=None):
+                mode: str = "prefill", caches=None, positions=None,
+                view: Optional[Callable[[Params, str], Params]] = None):
         """Returns (logits, caches); "train" returns (logits, None, aux),
         the reference's triple.
 
         train:   a prefill's batch and positions with no cache, the MoE
                  load-balance losses summed over the blocks into `aux`
                  (f32 scalar), each layer under `remat` (other keys of
-                 the batch, "labels" and "loss_mask", are not read)
+                 the batch, "labels" and "loss_mask", are not read).
+                 `view(tree, prefix)`, when given, maps the params a
+                 piece reads before it reads them: the top-level
+                 entries once, each layer's inside its `remat`
+                 boundary (the sharded step's weight gather, which the
+                 backward pass then recomputes instead of keeping).
+                 An `axes.axis_rules` context around the call is
+                 re-entered inside each layer, so a recomputed layer
+                 sees it too
         prefill: batch["tokens"] (B, T), positions 0..T-1 unless
                  `positions` (B, T) gives absolute ones (a prefill chunk);
                  an encoder-decoder also takes batch["frames"] (B, S,
@@ -373,9 +384,16 @@ class Model:
         decode:  batch["tokens"] (B, 1), batch["pos"] (B,)
         """
         cfg = self.cfg
-        x, positions, enc_out = self._inputs(params, batch, mode, positions)
+        if view is not None:
+            if mode != "train":
+                raise ValueError("Model.forward: `view` is a train-mode "
+                                 "hook")
+            params = {k: v if k in ("layers", ENCODER) else view(v, k)
+                      for k, v in params.items()}
+        x, positions, enc_out = self._inputs(params, batch, mode, positions,
+                                             view)
         if mode == "train":
-            return self._train_layers(params, x, positions, enc_out)
+            return self._train_layers(params, x, positions, enc_out, view)
         new = []
         for i, p in enumerate(params["layers"]):
             x, nc = block_forward(p, x, positions, cfg, self.policy,
@@ -388,13 +406,13 @@ class Model:
                                       else {"layers": new})
 
     def _inputs(self, params, batch: Dict[str, torch.Tensor], mode: str,
-                positions):
+                positions, view=None):
         """The first hidden states, their positions and (an
         encoder-decoder's, but in decode) the encoder output."""
         cfg = self.cfg
         enc_out = None
         if cfg.enc_dec and mode != "decode":
-            enc_out = self.encode(params, batch["frames"])
+            enc_out = self.encode(params, batch["frames"], view)
         tok = batch["tokens"]
         x = self.embed(params, tok)
         if cfg.frontend == "vit" and "patch_embeds" in batch:
@@ -408,18 +426,22 @@ class Model:
             positions = torch.arange(t, device=tok.device)[None].expand(b, t)
         return x, positions, enc_out
 
-    def _train_layers(self, params, x, positions, enc_out):
+    def _train_layers(self, params, x, positions, enc_out, view=None):
         """The train forward's layers, each under `remat`, and the head;
         returns (logits, None, aux)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        rules = axes.current()
         for i, p in enumerate(params["layers"]):
 
             def layer(p, h, i=i):
                 got = []
-                h, _ = block_forward(p, h, positions, self.cfg, self.policy,
-                                     site=f"layers/{i}",
-                                     btype=self.block_type(i),
-                                     enc_out=enc_out, aux=got)
+                with axes.reentered(rules):
+                    if view is not None:
+                        p = view(p, f"layers/{i}")
+                    h, _ = block_forward(p, h, positions, self.cfg,
+                                         self.policy, site=f"layers/{i}",
+                                         btype=self.block_type(i),
+                                         enc_out=enc_out, aux=got)
                 return h, sum(got, torch.zeros_like(aux))
 
             x, a = self._remat(layer, p, x)
@@ -436,7 +458,8 @@ class Model:
                               self.policy.resolve("frontend_proj/w_in"),
                               site="frontend_proj/w_in")
 
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, frames: torch.Tensor,
+               view=None) -> torch.Tensor:
         """The encoder over stub frame embeddings (B, S, frontend_dim):
         the frontend projection, the n_enc_layers `attn` blocks (their
         self-attention causal, as the reference's encoder calls it,
@@ -446,19 +469,23 @@ class Model:
         (`jax.lax.scan` traces its body), so no `enc_blocks/` site
         reaches its tape, while the frontend projection does. With
         `remat` under autograd, each block is recomputed in the
-        backward pass."""
+        backward pass (`view` as `forward`'s, at `enc_blocks/<j>`)."""
         cfg = self.cfg
         x = self.frontend(params, frames)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        rules = axes.current()
 
-        def block(p, h):
-            return block_forward(p, h, positions, cfg, self.policy,
-                                 site=ENCODER, btype="attn")[0]
+        def block(p, h, j=0):
+            with axes.reentered(rules):
+                if view is not None:
+                    p = view(p, f"{ENCODER}/{j}")
+                return block_forward(p, h, positions, cfg, self.policy,
+                                     site=ENCODER, btype="attn")[0]
 
         with calibration.tape_suspended():
-            for p in params[ENCODER]:
-                x = self._remat(block, p, x)
+            for j, p in enumerate(params[ENCODER]):
+                x = self._remat(functools.partial(block, j=j), p, x)
         return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:

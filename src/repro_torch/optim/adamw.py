@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, NamedTuple, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Union
 
 import torch
 
@@ -85,14 +85,19 @@ class AdamW:
                           device=step.device)
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params,
+               sq_sum: Optional[Callable[[Any], torch.Tensor]] = None):
         """One step: (params, new state, {"grad_norm", "lr"}), the
-        params and moments updated in place."""
+        params and moments updated in place. `sq_sum(grads)` replaces
+        the sum of squares the clip's global norm is taken of (a
+        sharded state's: over every rank's part, `sharding/state.py::
+        grad_sq_sum`)."""
         step = state.step + 1
         flat_g = tree_leaves(grads)
         if self.clip_norm:
-            gsq = sum(torch.sum(torch.square(g.to(torch.float32)))
-                      for g in flat_g)
+            gsq = sq_sum(grads) if sq_sum is not None else sum(
+                torch.sum(torch.square(g.to(torch.float32)))
+                for g in flat_g)
             gnorm = torch.sqrt(gsq)
             scale = torch.clamp(self.clip_norm
                                 / torch.clamp(gnorm, min=1e-12), max=1.0)

@@ -9,13 +9,22 @@
 keys. The reference's `analyze` read a compiled XLA executable (its
 HLO's FLOPs, bytes and collective bytes); the port's reads a
 `step_stats.StepStats`, the work counted from the step's shapes and its
-tensors. `collective_bytes` and `count_collectives` parse XLA HLO and
-come with the multi-device slice.
+tensors, and the collective bytes a step moved.
+
+`count_collectives` and `collective_bytes` read a
+`launch/mesh.py::collective_stats()` record of a step that ran (the dry
+run's traced step) where the reference parsed its HLO text: every loop
+(layers, microbatches, the backward's regathers) is counted as it ran,
+which is what the reference's trip-count walker (`hlo_stats`)
+reconstructed. Bytes are what a rank receives: an all-gather's whole
+result, and a `rank_sum` as the all-gather it is (the sum is then added
+locally in rank order), so it costs one gather's bytes, not a ring
+all-reduce's 2x its operand.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 from . import hw
 from .step_stats import StepStats
@@ -91,17 +100,46 @@ class Roofline:
         }
 
 
+# the mesh's counter names -> the reference's collective kinds
+_KINDS = {"all_gather": "all-gather", "sum": "rank-sum"}
+
+
+def count_collectives(stats: Dict[str, int]) -> Dict[str, int]:
+    """Collective calls by kind from a `collective_stats()` record:
+    {"all-gather": n, "rank-sum": n}, kinds that ran only."""
+    return {kind: int(stats[key]) for key, kind in _KINDS.items()
+            if stats.get(key)}
+
+
+def collective_bytes(stats: Dict[str, int]) -> Dict[str, float]:
+    """Bytes each rank received by kind, and their "total", from a
+    `collective_stats()` record (a rank_sum at its gather's bytes)."""
+    out = {kind: float(stats[f"{key}_bytes"]) for key, kind in
+           _KINDS.items() if stats.get(f"{key}_bytes")}
+    out["total"] = sum(out.values())
+    return out
+
+
 def analyze(stats: StepStats, n_chips: int = 1,
-            model_flops_global: Optional[float] = None) -> Roofline:
-    """Roofline terms of a step counted by `step_stats`, split evenly over
-    `n_chips` (one card: no collective). `model_flops_global` defaults to
-    the count's own model FLOPs (2·N·tokens, or 6·N·D for training)."""
+            model_flops_global: Optional[float] = None, *,
+            per_chip: bool = False, coll_bytes_per_chip: float = 0.0,
+            arg_bytes_per_chip: Optional[float] = None,
+            collective_counts: Optional[dict] = None) -> Roofline:
+    """Roofline terms of a step counted by `step_stats`: the whole step's
+    work split evenly over `n_chips`, or (`per_chip`) one chip's work as
+    counted. `model_flops_global` defaults to the count's own model
+    FLOPs (2·N·tokens, or 6·N·D for training); `coll_bytes_per_chip`
+    (0 on one card) and `collective_counts` come from a traced step
+    (`collective_bytes`, `count_collectives`)."""
+    div = 1 if per_chip else n_chips
     return Roofline(
-        flops_per_chip=stats.flops / n_chips,
-        bytes_per_chip=stats.bytes / n_chips,
-        coll_bytes_per_chip=0.0,
+        flops_per_chip=stats.flops / div,
+        bytes_per_chip=stats.bytes / div,
+        coll_bytes_per_chip=coll_bytes_per_chip,
         n_chips=n_chips,
         model_flops_global=stats.model_flops if model_flops_global is None
         else model_flops_global,
-        arg_bytes_per_chip=stats.arg_bytes / n_chips,
+        arg_bytes_per_chip=stats.arg_bytes / div
+        if arg_bytes_per_chip is None else arg_bytes_per_chip,
+        collective_counts=collective_counts,
         flags={"kind": stats.kind, "tokens": stats.tokens})

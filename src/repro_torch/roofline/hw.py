@@ -12,8 +12,8 @@ Two peaks are in use, and each caller names the one it means:
   rate of the CUDA cores, the peak PERF.md's kernel table states: the
   port's kernels compute in fp32 outside the tensor cores.
 
-The collective term is 0 on one card; `NVLINK_BW` is kept for the
-multi-device slice.
+The collective term divides the bytes a rank receives by `NVLINK_BW`
+(0 on one card).
 """
 from __future__ import annotations
 

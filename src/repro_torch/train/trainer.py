@@ -5,7 +5,12 @@ Wires together the stateless loader, the train step, async
 checkpointing (in the reference's on-disk layout, `convert`),
 preemption handling and the straggler monitor. Restart-safe: resuming
 from step N replays the exact data stream from N (stateless loader) on
-top of the restored state. Unlike the reference, a run whose last save
+top of the restored state. On a mesh (`placement`, a
+`sharding.state.Placement`) each rank holds its parts of the state and
+runs the sharded step (`step_fn`, `eval_fn`), a save gathers the whole
+state leaf by leaf to the host and rank 0 writes it in the same layout,
+and a restore reads the whole state and keeps this rank's parts under
+its own plan: a checkpoint crosses mesh shapes and packages. Unlike the reference, a run whose last save
 (periodic or on preemption) holds its final step waits for that save
 instead of writing the same state again.
 """
@@ -45,7 +50,8 @@ class TrainerCfg:
 class Trainer:
     def __init__(self, model: Model, optimizer: AdamW,
                  loader: SyntheticLoader, tcfg: TrainerCfg,
-                 log_fn: Callable[[str], None] = print, device="cuda"):
+                 log_fn: Callable[[str], None] = print, device="cuda",
+                 placement=None, step_fn=None, eval_fn=None):
         self.model = model
         self.optimizer = optimizer
         self.loader = loader
@@ -54,8 +60,12 @@ class Trainer:
         self.device = torch.device(device)
         self.preempt = PreemptionHandler()
         self.monitor = StragglerMonitor(n_hosts=1)
-        self.step_fn = make_train_step(model, optimizer,
-                                       n_microbatches=tcfg.n_microbatches)
+        self.placement = placement
+        self.step_fn = step_fn or make_train_step(
+            model, optimizer, n_microbatches=tcfg.n_microbatches)
+        # (params, batch) -> the batch's CE
+        self.eval_fn = eval_fn or (lambda params, batch: lm_loss(
+            model, params, batch)[1]["ce"])
         self.state: Optional[TrainState] = None
         self.step = 0
         self._pending_save = None
@@ -79,10 +89,17 @@ class Trainer:
             meta = init_state(self.model, self.optimizer, None,
                               device="meta")
             template = convert.state_to_reference(meta, self.model.cfg)
-            got = ckpt.restore(self.tcfg.ckpt_dir, start,
-                               {"state": template}, device=self.device)
-            self.state = convert.state_from_reference(got["state"],
-                                                      self.device)
+            if self.placement is None:
+                got = ckpt.restore(self.tcfg.ckpt_dir, start,
+                                   {"state": template}, device=self.device)
+                self.state = convert.state_from_reference(got["state"],
+                                                          self.device)
+            else:
+                got = ckpt.restore(self.tcfg.ckpt_dir, start,
+                                   {"state": template}, device="cpu")
+                self.state = self.placement.local(
+                    convert.state_from_reference(got["state"], "cpu"),
+                    self.device)
             self.ckpt_seconds["restore"] = time.perf_counter() - t0
             self.step = start
             self.log(f"[trainer] restored step {start} from "
@@ -91,8 +108,12 @@ class Trainer:
             if state is None:
                 gen = torch.Generator(device=self.device).manual_seed(
                     self.tcfg.seed)
-                state = init_state(self.model, self.optimizer, gen,
-                                   device=self.device)
+                if self.placement is None:
+                    state = init_state(self.model, self.optimizer, gen,
+                                       device=self.device)
+                else:
+                    state = self.placement.init(self.model, self.optimizer,
+                                                gen, self.device)
             self.state = state
             self.step = 0
         return self
@@ -108,10 +129,16 @@ class Trainer:
             return
         self._wait_save()
         self._saved = (self.step, time.perf_counter())
+        state = self.state
+        if self.placement is not None:
+            state = self.placement.whole(state, "cpu")   # every rank
+            if not self.placement.writer:
+                self.ckpt_seconds["save"] = time.perf_counter() \
+                    - self._saved[1]
+                return
         self._pending_save = ckpt.save(
             self.tcfg.ckpt_dir, self.step,
-            {"state": convert.state_to_reference(self.state,
-                                                 self.model.cfg)},
+            {"state": convert.state_to_reference(state, self.model.cfg)},
             blocking=blocking or not self.tcfg.ckpt_async)
         if self._pending_save is None:
             self.ckpt_seconds["save"] = time.perf_counter() - self._saved[1]
@@ -125,7 +152,8 @@ class Trainer:
     # ------------------------------------------------------------- loop
     def run(self) -> Dict[str, list]:
         assert self.state is not None, "call init_or_restore() first"
-        history = {"step": [], "loss": [], "step_time": []}
+        history = {"step": [], "loss": [], "grad_norm": [],
+                   "step_time": []}
         while self.step < self.tcfg.total_steps:
             if self.preempt.should_stop:
                 self.save(blocking=True, tag="preemption")
@@ -145,6 +173,7 @@ class Trainer:
                          f"({t.last * 1e3:.0f} ms)")
             history["step"].append(self.step)
             history["loss"].append(loss)
+            history["grad_norm"].append(float(metrics["grad_norm"]))
             history["step_time"].append(t.last)
             if self.tcfg.ckpt_every and \
                     self.step % self.tcfg.ckpt_every == 0:
@@ -172,8 +201,7 @@ class Trainer:
         n = n_batches or self.tcfg.eval_batches
         tot, cnt = 0.0, 0
         for i in range(n):
-            parts = lm_loss(self.model, self.state.params,
-                            self._batch(i, eval_split=True))[1]
-            tot += float(parts["ce"])
+            tot += float(self.eval_fn(self.state.params,
+                                      self._batch(i, eval_split=True)))
             cnt += 1
         return float(np.exp(tot / max(cnt, 1)))

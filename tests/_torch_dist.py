@@ -303,3 +303,78 @@ def params_from_numpy(tree, shape=(1, 2)):
 
     walk(convert(tree, device="cpu", mesh=mesh), "")
     return out
+
+
+def train_policy(quant=None):
+    """fp32 compute; with a preset name, that preset under QAT."""
+    import dataclasses
+    from repro_torch.core.policy import QuantPolicy, get_policy
+    if quant is None:
+        return QuantPolicy(compute_dtype="float32")
+    return dataclasses.replace(get_policy(quant), qat=True,
+                               compute_dtype="float32")
+
+
+def train_sharded(arch, batch, dp_only, steps=3, shape=(1, 2), seed=0,
+                  n_microbatches=1, quant=None):
+    """`make_sharded_train_step` on a (data, model) mesh of `shape` over
+    the port's weights drawn from `seed` on the CPU (`Model.init`, the
+    weights `_torch_parity.shared_weights` gives both packages), fp32
+    compute, fp32 moments; `quant`, a preset name, trains it with QAT
+    (`train_policy`). `dp_only` picks the rules: every axis splits
+    the batch (FSDP), or the TP rules (`make_rules` without a global
+    batch). Returns the first step's whole-batch loss and gradients
+    (gathered whole, as float32 numpy by path), then `steps` steps'
+    losses and grad norms, the collectives of the last step, and this
+    rank's parameter and moment bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.roofline.step_stats import tree_bytes
+    from repro_torch.sharding import state as placement
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train.train_step import (TrainState,
+                                              make_sharded_train_step)
+    cfg = get_config(arch)
+    model = build_model(cfg, train_policy(quant), remat=True)
+    opt = AdamW(lr=1e-3)
+    mesh = mesh_lib.make_mesh(tuple(shape), ("data", "model"))
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    rows = next(iter(batch.values())).shape[0]
+    rules = make_rules(cfg, mesh, global_batch=rows if dp_only else None)
+    params = build_model(cfg).init(torch.Generator().manual_seed(seed),
+                                   device="cpu")
+    specs = placement.param_specs(params, cfg, mesh, dp_only=dp_only)
+    place = placement.Placement(mesh, specs)
+    state = place.local(TrainState(params, opt.init(params)))
+    step = make_sharded_train_step(model, opt, mesh, specs, rules=rules,
+                                   n_microbatches=n_microbatches)
+    loss, parts, grads = step.value_and_grad(state.params, batch)
+    whole = placement.gather_tree(grads, specs, mesh)
+    out = {"loss1": float(loss), "aux1": float(parts["aux"]),
+           "grads": {p: g.float().numpy()
+                     for p, g in placement.paths(whole)},
+           "losses": [], "gnorms": [],
+           "param_bytes": tree_bytes(state.params),
+           "moment_bytes": tree_bytes(state.opt.mu)
+           + tree_bytes(state.opt.nu)}
+    for _ in range(steps):
+        mesh_lib.reset_collective_stats()
+        state, metrics = step(state, batch)
+        out["losses"].append(float(metrics["loss"]))
+        out["gnorms"].append(float(metrics["grad_norm"]))
+    out["collectives"] = mesh_lib.collective_stats()
+    return out
+
+
+def train_launcher(argv):
+    """The training launcher's run() with `argv` (a --mesh among them)
+    on the CPU under the running group -> its history, the held-out
+    perplexity, this rank's parameter bytes and the mesh's repr."""
+    from repro_torch.launch import train
+    from repro_torch.roofline.step_stats import tree_bytes
+    res = train.run(argv, device="cpu", log_fn=lambda *a: None)
+    return {"history": res["history"], "ppl": res["ppl"],
+            "param_bytes": tree_bytes(res["state"].params),
+            "mesh": repr(res["mesh"]), "note": res["cell"].note}

@@ -19,6 +19,8 @@ from repro_torch.analysis import kernels as ak
 from repro_torch.analysis import policies, sanitize
 from repro_torch.analysis.__main__ import main, sanitize_smoke
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 FIX = Path(__file__).parent / "fixtures" / "analysis_torch"
 FIXTURE_CODES = {
     "bad_vocab.py": "VOCAB_UNREGISTERED_CODE",

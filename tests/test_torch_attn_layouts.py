@@ -39,6 +39,8 @@ from repro.kernels.prefill_attn import fused_prefill_attention
 from repro_torch.kernels import decode_attn as tda
 from repro_torch.kernels import prefill_attn as tpa
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 _J_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
             "float16": jnp.float16}
 

@@ -59,6 +59,7 @@ from repro_torch.launch import serve
 from repro_torch.models.model import build_model as t_build_model
 
 from _torch_parity import jax_greedy, port_forced
+from _torch_dist import one_torch_thread  # noqa: F401
 
 ARCH = "qwen1.5-0.5b-smoke"
 B, T, MAX_LEN, STEPS = 2, 8, 32, 3

@@ -40,6 +40,7 @@ from repro_torch.configs import get_config as t_get_config
 from repro_torch.core import qlinear as tq
 
 from _torch_parity import shared_weights
+from _torch_dist import one_torch_thread  # noqa: F401
 
 CUTS = [("recurrentgemma-9b-smoke", 8), ("xlstm-350m-smoke", 0)]
 

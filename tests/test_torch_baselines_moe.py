@@ -31,6 +31,8 @@ from _torch_parity import jax_greedy, port_forced
 from test_torch_baselines_families import (_assert_leaves_equal, _policy,
                                            _reference_raw, _to_port)
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 MOE = "qwen3-moe-30b-a3b-smoke"
 
 

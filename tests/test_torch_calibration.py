@@ -30,6 +30,8 @@ from repro_torch.core import policy as tpol
 from repro_torch.core.ovp import ovp_fake_quant
 from repro_torch.models.model import build_model as t_build_model
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 TINY = JArchConfig(name="cal-tiny", family="dense", n_layers=2, d_model=64,
                    n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
                    head_dim=16, block_pattern=("attn",))

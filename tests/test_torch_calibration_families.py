@@ -36,6 +36,8 @@ from repro_torch.models.model import build_model as t_build_model
 from _torch_parity import shared_weights
 from test_torch_calibration import _assert_scales_match, _calibrate_both
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 CAP = 1024
 ENCDEC = "seamless-m4t-large-v2-smoke"
 

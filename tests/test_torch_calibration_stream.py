@@ -28,6 +28,8 @@ from repro_torch.launch import serve
 from repro_torch.models import model as model_mod
 from repro_torch.models.model import block_forward, build_model
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 ARCHS = ("qwen1.5-0.5b-smoke", "qwen3-moe-30b-a3b-smoke")
 # the launcher's policy under --calibrate
 POLICY = tpol.OLIVE_SERVE.replace_all(compute_dtype="float32",

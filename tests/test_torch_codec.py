@@ -19,6 +19,8 @@ from repro.core import ovp as jovp
 from repro_torch.core import datatypes as tdt
 from repro_torch.core import ovp as tovp
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 DTYPES = ("int4", "flint4", "int8")
 
 # whole-function jit: one XLA compile per shape instead of one per op

@@ -20,6 +20,8 @@ from repro.kernels import decode_attn as jda
 from repro.models import layers as jlayers
 from repro_torch.kernels import decode_attn as tda
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 
 def _case(b, s_len, hkv, g, d, packed, seed):
     rng = np.random.default_rng(seed)

@@ -40,6 +40,8 @@ from repro.models import layers as jlayers
 from repro.kernels import decode_attn as jda
 from repro_torch.kernels import decode_attn as tda
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 NEG_INF = -1e30
 TS = 32
 

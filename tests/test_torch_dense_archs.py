@@ -51,6 +51,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.model import build_model as t_build_model
 
 from _torch_parity import jax_greedy, port_forced
+from _torch_dist import one_torch_thread  # noqa: F401
 
 NEW = ("qwen2-7b", "yi-6b", "minitron-8b")
 PORTED = sorted(tconfigs.ARCHS)

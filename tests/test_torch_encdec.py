@@ -42,6 +42,8 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.policy import QuantPolicy as TPolicy
 from repro_torch.models import layers as tl
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 ARCHS = ("seamless-m4t-large-v2", "internvl2-1b")
 SMOKE = "seamless-m4t-large-v2-smoke"
 ATOL = 1e-5

@@ -53,6 +53,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.serve import engine as teng
 
 from _torch_parity import jax_greedy, port_forced
+from _torch_dist import one_torch_thread  # noqa: F401
 
 ARCH = "seamless-m4t-large-v2-smoke"
 B, T, S, ENC_LEN, MAX_LEN, STEPS = 2, 6, 10, 16, 32, 6

@@ -24,6 +24,8 @@ from repro_torch.models import layers as tl
 
 from test_flash_vjp import CASES, _qkv
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 
 def _torch(*xs):
     return [torch.from_numpy(np.asarray(x)).requires_grad_() for x in xs]

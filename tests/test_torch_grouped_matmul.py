@@ -34,6 +34,8 @@ from repro_torch.core.ovp import QuantizedTensor
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ovp_matmul as tmm
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 
 def _close(got, ref):
     got, ref = np.asarray(got), np.asarray(ref)

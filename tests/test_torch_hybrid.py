@@ -50,6 +50,8 @@ from repro_torch.core.policy import QuantPolicy as TPolicy
 from repro_torch.kernels import decode_attn as tda
 from repro_torch.models import layers as tl
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 ARCH = "recurrentgemma-9b"
 
 

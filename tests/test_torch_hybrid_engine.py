@@ -49,6 +49,8 @@ from repro_torch.serve import engine as teng
 from repro_torch.serve import paging as tpg
 from repro_torch.serve.frontend import AsyncFrontend
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 ARCH = "recurrentgemma-9b-smoke"
 SLOTS, E_MAX_LEN, MAX_NEW = 4, 64, 16
 

@@ -35,6 +35,7 @@ from repro_torch.core import policy as tpol
 from repro_torch.models import model as tmodel
 
 from _torch_parity import jax_greedy, port_forced
+from _torch_dist import one_torch_thread  # noqa: F401
 
 ARCH = "recurrentgemma-9b-smoke"
 B, T, MAX_LEN, STEPS = 2, 11, 32, 13

@@ -11,6 +11,8 @@ from pathlib import Path
 
 import pytest
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py"]

@@ -37,6 +37,8 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import policy as tpol
 from repro_torch.models.model import build_model as t_build_model
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 B, T, MAX_LEN, STEPS = 2, 8, 32, 3
 
 PRESET = {"fp32": None, "olive_w4": "olive_w4",

@@ -49,6 +49,8 @@ from repro_torch.kernels import ovp_matmul as tmm
 from repro_torch.models import layers as tlayers
 from repro_torch.models.model import build_model as t_build_model
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 F32 = dict(compute_dtype="float32")
 
 

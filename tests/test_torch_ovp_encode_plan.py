@@ -37,6 +37,8 @@ from repro_torch.kernels import ovp_encode as tenc
 from repro_torch.kernels import prefill_attn as tpa
 from repro_torch.models import layers as tlayers
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 R_CASES = (1, 4, 16, 64, 192, 2048)
 K_CASES = (2, 6, 64, 128, 1024, 2816, 4096)
 

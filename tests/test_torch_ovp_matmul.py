@@ -21,6 +21,8 @@ from repro.kernels import ops
 from repro_torch.core.ovp import QuantizedTensor
 from repro_torch.kernels import ovp_matmul as tmm
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 # (lhs shape, N, weight dtype, activation dtype or None for fp). Shapes
 # cover 2-D and 3-D lhs and the reference wrapper's padding: rows past
 # its 128 block, K pairs past its 128-pair block, N past its 128 block.

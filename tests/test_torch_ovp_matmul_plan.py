@@ -16,6 +16,8 @@ import pytest
 
 from repro_torch.kernels import ovp_matmul as tmm
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 # (K, N): Qwen1.5-0.5B q/k/v/o, gate/up, down; Qwen3-30B-A3B attention
 # q, k/v, o
 PATH_SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024), (2048, 4096),

@@ -46,6 +46,8 @@ from repro_torch.models.model import build_model as t_build_model
 from repro_torch.serve import engine as teng
 from repro_torch.serve import paging as tpg
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 
 def _close(got, ref):
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5,

@@ -31,6 +31,8 @@ from repro.kernels import decode_attn as jda
 from repro_torch.kernels import decode_attn as tda
 from repro_torch.models import layers as tlayers
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 
 def _paged_case(packed, *, b=3, n=4, ps=8, hkv=2, g=2, d=16, n_pool=16,
                 seed=0, parked=True):

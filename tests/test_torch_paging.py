@@ -11,6 +11,8 @@ import pytest
 from repro.serve import paging as jpg
 from repro_torch.serve import paging as tpg
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 
 def _both(n_pages=12, page_size=16):
     return jpg.PagePool(n_pages, page_size), tpg.PagePool(n_pages, page_size)

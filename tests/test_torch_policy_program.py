@@ -44,6 +44,8 @@ from repro_torch.core import qlinear as tq
 from repro_torch.core.ovp import MixedExpertQuant, QuantizedTensor
 from repro_torch.models.model import build_model as t_build_model
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 j_quantize_params = jax.jit(_j_quantize_params, static_argnums=1)
 ARCHS = ("qwen1.5-0.5b-smoke", "qwen3-moe-30b-a3b-smoke")
 QUANTS = sorted(tpol.PRESETS) + sorted(tpol.PROGRAM_PRESETS)

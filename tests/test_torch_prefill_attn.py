@@ -28,6 +28,8 @@ from repro.kernels.prefill_attn import (fused_prefill_attention,
                                         xla_prefill_attention)
 from repro_torch.kernels import prefill_attn as tpa
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 POOLS = {True: ("k_data", "v_data", "k_scl", "v_scl"), False: ("k", "v")}
 
 

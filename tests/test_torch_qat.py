@@ -26,6 +26,8 @@ from repro_torch.core.ovp import (ovp_decode_codes, ovp_encode_codes,
                                   ovp_fake_quant)
 from repro_torch.core.quantizer import fake_quant_ste, sigma_init_scale
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 
 def _edges(normal_dtype: str) -> np.ndarray:
     spec = ABFLOAT_FOR_NORMAL[normal_dtype]

@@ -24,6 +24,8 @@ from repro_torch.core import policy as tpol
 from repro_torch.core import qlinear as tq
 from repro_torch.core import quantizer as tquant
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 
 def _heavy(shape, seed):
     rng = np.random.default_rng(seed)

@@ -17,6 +17,8 @@ from repro_torch.core.ovp import ovp_quantize
 from repro_torch.models.model import build_model
 from repro_torch.roofline import Roofline, analyze, hw, step_stats
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 ROWS, SLOTS, POS = 2, 16, (3, 9)
 
 

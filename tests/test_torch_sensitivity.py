@@ -40,6 +40,8 @@ from repro_torch.core.qlinear import quantize_params, quantize_weight
 from repro_torch.kernels import ref as tref
 from repro_torch.models.model import build_model
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 ARCHS = ("qwen1.5-0.5b-smoke", "qwen3-moe-30b-a3b-smoke")
 CAP = 2000      # below the smoke weights' sizes, so the tape draws
 

@@ -52,6 +52,8 @@ from repro_torch.serve import engine as teng
 from repro_torch.serve import load_trace
 from repro_torch.serve import paging as tpg
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 SMOKE = ["--arch", "qwen1.5-0.5b-smoke", "--requests", "3", "--max-new",
          "3", "--slots", "2", "--max-len", "64"]
 W8 = dataclasses.replace(tpol.OLIVE_W8A8, abits=0, compute_dtype="float32")

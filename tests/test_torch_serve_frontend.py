@@ -51,6 +51,8 @@ from repro_torch.serve import (AsyncFrontend, EngineCfg, MetricsLedger,
                                ServingEngine, load_trace)
 from repro_torch.serve.paging import PagePoolCfg
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 TINY = dict(name="fe-tiny", family="dense", n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=2, d_ff=128, vocab=256, head_dim=16,
             block_pattern=("attn",))

@@ -30,6 +30,8 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.runtime import elastic as tel
 from repro_torch.sharding import rules as trules
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 MESHES = [(1, 2), (2, 2), (4, 2), (16, 16)]
 
 

@@ -37,6 +37,8 @@ from repro_torch.core import policy as tpol
 from repro_torch.models.model import build_model as t_build_model
 from repro_torch.serve import engine as teng
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 SLOTS, MAX_LEN, N_REQ, MAX_NEW = 4, 64, 6, 8
 STATIC = dict(compute_dtype="float32", act_scale_mode="static")
 

@@ -30,6 +30,8 @@ from repro_torch.core import policy as tpol
 from repro_torch.core.ovp import QuantizedTensor
 from repro_torch.kernels import ovp_matmul as tmm
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 
 def _close(got, ref):
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5,

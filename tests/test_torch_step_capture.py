@@ -46,6 +46,8 @@ from repro_torch.serve import capture
 from repro_torch.serve import engine as teng
 from repro_torch.serve import paging as tpg
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 SLOTS, MAX_LEN, MAX_NEW, PAGE, CHUNK = 2, 64, 3, 16, 16
 STAT_KEYS = ("steps_run", "prefill_traces", "prefill_cache_size",
              "prefill_cache_evictions", "prefill_chunks_run")

@@ -8,6 +8,8 @@ import torch
 
 from test_torch_train_families import check_family
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 ARCHS = ("qwen3-moe-30b-a3b-smoke", "internvl2-1b-smoke",
          "seamless-m4t-large-v2-smoke")
 

@@ -26,6 +26,8 @@ from repro.configs import get_config as j_get_config
 
 from test_torch_train_step import _batch, check_loss_and_gradients
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 FAMILIES = ("recurrentgemma-9b-smoke", "xlstm-350m-smoke")
 
 

@@ -56,6 +56,7 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.train import train_step as tts
 
 from _torch_parity import shared_weights
+from _torch_dist import one_torch_thread  # noqa: F401
 
 ARCH = "qwen1.5-0.5b-smoke"
 B, T = 2, 16

@@ -26,7 +26,8 @@ primitives, the trainer's resume and preemption, and the launcher
   loss for loss (exact: the CPU runs the same ops); a preemption saves
   the state it stopped at, which restores bit for bit.
 - The launcher trains a smoke arch two steps under QAT on the CPU,
-  refuses `--mesh`, and without a card raises unless asked for the CPU.
+  refuses a `--mesh` whose ranks no process group runs, and without a
+  card raises unless asked for the CPU.
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ from repro_torch.train import Trainer, TrainerCfg
 from repro_torch.train.train_step import TrainState
 
 from _torch_parity import shared_weights
+from _torch_dist import one_torch_thread  # noqa: F401
 
 TINY = ArchConfig(name="it-tiny", family="dense", n_layers=2, d_model=64,
                   n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
@@ -305,7 +307,10 @@ def test_launcher_trains_a_smoke_arch_on_the_cpu(tmp_path):
 
 
 def test_launcher_refuses_mesh_and_a_missing_card(monkeypatch):
-    with pytest.raises(SystemExit):
+    # --mesh trains (tests/test_torch_sharded_train.py); without a
+    # process group of its size to join, it refuses before any weight
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="needs 4 ranks"):
         tlaunch.run(["--arch", ARCH, "--mesh", "2x2"], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

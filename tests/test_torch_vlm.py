@@ -49,6 +49,7 @@ from repro_torch.serve import engine as teng
 from repro_torch.serve import paging as tpg
 
 from _torch_parity import jax_greedy, port_forced
+from _torch_dist import one_torch_thread  # noqa: F401
 
 ARCH = "internvl2-1b-smoke"
 B, T, MAX_LEN, STEPS = 2, 6, 32, 6

@@ -45,6 +45,8 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.policy import QuantPolicy as TPolicy
 from repro_torch.models import layers as tl
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 ARCH = "xlstm-350m"
 TOL = dict(rtol=2e-4, atol=2e-5)
 

@@ -45,6 +45,8 @@ from repro_torch.models import model as tmodel
 from repro_torch.serve import engine as teng
 from repro_torch.serve import paging as tpg
 
+from _torch_dist import one_torch_thread  # noqa: F401
+
 ARCH = "xlstm-350m-smoke"
 SLOTS, E_MAX_LEN, MAX_NEW = 4, 64, 16
 

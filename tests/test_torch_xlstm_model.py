@@ -39,6 +39,7 @@ from repro_torch.core.ovp import QuantizedTensor
 from repro_torch.models import model as tmodel
 
 from _torch_parity import jax_greedy, port_forced
+from _torch_dist import one_torch_thread  # noqa: F401
 
 ARCH = "xlstm-350m-smoke"
 B, T, MAX_LEN, STEPS = 2, 70, 96, 13
