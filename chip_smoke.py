@@ -114,7 +114,8 @@ CUDA toolkit. It builds the hand-written kernels from
    quantize, static, codes4 packed by K7, and codes8 with int8 weights,
    at E 8, C 32, K = N = 1024, plus a per-expert mixed W4/W8 stack
    through `backends.dispatch`);
-9. serve phase E: Qwen3-30B-A3B at full published width, 48 layers,
+9. serve phase E: Qwen3-30B-A3B at full published width, `SLAB_E_LAYERS`
+   = 24 of its 48 layers (cut for phase O's time; 48 until PR 30),
    through the launcher's entry point (`--arch qwen3-moe-30b-a3b
    --quant olive_serve`, phase A's prompts and seed, layer-by-layer
    init + PTQ), slab and then paged (`--paged 16 --prefill-chunk 16`,
@@ -305,7 +306,19 @@ CUDA toolkit. It builds the hand-written kernels from
    against its plain version (`mesh_kernel_phase`): K1 over a Qwen1.5
    layer's column and row slices of both ranks, K6 at E 64 with each
    rank's slice of a top-8 fill, K2, K3 and K4 at the local Hkv (8, G
-   1, D 64; 2, G 8, D 128), K7 on the local heads' KV write.
+   1, D 64; 2, G 8, D 128), K7 on the local heads' KV write. Then four
+   ranks on card 0 (`MESH_VLM_RANKS`): InternVL2-1B at full width cut to
+   `MESH_VLM_LAYERS` = 4 of its 24 layers with `--mesh 1,4`: its 2 KV
+   heads do not divide 4, so each rank holds 64 of the 256 slots of
+   every KV cache (the reference's `cache_pspecs`) and a quarter of the
+   vocabulary. Gated per rank: tokens equal to one rank's run of the
+   same cut, KV and `table` bytes a quarter of one rank's, K2 launched
+   0 times with every decode-attention call declined as
+   `shard_hkv_lt_axis` (the partial attention and its rank-order
+   combine compute it), K1 (5 column + 2 row launches a layer) and K7
+   (2 a layer) launches a forward call and a decode step; K1 over that
+   layer's rank shards at tp 4 and K7 at its KV write's shape against
+   their plain versions.
 
 22. training on a mesh: phase P (`train_phase_p`), two ranks spawned on
    card 0 over gloo as in phase O. P1: the training launcher with
@@ -332,7 +345,14 @@ CUDA toolkit. It builds the hand-written kernels from
    on both production meshes (256 and 512 fake ranks; "meta" tensors,
    no card), started in a child process after the build so it runs
    beside the card's phases, waited for here: both records "ok",
-   their per-rank bytes, collectives and bottleneck printed.
+   their per-rank bytes, collectives and bottleneck printed; then in
+   the same child the two smoke serve cells the reference committed
+   (`qwen1.5-0.5b-smoke` decode_32k and prefill_32k, single, olive_kv):
+   "ok", argument and output bytes a rank within 1 % of the committed
+   records once the leaves `tests/test_torch_dryrun_records.py` names
+   take the reference's counts (`P_SMOKE_NAMED`); and `qwen2-7b`
+   decode_32k single olive_kv: "ok", its argument bytes a rank
+   printed.
 
 Every profile phase (A-M) prints its step's roofline (`step_roofline`:
 `repro_torch.roofline.analyze` of the step's work counted from the
@@ -3340,6 +3360,8 @@ def k6_api_phase(dev):
 
 PAGED_E_LAYERS = 8      # phase E's paged run, cut from the published 48
 #                         (12 until PR 28)
+SLAB_E_LAYERS = 24      # phase E's slab run, cut from the published 48 for
+#                         phase O's four-rank run (48 until PR 30)
 
 
 @contextlib.contextmanager
@@ -3391,8 +3413,8 @@ def serve_phase_e(dev):
             "--slots", "4", "--max-len", "256", "--seed", "0"]
     runs, prof, prof_paged = {}, None, None
     for label, depth, extra, kernels in (
-            ("slab", 48, [], ("grouped[fp]", "ovp_matmul[fp]",
-                              "decode_attn", "ovp_encode")),
+            ("slab", SLAB_E_LAYERS, [], ("grouped[fp]", "ovp_matmul[fp]",
+                                         "decode_attn", "ovp_encode")),
             ("paged", PAGED_E_LAYERS, ["--paged", "16", "--prefill-chunk",
                                        "16"],
              ("grouped[fp]", "ovp_matmul[fp]", "paged_decode_attn",
@@ -3455,7 +3477,8 @@ def serve_phase_e(dev):
                        "peak_gb": peak_gb}
         del res, done
     print(f"[serve E] peak device memory slab {runs['slab']['peak_gb']:.2f} "
-          f"GB (48 layers), paged {runs['paged']['peak_gb']:.2f} GB "
+          f"GB ({SLAB_E_LAYERS} layers), paged "
+          f"{runs['paged']['peak_gb']:.2f} GB "
           f"({PAGED_E_LAYERS} layers; one model each)")
     if prof is not None and prof["k6_ms"] is not None:
         print(f"[serve E] decode step (slab, 4 slots): K6 "
@@ -4595,10 +4618,11 @@ def serve_phase_h(dev, smi: str, peak_f_gb: float, peak_e_gb: float):
                  f"{[len(r.out_tokens) for r in done]} tokens, expected "
                  f"8 x 16")
         # the MoE's fp32 tree cannot be on the card: held to a bound at
-        # this run's depth, phase E's 48-layer peak less the served bytes
-        # (weights and caches, per layer from this run) of the layers cut
+        # this run's depth, phase E's slab peak (`SLAB_E_LAYERS` deep)
+        # less the served bytes (weights and caches, per layer from this
+        # run) of the layers cut
         if moe:
-            full_layers = get_config(arch).n_layers
+            full_layers = SLAB_E_LAYERS
             per_layer = (tree_bytes(res["params"]["layers"])
                          + tree_bytes(eng.caches["layers"])) / cfg.n_layers
             cut = full_layers - cfg.n_layers
@@ -6333,14 +6357,19 @@ MESH_LOGIT_TOL = 1e-4   # x max|ref|: the first prefill's logits, 2 ranks
 #                         against one (fp32 reassociation of the
 #                         row-parallel sums, and of K1's split-K at half K)
 MESH_RANK_TIMEOUT = 600     # seconds a rank may take for all its runs
+MESH_VLM_RANKS = 4      # phase O's InternVL2-1B run: --mesh 1,4
+MESH_VLM_LAYERS = 4     # its depth, cut from the published 24 for time
 
 
 class _Rank:
-    """A stand-in for one rank's mesh where `backends.sharded.local_shard`
-    only asks for the "model" axis's size and this rank's place on it."""
+    """A stand-in for rank `rank` of a (data 1, model `tp`) mesh: what
+    `backends.sharded.local_shard` reads (axis names and sizes, this
+    rank's place)."""
 
     def __init__(self, rank: int, tp: int = 2):
         self.rank, self.tp = rank, tp
+        self.axis_names = ("data", "model")
+        self.shape = {"data": 1, "model": tp}
 
     def size(self, axis):
         return self.tp if axis == "model" else 1
@@ -6377,12 +6406,16 @@ def _kv_bytes(eng) -> int:
                for key, leaf in layer["kv"].items() if key != "block_table")
 
 
-def _mesh_runs():
-    """(label, argv, (arch, depth)) of phase O: Qwen1.5-0.5B at full
-    width and depth, slab and paged, and Qwen3-30B-A3B cut to
-    `MESH_E_LAYERS` layers, slab and paged; the launcher's workload."""
+def _mesh_runs(world: int = 2):
+    """(label, argv, (arch, depth)) of phase O over `world` ranks: on
+    two, Qwen1.5-0.5B at full width and depth, slab and paged, and
+    Qwen3-30B-A3B cut to `MESH_E_LAYERS` layers, slab and paged; on
+    four, InternVL2-1B cut to `MESH_VLM_LAYERS` layers, slab; the
+    launcher's workload."""
     paged = ["--paged", "16", "--prefill-chunk", "16"]
     base = ["--quant", "olive_serve"] + SERVE_ARGS
+    if world == MESH_VLM_RANKS:
+        return [("vlm slab", base, (VLM_ARCH, MESH_VLM_LAYERS))]
     return [("qwen slab", base, (ARCH, 24)),
             ("qwen paged", base + paged, (ARCH, 24)),
             ("moe slab", base, (MOE_ARCH, MESH_E_LAYERS)),
@@ -6432,12 +6465,22 @@ def _serve_record(res, dev, steps: int = MESH_STEPS):
     return rec
 
 
-def _mesh_rank(rank: int, init: str, out_dir: str) -> None:
-    """One rank of phase O: join the gloo group through the file `init`
-    (two ranks on card 0), serve every run of `_mesh_runs` through the
-    launcher's `run()` with `--backend cuda_sharded --mesh 1,2`, and
-    write the records to `out_dir/rank<rank>.pkl`. Any error exits
-    non-zero."""
+def _mesh_facts(res) -> dict:
+    """The table's bytes and each KV site's slot part (None: whole
+    slots) of a served run."""
+    from repro_torch.backends import sharded
+    table = res["params"]["embed"]["table"]
+    return {"table_bytes": table.numel() * table.element_size(),
+            "slots": [sharded.seq_part(layer["kv"])
+                      for layer in res["engine"].caches["layers"]]}
+
+
+def _mesh_rank(rank: int, init: str, out_dir: str, world: int = 2) -> None:
+    """One rank of phase O: join the gloo group of `world` ranks through
+    the file `init` (all on card 0), serve every run of `_mesh_runs`
+    through the launcher's `run()` with `--backend cuda_sharded --mesh
+    1,<world>`, and write the records to `out_dir/rank<rank>.pkl`. Any
+    error exits non-zero."""
     import pickle
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -6446,20 +6489,22 @@ def _mesh_rank(rank: int, init: str, out_dir: str) -> None:
     from repro_torch.launch import serve
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = mesh_lib.init_distributed(
-        "cuda", rank=rank, world_size=2, local_rank=rank,
-        local_world_size=2, init_method=f"file://{init}",
+        "cuda", rank=rank, world_size=world, local_rank=rank,
+        local_world_size=world, init_method=f"file://{init}",
         verbose=rank == 0)
     recs = {}
-    for label, argv, (arch, depth) in _mesh_runs():
+    for label, argv, (arch, depth) in _mesh_runs(world):
         free_device_memory()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         mesh_lib.reset_collective_stats()
         with cut_arch(arch, depth) as name:
             res = serve.run(["--arch", name] + argv + [
-                "--backend", "cuda_sharded", "--mesh", "1,2"], device="cuda")
+                "--backend", "cuda_sharded", "--mesh", f"1,{world}"],
+                device="cuda")
         recs[label] = _serve_record(res, dev)
         recs[label]["audit"] = res["engine"].trace_audit()
+        recs[label].update(_mesh_facts(res))
         del res
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(recs, f)
@@ -6467,20 +6512,20 @@ def _mesh_rank(rank: int, init: str, out_dir: str) -> None:
     dist.destroy_process_group()
 
 
-def _spawn_mesh_ranks():
-    """Run `_mesh_rank` in two processes; their records by rank. A rank
-    that fails, exits non-zero or outlives `MESH_RANK_TIMEOUT` fails the
-    phase."""
+def _spawn_mesh_ranks(world: int = 2):
+    """Run `_mesh_rank` in `world` processes; their records by rank. A
+    rank that fails, exits non-zero or outlives `MESH_RANK_TIMEOUT`
+    fails the phase."""
     import pickle
     import shutil
     import torch.multiprocessing as mp
-    out_dir = os.path.join(ROOT, "build", "mesh_o")
+    out_dir = os.path.join(ROOT, "build", f"mesh_o{world}")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     init = os.path.join(out_dir, "rendezvous")
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_mesh_rank, args=(r, init, out_dir))
-             for r in range(2)]
+    procs = [ctx.Process(target=_mesh_rank, args=(r, init, out_dir, world))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + MESH_RANK_TIMEOUT
@@ -6495,20 +6540,21 @@ def _spawn_mesh_ranks():
         fail(f"phase O: ranks exited {codes} (0 expected; negative: killed "
              f"after {MESH_RANK_TIMEOUT}s or by a signal)")
     recs = []
-    for r in range(2):
+    for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
             recs.append(pickle.load(f))
     return recs
 
 
-def _single_moe_runs(dev):
+def _single_cut_runs(dev, world: int = 2):
     """The single-rank (`cuda`, captured) runs of phase O's Qwen3-30B-A3B
-    cut, slab and paged, as `_serve_record`s."""
+    cut, slab and paged (`world` 4: its InternVL2-1B cut), as
+    `_serve_record`s."""
     import torch
     from repro_torch.launch import serve
     out = {}
-    for label, argv, (arch, depth) in _mesh_runs():
-        if arch != MOE_ARCH:
+    for label, argv, (arch, depth) in _mesh_runs(world):
+        if arch == ARCH:
             continue
         free_device_memory()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -6516,6 +6562,7 @@ def _single_moe_runs(dev):
         with cut_arch(arch, depth) as name:
             res = serve.run(["--arch", name] + argv, device=dev)
         out[label] = _serve_record(res, dev)
+        out[label].update(_mesh_facts(res))
         del res
     return out
 
@@ -6624,6 +6671,70 @@ def _check_mesh_run(label, ranks, single, layers: int):
         fail(f"phase O {label}: the two ranks' logits differ")
 
 
+def _check_vlm_mesh_run(label, ranks, single, layers: int):
+    """Phase O's gates on the four-rank InternVL2-1B run: every rank's
+    tokens one rank's; every KV site holds a quarter of its slots (64 of
+    256), its KV and `table` bytes a quarter of one rank's; K2 launched
+    0 times, every decode-attention call declined as
+    `shard_hkv_lt_axis` and no other fallback; K1 (5 column + 2 row a
+    layer) and K7 (2 a layer) launches per forward call and per decode
+    step; the first prompt's prefill logits within `MESH_LOGIT_TOL`."""
+    import numpy as np
+    tp = MESH_VLM_RANKS
+    want_out = single["outputs"]
+    declined = "cuda_sharded->fallback:shard_hkv_lt_axis[decode_attn]"
+    for r, rec in enumerate(ranks):
+        if rec["outputs"] != want_out:
+            fail(f"phase O {label}: rank {r}'s tokens differ from the "
+                 f"single-rank run's")
+        st = rec["stats"]
+        fwd = st["prefills_run"] + st["prefill_chunks_run"] \
+            + st["decodes_run"]
+        counts = rec["counts"]
+        disp = counts["dispatch"]
+        bad = [k for k in disp if not k.startswith("cuda_sharded")
+               or ("->fallback" in k and k != declined)]
+        if bad or disp.get(declined) != layers * st["decodes_run"]:
+            fail(f"phase O {label}: rank {r} dispatch {disp}, expected "
+                 f"{layers * st['decodes_run']} {declined}")
+        shard = {"ovp_matmul[fp]@col": 5 * layers,
+                 "ovp_matmul[fp]@row": 2 * layers}
+        wants = {"ovp_matmul[fp]": 7 * layers * fwd,
+                 "ovp_encode": 2 * layers * (st["decodes_run"]
+                                             + st["prefills_run"]),
+                 "decode_attn": 0, "paged_decode_attn": 0,
+                 "prefill_attn": 0}
+        wants.update({k: v * fwd for k, v in shard.items()})
+        got = {k: counts["shard"].get(k, counts.get(k)) for k in wants}
+        if got != wants:
+            fail(f"phase O {label}: rank {r} launches {got}, expected "
+                 f"{wants} ({fwd} forward calls)")
+        want_step = {"ovp_matmul[fp]": 7 * layers, "ovp_encode": 2 * layers,
+                     **shard}
+        step = rec["step_counts"]
+        if any(step.get(k) != v for k, v in want_step.items()) or \
+                step.get("decode_attn"):
+            fail(f"phase O {label}: rank {r}'s decode step launched {step},"
+                 f" expected {want_step} and no K2")
+        if rec["kv_bytes"] * tp != single["kv_bytes"] or \
+                rec["table_bytes"] * tp != single["table_bytes"]:
+            fail(f"phase O {label}: rank {r}'s KV bytes {rec['kv_bytes']} "
+                 f"and table bytes {rec['table_bytes']}, a quarter of the "
+                 f"single rank's {single['kv_bytes']} and "
+                 f"{single['table_bytes']} expected")
+        for part in rec["slots"]:
+            if part is None or part[:3] != (r * 64, 64, 256):
+                fail(f"phase O {label}: rank {r}'s KV sites hold slots "
+                     f"{rec['slots']}, ({r * 64}, 64, 256) expected")
+        ref = single["logits"]
+        err = float(np.abs(rec["logits"] - ref).max())
+        rec["logit_err"] = err
+        if err > MESH_LOGIT_TOL * float(np.abs(ref).max()):
+            fail(f"phase O {label}: rank {r}'s first prefill logits differ "
+                 f"by {err:.3e} (tol {MESH_LOGIT_TOL} x max|ref| "
+                 f"{float(np.abs(ref).max()):.3e})")
+
+
 def mesh_kernel_phase(dev):
     """Each new shard shape of phase O once on the card against its plain
     version, with the tolerances the kernel phases use, timed like them
@@ -6634,7 +6745,11 @@ def mesh_kernel_phase(dev):
     Qwen3-30B-A3B's 128) with that rank's slice of a seeded top-8
     routing's decode fill; K2, K3 and K4 at the local Hkv (Qwen1.5:
     Hkv 8, G 1, D 64; Qwen3: Hkv 2, G 8, D 128); K7 on the local heads'
-    KV write (R 4 slots x 8 heads, K 64; R 4 x 2, K 128)."""
+    KV write (R 4 slots x 8 heads, K 64; R 4 x 2, K 128); K1 over one
+    InternVL2-1B layer's column and row slices at tp 4 (every rank's,
+    rows 4) and K7 at its KV write (R 4 slots x 2 heads, K 64: every
+    rank encodes its rows' K and V, the owner of the slot writes
+    them)."""
     import torch
     from repro_torch.backends.sharded import local_shard
     from repro_torch.core import policy
@@ -6663,6 +6778,28 @@ def mesh_kernel_phase(dev):
             out.setdefault(f"k1 {kind}", rec)
             out[f"k1 {kind}"]["max_abs_err"] = max(
                 out[f"k1 {kind}"]["max_abs_err"], rec["max_abs_err"])
+    # K1 over InternVL2-1B's rank shards at tp 4 (d 896, 14 heads, 2 KV
+    # heads of 64, d_ff 4864)
+    vlm = {"attn/wq": (896, 896), "attn/wk": (896, 128),
+           "attn/wv": (896, 128), "attn/wo": (896, 896),
+           "mlp/wg": (896, 4864), "mlp/wu": (896, 4864),
+           "mlp/wd": (4864, 896)}
+    whole = {s: quantize_weight(torch.randn(kn, generator=gen, device=dev)
+                                / kn[0] ** 0.5, w4)
+             for s, kn in vlm.items()}
+    for r in range(MESH_VLM_RANKS):
+        shards = {s: local_shard(w, f"layers/0/{s}",
+                                 _Rank(r, MESH_VLM_RANKS))
+                  for s, w in whole.items()}
+        for kind in ("col", "row"):
+            linears = [w for w in shards.values() if w.mode == kind]
+            rec = k1_layer_record(dev, gen, linears, 4, "int4",
+                                  label=f"k1 tp4 {kind} rank {r}")
+            key = f"k1 tp4 {kind}"
+            out.setdefault(key, rec)
+            out[key]["max_abs_err"] = max(out[key]["max_abs_err"],
+                                          rec["max_abs_err"])
+    del whole
     # K6 at E 64 with each rank's slice of the decode fill
     e, b, c = 128, 4, 4
     fill = _routed_fill(gen, dev, b, 1)
@@ -6725,7 +6862,8 @@ def mesh_kernel_phase(dev):
         out[f"k3 {tag}"] = k3_phase(dev, hkv, g, d, all_pos=False)
         out[f"k4 {tag}"] = k4_phase(dev, hkv, g, d, cs=(16,))
     # K7 on the local heads' KV write, 0 bytes differing
-    for tag, r_rows, k in (("qwen", 4 * 8, 64), ("moe", 4 * 2, 128)):
+    for tag, r_rows, k in (("qwen", 4 * 8, 64), ("moe", 4 * 2, 128),
+                           ("vlm", 4 * 2, 64)):
         x, scales = _k7_inputs(dev, gen, r_rows, k, "float32")
         scale = scales["row"]
         got = enc.fused_ovp_encode(x, scale=scale)
@@ -6754,16 +6892,19 @@ def serve_phase_o(dev, smi: str, ref):
     ranks`), Qwen1.5-0.5B at full width and depth, slab and paged, held to
     phases A and C (`ref`, `mesh_reference`), and Qwen3-30B-A3B at
     `MESH_E_LAYERS` layers with EP 2, slab and paged, held to one rank's
-    run of the same cut here; then the shard shapes' kernels
-    (`mesh_kernel_phase`). Prints per rank: wall ms a decode step,
-    collectives and bytes a step, peak memory. No speed claim: the two
-    ranks share one card, and gloo runs the collectives on the host."""
+    run of the same cut here; then four ranks on card 0, InternVL2-1B at
+    `MESH_VLM_LAYERS` layers with its caches split by slot, held to one
+    rank's run of the same cut (`_check_vlm_mesh_run`); then the shard
+    shapes' kernels (`mesh_kernel_phase`). Prints per rank: wall ms a
+    decode step, collectives and bytes a step, peak memory. No speed
+    claim: the ranks share one card, and gloo runs the collectives on
+    the host."""
     import torch
     t_phase = time.perf_counter()
     free_device_memory()
     ranks = _spawn_mesh_ranks()
     t_ranks = time.perf_counter() - t_phase
-    single = dict(ref, **_single_moe_runs(dev))
+    single = dict(ref, **_single_cut_runs(dev))
     free_device_memory()
     for label, _, (arch, depth) in _mesh_runs():
         recs = [r[label] for r in ranks]
@@ -6782,14 +6923,47 @@ def serve_phase_o(dev, smi: str, ref):
                   f"{rec['kv_bytes']} (one rank: {single[label]['kv_bytes']})"
                   f", quantized weights {q / 1e6:.1f} MB "
                   f"({q / single[label]['weights'][0]:.3f} of one rank's), "
-                  f"replicated raw {raw / 1e6:.1f} MB; peak {rec['peak_gb']:.2f} GB; run "
+                  f"raw {raw / 1e6:.1f} MB; peak {rec['peak_gb']:.2f} GB; run "
                   f"{rec['seconds']:.2f}s, {rec['tok_per_s']:.1f} tok/s"
                   + (f"; first prefill logits within {rec['logit_err']:.2e}"
                      f" of one rank's" if "logit_err" in rec else ""))
+    # four ranks: InternVL2-1B, its caches split by slot
+    t_vlm = time.perf_counter()
+    free_device_memory()
+    vlm = _spawn_mesh_ranks(MESH_VLM_RANKS)
+    t_vlm_ranks = time.perf_counter() - t_vlm
+    single.update(_single_cut_runs(dev, MESH_VLM_RANKS))
+    free_device_memory()
+    for label, _, (arch, depth) in _mesh_runs(MESH_VLM_RANKS):
+        recs = [r[label] for r in vlm]
+        _check_vlm_mesh_run(label, recs, single[label], depth)
+        for r, rec in enumerate(recs):
+            coll = rec["step_collectives"]
+            q, raw = rec["weights"]
+            print(f"[mesh O] {label} {arch} ({depth} of 24 layers, --mesh "
+                  f"1,{MESH_VLM_RANKS}) rank {r} ({smi}; four ranks sharing "
+                  f"one card over gloo, eager steps): tokens equal to one "
+                  f"rank's ({sum(map(len, rec['outputs'].values()))}), "
+                  f"slots {rec['slots'][0][:3]} of every KV site, decode "
+                  f"attention declined {rec['counts']['dispatch']}; a "
+                  f"decode step {rec['step_ms']:.2f}ms wall, launches "
+                  f"{rec['step_counts']}, collectives a step "
+                  f"{coll.get('all_gather', 0):g} all-gathers + "
+                  f"{coll.get('sum', 0):g} sums, "
+                  f"{coll.get('bytes', 0) / 1e6:.3f} MB received; KV bytes "
+                  f"{rec['kv_bytes']} (one rank: {single[label]['kv_bytes']})"
+                  f", table bytes {rec['table_bytes']} (one rank: "
+                  f"{single[label]['table_bytes']}), quantized weights "
+                  f"{q / 1e6:.2f} MB ({q / single[label]['weights'][0]:.3f}"
+                  f" of one rank's), raw {raw / 1e6:.1f} MB; peak "
+                  f"{rec['peak_gb']:.2f} GB; first prefill logits within "
+                  f"{rec['logit_err']:.2e} of one rank's")
+    print(f"[mesh O] four ranks {t_vlm_ranks:.1f}s, with the single-rank "
+          f"run {time.perf_counter() - t_vlm:.1f}s")
     kern = mesh_kernel_phase(dev)
     print(f"[mesh O] ranks {t_ranks:.1f}s; phase took "
           f"{time.perf_counter() - t_phase:.1f}s")
-    return {"ranks": ranks, "kernels": kern}
+    return {"ranks": ranks, "vlm": vlm, "kernels": kern}
 
 
 # --------------------------------------------------------------------------
@@ -6821,12 +6995,25 @@ P_XLSTM_RTOL = 1e-3     # TP ranks compute the same rows as one rank
 P_RANK_TIMEOUT = 600    # seconds a rank may take for its runs
 P_DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_p")
 P_DRYRUN_TIMEOUT = 900  # seconds the dry run (started with the script) gets
+# P5's serve cells: the two smoke cells the reference committed records
+# of (EXPERIMENTS/dryrun/), and Qwen2-7B at full size
+P_SMOKE = "qwen1.5-0.5b-smoke"
+P_SERVE_CELLS = [(P_SMOKE, "decode_32k"), (P_SMOKE, "prefill_32k"),
+                 ("qwen2-7b", "decode_32k")]
+# the leaves tests/test_torch_dryrun_records.py names: port bytes less
+# the reference's a rank, for (arguments, outputs). Arguments: the
+# quantized attention and MLP codes and column scales the reference
+# replicates and the tied head's unread w_out (640 - 44,544 together);
+# outputs: the logits, every vocab column on the port (f32)
+P_SMOKE_NAMED = {"decode_32k": (640 - 44544, 8 * 480 * 4),
+                 "prefill_32k": (640 - 44544, 2 * 480 * 4)}
 
 
 def start_dryrun():
     """Start phase P5's dry run of Qwen1.5-0.5B train_4k on both
-    production meshes (256 and 512 fake ranks, "meta" tensors: CPU only)
-    in a child process at once, so it runs beside the card's phases;
+    production meshes (256 and 512 fake ranks, "meta" tensors: CPU only),
+    then of `P_SERVE_CELLS` (single, olive_kv), in a child process at
+    once, so it runs beside the card's phases;
     `dryrun_phase` waits for it. The child is killed when this process
     exits."""
     import atexit
@@ -6836,10 +7023,17 @@ def start_dryrun():
     log = open(os.path.join(P_DRYRUN_OUT, "log.txt"), "w")
     env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = [["--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh",
+             "both"]] + [["--arch", arch, "--shape", shape, "--mesh",
+                          "single", "--quant", "olive_kv"]
+                         for arch, shape in P_SERVE_CELLS]
+    code = ("import sys\n"
+            "from repro_torch.launch import dryrun\n"
+            f"runs = {runs!r}\n"
+            f"sys.exit(max(dryrun.main(r + ['--out', {P_DRYRUN_OUT!r}, "
+            "'--force']) for r in runs))\n")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         TRAIN_ARCH, "--shape", "train_4k", "--mesh", "both", "--out",
-         P_DRYRUN_OUT, "--force"], stdout=log, stderr=subprocess.STDOUT,
+        [sys.executable, "-c", code], stdout=log, stderr=subprocess.STDOUT,
         env=env, cwd=ROOT)
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return {"proc": proc, "log": log, "t0": time.perf_counter()}
@@ -7093,7 +7287,39 @@ def dryrun_phase(job, smi: str) -> dict:
               f" collective {roof['t_collective_s']:.4f}s -> "
               f"{roof['bottleneck']} [{smi}]")
         out[mk] = rec
-    print(f"[dryrun P] the two cells took "
+    for arch, shape in P_SERVE_CELLS:
+        cell = f"{arch}__{shape}__single__olive_kv"
+        with open(os.path.join(P_DRYRUN_OUT, cell + ".json")) as f:
+            rec = json.load(f)
+        if rec["status"] != "ok":
+            fail(f"phase P5: {cell} is {rec['status']}: "
+                 f"{rec.get('error')}")
+        mem = rec["memory_analysis"]
+        line = (f"[dryrun P] {cell} ({rec['n_chips']} fake ranks, traced in "
+                f"{rec['trace_s']}s; CPU only): per rank arguments "
+                f"{mem['argument_size_per_chip']} bytes, outputs "
+                f"{mem['output_size_per_chip']}, caches "
+                f"{mem['alias_size_per_chip']}; collectives "
+                f"{rec['collective_ops']}")
+        if arch == P_SMOKE:
+            with open(os.path.join(ROOT, "EXPERIMENTS", "dryrun",
+                                   cell + ".json")) as f:
+                want = json.load(f)["memory_analysis"]
+            d_arg, d_out = P_SMOKE_NAMED[shape]
+            for key, d in (("argument_size_per_chip", d_arg),
+                           ("output_size_per_chip", d_out)):
+                adjusted = mem[key] - d
+                if abs(adjusted - want[key]) > 0.01 * want[key]:
+                    fail(f"phase P5: {cell} {key} {mem[key]} ({adjusted} "
+                         f"with the named leaves at the reference's "
+                         f"counts), the reference's committed record "
+                         f"{want[key]} (1 %)")
+                line += (f"; {key} with the named leaves at the "
+                         f"reference's counts {adjusted}, the reference's "
+                         f"{want[key]}")
+        print(line)
+        out[cell] = rec
+    print(f"[dryrun P] the cells took "
           f"{sum(r['build_s'] + r['trace_s'] for r in out.values()):.1f}s "
           f"to build and trace, in a child started after the build (CPU "
           f"only, beside the card's phases); waited "
@@ -7526,6 +7752,16 @@ def main() -> int:
             "ovp_matmul.cu", o_ms["shard"]["grouped[fp]@expert"],
             o_k["k6"]["max_abs_err"],
             o_k["k6"])]
+    # the four-rank InternVL2-1B run (its KV sites split by slot: K2
+    # declined, 0 launches); rank 0's launches
+    o_v = run_o["vlm"][0]["vlm slab"]["counts"]
+    kernels += [
+        row(f"ovp_matmul[fp]@tp4 {kind}", k1_src, "ovp_matmul.cu",
+            o_v["shard"][f"ovp_matmul[fp]@{kind}"],
+            o_k[f"k1 tp4 {kind}"]["max_abs_err"], o_k[f"k1 tp4 {kind}"])
+        for kind in ("col", "row")] + [
+        row("ovp_encode@tp4 slots", "src/repro/kernels/ovp_encode.py:59",
+            "ovp_encode.cu", o_v["ovp_encode"], 0.0, o_k["k7 vlm"])]
     for tag, slab, paged in (("Hkv8", o_qs, o_qp), ("Hkv2", o_ms, o_mp)):
         key = "qwen" if tag == "Hkv8" else "moe"
         kernels += [

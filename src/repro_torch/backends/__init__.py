@@ -43,6 +43,7 @@ from .base import (ACT_SCALE_KEYS, ALL_DECLINE_CODES, DECLINE_CODES,
 from .cuda import CudaBackend
 from .eager import EagerBackend
 from .reference import ReferenceBackend
+from . import sharded
 from .sharded import ShardedCudaBackend, configure_mesh, current_mesh
 
 _REGISTRY: Dict[str, QuantizedMatmulBackend] = {}
@@ -97,15 +98,21 @@ def dispatch(x: torch.Tensor, w, policy: QuantPolicy,
     (…, expert); a backend may leave the rows past it unwritten (K6
     does), so the caller reads only filled rows."""
     if isinstance(w, MixedExpertQuant):
+        w = sharded.gathered(w)
         backend = get_backend(policy.backend)
         reason = backend.mixed_expert_decline_reason(x, w, policy)
         if reason is not None:
             _record(backend.name, reason, "[stacked]")
             policy = policy.with_backend(backend.fallback)
         return _dispatch_mixed_experts(x, w, policy, act_scale, fill)
+    w = sharded.gathered(w)
     backend = get_backend(policy.backend)
     reason = backend.decline_reason(x, w, policy)
     _record(backend.name, reason, "[stacked]" if w.data.ndim > 2 else "")
+    if reason is not None and isinstance(w, sharded.QuantShard) \
+            and w.parts > 1:
+        # a declined part: the fallback computes it split
+        return sharded.declined_split_matmul(x, w, policy, fill=fill)
     if reason is not None:
         backend = get_backend(backend.fallback)
     return backend.matmul(x, w, policy, act_scale=act_scale, fill=fill)
@@ -154,6 +161,10 @@ def decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
     backend = get_backend(policy.backend if policy is not None else "eager")
     reason = backend.decode_attn_decline_reason(q, cache)
     _record(backend.name, reason, "[decode_attn]")
+    if reason is not None and sharded.seq_part(cache) is not None:
+        # a part of the slots: the partial attention and its combine
+        return sharded.seq_decode_attention(q, cache, pos, window=window,
+                                            ring=ring)
     if reason is not None:
         backend = get_backend(backend.fallback)
     return backend.decode_attention(q, cache, pos, window=window, ring=ring)

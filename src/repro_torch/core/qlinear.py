@@ -10,6 +10,9 @@ baselines and the calibration tape.
                                 then `torch.matmul`
   QuantizedTensor,           -> `repro_torch.backends.dispatch` on the
   MixedExpertQuant              backend `policy.backend` names
+  raw weight placed on a     -> `backends.sharded.raw_matmul`: its FSDP
+  mesh (`.placed`)              parts gathered, its "model" part column-,
+                                row- or expert-parallel
 
 The baselines (`method` "int" and "ant") are fake-quant, as in the
 reference: PTQ leaves a dense fp32 weight holding the quantized values,
@@ -188,6 +191,9 @@ def qmatmul(x: torch.Tensor, w: Weight, policy: QuantPolicy, site: str = "",
         # int4 runtime path the paper compares against)
         x = baselines.uniform_int_dynamic_act(x.to(torch.float32),
                                               policy.abits)
+    if getattr(w, "placed", None) is not None:
+        # a raw weight placed on a mesh (`backends.sharded.local_shard`)
+        return backends.sharded.raw_matmul(x, w, cdt)
     return torch.matmul(x.to(cdt), w.to(cdt))
 
 

@@ -78,7 +78,11 @@ def _search(x: torch.Tensor, s0: torch.Tensor, normal_dtype: str,
             pair_axis: int, mse_dim) -> torch.Tensor:
     """Shared MSE grid search. s0 is the 3σ seed (a scalar, or (C, 1) for
     per-row search); the grid always contains s0 itself, so the search
-    never loses to the 3σ init. Ties keep the first candidate."""
+    never loses to the 3σ init. Ties keep the first candidate. On "meta"
+    (a dry run's PTQ) only the result's shape exists: no candidate is
+    tried."""
+    if x.device.type == "meta":
+        return s0[..., 0] if s0.ndim else s0
     grid = _grid(lo, hi, n_grid - 1, x.device)
     cands = torch.stack([s0 * g for g in grid] + [s0], dim=-1)
     xf = x.to(torch.float32)

@@ -215,6 +215,12 @@ def decode_attention_plain(q: torch.Tensor, cache, pos: torch.Tensor, *,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def decode_attention_shape(q: torch.Tensor) -> torch.Tensor:
+    """The plain version's output for a "meta" q: (B, 1, H, D) in q's
+    dtype on "meta", no arithmetic."""
+    return torch.empty(q.shape, dtype=q.dtype, device="meta")
+
+
 # --------------------------------------------------------------------------
 # CUDA launch
 # --------------------------------------------------------------------------
@@ -434,8 +440,11 @@ def _run(q: torch.Tensor, cache, pos: torch.Tensor, window: int,
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache, pos, window=window,
                                       ring=ring)
+    if q.device.type == "meta":
+        return decode_attention_shape(q)
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attn runs on cpu or cuda, not {q.device}")
+        raise ValueError(f"decode_attn runs on cpu, cuda or meta, not "
+                         f"{q.device}")
     return _launch(q, cache, pos, window=window, ring=ring)
 
 
@@ -444,7 +453,7 @@ def fused_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, *,
     """Single-token attention over a KV cache, one kernel launch on CUDA
     (K2 for a slab cache; a paged cache goes to
     `fused_paged_decode_attention`); CPU tensors take
-    `decode_attention_plain`."""
+    `decode_attention_plain`, "meta" ones `decode_attention_shape`."""
     if "block_table" in cache:
         return fused_paged_decode_attention(q, cache, pos, window=window,
                                             ring=ring)
@@ -456,7 +465,7 @@ def fused_paged_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor,
                                  ring: int = 0) -> torch.Tensor:
     """Single-token attention over a paged cache: one K3 launch on CUDA,
     reading K/V through the block table; CPU tensors take
-    `decode_attention_plain`."""
+    `decode_attention_plain`, "meta" ones `decode_attention_shape`."""
     if "block_table" not in cache:
         raise ValueError("fused_paged_decode_attention needs a paged cache "
                          "(a block_table leaf)")

@@ -118,6 +118,13 @@ def ovp_encode_plain(x: torch.Tensor, scale=None) -> torch.Tensor:
     return pack4(ovp_encode_codes(u, "int4"))
 
 
+def ovp_encode_shape(x: torch.Tensor) -> torch.Tensor:
+    """The plain version's output for a "meta" x: (R, K/2) uint8 on
+    "meta", no arithmetic."""
+    return torch.empty((x.shape[0], x.shape[1] // 2), dtype=torch.uint8,
+                       device="meta")
+
+
 def _scale_args(scale, r: int, device: torch.device):
     """(kind, row tensor or None, row stride, scalar) for the C entry."""
     if scale is None:
@@ -158,7 +165,9 @@ def fused_ovp_encode(x: torch.Tensor, normal_dtype: str = "int4",
     dtype cast to f32 first) -> (R, K/2) packed OVP bytes at u = x /
     scale: the plain version for CPU tensors, one kernel launch for CUDA
     tensors, an error for anything else. `scale`: None (x already
-    scaled), a Python or 1-element scalar, or an (R,) / (R, 1) tensor."""
+    scaled), a Python or 1-element scalar, or an (R,) / (R, 1) tensor.
+    "meta" tensors give the output's shape alone (`ovp_encode_shape`;
+    no launch is counted)."""
     if normal_dtype != "int4":
         raise ValueError("the encoder kernel targets int4 activations, "
                          f"not {normal_dtype!r}")
@@ -173,8 +182,11 @@ def fused_ovp_encode(x: torch.Tensor, normal_dtype: str = "int4",
                              f"give a scalar or one scale a row")
     if x.device.type == "cpu":
         return ovp_encode_plain(x, scale)
+    if x.device.type == "meta":
+        return ovp_encode_shape(x)
     if x.device.type != "cuda":
-        raise ValueError(f"ovp_encode runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"ovp_encode runs on cpu, cuda or meta, not "
+                         f"{x.device}")
     return _launch(x, scale)
 
 

@@ -177,6 +177,22 @@ def fused_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
     return acc * sw[None, :]
 
 
+def fused_ovp_matmul_shape(a: torch.Tensor, w_data: torch.Tensor
+                           ) -> torch.Tensor:
+    """The plain version's output for a "meta" lhs: (R, N) f32 on
+    "meta", no arithmetic (a Pallas call's abstract evaluation)."""
+    return torch.empty((a.shape[0], w_data.shape[-1]), dtype=torch.float32,
+                       device="meta")
+
+
+def grouped_ovp_matmul_shape(a: torch.Tensor, w_data: torch.Tensor
+                             ) -> torch.Tensor:
+    """The grouped plain version's output for a "meta" lhs: (B, E, C, N)
+    f32 on "meta", no arithmetic."""
+    return torch.empty(tuple(a.shape[:-1]) + (w_data.shape[-1],),
+                       dtype=torch.float32, device="meta")
+
+
 def grouped_ovp_matmul_plain(a: torch.Tensor, sa: Optional[torch.Tensor],
                              w_data: torch.Tensor, sw: torch.Tensor, *,
                              w_dtype: str, a_mode: str, a_dtype: str,
@@ -525,7 +541,9 @@ def run(a: torch.Tensor, sa: Optional[torch.Tensor], w_data: torch.Tensor,
         a_dtype: Optional[str] = None, s_static: Optional[float] = None,
         plan: Optional[LaunchPlan] = None) -> torch.Tensor:
     """(R, Ka) x codes -> (R, N): the plain version for CPU tensors, the
-    kernel for CUDA tensors, an error for anything else. `a_dtype`
+    kernel for CUDA tensors, the output's shape alone for "meta" tensors
+    (`fused_ovp_matmul_shape`; no launch is counted), an error for
+    anything else. `a_dtype`
     defaults to the weight's (fp mode ignores it); static mode needs
     `s_static`, the quantize and codes modes `sa`. `plan` replaces
     `launch_plan`'s launch (tests and measurement force a body or a
@@ -534,8 +552,11 @@ def run(a: torch.Tensor, sa: Optional[torch.Tensor], w_data: torch.Tensor,
                         a_dtype=a_dtype, s_static=s_static)
     if a.device.type == "cpu":
         return fused_ovp_matmul_plain(a, sa, w_data, sw, **kw)
+    if a.device.type == "meta":
+        return fused_ovp_matmul_shape(a, w_data)
     if a.device.type != "cuda":
-        raise ValueError(f"ovp_matmul runs on cpu or cuda, not {a.device}")
+        raise ValueError(f"ovp_matmul runs on cpu, cuda or meta, not "
+                         f"{a.device}")
     return _launch(a, sa, w_data, sw, plan=plan, **kw)
 
 
@@ -681,8 +702,9 @@ def run_grouped(a: torch.Tensor, sa: Optional[torch.Tensor],
                 fill: Optional[torch.Tensor] = None,
                 plan: Optional[GroupedPlan] = None) -> torch.Tensor:
     """(B, E, C, Ka) x stacked codes (E, Kw, N) -> (B, E, C, N): the
-    plain version for CPU tensors, K6 for CUDA tensors, an error for
-    anything else. Scales: sa (B, E, C), sw (E, N). `fill` (B, E) int:
+    plain version for CPU tensors, K6 for CUDA tensors, the output's
+    shape alone for "meta" tensors (`grouped_ovp_matmul_shape`; no
+    launch is counted), an error for anything else. Scales: sa (B, E, C), sw (E, N). `fill` (B, E) int:
     only rows c < fill[b, e] are computed; the others are zeros on the
     CPU and unwritten (unspecified) on the card. `plan` replaces
     `grouped_launch_plan`'s launch (measurement forces a body with it; a
@@ -696,9 +718,11 @@ def run_grouped(a: torch.Tensor, sa: Optional[torch.Tensor],
                         a_dtype=a_dtype, s_static=s_static)
     if a.device.type == "cpu":
         return grouped_ovp_matmul_plain(a, sa, w_data, sw, fill=fill, **kw)
+    if a.device.type == "meta":
+        return grouped_ovp_matmul_shape(a, w_data)
     if a.device.type != "cuda":
-        raise ValueError(f"grouped ovp_matmul runs on cpu or cuda, not "
-                         f"{a.device}")
+        raise ValueError(f"grouped ovp_matmul runs on cpu, cuda or meta, "
+                         f"not {a.device}")
     return _launch_grouped(a, sa, w_data, sw, fill=fill, plan=plan, **kw)
 
 

@@ -158,6 +158,12 @@ def prefill_attention_plain(q: torch.Tensor, cache,
     return o.permute(2, 0, 1, 3).reshape(b, c, h, d).to(q.dtype), cache
 
 
+def prefill_attention_shape(q: torch.Tensor, cache):
+    """The plain version's result for a "meta" q: ((1, C, H, D) in q's
+    dtype on "meta", the cache as it is), no arithmetic and no write."""
+    return torch.empty(q.shape, dtype=q.dtype, device="meta"), cache
+
+
 # --------------------------------------------------------------------------
 # CUDA launch
 # --------------------------------------------------------------------------
@@ -310,12 +316,16 @@ def fused_prefill_attention(q: torch.Tensor, cache,
                                                               dict]:
     """Causal attention of one chunk over the raw stage + quantize-and-
     write of every stage tile onto its page: one kernel launch on CUDA;
-    CPU tensors take `prefill_attention_plain`. Returns (out (1, C, H, D),
+    CPU tensors take `prefill_attention_plain`, "meta" ones
+    `prefill_attention_shape` (no write). Returns (out (1, C, H, D),
     cache) with the pool leaves written in place."""
     if q.device.type == "cpu":
         return prefill_attention_plain(q, cache, positions)
+    if q.device.type == "meta":
+        return prefill_attention_shape(q, cache)
     if q.device.type != "cuda":
-        raise ValueError(f"prefill_attn runs on cpu or cuda, not {q.device}")
+        raise ValueError(f"prefill_attn runs on cpu, cuda or meta, not "
+                         f"{q.device}")
     return _launch(q, cache, positions)
 
 

@@ -19,7 +19,13 @@ record in the reference's format under `--out`:
 - `trace_s` in place of the reference's `lower_s` and `compile_s`.
 
 Nothing is computed and the card is not used: "meta" tensors carry
-shapes only, and the fake group's collectives move nothing. A cell that
+shapes only, the kernels' wrappers return their plain versions' shapes
+on "meta", and the fake group's collectives move nothing. A loop of
+equal iterations (attention's blocks, the xLSTM's chunks and tokens,
+microbatches) is traced once and its collectives counted once an
+iteration (`launch/mesh.py::loop`). A serve cell holds what the
+reference's holds: every parameter as its `param_spec` part and every
+cache as its `cache_pspecs` part (`launch/specs.py::build_serve_cell`). A cell that
 fails is recorded as "error" with its traceback, and the CLI exits 1.
 Records are incremental: a cell already written is kept unless
 --force.
@@ -83,9 +89,10 @@ def _roofline(cell, traced):
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, quant: str,
              out_dir: str, force: bool = False, mesh_override=None,
-             calibration=None) -> dict:
+             calibration=None, n_microbatches=None) -> dict:
     """Build, trace and record one cell (under a fake group already
-    running, of the mesh's size)."""
+    running, of the mesh's size; a train cell at `n_microbatches` when
+    given)."""
     from repro_torch.configs import get_config, get_shape
     from repro_torch.configs.base import shape_applicable
     from repro_torch.launch import mesh as meshmod
@@ -116,7 +123,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, quant: str,
         mesh = mesh_override if mesh_override is not None else \
             meshmod.make_production_mesh(multi_pod=(mesh_kind == "multi"))
         cell = build_cell(arch, shape_name, mesh, quant=quant,
-                          calibration=calibration)
+                          calibration=calibration,
+                          n_microbatches=n_microbatches)
         build_s = time.time() - t0
         traced = trace_cell(cell)
         roof, cbytes = _roofline(cell, traced)

@@ -24,6 +24,11 @@ bytes whatever the backend's reduction algorithm and the order of the
 sum is fixed. `collective_stats()` counts both, with the bytes each
 rank receives. A gloo group takes CUDA tensors as they are (it copies
 them through the host itself).
+
+`loop(items, like)` is how a loop of equal iterations runs: every item,
+or, on "meta" (a dry run's trace), the first alone, its collectives
+counted once for each iteration (`LOOPS_ONCE`; `rest` fills in the
+outputs of the iterations skipped).
 """
 from __future__ import annotations
 
@@ -219,3 +224,36 @@ def rank_sum(x: torch.Tensor, mesh: Mesh, axis: str = "model",
     for part in outs[1:]:
         acc = acc + part
     return acc
+
+
+# ------------------------------------------------------- loops on "meta"
+# trace a loop of equal iterations once on "meta" (tests switch it off to
+# hold the shortcut to the loop traced whole)
+LOOPS_ONCE = True
+
+
+def loop(items, like: torch.Tensor):
+    """The iterations of a loop whose iterations have equal shapes: all
+    of `items`, or, when `like` is a "meta" tensor (a dry run's trace)
+    and `LOOPS_ONCE` is on, the first alone, the shapes of the rest
+    being its shapes (the counterpart of the reference's HLO walker,
+    which counts a loop body once times its trip count). The
+    collectives counted inside that one iteration are multiplied by
+    the trip count when the loop asks for its next item; the caller
+    takes the rest of its outputs from the first (`rest`)."""
+    items = list(items)
+    if not (LOOPS_ONCE and like.device.type == "meta") or len(items) < 2:
+        yield from items
+        return
+    before = dict(_STATS)
+    yield items[0]
+    for key, val in list(_STATS.items()):
+        _STATS[key] = before.get(key, 0) + (val - before.get(key, 0)) \
+            * len(items)
+
+
+def rest(outs: list, n: int) -> list:
+    """A loop's `n` outputs from the ones it ran: as they are, or the
+    first one's shape for every iteration `loop` skipped."""
+    return outs if len(outs) == n else outs + [outs[0]] * (n - len(outs))
+

@@ -105,18 +105,21 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 def _batch_spec(mesh, rules, cfg: ArchConfig, shape: ShapeCfg,
                 kind: str):
-    """(global "meta" batch, its Specs) of a cell."""
+    """(global "meta" batch, its Specs) of a cell. A serve cell's token
+    ids and positions are int32, the reference's; a train cell's int64
+    (the loss's targets)."""
     b_rule = rules["batch"]
     gb, s = shape.global_batch, shape.seq_len
+    ids = torch.int64 if kind == "train" else torch.int32
     specs: Dict[str, Any] = {}
     args: Dict[str, Any] = {}
     if kind == "decode":
-        args["tokens"] = _meta((gb, 1), torch.int64)
+        args["tokens"] = _meta((gb, 1), ids)
         specs["tokens"] = Spec(b_rule, None)
-        args["pos"] = _meta((gb,), torch.int64)
+        args["pos"] = _meta((gb,), ids)
         specs["pos"] = Spec(b_rule)
         return args, specs
-    args["tokens"] = _meta((gb, s), torch.int64)
+    args["tokens"] = _meta((gb, s), ids)
     specs["tokens"] = Spec(b_rule, None)
     if kind == "train":
         args["labels"] = _meta((gb, s), torch.int64)
@@ -191,11 +194,13 @@ def build_train_cell(arch: str, shape_name: str, mesh, *,
 def build_serve_cell(arch: str, shape_name: str, mesh, *,
                      quant: str = "none", calibration=None) -> Cell:
     """The serve cell: params drawn on "meta", quantized under
-    `serve_policy` on the `cuda_sharded` backend and placed by
-    `place_params` (this rank's shards of the column-, row- and
-    expert-parallel weights; raw weights whole), caches made by the
-    model's cache makers (this rank's KV heads where the backend splits
-    them) for this rank's rows, and the batch's rows."""
+    `serve_policy` on the `cuda_sharded` backend, the raw leaves in
+    bf16 as the reference draws them (`_bf16`), and placed by
+    `place_params` (every leaf as its `param_spec` part, the
+    reference's placement), caches made by the model's cache makers
+    under the mesh (this rank's KV heads, or its slots where the
+    reference's `cache_pspecs` splits them) for this rank's rows, and
+    the batch's rows."""
     from repro_torch.backends import sharded
     from repro_torch.core.qlinear import quantize_params
     cfg = get_config(arch)
@@ -210,8 +215,8 @@ def build_serve_cell(arch: str, shape_name: str, mesh, *,
     model = build_model(cfg, policy, remat=False)
 
     def place(tree, prefix):
-        return sharded.place_params(
-            quantize_params(tree, policy, prefix=prefix), prefix, mesh)
+        tree = quantize_params(tree, policy, prefix=prefix)
+        return sharded.place_params(_bf16(tree), prefix, mesh)
 
     params = model.init(None, device="meta", quantize=place)
     gb, s = shape.global_batch, shape.seq_len
@@ -219,23 +224,23 @@ def build_serve_cell(arch: str, shape_name: str, mesh, *,
     batch, batch_specs = _batch_spec(mesh, rules, cfg, shape, shape.kind)
     if cfg.enc_dec and shape.kind == "prefill":
         # an audio enc-dec's prefill feeds frames and tokens
-        batch = dict(batch, tokens=_meta((gb, s), torch.int64))
+        batch = dict(batch, tokens=_meta((gb, s), torch.int32))
     local_rows = placement.local_shape((gb,), (rules["batch"],), mesh)[0]
-    with _serving_mesh(mesh):
+    with _serving_mesh(mesh, long_ctx):
         caches = model.init_caches(local_rows, s, enc_len=enc_len,
                                    device="meta", dtype=torch.bfloat16)
     cspecs = cache_pspecs(caches, cfg, mesh, long_context=long_ctx)
 
     if shape.kind == "prefill":
         def fn(params, caches, batch):
-            with _serving_mesh(mesh):
+            with _serving_mesh(mesh, long_ctx):
                 logits, new = model.forward(params, batch, mode="prefill",
                                             caches=caches)
             return logits[:, -1:], new
         model_flops = 2.0 * cfg.active_param_count() * gb * s
     else:
         def fn(params, caches, batch):
-            with _serving_mesh(mesh):
+            with _serving_mesh(mesh, long_ctx):
                 return model.forward(params, batch, mode="decode",
                                      caches=caches)
         model_flops = 2.0 * cfg.active_param_count() * gb
@@ -258,17 +263,36 @@ def build_serve_cell(arch: str, shape_name: str, mesh, *,
         localize=localize, model=model, donated=(1,))
 
 
+F32_LEAVES = ("gamma_scale", "a_param", "fgate_bias", "igate_bias")
+
+
+def _bf16(tree, key: str = ""):
+    """A params tree with its raw floating-point leaves in bf16, as the
+    reference draws a serve cell's params, but for the leaves its init
+    keeps in f32 (`F32_LEAVES`: the norms' scales, the RG-LRU's decay,
+    the xLSTM gates' biases)."""
+    if isinstance(tree, dict):
+        return {k: _bf16(v, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_bf16(v) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point() \
+            and key not in F32_LEAVES:
+        return tree.to(torch.bfloat16)
+    return tree
+
+
 @contextlib.contextmanager
-def _serving_mesh(mesh):
+def _serving_mesh(mesh, long_context: bool = False):
     """The sharded backend's mesh (module state, as its registry is) set
-    to `mesh` for the block, then put back."""
+    to `mesh` for the block (a long-context cell's: its caches split
+    their slots over the batch axes), then put back."""
     from repro_torch.backends import sharded
-    prev = sharded.current_mesh()
-    sharded.configure_mesh(mesh)
+    prev = sharded.current_mesh(), sharded.long_context()
+    sharded.configure_mesh(mesh, long_context=long_context)
     try:
         yield
     finally:
-        sharded.configure_mesh(prev)
+        sharded.configure_mesh(prev[0], long_context=prev[1])
 
 
 def build_cell(arch: str, shape_name: str, mesh, *, quant: str = "none",

@@ -133,12 +133,12 @@ def _online_softmax(q, k, v, *, window: int = 0, causal: bool = True,
     vt = v.to(f32).permute(0, 2, 1, 3)[:, :, None]          # (B,Hkv,1,S,D)
     pos = torch.arange(max(t + q_offset, s_len), device=q.device)
     outs, lses = [], []
-    for q0 in range(0, t, q_chunk):
+    for q0 in mesh_lib.loop(range(0, t, q_chunk), q):
         qpos = pos[q_offset + q0:q_offset + min(q0 + q_chunk, t)]
         lo = max(0, q_offset + q0 - window + 1) // kv_chunk * kv_chunk \
             if window else 0
         hi = min(q_offset + q0 + len(qpos), s_len) if causal else s_len
-        for k0 in range(lo, hi, kv_chunk):
+        for k0 in mesh_lib.loop(range(lo, hi, kv_chunk), q):
             s = torch.matmul(qg[..., q0:q0 + q_chunk, :],
                              kt[..., k0:k0 + kv_chunk]) \
                 * (1.0 / math.sqrt(d))
@@ -165,6 +165,10 @@ def _online_softmax(q, k, v, *, window: int = 0, causal: bool = True,
             lses.append(torch.where(
                 l_sum > 0, m + torch.log(torch.clamp(l_sum, min=1e-30)),
                 torch.inf))
+    if sum(o.shape[-2] for o in outs) < t:
+        # traced once on "meta" (`mesh_lib.loop`): every row's shape
+        outs = [outs[0].new_empty(outs[0].shape[:-2] + (t, d))]
+        lses = [x.new_empty(x.shape[:-2] + (t, 1)) for x in lses[:1]]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).to(q.dtype)
     if not with_lse:
@@ -199,13 +203,13 @@ def _flash_bwd(q, k, v, out, lse, do, causal: bool, q_offset: int,
     dk = torch.zeros((b, hkv, s_len, d), dtype=f32, device=q.device)
     dv = torch.zeros_like(dk)
     pos = torch.arange(max(t + q_offset, s_len), device=q.device)
-    for q0 in range(0, t, q_chunk):
+    for q0 in mesh_lib.loop(range(0, t, q_chunk), q):
         rows = slice(q0, min(q0 + q_chunk, t))
         qb, dob = qg[..., rows, :], dog[..., rows, :]
         lse_i, delta_i = lse[..., rows, :], delta[..., rows, :]
         qpos = pos[q_offset + rows.start:q_offset + rows.stop]
         hi = min(q_offset + rows.stop, s_len) if causal else s_len
-        for k0 in range(0, hi, kv_chunk):
+        for k0 in mesh_lib.loop(range(0, hi, kv_chunk), q):
             cols = slice(k0, min(k0 + kv_chunk, s_len))
             kb, vb = kf[..., cols, :], vf[..., cols, :]
             p = torch.exp(torch.matmul(qb, kb.transpose(-1, -2)) * scale
@@ -345,7 +349,8 @@ def cache_len(cache) -> int:
     leaf = cache["k"] if "k" in cache else cache["k_data"]
     if "block_table" in cache:
         return cache["block_table"].shape[1] * leaf.shape[1]
-    return leaf.shape[1]
+    part = sharded.seq_part(cache)
+    return leaf.shape[1] if part is None else part[2]
 
 
 def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -359,7 +364,9 @@ def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     ring only its last `ring` tokens stay (a scatter's later writes
     win). `policy`, the cache site's resolved policy, picks the backend
     that packs a quantized cache's K and V (None: the torch ops). Leaves
-    other than K/V (a cross cache's "src_len") are left as they are."""
+    other than K/V (a cross cache's "src_len") are left as they are. A
+    cache holding a part of its slots on a mesh (`sharded.seq_part`)
+    writes only the slots it owns, through the same masked writes."""
     if ring and k_new.shape[1] > ring:
         drop = k_new.shape[1] - ring
         k_new, v_new, pos = k_new[:, drop:], v_new[:, drop:], pos + drop
@@ -374,16 +381,21 @@ def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
         _paged_cache_write(cache, new, pos.to(torch.int64))
         return cache
     b, t = k_new.shape[:2]
-    length = cache[next(iter(new))].shape[1]
+    # a cache holding a part of its slots (a sequence split on a mesh)
+    # writes only the slots it owns: slot j of its `count` is global
+    # slot first + j of `length`
+    part = sharded.seq_part(cache)
+    count = cache[next(iter(new))].shape[1]
+    first, length = (0, count) if part is None else (part[0], part[2])
     pos = pos.to(torch.int64)
     if t == 1:
         # one token per row: every target is distinct, so a dropped row
         # rewrites its clamped slot with the old value — no host sync
         if ring:
             pos = torch.remainder(pos, ring)
-        idx = torch.clamp(pos, max=length - 1)
+        keep = (pos < length) & (pos >= first) & (pos < first + count)
+        idx = torch.clamp(pos - first, min=0, max=count - 1)
         bidx = torch.arange(b, device=pos.device)
-        keep = pos < length
         for key, val in new.items():
             old = cache[key][bidx, idx]
             mask = keep.reshape((b,) + (1,) * (old.ndim - 1))
@@ -394,17 +406,18 @@ def cache_write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     # value elsewhere. A gather and a select need no host sync (a
     # boolean-mask index sizes its result on the host, which a CUDA
     # graph capture refuses).
-    off = torch.arange(length, device=pos.device)[None] - pos[:, None]
+    off = torch.arange(first, first + count, device=pos.device)[None] \
+        - pos[:, None]
     if ring:
         off = torch.remainder(off, ring)
-    keep = (off >= 0) & (off < t)                           # (B, L)
+    keep = (off >= 0) & (off < t)                           # (B, count)
     src = torch.clamp(off, 0, t - 1)
     for key, val in new.items():
         tail = (1,) * (val.ndim - 2)
-        got = torch.gather(val, 1, src.reshape(b, length, *tail)
-                           .expand(b, length, *val.shape[2:]))
+        got = torch.gather(val, 1, src.reshape(b, count, *tail)
+                           .expand(b, count, *val.shape[2:]))
         leaf = cache[key][:b]
-        leaf.copy_(torch.where(keep.reshape(b, length, *tail), got, leaf))
+        leaf.copy_(torch.where(keep.reshape(b, count, *tail), got, leaf))
     return cache
 
 
@@ -453,10 +466,11 @@ def attention_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg,
     chunk's K/V is appended to the stage at its positions, then one
     registry dispatch attends the chunk over the stage and writes every
     stage tile onto its pages. Under a mesh a cache may hold only this
-    rank's KV heads (`backends/sharded.py`): q, k and v are computed
-    whole, the cache writes and the stage take the heads the cache
-    holds, and the attention call gets the whole q and returns every
-    head. Returns (out, cache)."""
+    rank's KV heads, or only its slots (`backends/sharded.py`): q, k and
+    v are computed whole, the cache writes and the stage take the heads
+    the cache holds (a slot part writes only its own slots), and the
+    attention call gets the whole q and returns every head. Returns
+    (out, cache)."""
     b, t, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = qlinear.linear(x, p["wq"], p.get("bq"), *rps(policy, site, "wq"))
@@ -719,6 +733,8 @@ def _expert_ein(xg: torch.Tensor, w, policy: QuantPolicy,
         return backends.dispatch(xg, w, dataclasses.replace(policy, abits=0),
                                  fill=fill)
     cdt = backends.base.torch_dtype(policy.compute_dtype)
+    if getattr(w, "placed", None) is not None:
+        return sharded.raw_matmul(xg, w, cdt)
     return torch.matmul(xg.to(cdt), w.to(cdt))
 
 
@@ -915,7 +931,7 @@ def _mlstm_core(q, k, v, i_pre, f_pre, state):
     kscale = 1.0 / math.sqrt(q.shape[-1])
     c, n, m = state["c"], state["n"], state["m"]
     hs = []
-    for s in range(q.shape[1]):
+    for s in mesh_lib.loop(range(q.shape[1]), q):
         qt, vt = q[:, s].to(f32), v[:, s].to(f32)
         kt = k[:, s].to(f32) * kscale
         it, ft = i_pre[:, s], f_pre[:, s]
@@ -929,6 +945,7 @@ def _mlstm_core(q, k, v, i_pre, f_pre, state):
         den = torch.abs((n * qt).sum(dim=-1))
         hs.append(num / torch.maximum(den, torch.exp(-m_new))[..., None])
         m = m_new
+    hs = mesh_lib.rest(hs, q.shape[1])
     h = hs[0][:, None] if len(hs) == 1 else torch.stack(hs, dim=1)
     return h, {"c": c, "n": n, "m": m}
 
@@ -962,7 +979,7 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, chunk: int = 64):
                                    device=q.device))[None, :, :, None]
     c, n, m = state["c"], state["n"], state["m"]
     hs = []
-    for j in range(nc):
+    for j in mesh_lib.loop(range(nc), q):
         qc, vc = qg[:, j].to(f32), vg[:, j].to(f32)
         kc = kg[:, j].to(f32) * kscale
         a = torch.cumsum(fg[:, j], dim=1)                   # (B, L, H)
@@ -985,6 +1002,7 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, chunk: int = 64):
             + torch.einsum("blhd,blhe->bhde", coef[..., None] * vc, kc)
         n = decay[..., None] * n + torch.einsum("blh,blhd->bhd", coef, kc)
         m = a_l + m_l
+    hs = mesh_lib.rest(hs, nc)
     hout = hs[0] if nc == 1 else torch.cat(hs, dim=1)
     return hout[:, :t], {"c": c, "n": n, "m": m}
 
@@ -1013,8 +1031,9 @@ def mlstm_forward(p, x: torch.Tensor, cfg, policy: QuantPolicy, *,
     v = qlinear.linear(xm, p["wv"], None, *rps(policy, site, "wv"))
     q, k, v = (y.reshape(b, t, nh, dh) for y in (q, k, v))
     xf = xc.to(f32)
-    i_pre = xf @ p["w_igate"].to(f32) + p["igate_bias"]
-    f_pre = _log_sigmoid(xf @ p["w_fgate"].to(f32) + p["fgate_bias"])
+    i_pre = xf @ sharded.whole(p["w_igate"]).to(f32) + p["igate_bias"]
+    f_pre = _log_sigmoid(xf @ sharded.whole(p["w_fgate"]).to(f32)
+                         + p["fgate_bias"])
     st = state["mem"] if state is not None else \
         mlstm_init_state(b, d_inner // 2, nh, device=x.device)["mem"]
     if t > 1 and cfg.mlstm_chunk > 1:
@@ -1084,7 +1103,7 @@ def _slstm_core(p, zi, ii, fi, oi, n_heads: int, state):
     c, n, m, h = (state[key].reshape(b, n_heads, dh)
                   for key in ("c", "n", "m", "h"))
     hs = []
-    for s in range(t):
+    for s in mesh_lib.loop(range(t), zi):
         rec = torch.matmul(h.transpose(0, 1), rcat).transpose(0, 1)
         g = pre[:, s] + rec.reshape(b, n_heads, 3, dh)
         ipre = g[:, :, 1]
@@ -1097,6 +1116,7 @@ def _slstm_core(p, zi, ii, fi, oi, n_heads: int, state):
         h = og[:, s] * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
+    hs = mesh_lib.rest(hs, t)
     hout = hs[0][:, None] if t == 1 else torch.stack(hs, dim=1)
     return hout.reshape(b, t, d), {key: val.reshape(b, d) for key, val in
                                    (("c", c), ("n", n), ("m", m), ("h", h))}

@@ -31,6 +31,7 @@ from repro_torch.core import calibration, qlinear
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.qlinear import ENCODER
 from repro_torch.sharding import axes
+from repro_torch.sharding.rules import Spec
 
 from . import layers as L
 
@@ -127,7 +128,8 @@ def block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
     cross-attention cache of `enc_len` slots that records the rows its
     encoder output filled ("xkv", with "src_len"). Under a mesh, a KV
     cache served by `backend` "cuda_sharded" holds only this rank's KV
-    heads (`backends.sharded.make_kv_site`)."""
+    heads, or where those do not split, its slots
+    (`backends.sharded.make_kv_site`)."""
     if btype == "rglru":
         return {"rec": L.rglru_init_state(batch, cfg.d_rnn or cfg.d_model,
                                           device=device)}
@@ -139,16 +141,16 @@ def block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
                                             device=device)}
     length = min(cfg.window, max_len) if btype == "local_attn" else max_len
     site = {"kv": sharded.make_kv_site(
-        lambda heads: L.make_kv_cache(batch, length, heads, cfg.head_dim,
-                                      kv_bits=kv_bits, dtype=dtype,
-                                      device=device),
-        cfg.n_kv_heads, backend)}
+        lambda heads, slots=length: L.make_kv_cache(
+            batch, slots, heads, cfg.head_dim, kv_bits=kv_bits, dtype=dtype,
+            device=device),
+        cfg.n_kv_heads, backend, length=length)}
     if btype == "encdec_attn":
         site["xkv"] = sharded.make_kv_site(
-            lambda heads: L.make_kv_cache(batch, enc_len, heads,
-                                          cfg.head_dim, dtype=dtype,
-                                          device=device, track_len=True),
-            cfg.n_kv_heads, backend)
+            lambda heads, slots=enc_len: L.make_kv_cache(
+                batch, slots, heads, cfg.head_dim, dtype=dtype,
+                device=device, track_len=True),
+            cfg.n_kv_heads, backend, length=enc_len)
     return site
 
 
@@ -492,11 +494,12 @@ class Model:
         """Token ids (B, T) -> the first hidden states (B, T, d): rows of
         the table (`F.embedding`, whose backward on the card sums each
         row's gradients in a fixed order, so a training step is
-        reproducible; an index's backward adds them atomically)."""
+        reproducible; an index's backward adds them atomically). A
+        table placed on a mesh is looked up vocab-parallel
+        (`backends.sharded.embed_lookup`)."""
         cdt = getattr(torch, self.policy.compute_dtype)
-        return torch.nn.functional.embedding(
-            tokens, params["embed"]["table"]).to(cdt) \
-            * math.sqrt(self.cfg.d_model)
+        return sharded.embed_lookup(tokens, params["embed"]["table"]).to(
+            cdt) * math.sqrt(self.cfg.d_model)
 
     def head(self, params, x: torch.Tensor) -> torch.Tensor:
         """Final norm and LM head: hidden states -> f32 logits, the
@@ -504,8 +507,13 @@ class Model:
         checked finite)."""
         cfg = self.cfg
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        head = params["embed"]["table"].T if cfg.tie_embeddings \
-            else params["lm_head"]["w_out"]
+        if cfg.tie_embeddings:
+            table = params["embed"]["table"]
+            head = table.T
+            if getattr(table, "placed", None) is not None:
+                head.placed = Spec(*reversed(table.placed))  # (d, V)
+        else:
+            head = params["lm_head"]["w_out"]
         logits = qlinear.qmatmul(x, head, self.policy.resolve("lm_head/w_out"),
                                  site="lm_head/w_out").to(torch.float32)
         if cfg.padded_vocab != cfg.vocab:

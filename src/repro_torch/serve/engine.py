@@ -745,11 +745,12 @@ def _kv_leaf(site) -> torch.Tensor:
 
 def _eager_reason(mesh) -> Optional[str]:
     """Why steps on `mesh` cannot be captured, or None."""
-    if mesh is None or mesh.size("model") == 1 or mesh.backend != "gloo":
+    if mesh is None or mesh.backend != "gloo" or all(
+            mesh.size(a) == 1 for a in mesh.axis_names):
         return None
-    return ("the mesh's \"model\" axis runs its collectives over gloo, on "
-            "the host, which a CUDA graph cannot capture: steps run "
-            "eagerly")
+    return ("the mesh runs its collectives (the \"model\" axis's, and the "
+            "FSDP gathers of the batch axes) over gloo, on the host, which "
+            "a CUDA graph cannot capture: steps run eagerly")
 
 
 def _leaves(caches) -> List[torch.Tensor]:

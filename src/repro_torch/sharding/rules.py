@@ -14,10 +14,10 @@ A spec is a `Spec`: a tuple with one entry per dimension, each an axis
 name, a tuple of axis names, or None (replicated), as a JAX
 `PartitionSpec` is. Every decision is a static function of (ArchConfig,
 mesh axis sizes, leaf path and shape), so a placement and a dry run
-derive identical layouts. The serving path places its weights by
-`backends/sharded.py::local_shard`, which reads only `COL_PARALLEL`,
-`ROW_PARALLEL` and the "model" axis; the rest is the layout the
-training mesh places by.
+derive identical layouts. The serving path holds every leaf as its
+`param_spec` part (`backends/sharded.py::local_shard`) and every cache
+as its `cache_pspecs` part (`make_kv_site`); the training mesh places
+its state by `param_spec` too (`sharding/state.py`).
 """
 from __future__ import annotations
 

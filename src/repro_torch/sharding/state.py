@@ -70,9 +70,13 @@ def local_shape(shape: Sequence[int], spec: Sequence, mesh
     return tuple(s // _part(e, mesh)[1] for s, e in zip(shape, spec))
 
 
-def gather(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
-    """The whole tensor from every rank's part `x` under `spec`."""
+def gather(x: torch.Tensor, spec: Sequence, mesh,
+           only: Optional[Callable[[object], bool]] = None) -> torch.Tensor:
+    """The whole tensor from every rank's part `x` under `spec`; with
+    `only`, just the dims whose entry it accepts are gathered."""
     for dim, entry in enumerate(spec):
+        if only is not None and not only(entry):
+            continue
         for a in reversed(_axes(entry)):
             x = mesh_lib.all_gather(x, dim, mesh, a)
     return x

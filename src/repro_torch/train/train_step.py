@@ -13,6 +13,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import (AdamW, AdamWState, tree_leaves,
                                      tree_unflatten)
@@ -86,7 +87,8 @@ def make_train_step(model: Model, optimizer: AdamW, *,
             mb = next(iter(batch.values())).shape[0] // n_microbatches
             grads, loss = None, 0.0
             parts = {"ce": 0.0, "aux": 0.0}
-            for i in range(n_microbatches):
+            for i in mesh_lib.loop(range(n_microbatches),
+                                   next(iter(batch.values()))):
                 loss_i, parts_i, g_i = grads_of(
                     state.params, {k: v[i * mb:(i + 1) * mb]
                                    for k, v in batch.items()})
@@ -158,7 +160,6 @@ def make_sharded_train_step(model: Model, optimizer: AdamW, mesh,
     rank's gradient parts in `grad_dtype`); `train_step.evaluate(params,
     batch)` the global CE without gradients.
     """
-    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.sharding import axes
     from repro_torch.sharding import state as placement
 
@@ -217,7 +218,7 @@ def make_sharded_train_step(model: Model, optimizer: AdamW, mesh,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         nm = n_microbatches
         grads, loss, parts = None, 0.0, {"ce": 0.0, "aux": 0.0}
-        for i in range(nm):
+        for i in mesh_lib.loop(range(nm), next(iter(batch.values()))):
             loss_i, parts_i, g_i = grads_of(state.params, rows(batch, i, nm))
             grads = g_i if grads is None else \
                 [a + b for a, b in zip(grads, g_i)]

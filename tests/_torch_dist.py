@@ -39,6 +39,20 @@ def one_torch_thread():
     torch.set_num_threads(old)
 
 
+class _OtherDevice(torch.Tensor):
+    """A CPU tensor that reports a device no kernel wrapper serves."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def on_other_device(t: torch.Tensor) -> torch.Tensor:
+    """`t` reporting the "xpu" device: a wrapper given it must raise
+    (it serves cpu, cuda and meta only)."""
+    return torch.Tensor._make_subclass(_OtherDevice, t)
+
+
 def spawn(world: int, cases, tmp, timeout: float = 600.0):
     """Run `cases` in `world` gloo ranks; returns one result dict a
     rank. A rank that exits non-zero or outlives `timeout` raises."""
@@ -139,15 +153,19 @@ def decline(x, w, policy, site, shape=(1, 2), mesh=True):
 
 
 def mixed_experts(x, w, policy, site, shape=(1, 2)):
-    """A MixedExpertQuant stack on cuda_sharded (declines whole) ->
-    (output, stats, whether local_shard kept it whole)."""
+    """A MixedExpertQuant stack on cuda_sharded, placed (each group held
+    as its part), then dispatched (declines whole: the groups gathered
+    whole first) -> (output, stats, each group's held and whole expert
+    counts)."""
     from repro_torch import backends
     from repro_torch.backends import sharded
     mesh = _mesh(shape)
+    placed = sharded.local_shard(w, site, mesh)
     backends.reset_dispatch_stats()
-    y = backends.dispatch(torch.as_tensor(x), w, _policy(**policy))
-    return y.numpy(), _shard_stats(), sharded.local_shard(w, site,
-                                                          mesh) is w
+    y = backends.dispatch(torch.as_tensor(x), placed, _policy(**policy))
+    return y.numpy(), _shard_stats(), [
+        (int(p.data.shape[0]), int(g.data.shape[0]))
+        for p, g in zip(placed.groups, w.groups)]
 
 
 def attn_decline(q, cache, kind, shape=(1, 2)):
@@ -378,3 +396,211 @@ def train_launcher(argv):
     return {"history": res["history"], "ppl": res["ppl"],
             "param_bytes": tree_bytes(res["state"].params),
             "mesh": repr(res["mesh"]), "note": res["cell"].note}
+
+
+def _kv_leaves(caches):
+    """{path: tensor} of every K/V leaf of a slab cache tree."""
+    from repro_torch.backends.sharded import KV_HEAD_KEYS
+    from repro_torch.core.qlinear import tree_paths
+    return {p: x for p, x in tree_paths(caches)
+            if p.rsplit("/", 1)[-1] in KV_HEAD_KEYS}
+
+
+def mesh_serve(arch, policy, shape, batch=2, prompt=6, steps=8,
+               max_len=16, seed=0):
+    """Greedy serving of `arch` at `policy` (QuantPolicy keywords, fp32
+    compute) through `Model.forward` (a prefill of `prompt` seeded
+    tokens, then `steps` decode steps), on one rank ("cuda", the plain
+    versions) and on a (data, model) mesh of `shape` ("cuda_sharded",
+    every leaf placed by `place_params`, caches made under the mesh).
+    Returns, for "one" and "mesh": the last-token logits of every
+    step, the tokens, the K/V leaves (numpy by path), their bytes, each
+    KV site's slot part, the dispatch stats, and for "mesh" each
+    leaf's held shape beside `local_shape(param_spec)` of its whole
+    shape."""
+    from repro_torch import backends
+    from repro_torch.backends import sharded
+    from repro_torch.configs import get_config
+    from repro_torch.core.ovp import QuantizedTensor
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.qlinear import quantize_params, tree_paths
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import state as placement
+    from repro_torch.sharding.rules import mesh_axis_sizes, param_spec
+    cfg = get_config(arch)
+    toks = torch.randint(0, cfg.vocab, (batch, prompt),
+                         generator=torch.Generator().manual_seed(seed + 1))
+    out = {}
+    for name in ("one", "mesh"):
+        mesh = _mesh(shape) if name == "mesh" else \
+            backends.configure_mesh(None)
+        pol = QuantPolicy(**dict(policy, compute_dtype="float32",
+                                 backend="cuda_sharded" if mesh else "cuda"))
+        model = build_model(cfg, pol, remat=False)
+        whole = {}
+
+        def quant(tree, prefix, mesh=mesh, whole=whole):
+            q = quantize_params(tree, pol, prefix=prefix)
+            for p, x in tree_paths(q, prefix):
+                whole[p] = x
+            return q if mesh is None else sharded.place_params(q, prefix,
+                                                               mesh)
+
+        params = model.init(torch.Generator().manual_seed(seed),
+                            device="cpu", quantize=quant)
+        caches = model.init_caches(batch, max_len, device="cpu")
+        backends.reset_dispatch_stats()
+        logits, caches = model.forward(params, {"tokens": toks},
+                                       mode="prefill", caches=caches)
+        steps_logits = [logits[:, -1]]
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        tokens = [tok]
+        for i in range(steps):
+            pos = torch.full((batch,), prompt + i, dtype=torch.int64)
+            logits, caches = model.forward(
+                params, {"tokens": tok[:, None], "pos": pos}, mode="decode",
+                caches=caches)
+            steps_logits.append(logits[:, -1])
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            tokens.append(tok)
+        kv = _kv_leaves(caches)
+        res = {"logits": torch.stack(steps_logits).numpy(),
+               "tokens": torch.stack(tokens).numpy(),
+               "kv": {p: x.numpy() for p, x in kv.items()},
+               "kv_bytes": sum(x.numel() * x.element_size()
+                               for x in kv.values()),
+               "slots": {p: sharded.seq_part(site) for p, site in
+                         ((f"layers/{i}/kv", c.get("kv")) for i, c in
+                          enumerate(caches["layers"])) if site},
+               "stats": backends.dispatch_stats()}
+        if mesh is not None:
+            sizes = mesh_axis_sizes(mesh)
+            held, want, shapes = {}, {}, {}
+            for p, x in tree_paths(params):
+                w = whole[p]
+                shapes[p] = tuple((w.data if isinstance(
+                    w, QuantizedTensor) else w).shape)
+                if isinstance(w, QuantizedTensor):
+                    held[p] = tuple(x.data.shape)
+                    want[p] = placement.local_shape(
+                        w.data.shape, param_spec(f"{p}/data",
+                                                 tuple(w.data.shape), cfg,
+                                                 sizes), mesh)
+                else:
+                    held[p] = tuple(x.shape)
+                    want[p] = placement.local_shape(
+                        w.shape, param_spec(p, tuple(w.shape), cfg, sizes),
+                        mesh)
+            res["held"], res["want"], res["whole"] = held, want, shapes
+        out[name] = res
+        if name == "one":
+            one_caches = caches
+    if not any(out["mesh"]["slots"].values()):
+        return out
+    # the partial attention + combine over the last attention site's
+    # whole cache from the one-rank run, this rank holding its slots
+    sites = [i for i, c in enumerate(one_caches["layers"]) if "kv" in c]
+    i = sites[-1]
+    window = cfg.window if cfg.block_pattern[i % len(cfg.block_pattern)] \
+        == "local_attn" else 0
+    whole_cache = one_caches["layers"][i]["kv"]
+    ring = window if window and whole_cache[
+        "k_data" if "k_data" in whole_cache else "k"].shape[1] == window \
+        else 0
+    q = torch.randn((batch, 1, cfg.n_heads, cfg.head_dim),
+                    generator=torch.Generator().manual_seed(seed + 2))
+    pos = torch.tensor([prompt + steps - 1, prompt + steps - 3])[:batch]
+    mesh = _mesh(shape)
+    part = sharded.local_kv_slots(whole_cache, mesh)
+    pol = QuantPolicy(**dict(policy, compute_dtype="float32",
+                             backend="cuda_sharded"))
+    backends.reset_dispatch_stats()
+    att = backends.decode_attention(q, part, pos, policy=pol,
+                                    window=window, ring=ring)
+    # the KV write into a part of the slots: 3 tokens a row, then 1, on
+    # a whole zero cache and on this rank's slots of it
+    from repro_torch.models import layers
+    zero = {k: torch.zeros_like(v) for k, v in whole_cache.items()}
+    mine = sharded.local_kv_slots(zero, mesh)
+    gen = torch.Generator().manual_seed(seed + 3)
+    kv_shape = (batch, 3, cfg.n_kv_heads, cfg.head_dim)
+    for t, at in ((3, torch.tensor([5, 2])), (1, torch.tensor([7, 6]))):
+        k_new = torch.randn(kv_shape[:1] + (t,) + kv_shape[2:], generator=gen)
+        v_new = torch.randn(k_new.shape, generator=gen)
+        for c in (zero, mine):
+            layers.cache_write(c, k_new, v_new, at[:batch], pol, ring=ring)
+    first, count = sharded.seq_part(mine)[:2]
+    out["write"] = {k: (mine[k].numpy(),
+                        zero[k][:, first:first + count].numpy())
+                    for k in mine if k in sharded.KV_HEAD_KEYS}
+    out["attention"] = {"q": q.numpy(), "pos": pos.numpy(),
+                        "cache": {k: v.numpy() for k, v in
+                                  whole_cache.items()},
+                        "window": window, "ring": ring, "out": att.numpy(),
+                        "stats": backends.dispatch_stats()}
+    return out
+
+
+def _leaf_bytes(tree, prefix):
+    """{path: bytes} of a (placed) params, cache or batch tree; a
+    quantized leaf as its "data" and "scale" fields."""
+    from repro_torch.core.ovp import QuantizedTensor
+    from repro_torch.core.qlinear import tree_paths
+    out = {}
+    for p, x in tree_paths(tree, prefix):
+        if isinstance(x, QuantizedTensor):
+            for f in ("data", "scale"):
+                t = getattr(x, f)
+                out[f"{p}/{f}"] = t.numel() * t.element_size()
+        elif isinstance(x, torch.Tensor):
+            out[p] = x.numel() * x.element_size()
+    return out
+
+
+def dryrun_cells(cells, world=256, mesh_shape=None, loops_once=True,
+                 attn_chunk=None, extra_shapes=None, both=False):
+    """Dry-run records of `cells` [(arch, shape, quant, n_microbatches)]
+    in this process as rank 0 of a fake group of `world` ranks (the
+    production mesh of that size, or a (data, model) mesh of
+    `mesh_shape`): each cell's record (`dryrun.run_cell`, its time
+    fields dropped) and this rank's bytes by leaf path. `loops_once`
+    sets `mesh.LOOPS_ONCE`; `attn_chunk` the prefill attention's block;
+    `extra_shapes` {name: (seq, global batch, kind)} registers shapes.
+    `both`: {"once": the records with `LOOPS_ONCE` on, "whole": off}."""
+    if both:
+        kw = dict(cells=cells, world=world, mesh_shape=mesh_shape,
+                  attn_chunk=attn_chunk, extra_shapes=extra_shapes)
+        return {"once": dryrun_cells(**kw, loops_once=True),
+                "whole": dryrun_cells(**kw, loops_once=False)}
+    import tempfile
+    from repro_torch.configs import base as cbase
+    from repro_torch.launch import dryrun, mesh as mesh_lib, specs
+    from repro_torch.models import layers
+    mesh_lib.LOOPS_ONCE = loops_once
+    if attn_chunk:
+        layers.ATTN_CHUNK = attn_chunk
+    for name, (seq, gb, kind) in (extra_shapes or {}).items():
+        cbase.SHAPES[name] = cbase.ShapeCfg(name, seq, gb, kind)
+    dryrun.fake_group(world)
+    mesh = None if mesh_shape is None else mesh_lib.make_mesh(
+        tuple(mesh_shape), ("data", "model"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape, quant, nm in cells:
+            rec = dryrun.run_cell(arch, shape, "single", quant, tmp,
+                                  force=True, mesh_override=mesh,
+                                  n_microbatches=nm)
+            for k in ("build_s", "trace_s"):
+                rec.pop(k, None)
+            leaves = {}
+            if rec["status"] == "ok" and specs.get_shape(shape).kind != \
+                    "train":
+                m = mesh or mesh_lib.make_production_mesh()
+                cell = specs.build_cell(arch, shape, m, quant=quant)
+                held = specs.trace_cell(cell)["held"]
+                for tag, tree in zip("pcb", held):
+                    leaves.update({f"{tag}:{k}": v for k, v in
+                                   _leaf_bytes(tree, "").items()})
+            out[f"{arch}__{shape}__{quant}"] = {"record": rec,
+                                                "leaves": leaves}
+    return out

@@ -17,13 +17,13 @@ rank, which is all the cell builders read):
   dense (dp_only), MoE (the TP and EP rules) and xLSTM (TP) smoke archs;
   the cells' notes and model FLOPs are the reference's.
   `build_serve_cell`'s KV caches and this rank's rows equal the
-  reference's cache shard shapes where the serving path splits a cache
-  as the reference does (by KV head; it splits no cache's slots, and
-  splits a packed cache's scales with its codes). The reference's cell
-  replicates its attention and MLP quantized weights (its rules cannot
-  name a QuantizedTensor's fields); the port places every quantized
-  weight by its layout over "model" (`backends/sharded.py::
-  local_shard`).
+  reference's cache shard shapes (the serving path splits a cache by
+  KV head, or its slots where the heads do not divide, as
+  `cache_pspecs`; it splits a packed cache's scales with its codes'
+  heads). The reference's cell replicates its attention and MLP
+  quantized weights (its rules cannot name a QuantizedTensor's
+  fields); the port holds every quantized weight as its `param_spec`
+  part (`backends/sharded.py::local_shard`).
 - `microbatches_for` and `serve_policy` by the reference's names.
 """
 from __future__ import annotations
@@ -47,6 +47,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import specs
 from repro_torch.sharding import axes
 from repro_torch.sharding import rules as trules
+from repro_torch.sharding import state as placement
 
 from _torch_dist import one_torch_thread  # noqa: F401
 
@@ -173,20 +174,17 @@ def test_serve_cell_caches_and_weights_match_reference(forced_devices,
             _ref_shard_shapes(jcell, 1).items() if k.startswith("blocks/0/")}
     got = {k[len("layers/0/"):]: tuple(v.shape) for k, v in
            flatten(cell.args[1]).items() if k.startswith("layers/0/")}
-    # the serving path splits a cache by KV head only (the sharded backend's
-    # `make_kv_site`): where the heads do not divide, the reference
-    # splits the slots over "model" and the port keeps them whole; a
-    # packed cache's per-token scales (B, S, H) it splits with the codes'
-    # heads, where the reference keeps every head's on each rank
+    # the serving path splits a cache as the reference's `cache_pspecs`
+    # does (the sharded backend's `make_kv_site`: by KV head, or where
+    # the heads do not divide, its slots over "model"); where it splits
+    # the heads, a packed cache's per-token scales (B, S, H) go with the
+    # codes' heads, where the reference keeps every head's on each rank
     jc = j_flatten(jax.tree_util.tree_map(lambda s: s.spec,
                                           jcell.in_shardings[1]))
     tp = shape[1]
     for k, v in want.items():
-        seq = -2 if k.endswith("_scl") else -3
         spec = jc[f"blocks/0/{k}"]
-        if spec[seq] == "model":
-            v = v[:seq] + (v[seq] * tp,) + v[seq + 1:]
-        if k.endswith("_scl"):
+        if k.endswith("_scl") and spec[-2] != "model":
             v = v[:-1] + (v[-1] // tp,)
         want[k] = v
     assert got == want
@@ -198,27 +196,30 @@ def test_serve_cell_caches_and_weights_match_reference(forced_devices,
     # and MLP ones (its rules name a leaf by its last key, which for a
     # QuantizedTensor's fields is ".data" / ".scale", so only the
     # expert rule, which reads the path, matches); the serving path
-    # places each by its layout over "model" (`local_shard`): a column-
-    # parallel weight's N, a row-parallel one's packed K, an expert
-    # stack's E
+    # holds each as its `param_spec` part (`local_shard`): "model" on a
+    # column-parallel weight's N, a row-parallel one's packed K, an
+    # expert stack's E, and "data" (FSDP) on the other dim
     jspec = j_flatten(jax.tree_util.tree_map(
         lambda s: s.spec, jcell.in_shardings[0]))
     jsds = j_flatten(jcell.args_sds[0])
     layer = cell.args[0]["layers"][0]
     moe = "moe" in layer
-    tp = shape[1]
-    for leaf, dim in (("attn/wq", -1), ("attn/wo", -2),
-                      ("moe/experts/wg" if moe else "mlp/wg",
-                       -3 if moe else -1)):
+    sizes = dict(zip(names, shape))
+    for leaf in ("attn/wq", "attn/wo",
+                 "moe/experts/wg" if moe else "mlp/wg"):
         node = layer
         for k in leaf.split("/"):
             node = node[k]
         key = f"blocks/0/{leaf}/.data"
         if not leaf.startswith("moe"):      # experts: E over "model"
             assert all(e is None for e in jspec[key]), (leaf, jspec[key])
-        want = list(jsds[key].shape[1:])
-        want[dim] //= tp
-        assert tuple(node.data.shape) == tuple(want), leaf
+        whole = tuple(jsds[key].shape[1:])
+        spec = trules.param_spec(f"layers/0/{leaf}/data", whole,
+                                 get_config(arch), sizes)
+        assert tuple(node.data.shape) == placement.local_shape(
+            whole, spec, cell.mesh), leaf
+        assert any(e == "model" for e in spec) and \
+            any(e == "data" for e in spec), (leaf, spec)
 
 
 def test_microbatches_and_serve_policies_match_reference():

@@ -34,7 +34,7 @@ from repro_torch.core.ovp import QuantizedTensor
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ovp_matmul as tmm
 
-from _torch_dist import one_torch_thread  # noqa: F401
+from _torch_dist import on_other_device, one_torch_thread  # noqa: F401
 
 
 def _close(got, ref):
@@ -149,8 +149,14 @@ def test_cpu_tensors_never_launch_and_other_devices_raise():
     assert sum(tmm.grouped_ovp_matmul.mode_launches.values()) == before
     meta = dataclasses.replace(qt, data=qt.data.to("meta"),
                                scale=qt.scale.to("meta"))
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tops.grouped_ovp_matmul(x.to("meta"), meta)
+    want = tops.grouped_ovp_matmul(x, qt)
+    before = dict(tmm.grouped_ovp_matmul.mode_launches)
+    got = tops.grouped_ovp_matmul(x.to("meta"), meta)
+    assert got.device.type == "meta"
+    assert (got.shape, got.dtype) == (want.shape, want.dtype)
+    assert tmm.grouped_ovp_matmul.mode_launches == before
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        tops.grouped_ovp_matmul(on_other_device(x), qt)
 
 
 @pytest.mark.parametrize("lhs_shape", [(6, 64), (3, 6, 64), (2, 4, 6, 64),

@@ -21,7 +21,7 @@ from repro.kernels import ops
 from repro_torch.core.ovp import QuantizedTensor
 from repro_torch.kernels import ovp_matmul as tmm
 
-from _torch_dist import one_torch_thread  # noqa: F401
+from _torch_dist import on_other_device, one_torch_thread  # noqa: F401
 
 # (lhs shape, N, weight dtype, activation dtype or None for fp). Shapes
 # cover 2-D and 3-D lhs and the reference wrapper's padding: rows past
@@ -95,10 +95,17 @@ def test_cpu_tensors_never_launch():
 
 
 def test_other_devices_raise():
-    """Only cpu (plain version) and cuda (kernel) are served."""
+    """cpu (plain version), cuda (kernel) and meta (the plain version's
+    shape, no launch) are served; any other device raises."""
     x, _, qt = _operands((2, 64), 16, "int4", seed=3)
     meta = QuantizedTensor(data=qt.data.to("meta"),
                            scale=qt.scale.to("meta"), normal_dtype="int4",
                            pair_axis=-2, orig_dim=64)
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tmm.fused_ovp_matmul(torch.from_numpy(x).to("meta"), meta)
+    want = tmm.fused_ovp_matmul(torch.from_numpy(x), qt)
+    before = dict(tmm.fused_ovp_matmul.mode_launches)
+    got = tmm.fused_ovp_matmul(torch.from_numpy(x).to("meta"), meta)
+    assert got.device.type == "meta"
+    assert (got.shape, got.dtype) == (want.shape, want.dtype)
+    assert tmm.fused_ovp_matmul.mode_launches == before
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        tmm.fused_ovp_matmul(on_other_device(torch.from_numpy(x)), qt)

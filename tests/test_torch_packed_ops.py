@@ -46,7 +46,7 @@ from repro_torch.models.model import build_model as t_build_model
 from repro_torch.serve import engine as teng
 from repro_torch.serve import paging as tpg
 
-from _torch_dist import one_torch_thread  # noqa: F401
+from _torch_dist import on_other_device, one_torch_thread  # noqa: F401
 
 
 def _close(got, ref):
@@ -180,8 +180,14 @@ def test_encode_rejects_other_dtypes_and_devices():
     u = torch.zeros((2, 8))
     with pytest.raises(ValueError, match="int4"):
         tenc.fused_ovp_encode(u, "flint4")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tenc.fused_ovp_encode(u.to("meta"))
+    before = tenc.fused_ovp_encode.launches
+    want = tenc.fused_ovp_encode(u)
+    got = tenc.fused_ovp_encode(u.to("meta"))
+    assert got.device.type == "meta"
+    assert (got.shape, got.dtype) == (want.shape, want.dtype)
+    assert tenc.fused_ovp_encode.launches == before
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        tenc.fused_ovp_encode(on_other_device(u))
 
 
 def test_cpu_tensors_launch_no_kernel():

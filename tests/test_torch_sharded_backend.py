@@ -483,6 +483,16 @@ def _decline_cases():
     for hd in (15, 16):
         cases.append((f"kv-site-d{hd}", "kv_site_heads",
                       dict(head_dim=hd)))
+    # an E-indivisible stack placed inside each expert: column-split wg,
+    # row-split wd (K6 declines the part, the fallback computes it split)
+    rng3 = np.random.default_rng(12)
+    for site, (k, n) in (("layers/0/moe/experts/wg", (64, 128)),
+                         ("layers/0/moe/experts/wd", (128, 64))):
+        w3 = torch.from_numpy(rng3.standard_normal((3, k, n))
+                              .astype(np.float32) / 8)
+        cases.append((f"expert-split-{site[-2:]}", "matmul", dict(
+            x=rng3.standard_normal((2, 3, 4, k)).astype(np.float32),
+            w=quantize_weight(w3, pol), policy={}, site=site)))
     w = torch.from_numpy(np.random.default_rng(10)
                          .standard_normal((4, 64, 128)).astype(np.float32))
     mixed = _quantize_mixed_experts(w, [pol, pol, _tpol(wbits=8),
@@ -529,14 +539,34 @@ def test_kv_site_split_reads_the_decline_chain(ranks, head_dim, split):
             assert (heads, part) == (4, None)
 
 
+@pytest.mark.parametrize("leaf,mode", [("wg", "col"), ("wd", "row")])
+def test_expert_stack_split_inside_experts(ranks, leaf, mode):
+    """An expert stack whose E does not divide the "model" axis is held
+    split inside each expert, as `param_spec` splits it (wg's N, wd's
+    K); K6 declines the part with the reference's code and the fallback
+    computes it split: equal to one device's eager output."""
+    case = next(c for c in _decline_cases()
+                if c[0] == f"expert-split-{leaf}")[2]
+    want = tb.dispatch(torch.from_numpy(case["x"]), case["w"],
+                       _tpol(backend="eager")).numpy()
+    for y, stats, got in _result(ranks, f"expert-split-{leaf}"):
+        assert got == mode
+        assert stats == {"cuda_sharded->fallback:shard_expert_indivisible"
+                         "[stacked]": 1}
+        np.testing.assert_allclose(y, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+
 def test_mixed_expert_group_declines_whole(ranks):
-    """Ragged per-expert precision groups decline in one piece, stay
-    whole on every rank, and the fallback's output is eager's."""
+    """Ragged per-expert precision groups are held as their `param_spec`
+    parts (each group's E over "model"), decline in one piece, are
+    gathered whole for the call, and the fallback's output is
+    eager's."""
     x, w = (_decline_cases()[-1][2][k] for k in ("x", "w"))
     want = tb.dispatch(torch.from_numpy(x), w, _tpol(backend="eager")
                        ).numpy()
-    for y, stats, whole in _result(ranks, "mixed"):
-        assert whole
+    for y, stats, groups in _result(ranks, "mixed"):
+        assert groups == [(1, 2), (1, 2)]
         assert stats["cuda_sharded->fallback:shard_mixed_expert_group"
                      "[stacked]"] == 1
         np.testing.assert_array_equal(y, want)
@@ -598,14 +628,16 @@ def test_model_axis_of_one_serves_as_cuda(ranks4, inputs):
     kind, case, x, _ = inputs["mm"]["col-flint4_w4a4"]
     single = _port_single(x, inputs["qts"]["col-flint4_w4a4"], case)
     for y, stats, mode in _result(ranks4, "col-4x1"):
-        assert stats == {"cuda_sharded": 1} and mode is None
+        # held as its FSDP part over "data", gathered for the call
+        assert stats == {"cuda_sharded": 1} and mode == "whole"
         np.testing.assert_array_equal(y, single)
 
 
 def test_params_from_numpy_places_shards(ranks, inputs):
     """A reference tree converted with the mesh: quantized column, row
     and stacked leaves cut to the rank's shard (whole pairs, scales
-    with them), raw leaves whole."""
+    with them), raw leaves to their `param_spec` parts (the vocab of
+    the embedding), norms whole."""
     whole = params_from_numpy(inputs["bench"]["tree"], device="cpu")
     for r, placed in enumerate(_result(ranks, "placed")):
         layer = whole["layers"][1]
@@ -622,7 +654,9 @@ def test_params_from_numpy_places_shards(ranks, inputs):
                        wo.orig_dim // 2)
         np.testing.assert_array_equal(placed["layers/1/attn/wo@data"],
                                       wo.data[r * k:(r + 1) * k].numpy())
-        assert placed["embed/table"] == tuple(whole["embed"]["table"].shape)
+        # the embedding's vocab splits over "model" (`param_spec`)
+        v, d = whole["embed"]["table"].shape
+        assert placed["embed/table"] == (v // 2, d)
         assert placed["layers/1/ln1/gamma_scale"] == \
             tuple(layer["ln1"]["gamma_scale"].shape)
 
