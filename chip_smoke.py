@@ -354,6 +354,31 @@ CUDA toolkit. It builds the hand-written kernels from
    decode_32k single olive_kv: "ok", its argument bytes a rank
    printed.
 
+23. the examples: phase X (`examples_phase_x`), each example of
+   `examples_torch/` through the function its `main` calls, on the
+   bench-lm fixture (`bench_lm_30.npz`: 4 layers, d 128, Hkv 2, G 2, D
+   32), launch counters reset just before each and read just after,
+   each result held to the same function on the CPU: quickstart (one K1
+   `fp` launch, kernel vs oracle under 1e-4, packed bytes and the
+   victim pair as the CPU's); ptq_calibrate (K1 `fp`, `quantize` and
+   int8 weights launched at the evaluations' 2048 rows, every
+   perplexity row within `X_ROW_RTOL` of the CPU's, the same most
+   sensitive sites, promoted set and verdict: DEGRADED in both packages
+   on the committed 30-step weights); serve_quantized in its four modes
+   (`X_MODES`, 12 requests x 24 tokens, captured steps: both engines'
+   greedy tokens equal the CPU engines', K1 once per quantized linear
+   per forward call by weight dtype, K2 once a layer a decode step by
+   cache dtype, K7 twice a packed layer a forward call, no decline or
+   fallback, the CPU's verdict, tok/s printed); train_e2e's e2e-20m run
+   at its 120 steps (resumed at 60, verdict OK, tokens/s, peak memory,
+   save and restore seconds) and e2e-100m at `X_BIG_STEPS` = 40 of its
+   200 (cut for time; resumed at half, the loss falls). K1 (quickstart's
+   shape; one layer at the evaluations' 2048 rows in `fp` and
+   `quantize`, the `auto_mixed` W8 linear at 2048 rows; one layer at
+   rows 4), K2 (B 4, S 192, Hkv 2, G 2, D 32, packed and fp32) and K7 (R
+   8 x K 32) against their plain versions, timed. Prints the phase's
+   seconds by example.
+
 Every profile phase (A-M) prints its step's roofline (`step_roofline`:
 `repro_torch.roofline.analyze` of the step's work counted from the
 served tensors by `repro_torch.roofline.step_stats`) beside the
@@ -3738,8 +3763,9 @@ def check_k1_weight_counts(res, counts, phase: str, mode: str = "fp"):
 def k1_layer_record(dev, gen, linears, rows: int, w_dtype: str,
                     mode: str = "fp", label: str = "k1"):
     """K1 at `linears` (one QuantizedTensor a launch) on `rows` rows of
-    random activations, in `mode` (fp, or static: activations at one
-    scale in `w_dtype`'s width, K5), against the plain version (rtol
+    random activations, in `mode` (fp; quantize: activations at their
+    dynamic 3-sigma scale in `w_dtype`'s width; or static: at one scale,
+    K5), against the plain version (rtol
     1e-5, atol 1e-5 * max|ref|, K1's tolerance), timed beside it,
     `torch.matmul` on the dequantized fp32 weight and the byte bound;
     prints each launch's plan (body, split, slice) and record. Returns
@@ -3756,16 +3782,20 @@ def k1_layer_record(dev, gen, linears, rows: int, w_dtype: str,
             fail(f"{label}: a {qt.normal_dtype} linear, expected {w_dtype}")
         k, n = qt.orig_dim, qt.data.shape[-1]
         a = torch.randn((rows, k), generator=gen, device=dev)
-        sw = qt.scale.reshape(-1).contiguous()
+        sw = mm._col_scale(qt.scale, n, dev).contiguous()
         kw = dict(w_dtype=w_dtype, a_mode=mode, a_dtype=w_dtype)
+        sa = None
         if mode == "static":
             kw["s_static"] = float(sigma_init_scale(a, w_dtype))
+        if mode == "quantize":
+            sa = torch.broadcast_to(sigma_init_scale(a, w_dtype),
+                                    (rows,)).contiguous()
 
         def kern():
-            return mm.run(a, None, qt.data, sw, **kw)
+            return mm.run(a, sa, qt.data, sw, **kw)
 
         def plain():
-            return mm.fused_ovp_matmul_plain(a, None, qt.data, sw, **kw)
+            return mm.fused_ovp_matmul_plain(a, sa, qt.data, sw, **kw)
 
         got, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -3779,8 +3809,8 @@ def k1_layer_record(dev, gen, linears, rows: int, w_dtype: str,
                  f"1e-5*{scale:.3e})")
         wd = ovp_dequantize(qt)
         b_ms, b_by = bound_ms(
-            rows * k * 4 + k * n * w_bytes + n * 4 + rows * n * 4,
-            2.0 * rows * k * n)
+            rows * k * 4 + k * n * w_bytes + n * 4 + rows * n * 4
+            + (rows * 4 if sa is not None else 0), 2.0 * rows * k * n)
         rec = dict(ms=time_ms(kern)[0], plain_ms=time_ms(plain)[0],
                    bound_ms=b_ms,
                    library_ms=time_ms(lambda: torch.matmul(a, wd))[0])
@@ -7421,6 +7451,284 @@ def train_phase_p(dev, smi: str, job) -> dict:
             "dryrun": dry, "took": took}
 
 
+# --------------------------------------------------------------------------
+# Phase X: the four examples (examples_torch/) on the card
+# --------------------------------------------------------------------------
+X_MODES = {"w4": {}, "kv4": {"kv4": True}, "w8": {"w8": True},
+           "mixed": {"mixed": True}}   # serve_quantized's flag sets
+X_REQUESTS, X_NEW = 12, 24      # serve_quantized's workload, uncut
+X_ROW_RTOL = 1e-3               # ptq_calibrate's rows, card vs CPU
+X_SMALL_STEPS = 120             # train_e2e's default run, uncut
+X_BIG_STEPS = 40                # --model-100m's steps, cut from 200 for time
+X_POS = [20, 35, 46, 11]        # K2's positions: served rows of 12-47 tokens
+X_CKPT = os.path.join(ROOT, "build", "ckpt_x")
+
+
+def _x_import():
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import examples_torch.fixture as fixture
+    import examples_torch.ptq_calibrate as ptq
+    import examples_torch.quickstart as quickstart
+    import examples_torch.serve_quantized as sq
+    import examples_torch.train_e2e as e2e
+    return fixture, quickstart, ptq, sq, e2e
+
+
+def _x_attn_want(*engines):
+    """K2 launches by cache dtype the drained engines' decode steps make:
+    one a layer a step, over the layer's packed (int4) or fp32 cache."""
+    want = {"decode_attn<int4>": 0, "decode_attn<float32>": 0}
+    for eng in engines:
+        steps = eng.stats()["decodes_run"]
+        for layer in eng.caches["layers"]:
+            kind = "int4" if "k_data" in layer["kv"] else "float32"
+            want[f"decode_attn<{kind}>"] += steps
+    return want
+
+
+def k7_x_record(dev, r: int, k: int):
+    """K7 at the bench-lm KV write (R = slots x KV heads, K = head_dim,
+    f32, a scale a row) against its plain version (0 bytes differing),
+    timed beside it and the byte bound."""
+    import torch
+    from repro_torch.kernels import ovp_encode as enc
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x, scales = _k7_inputs(dev, gen, r, k, "float32")
+    for kind, scale in scales.items():
+        got = enc.fused_ovp_encode(x, scale=scale)
+        differ = int((got != enc.ovp_encode_plain(x, scale)).sum())
+        if differ:
+            fail(f"K7 R={r} K={k} scale {kind}: {differ} bytes differ from "
+                 f"the plain version")
+    scale = scales["row"]
+    b_ms, b_by = bound_ms(r * k * 4 + r * k // 2 + 4 * r, 0.0)
+    rec = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None,
+               ms=time_ms(lambda: enc.fused_ovp_encode(x, scale=scale))[0],
+               plain_ms=time_ms(lambda: enc.ovp_encode_plain(x, scale),
+                                graph=False)[0])
+    print(f"[k7 x] R={r} K={k} f32, a scale a row: 0 bytes differing at "
+          f"scales none/scalar/row; kernel={rec['ms']:.4f}ms plain="
+          f"{rec['plain_ms']:.4f}ms (eager) bound={b_ms:.3g}ms ({b_by})")
+    return rec
+
+
+def k2_x_records(dev, cfg, slots: int, max_len: int):
+    """K2 at the bench-lm serving shape (B slots, S max_len, Hkv, G, D of
+    `cfg`), packed and fp32 caches, `X_POS`, through `k2_record`."""
+    import torch
+    from repro_torch.models.layers import _quant_kv_token
+    gen = torch.Generator(device=dev).manual_seed(32)
+    hkv, d = cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((slots, 1, cfg.n_heads, d), generator=gen, device=dev)
+    k, v = (torch.randn((slots, max_len, hkv, d), generator=gen, device=dev)
+            for _ in range(2))
+    (kd, ks), (vd, vs) = _quant_kv_token(k), _quant_kv_token(v)
+    pos = torch.tensor(X_POS, dtype=torch.int32, device=dev)
+    return {"int4": k2_record(q, {"k_data": kd, "v_data": vd, "k_scl": ks,
+                                  "v_scl": vs}, pos, 0, 0, "x packed"),
+            "float32": k2_record(q, {"k": k, "v": v}, pos, 0, 0, "x fp32")}
+
+
+def _x_train(dev, e2e, cfg, steps: int, label: str) -> dict:
+    """train_e2e's two-phase run on the card: its verdict, resume step,
+    tokens / s over the steps, peak memory and checkpoint seconds."""
+    import shutil
+
+    import torch
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = e2e.train(cfg, steps, X_CKPT, dev, log=lambda _line: None)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    shutil.rmtree(X_CKPT, ignore_errors=True)
+    times = r["h1"]["step_time"] + r["h2"]["step_time"]
+    losses = r["h1"]["loss"] + r["h2"]["loss"]
+    if r["resumed"] != steps // 2:
+        fail(f"{label}: resumed at step {r['resumed']}, not {steps // 2}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+        fail(f"{label}: {len(losses)} losses of {steps}, finite: "
+             f"{all(math.isfinite(x) for x in losses)}")
+    if not r["last"] < r["first"]:
+        fail(f"{label}: the loss did not fall ({r['first']:.4f} -> "
+             f"{r['last']:.4f})")
+    save = r["ckpt_seconds"][0]["save"]
+    restore = r["ckpt_seconds"][1]["restore"]
+    tps = 16 * 256 * steps / sum(times)
+    print(f"[examples X] train_e2e {label} ({cfg.name}, "
+          f"{cfg.param_count() / 1e6:.1f}M params, {steps} steps, 2 "
+          f"microbatches, bf16 moments): loss {r['first']:.3f} -> "
+          f"{r['last']:.3f}, held-out ppl {r['ppl']:.2f}, resumed at "
+          f"{r['resumed']}, verdict {'OK' if r['ok'] else 'WARN'}; "
+          f"{tps:,.0f} tokens/s over the steps (median step "
+          f"{1e3 * sorted(times)[len(times) // 2]:.1f} ms), wall "
+          f"{wall:.1f}s, peak {peak:.2f} GB, save {save:.3f}s, restore "
+          f"{restore:.3f}s")
+    return dict(r, tokens_s=tps, peak_gb=peak, wall=wall)
+
+
+def examples_phase_x(dev, smi: str) -> dict:
+    """Phase X: each example of `examples_torch/` through the function
+    its `main` calls, on the card, counters reset just before each and
+    read just after; the card's results held to the same function on
+    the CPU; and K1, K2 and K7 at the examples' shapes against their
+    plain versions. Returns the counts and kernel records."""
+    import torch
+    from repro_torch.core.qlinear import quantize_params
+    t_phase = time.perf_counter()
+    fixture, quickstart, ptq, sq, e2e = _x_import()
+    out = {"counts": {}, "k": {}}
+    lap = [t_phase]               # each example's seconds, records in
+
+    def took_since() -> float:
+        lap.append(time.perf_counter())
+        return lap[-1] - lap[-2]
+    print(f"[examples X] {smi.splitlines()[0]}")
+
+    # quickstart: K1 fp, 64 x 256 @ 256 x 512
+    x, a = quickstart.inputs()
+    reset_counts()
+    qs = quickstart.report(x, a, device=dev)
+    counts = read_counts()
+    qs_cpu = quickstart.report(x, a, device="cpu")
+    if counts["ovp_matmul[fp]"] != 1 or qs["kernel_err"] >= 1e-4:
+        fail(f"quickstart: K1 launches {counts['ovp_matmul[fp]']} (want "
+             f"1), kernel vs oracle {qs['kernel_err']:.2e} (tol 1e-4)")
+    if (qs["packed_bytes"], qs["victim"]) != (qs_cpu["packed_bytes"],
+                                             qs_cpu["victim"]):
+        fail("quickstart: the card's packed bytes or victim pair differ "
+             "from the CPU's")
+    out["counts"]["quickstart"] = counts
+    print(f"[examples X] quickstart: {qs['kernel']}, kernel vs oracle "
+          f"{qs['kernel_err']:.2e} (CPU plain {qs_cpu['kernel_err']:.2e}; "
+          f"tol 1e-4), SQNR {qs['sqnr_db']:.3f} dB (CPU "
+          f"{qs_cpu['sqnr_db']:.3f}), 1 K1 launch")
+    from repro_torch.core.ovp import ovp_quantize
+    from repro_torch.core.quantizer import sigma_init_scale
+    xt = torch.as_tensor(x, device=dev)
+    wq = ovp_quantize(xt, sigma_init_scale(xt, "int4"), "int4", pair_axis=0)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    out["k"]["quickstart"] = k1_layer_record(dev, gen, [wq], 64, "int4",
+                                             label="k1 quickstart")
+
+    t_qs = took_since()
+
+    # ptq_calibrate: K1 fp / quantize / int8 weights at 2048 rows
+    model, params, loader = fixture.trained_lm(device=dev)
+    model_c, params_c, loader_c = fixture.trained_lm(device="cpu")
+    reset_counts()
+    pr = ptq.calibrate_and_eval(model, params, loader)
+    counts = read_counts()
+    pr_cpu = ptq.calibrate_and_eval(model_c, params_c, loader_c)
+    check_counts(counts, "ptq_calibrate", kernels=(
+        "ovp_matmul[fp]", "ovp_matmul[quantize]", "ovp_matmul<int8>"))
+    for tag, want in pr_cpu["rows"].items():
+        if abs(pr["rows"][tag] - want) > X_ROW_RTOL * want:
+            fail(f"ptq_calibrate {tag}: card {pr['rows'][tag]:.6f} vs CPU "
+                 f"{want:.6f} (rtol {X_ROW_RTOL})")
+    if (pr["ok"], pr["worst"], pr["promoted"]) != \
+            (pr_cpu["ok"], pr_cpu["worst"], pr_cpu["promoted"]):
+        fail(f"ptq_calibrate: card verdict/sites {pr['ok']} {pr['worst']} "
+             f"{pr['promoted']} vs CPU {pr_cpu['ok']} {pr_cpu['worst']} "
+             f"{pr_cpu['promoted']}")
+    out["counts"]["ptq"] = counts
+    print(f"[examples X] ptq_calibrate: rows (card / CPU, rtol "
+          f"{X_ROW_RTOL}) " + ", ".join(
+              f"{k} {v:.4f} / {pr_cpu['rows'][k]:.4f}"
+              for k, v in pr["rows"].items())
+          + f"; scales {pr['scales']}; promoted {pr['promoted']}; verdict "
+          f"{'OK' if pr['ok'] else 'DEGRADED'} on the card and the CPU "
+          f"(the reference's on the committed 30-step weights: DEGRADED); "
+          f"K1 launches fp {counts['ovp_matmul[fp]']}, quantize "
+          f"{counts['ovp_matmul[quantize]']}, int8 weights "
+          f"{counts['ovp_matmul<int8>']}")
+    rows = fixture.LM_BATCH * fixture.LM_SEQ
+    w4_layer = quantize_params(params, ptq.W4)["layers"][0]
+    for mode in ("fp", "quantize"):
+        out["k"][f"ptq {mode}"] = k1_layer_record(
+            dev, gen, layer_linears(w4_layer), rows, "int4", mode,
+            label=f"k1 x eval {mode}")
+    prog = ptq.sensitivity(model, params)[3]
+    w8_layer = quantize_params(params, prog)["layers"][0]
+    w8 = [w for w in layer_linears(w8_layer) if w.normal_dtype == "int8"]
+    out["k"]["ptq int8"] = k1_layer_record(dev, gen, w8, rows, "int8",
+                                           label="k1 x eval int8")
+
+    t_ptq = took_since()
+
+    # serve_quantized in its four modes: K1 by weight dtype, K2 by cache
+    # dtype, K7 on packed caches; tokens equal to the CPU engines'
+    for mode, flags in X_MODES.items():
+        reset_counts()
+        sr = sq.serve(model, params, X_REQUESTS, X_NEW, **flags)
+        counts = read_counts()
+        sr_cpu = sq.serve(model_c, params_c, X_REQUESTS, X_NEW, **flags)
+        label = f"serve_quantized {mode}"
+        check_counts(counts, label, kernels=("decode_attn",))
+        if (sr["outs_fp"], sr["outs_q"]) != (sr_cpu["outs_fp"],
+                                             sr_cpu["outs_q"]):
+            bad = [u for u in sr["outs_q"]
+                   if sr["outs_q"][u] != sr_cpu["outs_q"].get(u)
+                   or sr["outs_fp"][u] != sr_cpu["outs_fp"].get(u)]
+            fail(f"{label}: the card's tokens differ from the CPU "
+                 f"engines' in requests {bad}")
+        eng = sr["engine_q"]
+        n_w8 = check_k1_weight_counts({"engine": eng, "model": eng.model,
+                                       "params": sr["qparams"]}, counts,
+                                      label)
+        want = _x_attn_want(sr["engine_fp"], eng)
+        got = {key: counts.get(key, 0) for key in want}
+        if got != want or counts["decode_attn"] != sum(want.values()):
+            fail(f"{label}: K2 launches {got}, expected {want}")
+        k7 = check_encode_counts(eng, counts, label)
+        if (k7 > 0) != (mode in ("kv4", "mixed")) or \
+                (n_w8 > 0) != (mode in ("w8", "mixed")):
+            fail(f"{label}: K7 {k7} / W8 linears {n_w8} for this mode")
+        out["counts"][mode] = counts
+        print(f"[examples X] {label}: fp32 engine {sr['tps_fp']:.1f} "
+              f"tok/s | olive engine {sr['tps_q']:.1f} tok/s (wall, "
+              f"captured steps, {X_REQUESTS} requests x {X_NEW} tokens, "
+              f"graph builds in); agreement {100 * sr['agree']:.1f}% "
+              f"(CPU {100 * sr_cpu['agree']:.1f}%), verdict "
+              f"{'OK' if sr['ok'] else 'DEGRADED'} (CPU "
+              f"{'OK' if sr_cpu['ok'] else 'DEGRADED'}); tokens equal to "
+              f"the CPU engines'; weights {sr['fp_bytes']:,} -> "
+              f"{sr['q_bytes']:,} bytes; K1 int4 "
+              f"{counts['ovp_matmul<int4>']} int8 "
+              f"{counts['ovp_matmul<int8>']}, K2 {got}, K7 {k7}")
+        if sr["ok"] != sr_cpu["ok"]:
+            fail(f"{label}: verdict differs from the CPU's")
+        if mode == "w4":
+            w4_lin = layer_linears(sr["qparams"]["layers"][0])
+    out["k"]["serve fp"] = k1_layer_record(dev, gen, w4_lin, 4, "int4",
+                                           label="k1 x serve")
+    out["k"]["k2"] = k2_x_records(dev, model.cfg, 4, 192)
+    out["k"]["k7"] = k7_x_record(dev, 4 * model.cfg.n_kv_heads,
+                                 model.cfg.head_dim)
+    del model, params, model_c, params_c, sr, sr_cpu, eng
+    t_serve = took_since()
+
+    # train_e2e: the default e2e-20m run, then e2e-100m cut for time
+    small = _x_train(dev, e2e, e2e.SMALL, X_SMALL_STEPS, "default")
+    if not small["ok"]:
+        fail("train_e2e default: the loss did not fall under 0.7 x the "
+             "first step's")
+    big = _x_train(dev, e2e, e2e.BIG, X_BIG_STEPS, "--model-100m")
+    print(f"[examples X] train_e2e --model-100m cut: {X_BIG_STEPS} of its "
+          f"200 steps (--steps {X_BIG_STEPS}), for time")
+    out["train"] = {"small": small, "big": big}
+    t_train = took_since()
+    took = time.perf_counter() - t_phase
+    print(f"[examples X] phase took {took:.1f}s (quickstart {t_qs:.1f}s, "
+          f"ptq_calibrate {t_ptq:.1f}s, serve_quantized {t_serve:.1f}s, "
+          f"train_e2e {t_train:.1f}s; each with its CPU twin and kernel "
+          f"records)")
+    out["took"] = took
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7552,6 +7860,9 @@ def main() -> int:
     # trained weights served, and the dry run of the production meshes
     free_device_memory()
     run_p = train_phase_p(dev, card, dry_job)
+    # the four examples (examples_torch/), the earlier models freed
+    free_device_memory()
+    run_x = examples_phase_x(dev, card)
 
     def row(name, replaces, source, launches, err, rec, by=None):
         return {"name": name, "route": "cuda",
@@ -7787,6 +8098,32 @@ def main() -> int:
             "decode_attn.cu", counts_p["decode_attn"], k2_err, k2_main),
         row(f"ovp_encode@{TRAIN_ARCH} mesh-trained", k7_src,
             "ovp_encode.cu", counts_p["ovp_encode"], 0.0, k7_main)]
+    # the examples (phase X): launches from each example's run
+    cx, kx = run_x["counts"], run_x["k"]
+    kernels += [
+        row("ovp_matmul[fp]@quickstart", k1_src, "ovp_matmul.cu",
+            cx["quickstart"]["ovp_matmul[fp]"],
+            kx["quickstart"]["max_abs_err"], kx["quickstart"]),
+        row("ovp_matmul[fp]@bench-lm eval", k1_src, "ovp_matmul.cu",
+            cx["ptq"]["ovp_matmul[fp]"] - cx["ptq"]["ovp_matmul<int8>"],
+            kx["ptq fp"]["max_abs_err"], kx["ptq fp"]),
+        row("ovp_matmul[quantize]@bench-lm eval", k1_src, "ovp_matmul.cu",
+            cx["ptq"]["ovp_matmul[quantize]"],
+            kx["ptq quantize"]["max_abs_err"], kx["ptq quantize"]),
+        row("ovp_matmul[fp]<int8>@bench-lm eval", k1_src, "ovp_matmul.cu",
+            cx["ptq"]["ovp_matmul<int8>"], kx["ptq int8"]["max_abs_err"],
+            kx["ptq int8"]),
+        row("ovp_matmul[fp]@bench-lm serve", k1_src, "ovp_matmul.cu",
+            cx["w4"]["ovp_matmul[fp]"], kx["serve fp"]["max_abs_err"],
+            kx["serve fp"]),
+        row("decode_attn@bench-lm D32", k2_src, "decode_attn.cu",
+            cx["kv4"]["decode_attn<int4>"], kx["k2"]["int4"]["max_abs_err"],
+            kx["k2"]["int4"]),
+        row("decode_attn[fp32 cache]@bench-lm D32", k2_src, "decode_attn.cu",
+            cx["w4"]["decode_attn<float32>"],
+            kx["k2"]["float32"]["max_abs_err"], kx["k2"]["float32"]),
+        row("ovp_encode@bench-lm K32", k7_src, "ovp_encode.cu",
+            cx["kv4"]["ovp_encode"], 0.0, kx["k7"])]
     print(f"[attn D128] worst errors at Hkv 4, G 8, D 128 (tol atol 1e-5): "
           f"K2 {k2_err_moe:.2e}, K3 {k3_err_moe:.2e}, K4 {k4_err_moe:.2e}; "
           f"at the widened layouts: K2 {wide['k2']:.2e}, K3 "
@@ -7901,7 +8238,23 @@ def main() -> int:
           "phase A's records (the same shapes), launches from phase P4's "
           "served "
           "run of 4 requests; the mesh's training step itself reaches no "
-          "TPU kernel's counterpart")
+          "TPU kernel's counterpart. The examples (phase X, the bench-lm "
+          "fixture: d 128, Hkv 2, G 2, D 32, d_ff 384): ovp_matmul[fp]"
+          "@quickstart one launch at 64 x 256 @ 256 x 512 (a tensor scale), "
+          "launches from quickstart's run; ...@bench-lm eval is one "
+          "layer's 7 launches at the eval's 2048 rows (16 x 128 tokens) "
+          "with int4 weights in fp / quantize mode, [fp]<int8> the "
+          "auto_mixed program's W8 linear of a layer (wk, K 128 -> N 64) "
+          "at 2048 rows, launches from ptq_calibrate's run (fp: its int4 "
+          "fp-mode launches); ovp_matmul[fp]@bench-lm serve one layer's 7 "
+          "launches at rows 4, launches from serve_quantized's default run "
+          "(both engines; the fp32 engine launches none); decode_attn"
+          "@bench-lm D32 one launch at B 4, S 192, Hkv 2, G 2, D 32, pos "
+          "(20, 35, 46, 11), packed (launches: the --kv4 run's over packed "
+          "caches) and fp32 (the default run's, both engines); ovp_encode"
+          "@bench-lm K32 one launch of the KV write (R 8 = 4 slots x 2 "
+          "heads, K 32, f32, a scale a row), launches from the --kv4 run; "
+          "train_e2e reaches no TPU kernel's counterpart")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
